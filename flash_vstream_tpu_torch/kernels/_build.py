@@ -1,0 +1,93 @@
+"""Build the port's CUDA kernels with nvcc and bind them with ctypes.
+
+Every `csrc/*.cu` file compiles, in one nvcc call, into one shared library
+with a plain C interface (no PyTorch headers, so the build takes seconds).
+The library lands in `build/flash_vstream_tpu_torch/` at the repository
+root, named by a hash of the sources and flags, so a changed source builds
+anew and an unchanged one loads at once. The build runs at first use, never
+at import: the CPU tests import every module on machines without nvcc.
+
+Each C entry returns the `cudaGetLastError()` of its launch; `check` turns a
+non-zero code into an exception.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import subprocess
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().with_name("csrc")
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "flash_vstream_tpu_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+_SIGNATURES = {
+    # q, k, v, o, q_seg, kv_seg, 12 strides, B, Hq, Sq, Skv, Hkv, D, causal,
+    # scale, stream
+    "fvt_flash_attention_fwd": [_P] * 6 + [_LL] * 12 + [_I] * 7 + [_F, _P],
+    # bank, idx, out, n_idx, row_bytes, stream
+    "fvt_gather_rows": [_P, _P, _P, _I, _LL, _P],
+}
+
+_LIB = None          # the loaded library, once per process
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+    if CUDA_HOME is None:
+        raise RuntimeError("no CUDA toolkit found (set CUDA_HOME to the "
+                           "directory holding bin/nvcc)")
+    return str(Path(CUDA_HOME) / "bin" / "nvcc")
+
+
+def library_path() -> Path:
+    """Where the library for the current sources lives (built or not)."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sorted(CSRC.glob("*.cu")):
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libfvt_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile the kernels unless a library for these sources exists. The
+    compiler's output (with `-Xptxas -v` register and spill counts) is kept
+    beside the library as `<name>.log`."""
+    out = library_path()
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+           *map(str, sorted(CSRC.glob("*.cu")))]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    os.replace(tmp, out)     # atomic: a reader never sees half a library
+    return out
+
+
+def library() -> ctypes.CDLL:
+    """The kernel library, built on first use and loaded once."""
+    global _LIB
+    if _LIB is None:
+        lib = ctypes.CDLL(str(build()))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        lib.fvt_error_string.argtypes = [ctypes.c_int]
+        lib.fvt_error_string.restype = ctypes.c_char_p
+        _LIB = lib
+    return _LIB
+
+
+def check(rc: int, name: str) -> None:
+    """Raise if a launch returned a CUDA error code."""
+    if rc != 0:
+        msg = library().fvt_error_string(rc).decode()
+        raise RuntimeError(f"{name}: CUDA launch failed ({rc}): {msg}")

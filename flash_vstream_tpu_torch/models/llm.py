@@ -1,0 +1,160 @@
+"""Decoder-only transformer (Qwen2 with M-RoPE, or Llama with 1D RoPE).
+
+Port of flash_vstream_tpu/models/llm.py:38-83, 110-286: random init with the
+JAX tree, `decoder_forward` for a cache prefill (S > 1 tokens, causal and
+segmented attention through K1, k/v written into the cache) and a single-
+token decode step against the cache, `lm_head` and `embed_tokens`. Layers
+run in a Python loop over the stacked [L, ...] parameters.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from flash_vstream_tpu.core.config import LLMConfig
+
+from .layers import (
+    QUANT_TODO,
+    KVCache,
+    ParamTree,
+    dense,
+    init_dense,
+    layer_slice,
+    mha,
+    mrope_angles,
+    rms_norm,
+    rope_angles,
+    swiglu_mlp,
+)
+
+
+def init_llm_params(cfg: LLMConfig, generator: torch.Generator, device=None,
+                    dtype=torch.float32) -> dict:
+    """Random parameters with the JAX init's tree, layouts and
+    distributions, drawn from `generator` on `device`."""
+    D, I, Dh = cfg.hidden_size, cfg.intermediate_size, cfg.head_dim
+    Hq, Hkv, L = cfg.num_heads, cfg.num_kv_heads, cfg.num_layers
+    kw = dict(dtype=dtype, device=device)
+
+    def stacked(din, dout, bias):
+        return init_dense(generator, din, dout, bias=bias, layers=L, **kw)
+
+    params = {
+        "embed": torch.randn(cfg.vocab_size, D, generator=generator,
+                             **kw).mul_(0.02),
+        "layers": {
+            "attn_norm": torch.ones(L, D, **kw),
+            "mlp_norm": torch.ones(L, D, **kw),
+            "attn": {
+                "wq": stacked(D, Hq * Dh, cfg.attention_bias),
+                "wk": stacked(D, Hkv * Dh, cfg.attention_bias),
+                "wv": stacked(D, Hkv * Dh, cfg.attention_bias),
+                "wo": stacked(Hq * Dh, D, False),
+            },
+            "mlp": {
+                "gate": stacked(D, I, False),
+                "up": stacked(D, I, False),
+                "down": stacked(I, D, False),
+            },
+        },
+        "final_norm": torch.ones(D, **kw),
+    }
+    if not cfg.tie_word_embeddings:
+        params["lm_head"] = torch.randn(D, cfg.vocab_size, generator=generator,
+                                        **kw).mul_(0.02)
+    return params
+
+
+def _rope_for(cfg: LLMConfig, positions: torch.Tensor):
+    """positions: [B, S] (1D) or [3, B, S] (M-RoPE)."""
+    if cfg.mrope_sections is not None:
+        if positions.dim() == 2:
+            positions = positions[None].expand(3, *positions.shape)
+        return mrope_angles(positions, cfg.head_dim, cfg.mrope_sections,
+                            cfg.rope_theta)
+    if positions.dim() == 3:
+        positions = positions[0]
+    return rope_angles(positions, cfg.head_dim, cfg.rope_theta)
+
+
+def decoder_forward(
+    params: dict,
+    cfg: LLMConfig,
+    input_embeds: torch.Tensor,                   # [B, S, D]
+    positions: torch.Tensor,                      # [B, S] or [3, B, S]
+    *,
+    segment_ids: Optional[torch.Tensor] = None,   # [B, S]; -1 = padding
+    cache: Optional[KVCache] = None,
+) -> torch.Tensor:
+    """Run the decoder stack and return the final hidden states [B, S, D].
+
+    With a cache: S > 1 prefills it from position 0 (it must be empty);
+    S == 1 is a decode step at `cache.length`. The cache is written in place
+    and advanced by S."""
+    cos, sin = _rope_for(cfg, positions)
+    x = input_embeds
+    B, S, _ = x.shape
+    if cache is not None:
+        if S > 1 and cache.length:
+            raise NotImplementedError(
+                "prefill into a non-empty cache (chunked prefill, "
+                "speculation) is not ported yet: ROADMAP A6")
+        cache_len = cache.length
+        cache.write_segments(
+            segment_ids if segment_ids is not None
+            else torch.zeros((B, S), dtype=torch.int32, device=x.device))
+    for i in range(cfg.num_layers):
+        lp = layer_slice(params["layers"], i)
+        h = rms_norm(x, lp["attn_norm"], cfg.rms_norm_eps)
+        kw = {}
+        if cache is not None:
+            kw = dict(kv_cache=(cache.k[i], cache.v[i]), cache_len=cache_len,
+                      cache_segments=cache.segments)
+        x = x + mha(lp["attn"], h, num_heads=cfg.num_heads,
+                    num_kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim,
+                    rope=(cos, sin), causal=True, q_segment_ids=segment_ids,
+                    kv_segment_ids=segment_ids, **kw)
+        h = rms_norm(x, lp["mlp_norm"], cfg.rms_norm_eps)
+        x = x + swiglu_mlp(lp["mlp"], h)
+    if cache is not None:
+        cache.length += S
+    return rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
+
+
+def lm_head(params: dict, cfg: LLMConfig, hidden: torch.Tensor) -> torch.Tensor:
+    """Logits in f32."""
+    w = params.get("lm_head")
+    if w is None:
+        w = params["embed"].T
+    return dense(hidden, w).float()
+
+
+def embed_tokens(params: dict, input_ids: torch.Tensor) -> torch.Tensor:
+    w = params["embed"]
+    if not isinstance(w, torch.Tensor):
+        raise NotImplementedError(QUANT_TODO)
+    return w[input_ids]
+
+
+class Qwen2Decoder(ParamTree):
+    """The decoder's parameter tree ("embed", "layers", "final_norm",
+    "lm_head") as a module; `forward` is `decoder_forward`, `logits` the
+    lm head."""
+
+    def __init__(self, cfg: LLMConfig, params: dict):
+        super().__init__(params)
+        self.cfg = cfg
+
+    def forward(self, input_embeds: torch.Tensor, positions: torch.Tensor, *,
+                segment_ids: Optional[torch.Tensor] = None,
+                cache: Optional[KVCache] = None) -> torch.Tensor:
+        return decoder_forward(self.tree(), self.cfg, input_embeds, positions,
+                               segment_ids=segment_ids, cache=cache)
+
+    def logits(self, hidden: torch.Tensor) -> torch.Tensor:
+        """`lm_head` (the name is taken by the parameter of that name)."""
+        return lm_head(self.tree(), self.cfg, hidden)
+
+    def embed_tokens(self, input_ids: torch.Tensor) -> torch.Tensor:
+        return embed_tokens(self.tree(), input_ids)

@@ -2,7 +2,7 @@
 """Chip smoke test of the PyTorch port (flash_vstream_tpu_torch) on one
 NVIDIA Hopper card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--only PHASE,...] [--profile DIR]
 
 Phases, one or more lines each; any failure raises and exits non-zero:
 
@@ -16,20 +16,36 @@ Phases, one or more lines each; any failure raises and exits non-zero:
    through the port on the card and on the CPU (plain versions), compared;
 5. slice: the full-width Qwen2-VL-7B streaming session with random weights:
    21 clips ingested (one warm-up), memory saturated, 3 greedy answers,
-   with the launch counts of both kernels during ingest and answering.
+   with the launch counts of both kernels during ingest and answering;
+6. backward: K3 (forward + lse), K4 (dq) and K5 (dk/dv) against their plain
+   versions at the training shape and two small edge cases, with times;
+7. function: FlashAttentionFunction on the card against autograd of the
+   plain attention;
+8. train_reference: one LoRA loss + backward of the small model on the card
+   (kernels) and on the CPU (plain versions), compared;
+9. train_slice: `run_training` on Qwen2-VL-7B at full width (random bf16
+   base, the serving slice's weights), 240 frames of 224 px, max_len 4096,
+   grad_accum 2, 3 optimizer steps, with the launch counts of K1, K3, K4, K5;
+10. production: one step at 448 px, 240 frames, max_len 14,000.
 
-The line before the last is one JSON object with each kernel's launches,
-error and times; the last is the device record
-{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
+`--profile DIR` also traces one training-slice step with torch.profiler and
+writes its kernel table there. The line before the last is one JSON object
+with each kernel's launches, error, times and bound; the last is the device
+record {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
+import argparse
 import json
+import math
 import os
+import shutil
 import subprocess
 import sys
 import time
 
 SEED = 0
 N_CLIPS = 20
+PEAK_BF16 = 989e12       # H100 SXM dense bf16 FLOP/s
+PEAK_HBM = 3.35e12       # H100 SXM HBM bytes/s
 QUESTIONS = ("What is happening in the video?",
              "Which objects appear most often?",
              "Describe the last scene in one sentence.")
@@ -58,6 +74,68 @@ def _ms(fn, iters, windows=3):
         best = min(best, e0.elapsed_time(e1) / iters)
     del graph
     return best
+
+
+def _bound(flops, nbytes):
+    """(bound_ms, bound_by): the least time the card could take, the larger
+    of the operations over the bf16 tensor-core peak and the bytes over the
+    HBM rate."""
+    t_ops, t_mem = flops / PEAK_BF16 * 1e3, nbytes / PEAK_HBM * 1e3
+    return (t_ops, "operations") if t_ops >= t_mem else (t_mem, "bytes")
+
+
+def _visible_pairs(q, k, causal, q_seg, kv_seg):
+    """(query, key) pairs that attend, summed over batch and q heads."""
+    from flash_vstream_tpu_torch.kernels.flash_attention import _visible
+    return int(_visible(q, k, causal, q_seg, kv_seg).sum()) * q.shape[1]
+
+
+def _nbytes(*xs):
+    return sum(x.numel() * x.element_size() for x in xs if x is not None)
+
+
+def _row_err(got, want, rows):
+    """The largest, over the rows selected by `rows` (a bool mask of the
+    leading dims), of the row's max |got - want| over its own max |want|.
+    Each row is held to its own scale, so the large gradients of a causal
+    run's first rows cannot hide an error in the many small later ones."""
+    err = (got.float() - want.float()).abs().amax(-1)
+    scale = want.float().abs().amax(-1).clamp_min(1e-30)
+    r = (err / scale)[rows]
+    return r.max().item() if r.numel() else 0.0
+
+
+# FlashAttentionFunction's gradients against autograd of the plain attention,
+# relative L2 per head. The two formulations alone read ~3.5e-3 in bf16 on
+# the CPU (tests/test_torch_attention_backward.py reads it).
+HEAD_L2_LIMIT = 1e-2
+
+
+def head_l2_err(got, want):
+    """The largest, over heads (dim 1), of |got - want| / |want| in L2."""
+    d = (got.float() - want.float()).square().sum((0, 2, 3)).sqrt()
+    return (d / want.float().square().sum((0, 2, 3)).sqrt()
+            .clamp_min(1e-30)).max().item()
+
+
+def _grad_rows(q, k, kw):
+    """Rows to hold one by one: of dq, the queries that see two keys or more
+    (a query that sees one key has a gradient of 0 up to rounding, held by
+    the whole-tensor bound); of dk/dv, the keys some query sees. [B, Hq, Sq]
+    and [B, Hkv, Skv] bool."""
+    from flash_vstream_tpu_torch.kernels.flash_attention import _visible
+    vis = _visible(q, k, kw.get("causal", False), kw.get("q_segment_ids"),
+                   kw.get("kv_segment_ids"))[:, 0, 0]          # [B, Sq, Skv]
+    return ((vis.sum(-1) >= 2)[:, None].expand(-1, q.shape[1], -1),
+            vis.any(1)[:, None].expand(-1, k.shape[1], -1))
+
+
+def _sdpa(q, k, v, causal):
+    """torch's fused attention at the same shape (GQA, no segment mask):
+    the library yardstick, timed only."""
+    import torch.nn.functional as F
+    return F.scaled_dot_product_attention(q, k, v, is_causal=causal,
+                                          enable_gqa=True)
 
 
 def check_kernels(dev):
@@ -119,6 +197,14 @@ def check_kernels(dev):
               f" {kw.get('causal', False) and 'causal ' or ''}"
               f"max_abs_err={err:.3e} kernel_ms={ms:.4f} plain_ms={plain:.4f}",
               flush=True)
+    (q, k, v), kw, _ = cases["prefill"]
+    k1_bound = _bound(
+        _visible_pairs(q, k, True, seg, seg) * 4 * q.shape[-1],
+        _nbytes(q, k, v, q, seg, seg))                 # o is q-sized
+    k1_lib = _ms(lambda i: _sdpa(q, k, v, True), 20)
+    print(f"K1 prefill: bound_ms={k1_bound[0]:.4f} ({k1_bound[1]}) "
+          f"library_ms={k1_lib:.4f} (scaled_dot_product_attention, causal "
+          f"only, no segment mask)", flush=True)
 
     # 30 frames out of the 1024-frame bank; 32 index sets rotate so the
     # timed reads come from device memory, not from the 50 MB L2
@@ -131,11 +217,224 @@ def check_kernels(dev):
             raise AssertionError("K2: gather is not bit-exact")
     k2_ms = _ms(lambda i: gather_rows_cuda(bank, idxs[i % 32]), 64)
     k2_plain = _ms(lambda i: gather_rows_reference(bank, idxs[i % 32]), 64)
+    lidx = [i.long() for i in idxs]
+    k2_lib = _ms(lambda i: bank.index_select(0, lidx[i % 32]), 64)
+    k2_bound = _bound(0, 2 * _nbytes(bank[:30]) + _nbytes(idxs[0]))
     print(f"K2 dam_gather: bank{tuple(bank.shape)} bf16 idx[30] bit-exact "
-          f"kernel_ms={k2_ms:.4f} plain_ms={k2_plain:.4f}", flush=True)
-    return {"k1_err": k1_err, "k1_ms": k1_times["prefill"][0],
-            "k1_plain_ms": k1_times["prefill"][1], "k2_ms": k2_ms,
-            "k2_plain_ms": k2_plain}
+          f"kernel_ms={k2_ms:.4f} plain_ms={k2_plain:.4f} "
+          f"bound_ms={k2_bound[0]:.4f} ({k2_bound[1]}) "
+          f"library_ms={k2_lib:.4f} (index_select)", flush=True)
+    return {
+        "flash_attention_fwd": dict(
+            max_abs_err=k1_err, ms=k1_times["prefill"][0],
+            plain_ms=k1_times["prefill"][1], bound_ms=k1_bound[0],
+            bound_by=k1_bound[1], library_ms=k1_lib),
+        "gather_rows": dict(
+            max_abs_err=0.0, ms=k2_ms, plain_ms=k2_plain,
+            bound_ms=k2_bound[0], bound_by=k2_bound[1], library_ms=k2_lib),
+    }
+
+
+def check_backward_kernels(dev):
+    """K3, K4 and K5 against their plain versions: the training shape (q
+    [1, 28, 4096, 128], k/v [1, 4, 4096, 128], causal, the prompt's segment
+    row with a -1 run inside and a -1 tail), a ragged GQA case at head_dim
+    80 and one with a fully masked row; then times at the training shape.
+    Bounds: out 2e-2 abs; lse 1e-3 abs where finite and -inf exactly where
+    the plain version has it; dq/dk/dv 2e-2 x max |plain| over the whole
+    tensor and, row by row, 2e-2 x the row's max |plain| (bf16 outputs of
+    f32 sums in another order); masked rows exactly 0."""
+    import torch
+    from flash_vstream_tpu_torch.kernels import flash_attention as fa
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 1)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, device=dev).to(torch.bfloat16)
+
+    def segs(B, S, runs):
+        s = torch.zeros(B, S, dtype=torch.int32, device=dev)
+        for a, b, val in runs:
+            s[:, a:b] = val
+        return s
+
+    S = 4096
+    train_seg = segs(1, S, [(3000, 3100, -1), (3900, S, -1)])
+    rag_q = segs(2, 333, [(300, 333, -1)])
+    rag_k = segs(2, 301, [(290, 301, -1)])
+    mq = segs(1, 100, [(17, 18, 5)])         # row 17: an id no key has
+    mk = segs(1, 100, [])
+    cases = {
+        "train": ((randn(1, 28, S, 128), randn(1, 4, S, 128),
+                   randn(1, 4, S, 128)),
+                  dict(causal=True, q_segment_ids=train_seg,
+                       kv_segment_ids=train_seg)),
+        "ragged_gqa_d80": ((randn(2, 6, 333, 80), randn(2, 2, 301, 80),
+                            randn(2, 2, 301, 80)),
+                           dict(q_segment_ids=rag_q, kv_segment_ids=rag_k)),
+        "masked_row_d64": ((randn(1, 4, 100, 64), randn(1, 1, 100, 64),
+                            randn(1, 1, 100, 64)),
+                           dict(q_segment_ids=mq, kv_segment_ids=mk)),
+    }
+    errs = {"K3": 0.0, "K4": 0.0, "K5": 0.0}
+    for name, ((q, k, v), kw) in cases.items():
+        do = randn(*q.shape)
+        out, lse = fa.flash_attention_fwd_lse_cuda(q, k, v, **kw)
+        dq, delta = fa.flash_attention_bwd_dq_cuda(q, k, v, out, do, lse, **kw)
+        dk, dv = fa.flash_attention_bwd_dkv_cuda(q, k, v, out, do, lse, delta,
+                                                 **kw)
+        p_out, p_lse = fa.flash_attention_fwd_lse_reference(q, k, v, **kw)
+        # K4/K5's plain version on K4/K5's own inputs (K3's out and lse):
+        # delta = rowsum(do * out) cancels against dp where attention is
+        # peaked, so one bf16 ulp of out apart would show as row noise
+        p_dq, p_dk, p_dv = fa.flash_attention_bwd_reference(
+            q, k, v, out, do, lse, **kw)
+        torch.cuda.synchronize()
+        for x in (out, lse[torch.isfinite(p_lse)], dq, dk, dv):
+            if not torch.isfinite(x).all():
+                raise AssertionError(f"backward {name}: non-finite values")
+        fin = torch.isfinite(p_lse)
+        if not torch.equal(torch.isfinite(lse), fin) or not bool(
+                (lse[~fin] == float("-inf")).all()):
+            raise AssertionError(f"K3 {name}: lse is not -inf exactly where "
+                                 f"the plain version has -inf")
+        e_out = (out.float() - p_out.float()).abs().max().item()
+        e_lse = (lse[fin] - p_lse[fin]).abs().max().item()
+        q_rows, k_rows = _grad_rows(q, k, kw)
+        grads = (("dq", dq, p_dq, q_rows), ("dk", dk, p_dk, k_rows),
+                 ("dv", dv, p_dv, k_rows))
+        rel = {n: ((a.float() - b.float()).abs().max()
+                   / b.float().abs().max().clamp_min(1e-30)).item()
+               for n, a, b, _ in grads}
+        row = {n: _row_err(a, b, r) for n, a, b, r in grads}
+        if (e_out > 2e-2 or e_lse > 1e-3 or max(rel.values()) > 2e-2
+                or max(row.values()) > 2e-2):
+            raise AssertionError(f"backward {name}: out {e_out:.3e} lse "
+                                 f"{e_lse:.3e} grads/max {rel} by row {row}")
+        # rows no key reaches, and keys no query reaches, are exactly 0
+        dead_q = ~fin                                           # [B, Hq, Sq]
+        seen_k = (fa._visible(q, k, kw.get("causal", False),
+                              kw["q_segment_ids"], kw["kv_segment_ids"])
+                  .any(dim=3)[:, 0, 0])                         # [B, Skv]
+        if dead_q.any() and (out[dead_q].abs().max() != 0
+                             or dq[dead_q].abs().max() != 0):
+            raise AssertionError(f"backward {name}: a masked query row is "
+                                 f"not exactly 0")
+        unseen = ~seen_k
+        if unseen.any() and (dk.transpose(1, 2)[unseen].abs().max() != 0
+                             or dv.transpose(1, 2)[unseen].abs().max() != 0):
+            raise AssertionError(f"backward {name}: dk/dv of a key no query "
+                                 f"sees is not exactly 0")
+        errs["K3"] = max(errs["K3"], e_out)
+        errs["K4"] = max(errs["K4"], (dq.float() - p_dq.float()).abs().max()
+                         .item())
+        errs["K5"] = max(errs["K5"], max(
+            (dk.float() - p_dk.float()).abs().max().item(),
+            (dv.float() - p_dv.float()).abs().max().item()))
+        print(f"backward {name}: q{tuple(q.shape)} k{tuple(k.shape)} "
+              f"{'causal ' if kw.get('causal') else ''}max_abs_err out="
+              f"{e_out:.3e} lse={e_lse:.3e} dq/max={rel['dq']:.3e} "
+              f"dk/max={rel['dk']:.3e} dv/max={rel['dv']:.3e} by row: "
+              f"dq={row['dq']:.3e} dk={row['dk']:.3e} dv={row['dv']:.3e} "
+              f"({int(q_rows.sum())} dq rows, {int(k_rows.sum())} dk/dv rows); "
+              f"{int(dead_q.sum())} masked query rows, "
+              f"{int(unseen.sum())} unseen keys exactly 0", flush=True)
+        del p_out, p_lse, p_dq, p_dk, p_dv
+
+    # times at the training shape
+    (q, k, v), kw = cases["train"]
+    do = randn(*q.shape)
+    out, lse = fa.flash_attention_fwd_lse_cuda(q, k, v, **kw)
+    dq, delta = fa.flash_attention_bwd_dq_cuda(q, k, v, out, do, lse, **kw)
+    D = q.shape[-1]
+    pairs = _visible_pairs(q, k, True, train_seg, train_seg)
+    seg_b = 2 * _nbytes(train_seg)
+    res = {}
+    ms = _ms(lambda i: fa.flash_attention_fwd_lse_cuda(q, k, v, **kw), 10)
+    plain = _ms(lambda i: fa.flash_attention_fwd_lse_reference(q, k, v, **kw),
+                2)
+    lib = _ms(lambda i: _sdpa(q, k, v, True), 10)
+    res["flash_attention_fwd_lse"] = (ms, plain, lib, _bound(
+        pairs * 4 * D, _nbytes(q, k, v, out, lse) + seg_b))
+    plain_bwd = _ms(lambda i: fa.flash_attention_bwd_reference(
+        q, k, v, out, do, lse, **kw), 1)
+    # the library backward: SDPA's gradient for q, k, v (one call computes
+    # all three), timed with events around autograd over a kept graph
+    ql, kl, vl = (x.detach().requires_grad_() for x in (q, k, v))
+    lo = _sdpa(ql, kl, vl, True)
+    for _ in range(2):
+        torch.autograd.grad(lo, (ql, kl, vl), do, retain_graph=True)
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    e0.record()
+    for _ in range(5):
+        torch.autograd.grad(lo, (ql, kl, vl), do, retain_graph=True)
+    e1.record()
+    torch.cuda.synchronize()
+    lib_bwd = e0.elapsed_time(e1) / 5
+    del lo, ql, kl, vl
+    ms = _ms(lambda i: fa.flash_attention_bwd_dq_cuda(q, k, v, out, do, lse,
+                                                      **kw), 10)
+    res["flash_attention_bwd_dq"] = (ms, plain_bwd, lib_bwd, _bound(
+        pairs * 6 * D, _nbytes(q, k, v, out, do, lse, dq, delta) + seg_b))
+    ms = _ms(lambda i: fa.flash_attention_bwd_dkv_cuda(
+        q, k, v, out, do, lse, delta, **kw), 10)
+    res["flash_attention_bwd_dkv"] = (ms, plain_bwd, lib_bwd, _bound(
+        pairs * 8 * D, _nbytes(q, k, v, do, lse, delta, k, v) + seg_b))
+    out_rows = {}
+    for (name, (ms, plain, lib, (bound, by))), kid in zip(
+            res.items(), ("K3", "K4", "K5")):
+        print(f"{kid} {name}: q{tuple(q.shape)} k{tuple(k.shape)} causal "
+              f"segments kernel_ms={ms:.4f} plain_ms={plain:.4f} "
+              f"bound_ms={bound:.4f} ({by}) library_ms={lib:.4f} "
+              f"({'SDPA forward' if kid == 'K3' else 'SDPA backward, dq+dk+dv'}"
+              f", causal only){' plain = the one plain backward' if kid != 'K3' else ''}",
+              flush=True)
+        out_rows[name] = dict(max_abs_err=errs[kid], ms=ms, plain_ms=plain,
+                              bound_ms=bound, bound_by=by, library_ms=lib)
+    return out_rows
+
+
+def check_function(dev):
+    """FlashAttentionFunction (K3 forward, K4 + K5 backward) against
+    autograd of the plain attention on the same bf16 inputs, at a mid shape
+    (B 1, Hq 4, Hkv 2, S 1000, D 128, causal, a -1 tail): grads within
+    2e-2 x max |plain grad| and, head by head, HEAD_L2_LIMIT in relative L2
+    norm. Not row by row: the Function takes delta from its bf16 output and
+    autograd does not, and where attention is peaked delta cancels against
+    dp, so a few small rows differ by their own size in both plain
+    formulations."""
+    import torch
+    from flash_vstream_tpu_torch.kernels import flash_attention as fa
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 2)
+    q, k, v = (torch.randn(*s, generator=g, device=dev).to(torch.bfloat16)
+               for s in ((1, 4, 1000, 128), (1, 2, 1000, 128),
+                         (1, 2, 1000, 128)))
+    seg = torch.zeros(1, 1000, dtype=torch.int32, device=dev)
+    seg[:, 950:] = -1
+    kw = dict(causal=True, q_segment_ids=seg, kv_segment_ids=seg)
+    do = torch.randn(q.shape, generator=g, device=dev).to(torch.bfloat16)
+    grads = []
+    n3 = fa.flash_attention_fwd_lse_cuda.launches
+    for fn in (fa.flash_attention, fa.flash_attention_reference):
+        xs = [x.detach().requires_grad_() for x in (q, k, v)]
+        out = fn(*xs, **kw)
+        grads.append(torch.autograd.grad(out, xs, do))
+    if fa.flash_attention_fwd_lse_cuda.launches != n3 + 1:
+        raise AssertionError("function: flash_attention with grad did not "
+                             "launch K3")
+    rel = [((a.float() - b.float()).abs().max()
+            / b.float().abs().max()).item()
+           for a, b in zip(*grads)]
+    head = [head_l2_err(a, b) for a, b in zip(*grads)]
+    if (max(rel) > 2e-2 or max(head) > HEAD_L2_LIMIT
+            or not all(torch.isfinite(x).all() for x in grads[0])):
+        raise AssertionError(f"function: grads/max {rel} (limit 2e-2), rel "
+                             f"L2 per head {head} (limit {HEAD_L2_LIMIT})")
+    print(f"function: FlashAttentionFunction vs autograd of the plain "
+          f"attention, q(1, 4, 1000, 128) GQA 4/2 causal: dq/dk/dv err/max "
+          f"{rel[0]:.3e} {rel[1]:.3e} {rel[2]:.3e}, rel L2 per head (max) "
+          f"{head[0]:.3e} {head[1]:.3e} {head[2]:.3e}", flush=True)
 
 
 def _frames(rng, n, hw):
@@ -143,23 +442,14 @@ def _frames(rng, n, hw):
     return list(rng.integers(0, 256, size=(n, *hw, 3), dtype=np.uint8))
 
 
-def check_reference(dev):
-    """A small model (ViT head_dim 80, LLM head_dim 128, two layers each)
-    streamed on the card (kernels) and on the CPU (plain versions) from the
-    same bf16 weights and frames: positions must match and features agree to
-    bf16 rounding; the answer's prefill logits must agree."""
+def _small_cfg():
+    """The 7B config cut to two layers of each tower, narrow, keeping the
+    head dims (ViT 80, decoder 128), M-RoPE and GQA; Flash memory of 4 CSM
+    clusters and 2 DAM frames."""
     import dataclasses
-
-    import numpy as np
-    import torch
-    from flash_vstream_tpu_torch.models.vstream_qwen import (
-        VStreamQwen, VStreamQwenConfig, init_qwen_params)
-    from flash_vstream_tpu_torch.preprocess.qwen_processor import (
-        make_byte_qwen_tokenizer)
-    from flash_vstream_tpu_torch.runtime.streaming import QwenStreamSession
-
+    from flash_vstream_tpu_torch.core.config import VStreamQwenConfig
     full = VStreamQwenConfig()
-    cfg = full.replace(
+    return full.replace(
         vit=dataclasses.replace(full.vit, hidden_size=160,
                                 intermediate_size=320, num_layers=2,
                                 num_heads=2, merger_out_dim=256),
@@ -168,8 +458,24 @@ def check_reference(dev):
                                 num_heads=2, num_kv_heads=1),
         flash_memory=dataclasses.replace(full.flash_memory,
                                          temporal_length=8, spatial_length=4))
+
+
+def check_reference(dev):
+    """A small model (ViT head_dim 80, LLM head_dim 128, two layers each)
+    streamed on the card (kernels) and on the CPU (plain versions) from the
+    same bf16 weights and frames: positions must match and features agree to
+    bf16 rounding; the answer's prefill logits must agree."""
+    import numpy as np
+    import torch
+    from flash_vstream_tpu_torch.models.vstream_qwen import (
+        VStreamQwen, init_qwen_params)
+    from flash_vstream_tpu_torch.preprocess.qwen_processor import (
+        make_byte_qwen_tokenizer)
+    from flash_vstream_tpu_torch.runtime.streaming import QwenStreamSession
+
+    cfg = _small_cfg()
     params = init_qwen_params(cfg, torch.Generator().manual_seed(SEED),
-                              dtype=torch.bfloat16)
+                              "cpu", dtype=torch.bfloat16)
     sessions = []
     for d in (dev, torch.device("cpu")):
         model = VStreamQwen(cfg, params).to(d)
@@ -326,16 +632,367 @@ def run_slice(dev):
     print(f"prefill logits: shape {tuple(logits.shape)} finite, "
           f"max |logit| {logits.abs().max().item():.3f}; peak memory "
           f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB", flush=True)
-    return k1_ingest + k1_answer, k2_ingest + k2_answer
+    return k1_ingest + k1_answer, k2_ingest + k2_answer, params
+
+
+def _tree_to(tree, device, dtype=None):
+    return {k: _tree_to(v, device, dtype) if isinstance(v, dict)
+            else v.to(device, dtype) for k, v in tree.items()}
+
+
+def _scene_frames(rng, n_scenes, side):
+    """Temporal pairs of two equal frames; each scene has an exact pair
+    followed by two noisy ones, so each scene's exact pair is the clear
+    nearest frame to the scene's cluster mean."""
+    import numpy as np
+    frames = []
+    for _ in range(n_scenes):
+        scene = rng.integers(0, 256, size=(side, side, 3))
+        for noise in (0, 48, 48):
+            f = np.clip(scene + rng.integers(-noise, noise + 1, scene.shape),
+                        0, 255).astype(np.uint8)
+            frames += [f, f]
+    return frames
+
+
+# The training reference holds each adapter leaf's gradient on the card to
+# this relative L2 error against the CPU's. bf16 sets the floor: on the CPU
+# alone, two bf16 runs that differ only in summation order differ by up to
+# ~4e-2 in a leaf, while dk scaled by 0.9 in the attention backward moves
+# wk's leaves by ~1e-1 (tests/test_torch_train_reference.py reads both).
+TRAIN_REF_LIMIT = 8e-2
+
+
+def train_reference_case():
+    """The small model's LoRA sample (ViT head_dim 80, decoder head_dim
+    128, two layers each): bf16 weights, rank-8 adapters with b != 0 (so a
+    has a gradient), four scenes of frames and k-means draws that seed one
+    cluster at each scene, so the clustering has one answer everywhere."""
+    import numpy as np
+    import torch
+    from flash_vstream_tpu_torch.models.vstream_qwen import init_qwen_params
+    from flash_vstream_tpu_torch.preprocess.image import qwen_preprocess
+    from flash_vstream_tpu_torch.preprocess.qwen_processor import (
+        make_byte_qwen_tokenizer)
+    from flash_vstream_tpu_torch.train.finetune_flash import (
+        preprocess_qwen_sample)
+    from flash_vstream_tpu_torch.train.lora import (QWEN_TARGETS,
+                                                    init_lora_params)
+
+    cfg = _small_cfg()
+    gen = torch.Generator().manual_seed(SEED)
+    params = init_qwen_params(cfg, gen, "cpu", dtype=torch.bfloat16)
+    lora = init_lora_params(gen, params, rank=8, targets=QWEN_TARGETS)
+    for ab in lora.values():                  # b != 0, so a has a gradient
+        ab["b"] = torch.randn(ab["b"].shape, generator=gen) * 0.05
+    rng = np.random.default_rng(SEED)
+    n_scenes = 4
+    patches, grid = qwen_preprocess(_scene_frames(rng, n_scenes, 112),
+                                    max_pixels=112 * 112)
+    item = {"conversations": [
+        {"from": "human", "value": "<video>\nWhat happens?"},
+        {"from": "gpt", "value": "Four scenes, one after another."}]}
+    max_len = 512
+    ids, labels, (start, n_vis) = preprocess_qwen_sample(
+        item, make_byte_qwen_tokenizer(), cfg, grid, max_len)
+    pad = max_len - len(ids)
+    seg = np.concatenate([np.zeros(len(ids), np.int32),
+                          np.full(pad, -1, np.int32)])
+    ids, labels = np.pad(ids, (0, pad)), np.pad(labels, (0, pad),
+                                                constant_values=-100)
+    draws = torch.full((grid[0],), 0.9)
+    draws[::3] = torch.linspace(0.1, 0.2, n_scenes)  # one seed per scene
+    return dict(cfg=cfg, params=params, lora=lora, patches=patches,
+                grid=grid, ids=ids, labels=labels, seg=seg, start=start,
+                n_vis=n_vis, draws=draws)
+
+
+def lora_leaf_grads(case, device, dtype):
+    """One LoRA loss + backward of `train_reference_case` on `device` with
+    the base in `dtype`: (loss, {"<path>.<a|b>": gradient, f32 on the
+    CPU})."""
+    import torch
+    from flash_vstream_tpu_torch.train.finetune_flash import sample_loss
+    lp = {p: {k: v.to(device).requires_grad_() for k, v in ab.items()}
+          for p, ab in case["lora"].items()}
+    names = [f"{p}.{k}" for p, ab in sorted(lp.items()) for k in sorted(ab)]
+    leaves = [lp[p][k] for p in sorted(lp) for k in sorted(lp[p])]
+    t = lambda x: torch.from_numpy(x).to(device)
+    loss = sample_loss(
+        case["cfg"], _tree_to(case["params"], device, dtype), lp,
+        t(case["patches"]), case["grid"], t(case["ids"]), t(case["labels"]),
+        t(case["seg"]), case["start"], case["n_vis"],
+        case["draws"].to(device), alpha=16, rank=8, vit_chunk=4)
+    grads = torch.autograd.grad(loss, leaves)
+    return loss.item(), {n: g.float().cpu() for n, g in zip(names, grads)}
+
+
+def leaf_errors(got, want):
+    """{leaf: |got - want| / |want|} in L2 norm, one adapter leaf at a time,
+    so a fault in one leaf cannot hide in the norm of all."""
+    return {n: ((got[n] - w).norm() / w.norm().clamp_min(1e-30)).item()
+            for n, w in want.items()}
+
+
+def check_train_reference(dev):
+    """One LoRA loss + backward of the small model on the card (K1, K3, K4,
+    K5) and on the CPU (plain versions), from the same bf16 inputs. The loss
+    agrees within 1e-2 relative, and every adapter leaf's gradient within
+    TRAIN_REF_LIMIT in relative L2 norm (see there for why this limit)."""
+    import numpy as np
+    import torch
+
+    case = train_reference_case()
+    _reset_launches()
+    l_card, g_card = lora_leaf_grads(case, dev, torch.bfloat16)
+    if not all(_launches()[k] for k in ("K1", "K3", "K4", "K5")):
+        raise AssertionError(f"train_reference: the card's LoRA step "
+                             f"launched {_launches()}")
+    l_cpu, g_cpu = lora_leaf_grads(case, torch.device("cpu"), torch.bfloat16)
+    errs = leaf_errors(g_card, g_cpu)
+    worst = max(errs, key=errs.get)
+    flat = [torch.cat([g[n].flatten() for n in sorted(g)])
+            for g in (g_card, g_cpu)]
+    vs_cpu = ((flat[0] - flat[1]).abs().max() / flat[1].abs().max()).item()
+    print(f"train_reference: small model LoRA loss card {l_card:.5f} CPU "
+          f"bf16 {l_cpu:.5f}; adapter grads, card vs CPU bf16, rel L2 per "
+          f"leaf: max {errs[worst]:.3e} ({worst}) limit {TRAIN_REF_LIMIT:.0e}"
+          f"; all leaves max err / max |grad| {vs_cpu:.3e}", flush=True)
+    print("train_reference: per leaf " + " ".join(
+        f"{n}={e:.3e}" for n, e in sorted(errs.items())), flush=True)
+    if (not np.isfinite(l_card) or abs(l_card - l_cpu) > 1e-2 * abs(l_cpu)
+            or not all(torch.isfinite(g).all() for g in g_card.values())
+            or errs[worst] > TRAIN_REF_LIMIT):
+        raise AssertionError("train_reference: the card's loss or adapter "
+                             "gradients are off")
+
+
+def _train_args(dev, out_dir, data_path, max_len, steps, grad_accum,
+                profile_dir=None):
+    from flash_vstream_tpu_torch.train.finetune_flash import make_parser
+    argv = ["--device", str(dev), "--output-dir", out_dir,
+            "--data-path", data_path, "--video-dir", os.path.dirname(data_path),
+            "--max-steps", str(steps), "--grad-accum", str(grad_accum),
+            "--max-frames", "240", "--max-len", str(max_len),
+            "--save-steps", "1000"]
+    if profile_dir:
+        argv += ["--profile-dir", profile_dir, "--profile-steps", "1"]
+    return make_parser().parse_args(argv)
+
+
+def _synthetic_videos(root, n_items, side):
+    """train.json naming n_items 240-frame videos `v<i>-<side>.synth`,
+    decoded by a registered decoder into `SyntheticSource` frames seeded
+    per item (no files, no image library needed)."""
+    from flash_vstream_tpu_torch.preprocess.video import (
+        SyntheticSource, register_video_decoder)
+
+    def decode(path, fps):
+        i, px = os.path.splitext(os.path.basename(path))[0][1:].split("-")
+        return list(SyntheticSource(240, int(px), int(px), seed=int(i)))
+
+    register_video_decoder("synth", decode)
+    os.makedirs(root, exist_ok=True)
+    items = [{"id": i, "video": f"v{i}-{side}.synth", "conversations": [
+        {"from": "human", "value": f"<video>\nDescribe video {i}."},
+        {"from": "gpt", "value": f"It shows a moving texture, number {i}."}]}
+        for i in range(n_items)]
+    path = os.path.join(root, "train.json")
+    with open(path, "w") as f:
+        json.dump(items, f)
+    return path
+
+
+def _launches():
+    from flash_vstream_tpu_torch.kernels import flash_attention as fa
+    return {"K1": fa.flash_attention_cuda.launches,
+            "K3": fa.flash_attention_fwd_lse_cuda.launches,
+            "K4": fa.flash_attention_bwd_dq_cuda.launches,
+            "K5": fa.flash_attention_bwd_dkv_cuda.launches}
+
+
+def _reset_launches():
+    from flash_vstream_tpu_torch.kernels import flash_attention as fa
+    from flash_vstream_tpu_torch.kernels.gather_rows import gather_rows_cuda
+    for fn in (fa.flash_attention_cuda, fa.flash_attention_fwd_lse_cuda,
+               fa.flash_attention_bwd_dq_cuda, fa.flash_attention_bwd_dkv_cuda,
+               gather_rows_cuda):
+        fn.launches = 0
+
+
+def _release(dev):
+    """Free what an earlier phase left (a finished trainer sits in a
+    reference cycle until the collector runs) and restart the peak."""
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+
+
+def _checksums(params):
+    """Per-tensor (bit-pattern sum, version counter) of the base."""
+    import torch
+    from flash_vstream_tpu_torch.train.lora import tree_leaves_with_path
+    return {p: (int(x.view(torch.int16).sum(dtype=torch.int64)), x._version)
+            for p, x in tree_leaves_with_path(params)}
+
+
+def run_train_slice(dev, params, work, cfg=None):
+    """`run_training` on the full-width model: 224 px, 240 frames, max_len
+    4096, grad_accum 2, 3 optimizer steps; per step its loss, seconds,
+    tokens/s and kernel launches. Requires finite losses, adapters unchanged
+    by step 1 (lr 0) and changed by step 3, the base bit-identical, K3, K4
+    and K5 launched with K3 = 2 x K4 (each layer's forward runs again under
+    checkpointing)."""
+    import torch
+    from flash_vstream_tpu_torch.core.config import VStreamQwenConfig
+    from flash_vstream_tpu_torch.train.finetune_flash import run_training
+    from flash_vstream_tpu_torch.train.lora import (QWEN_TARGETS,
+                                                    init_lora_params)
+
+    cfg = cfg or VStreamQwenConfig()
+    data = _synthetic_videos(os.path.join(work, "data224"), 6, 224)
+    lora = init_lora_params(torch.Generator(device=dev).manual_seed(SEED + 1),
+                            params, rank=64, targets=QWEN_TARGETS)
+    n_lora = sum(x.numel() for ab in lora.values() for x in ab.values())
+    lora0 = {p: {k: x.clone() for k, x in ab.items()}
+             for p, ab in lora.items()}
+    base0 = _checksums(params)
+    steps, prev = [], {}
+
+    def moved(tree):
+        return sum(int(not torch.equal(tree[p][k], lora0[p][k]))
+                   for p in tree for k in ("a", "b"))
+
+    def on_step(step, trainer, rec):
+        now = _launches()
+        counts = {k: now[k] - prev.get(k, 0) for k in now}
+        prev.update(now)
+        steps.append((rec, counts, moved(trainer.params)))
+        print(f"train step {step + 1}: loss={rec['loss']:.5f} "
+              f"seconds={rec['step_time_s']:.3f} "
+              f"tokens_per_s={rec['tokens_per_s']:.1f} lr={rec['lr']:.3e} "
+              f"launches K1={counts['K1']} K3={counts['K3']} "
+              f"K4={counts['K4']} K5={counts['K5']} "
+              f"adapters moved={steps[-1][2]}/{2 * len(lora0)}", flush=True)
+
+    _release(dev)
+    _reset_launches()
+    t0 = time.perf_counter()
+    res = run_training(_train_args(dev, os.path.join(work, "run224"), data,
+                                   4096, 3, 2), cfg=cfg, params=params,
+                       lora=lora,
+                       on_step=on_step)
+    total = _launches()
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    print(f"train slice: Qwen2-VL-7B LoRA r64 ({n_lora / 1e6:.1f} M adapter "
+          f"params), 240 frames 224 px, max_len 4096, grad_accum 2, "
+          f"3 steps in {time.perf_counter() - t0:.2f} s; peak memory "
+          f"{peak:.2f} GiB; launches K1={total['K1']} K3={total['K3']} "
+          f"K4={total['K4']} K5={total['K5']}", flush=True)
+    losses = res["losses"]
+    if len(losses) != 3 or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"train slice: losses {losses}")
+    if steps[0][2] != 0 or steps[-1][2] == 0:
+        raise AssertionError("train slice: adapters moved at step 1 (lr 0) "
+                             "or never moved")
+    if _checksums(params) != base0:
+        raise AssertionError("train slice: the base parameters changed")
+    if not (total["K1"] and total["K3"] and total["K4"] and total["K5"]
+            and total["K3"] == 2 * total["K4"] == 2 * total["K5"]):
+        raise AssertionError(f"train slice: launches {total}")
+    return total, data, steps[-1][0]["step_time_s"]
+
+
+def run_production_step(dev, params, work, cfg=None):
+    """One optimizer step at the reference's production shape: 448 px,
+    240 frames (11,520 visual tokens), max_len 14,000, remat group 4."""
+    import torch
+    from flash_vstream_tpu_torch.core.config import VStreamQwenConfig
+    from flash_vstream_tpu_torch.train.finetune_flash import run_training
+
+    data = _synthetic_videos(os.path.join(work, "data448"), 1, 448)
+    _release(dev)
+    recs = []
+    res = run_training(_train_args(dev, os.path.join(work, "run448"), data,
+                                   14000, 1, 1),
+                       cfg=cfg or VStreamQwenConfig(), params=params,
+                       on_step=lambda s, t, r: recs.append(r))
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    loss = res["losses"][0]
+    print(f"production step: 448 px, 240 frames, max_len 14000, 1 step: "
+          f"loss={loss:.5f} seconds={recs[0]['step_time_s']:.3f} "
+          f"tokens_per_s={recs[0]['tokens_per_s']:.1f}; peak memory "
+          f"{peak:.2f} GiB", flush=True)
+    if not math.isfinite(loss):
+        raise AssertionError(f"production step: loss {loss}")
+
+
+def profile_train_step(dev, params, data, work, out_dir, step_s, cfg=None):
+    """torch.profiler over the second of two training-slice steps: device
+    busy time (the kernels' own time; one stream, so they do not overlap),
+    the training spans (forward, its encode / decoder / loss parts,
+    backward, optimizer) and the kernels by time, written to out_dir. The
+    idle share is taken against the unprofiled step time `step_s` (the
+    profiler slows the host several-fold, not the kernels)."""
+    from torch.autograd import DeviceType
+    from flash_vstream_tpu_torch.core.config import VStreamQwenConfig
+    from flash_vstream_tpu_torch.train.finetune_flash import run_training
+
+    res = run_training(_train_args(dev, os.path.join(work, "run_prof"), data,
+                                   4096, 2, 2,
+                                   profile_dir=os.path.join(work, "trace")),
+                       cfg=cfg or VStreamQwenConfig(), params=params)
+    avg = res["profile"].key_averages()
+    # device rows are kernels and copies, plus the spans' own device-side
+    # annotations (named like the spans), which are left out
+    kernels = sorted((e for e in avg if e.device_type == DeviceType.CUDA
+                      and not e.key.startswith("train/")),
+                     key=lambda e: -e.self_device_time_total)
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    wall = step_s * 1e3
+    with open(os.path.join(out_dir, "train_step_profile.txt"), "w") as f:
+        f.write(avg.table(sort_by="self_cuda_time_total", row_limit=80))
+    print(f"profile: train slice step (grad_accum 2), device busy {busy:.1f} "
+          f"ms against {wall:.1f} ms unprofiled: idle share "
+          f"{max(0.0, 1 - busy / wall):.3f}; {sum(e.count for e in kernels)} "
+          f"kernel launches; table in {out_dir}/train_step_profile.txt",
+          flush=True)
+    # a span's device time sums the kernels launched inside it from this
+    # thread; the backward's kernels launch from autograd's device thread,
+    # so they count in the busy time but in no span
+    for e in sorted((e for e in avg if e.key.startswith("train/")
+                     and e.device_type == DeviceType.CPU),
+                    key=lambda e: e.key):
+        print(f"profile:   span {e.key:24s} {e.count:3d}x device "
+              f"{e.device_time_total / 1e3:9.1f} ms  host "
+              f"{e.cpu_time_total / 1e3:9.1f} ms (profiled)", flush=True)
+    for e in kernels[:12]:
+        print(f"profile:   kernel {e.self_device_time_total / 1e3:9.2f} ms "
+              f"{e.count:6d}x {e.key[:80]}", flush=True)
+
+
+PHASES = ("kernels", "reference", "slice", "backward", "function",
+          "train_reference", "train_slice", "production")
 
 
 def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--only", default=",".join(PHASES),
+                        help="comma-separated phases to run (default all; "
+                             "the training phases need 'slice')")
+    parser.add_argument("--profile", default=None, metavar="DIR",
+                        help="also profile one training-slice step into DIR")
+    opts = parser.parse_args()
+    only = set(opts.only.split(","))
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this test runs only on an NVIDIA "
               "card", file=sys.stderr)
         return 2
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    root = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, root)
     from flash_vstream_tpu_torch.kernels import _build
 
     torch.backends.cuda.matmul.allow_tf32 = False   # plain versions in f32
@@ -354,21 +1011,56 @@ def main() -> int:
     _build.library()
     print(f"build: {lib.name} in {time.perf_counter() - t0:.1f} s", flush=True)
 
-    k = check_kernels(dev)
-    check_reference(dev)
-    k1_launches, k2_launches = run_slice(dev)
-    print(json.dumps({"kernels": [
-        {"name": "flash_attention_fwd", "route": "cuda",
-         "source": "flash_vstream_tpu_torch/kernels/csrc/flash_attention.cu",
-         "replaces": "flash_vstream_tpu/kernels/flash_attention.py:90",
-         "launches": k1_launches, "max_abs_err": k["k1_err"],
-         "ms": k["k1_ms"], "plain_ms": k["k1_plain_ms"]},
-        {"name": "gather_rows", "route": "cuda",
-         "source": "flash_vstream_tpu_torch/kernels/csrc/gather_rows.cu",
-         "replaces": "flash_vstream_tpu/kernels/gather_rows.py:23",
-         "launches": k2_launches, "max_abs_err": 0.0,
-         "ms": k["k2_ms"], "plain_ms": k["k2_plain_ms"]},
-    ]}))
+    rows = {}
+    launches = {}
+    if "kernels" in only:
+        rows.update(check_kernels(dev))
+    if "backward" in only:
+        rows.update(check_backward_kernels(dev))
+    if "function" in only:
+        check_function(dev)
+    if "reference" in only:
+        check_reference(dev)
+    if "train_reference" in only:
+        check_train_reference(dev)
+    if "slice" in only:
+        _reset_launches()
+        k1, k2, params = run_slice(dev)
+        launches.update(flash_attention_fwd=k1, gather_rows=k2)
+        work = os.path.join(root, "build", "chip_smoke_train")
+        try:
+            if "train_slice" in only:
+                total, data, step_s = run_train_slice(dev, params, work)
+                launches["flash_attention_fwd"] += total["K1"]
+                launches.update(flash_attention_fwd_lse=total["K3"],
+                                flash_attention_bwd_dq=total["K4"],
+                                flash_attention_bwd_dkv=total["K5"])
+                if opts.profile:
+                    os.makedirs(opts.profile, exist_ok=True)
+                    profile_train_step(dev, params, data, work, opts.profile,
+                                       step_s)
+            if "production" in only:
+                run_production_step(dev, params, work)
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+    sources = {
+        "flash_attention_fwd": ("flash_attention.cu", ":90"),
+        "gather_rows": ("gather_rows.cu", ""),
+        "flash_attention_fwd_lse": ("flash_attention.cu", ":158"),
+        "flash_attention_bwd_dq": ("flash_attention_bwd.cu", ":285"),
+        "flash_attention_bwd_dkv": ("flash_attention_bwd.cu", ":332"),
+    }
+    kernels = []
+    for name, row in rows.items():
+        src, line = sources[name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"flash_vstream_tpu_torch/kernels/csrc/{src}",
+            "replaces": ("flash_vstream_tpu/kernels/gather_rows.py:23"
+                         if name == "gather_rows" else
+                         f"flash_vstream_tpu/kernels/flash_attention.py{line}"),
+            "launches": launches.get(name, 0), **row})
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,9 +1,10 @@
 """Build the port's CUDA kernels with nvcc and bind them with ctypes.
 
-Every `csrc/*.cu` file compiles, in one nvcc call, into one shared library
-with a plain C interface (no PyTorch headers, so the build takes seconds).
-The library lands in `build/flash_vstream_tpu_torch/` at the repository
-root, named by a hash of the sources and flags, so a changed source builds
+Every `csrc/*.cu` file compiles to an object in its own nvcc process, all
+started together, and the objects link into one shared library with a plain
+C interface (no PyTorch headers, so the build takes seconds). The library
+lands in `build/flash_vstream_tpu_torch/` at the repository root, named by a
+hash of the sources (headers included) and flags, so a changed source builds
 anew and an unchanged one loads at once. The build runs at first use, never
 at import: the CPU tests import every module on machines without nvcc.
 
@@ -21,13 +22,18 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "flash_vstream_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+# q, k, v, o, dout, lse, delta, dq, dk, dv, q_seg, kv_seg, the 24 strides (a
+# pointer to long long), B, Hq, Sq, Skv, Hkv, D, causal, scale, stream
+_BWD = [_P] * 12 + [ctypes.POINTER(_LL)] + [_I] * 7 + [_F, _P]
 _SIGNATURES = {
-    # q, k, v, o, q_seg, kv_seg, 12 strides, B, Hq, Sq, Skv, Hkv, D, causal,
-    # scale, stream
-    "fvt_flash_attention_fwd": [_P] * 6 + [_LL] * 12 + [_I] * 7 + [_F, _P],
+    # q, k, v, o, lse, q_seg, kv_seg, 12 strides, B, Hq, Sq, Skv, Hkv, D,
+    # causal, scale, stream
+    "fvt_flash_attention_fwd": [_P] * 7 + [_LL] * 12 + [_I] * 7 + [_F, _P],
+    "fvt_flash_attention_bwd_dq": _BWD,
+    "fvt_flash_attention_bwd_dkv": _BWD,
     # bank, idx, out, n_idx, row_bytes, stream
     "fvt_gather_rows": [_P, _P, _P, _I, _LL, _P],
 }
@@ -46,27 +52,45 @@ def _nvcc() -> str:
 def library_path() -> Path:
     """Where the library for the current sources lives (built or not)."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sorted(CSRC.glob("*.cu")):
+    for src in sorted([*CSRC.glob("*.cu"), *CSRC.glob("*.cuh")]):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libfvt_kernels_{h.hexdigest()[:16]}.so"
 
 
 def build() -> Path:
-    """Compile the kernels unless a library for these sources exists. The
-    compiler's output (with `-Xptxas -v` register and spill counts) is kept
-    beside the library as `<name>.log`."""
+    """Compile the kernels unless a library for these sources exists: one
+    nvcc process per source, run in parallel, then one link. The compilers'
+    output (with `-Xptxas -v` register and spill counts) is kept beside the
+    library as `<name>.log`."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{out.stem}.{os.getpid()}"
+    nvcc = _nvcc()
+    procs = []
+    for src in sorted(CSRC.glob("*.cu")):
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        procs.append((obj, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    logs, failed = [], False
+    for obj, proc in procs:
+        logs.append(proc.communicate()[0])
+        failed |= proc.returncode != 0
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *map(str, sorted(CSRC.glob("*.cu")))]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    if not failed:
+        link = subprocess.run([nvcc, "-shared", "-o", str(tmp),
+                               *(str(o) for o, _ in procs)],
+                              capture_output=True, text=True)
+        logs.append(link.stdout + link.stderr)
+        failed = link.returncode != 0
+    for obj, _ in procs:
+        obj.unlink(missing_ok=True)
+    out.with_suffix(".log").write_text("\n".join(logs))
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(logs))
     os.replace(tmp, out)     # atomic: a reader never sees half a library
     return out
 

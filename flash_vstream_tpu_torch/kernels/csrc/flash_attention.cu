@@ -1,8 +1,15 @@
-// K1: flash-attention forward for Hopper (sm_90a).
+// K1 and K3: flash-attention forward for Hopper (sm_90a).
 //
-// Replaces the Pallas TPU kernel `_flash_kernel`
+// K1 replaces the Pallas TPU kernel `_flash_kernel`
 // (flash_vstream_tpu/kernels/flash_attention.py:90, launched by `_pallas_flash`).
-// Same function: blockwise online-softmax attention over bf16 q/k/v with the
+// K3 replaces `_flash_kernel_stats` (:158, `save_stats=True`): the same kernel,
+// given an lse pointer, also writes each row's logsumexp m + log(l) of the
+// scaled scores, -inf for a row that sees no key, as [B, Hq, Sq] f32 (the TPU
+// kernel lane-replicates it to [B, Hq, Sq, 128]). The backward kernels
+// (flash_attention_bwd.cu) recompute the probabilities from it. Without the
+// pointer (every no-grad call) it is K1 and writes nothing more.
+//
+// Same function as the TPU kernels: blockwise online-softmax attention over bf16 q/k/v with the
 // running max, denominator and accumulator in f32; optional causal mask
 // (q_offset 0, kv tiles wholly above the diagonal are skipped); optional
 // segment ids (equal ids attend, kv id -1 is never attended); GQA with
@@ -30,63 +37,31 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "mma_common.cuh"
+
 namespace {
+
+using namespace fvt;
 
 constexpr int kBlockM = 64;  // q rows per block: 4 warps x 16 rows
 constexpr int kBlockN = 64;  // kv rows per tile
 constexpr int kWarps = 4;
-constexpr int kPad = 8;      // shared-memory row padding, in bf16 elements
-constexpr float kLog2e = 1.4426950408889634f;
 
 struct FlashParams {
   const __nv_bfloat16* q;
   const __nv_bfloat16* k;
   const __nv_bfloat16* v;
   __nv_bfloat16* o;
+  float* lse;         // [B, Hq, Sq] (K3) or null (K1)
   const int* q_seg;   // [B, Sq] or null
   const int* kv_seg;  // [B, Skv] or null
   long long q_sb, q_sh, q_ss;
   long long k_sb, k_sh, k_ss;
   long long v_sb, v_sh, v_ss;
   long long o_sb, o_sh, o_ss;
-  int sq, skv, group, causal;
+  int hq, sq, skv, group, causal;
   float scale_log2;   // softmax scale * log2(e): exponentials run as exp2
 };
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x is the low half
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo,
-                                              __nv_bfloat16 hi) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
-         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
-}
-
-// d += a * b for one m16n8k16 tile: a 16x16 (row), b 16x8 (col), d 16x8 f32.
-__device__ __forceinline__ void mma_16816(float* d, const uint32_t* a,
-                                          const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
 
 template <int D>
 __global__ void __launch_bounds__(kWarps * 32)
@@ -255,6 +230,12 @@ __global__ void __launch_bounds__(kWarps * 32)
           l1 > 0.f ? pack_f32(acc[dt][2] / l1, acc[dt][3] / l1) : 0u;
     }
   }
+  if (p.lse != nullptr && t4 == 0) {
+    // m is in the log2 domain: ln(sum exp(s * scale)) = (m + log2 l) * ln 2
+    float* lb = p.lse + (static_cast<long long>(b) * p.hq + h) * p.sq;
+    if (row0 < p.sq) lb[row0] = l0 > 0.f ? (m0 + log2f(l0)) * kLn2 : -INFINITY;
+    if (row1 < p.sq) lb[row1] = l1 > 0.f ? (m1 + log2f(l1)) * kLn2 : -INFINITY;
+  }
 }
 
 template <int D>
@@ -267,11 +248,11 @@ int launch(const FlashParams& p, int batch, int hq, cudaStream_t stream) {
 }  // namespace
 
 // q/k/v/o are [B, H, S, D] bf16 with the given element strides (the last
-// dimension contiguous); segment pointers may be null. Returns the
-// cudaError_t of the launch.
+// dimension contiguous); lse ([B, Hq, Sq] f32, contiguous) and the segment
+// pointers may be null. Returns the cudaError_t of the launch.
 extern "C" int fvt_flash_attention_fwd(
-    const void* q, const void* k, const void* v, void* o, const void* q_seg,
-    const void* kv_seg, long long q_sb, long long q_sh, long long q_ss,
+    const void* q, const void* k, const void* v, void* o, void* lse,
+    const void* q_seg, const void* kv_seg, long long q_sb, long long q_sh, long long q_ss,
     long long k_sb, long long k_sh, long long k_ss, long long v_sb,
     long long v_sh, long long v_ss, long long o_sb, long long o_sh,
     long long o_ss, int batch, int hq, int sq, int skv, int hkv,
@@ -281,12 +262,14 @@ extern "C" int fvt_flash_attention_fwd(
   p.k = static_cast<const __nv_bfloat16*>(k);
   p.v = static_cast<const __nv_bfloat16*>(v);
   p.o = static_cast<__nv_bfloat16*>(o);
+  p.lse = static_cast<float*>(lse);
   p.q_seg = static_cast<const int*>(q_seg);
   p.kv_seg = static_cast<const int*>(kv_seg);
   p.q_sb = q_sb; p.q_sh = q_sh; p.q_ss = q_ss;
   p.k_sb = k_sb; p.k_sh = k_sh; p.k_ss = k_ss;
   p.v_sb = v_sb; p.v_sh = v_sh; p.v_ss = v_ss;
   p.o_sb = o_sb; p.o_sh = o_sh; p.o_ss = o_ss;
+  p.hq = hq;
   p.sq = sq;
   p.skv = skv;
   p.group = hq / hkv;

@@ -1,28 +1,41 @@
-"""Flash attention forward: the CUDA kernel K1 and its plain PyTorch version.
+"""Flash attention, forward and backward: the CUDA kernels K1, K3, K4 and K5
+and their plain PyTorch versions.
 
-Replaces the Pallas TPU kernel `_flash_kernel`
-(flash_vstream_tpu/kernels/flash_attention.py:90) and keeps the signature and
-semantics of that module's public `flash_attention` (:503): segment ids with
--1 as padding that is never attended, causal masking, GQA with
-kv head = q head // (Hq // Hkv), and zeros for a row that sees no key.
+Replaces the Pallas TPU kernels of flash_vstream_tpu/kernels/flash_attention.py:
+- K1 `_flash_kernel` (:90): the forward;
+- K3 `_flash_kernel_stats` (:158): the forward that also writes each row's
+  logsumexp (lse), for the backward;
+- K4 `_flash_bwd_dq_kernel` (:285): dq, recomputing p from lse;
+- K5 `_flash_bwd_dkv_kernel` (:332): dk and dv, summed over the GQA group.
+It keeps the signature and semantics of that module's public
+`flash_attention` (:503): segment ids with -1 as padding that is never
+attended, causal masking, GQA with kv head = q head // (Hq // Hkv), and zeros
+for a row that sees no key.
 
-Dispatch is by the tensor's device alone:
-- a CPU tensor takes `flash_attention_reference`, the port of `xla_attention`;
-- a CUDA tensor with `q_offset == 0` launches the kernel (`flash_attention_cuda`),
-  which raises on a dtype, shape or stride it does not take;
+Dispatch:
 - `q_offset != 0` (single-token decode against a cache) takes the plain
-  version on any device, as in JAX, where decode never reached Pallas.
+  version on any device, as in JAX, where decode never reached Pallas;
+- with grad enabled and any of q/k/v requiring grad, `FlashAttentionFunction`
+  (the `custom_vjp` of :480-500): on a CUDA tensor its forward is K3 and its
+  backward K4 + K5; on a CPU tensor the same Function runs the plain versions
+  (`flash_attention_fwd_lse_reference`, `flash_attention_bwd_reference`);
+- otherwise a CPU tensor takes `flash_attention_reference`, the port of
+  `xla_attention`, and a CUDA tensor launches K1 (`flash_attention_cuda`).
+Every kernel wrapper raises on a dtype, shape or stride its kernel does not
+take; nothing on the card falls back to a plain version.
 
-The kernel (csrc/flash_attention.cu) keeps the online-softmax state in
-registers and runs both products as `mma.sync` bf16 tensor-core fragments;
-its source note says what bounds it on Hopper and what the design does about
-that. The TPU version's crossover (`Sq >= 512` before fusing) was tuned on a
-v5e and is not carried over: every q_offset-0 call on the card runs K1.
+The kernels (csrc/flash_attention.cu, csrc/flash_attention_bwd.cu) keep their
+sums in registers and run every product as `mma.sync` bf16 tensor-core
+fragments; their source notes say what bounds them on Hopper and what the
+design does about it. The TPU version's crossover (`Sq >= 512` before fusing)
+was tuned on a v5e and is not carried over: every q_offset-0 call on the card
+runs a kernel.
 """
 from __future__ import annotations
 
+import ctypes
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -30,6 +43,36 @@ from . import _build
 
 DEFAULT_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 HEAD_DIMS = (64, 80, 128)
+
+
+# ---------------------------------------------------------------------------
+# Plain versions
+# ---------------------------------------------------------------------------
+
+def _visible(q, k, causal, q_segment_ids, kv_segment_ids, q_offset=0):
+    """[B, 1, 1, Sq, Skv] bool: which (query, key) pairs attend."""
+    B, Sq, Skv = q.shape[0], q.shape[2], k.shape[2]
+    mask = torch.ones((B, 1, 1, Sq, Skv), dtype=torch.bool, device=q.device)
+    if causal:
+        qi = torch.arange(Sq, device=q.device)[:, None] + q_offset
+        ki = torch.arange(Skv, device=q.device)[None, :]
+        mask = mask & (qi >= ki)
+    if q_segment_ids is not None:
+        seg = q_segment_ids[:, :, None] == kv_segment_ids[:, None, :]
+        seg = seg & (kv_segment_ids[:, None, :] >= 0)
+        mask = mask & seg[:, None, None]
+    return mask
+
+
+def _scores(q, k, scale):
+    """f32 scaled scores [B, Hkv, g, Sq, Skv] from the exactly widened
+    inputs."""
+    B, Hq, Sq, D = q.shape
+    Hkv = k.shape[1]
+    if Hq % Hkv:
+        raise ValueError(f"Hq={Hq} is not a multiple of Hkv={Hkv}")
+    qg = q.reshape(B, Hkv, Hq // Hkv, Sq, D).float()
+    return torch.einsum("bhgqd,bhkd->bhgqk", qg, k.float()) * scale
 
 
 def flash_attention_reference(
@@ -47,23 +90,10 @@ def flash_attention_reference(
     from the (exactly widened) inputs, masked scores at DEFAULT_MASK_VALUE,
     p rounded to v's dtype before the P V product, output in q's dtype."""
     B, Hq, Sq, D = q.shape
-    Hkv, Skv = k.shape[1], k.shape[2]
-    if Hq % Hkv:
-        raise ValueError(f"Hq={Hq} is not a multiple of Hkv={Hkv}")
-    g = Hq // Hkv
     if scale is None:
         scale = 1.0 / math.sqrt(D)
-    qg = q.reshape(B, Hkv, g, Sq, D).float()
-    s = torch.einsum("bhgqd,bhkd->bhgqk", qg, k.float()) * scale
-    mask = torch.ones((B, 1, 1, Sq, Skv), dtype=torch.bool, device=q.device)
-    if causal:
-        qi = torch.arange(Sq, device=q.device)[:, None] + q_offset
-        ki = torch.arange(Skv, device=q.device)[None, :]
-        mask = mask & (qi >= ki)
-    if q_segment_ids is not None:
-        seg = q_segment_ids[:, :, None] == kv_segment_ids[:, None, :]
-        seg = seg & (kv_segment_ids[:, None, :] >= 0)
-        mask = mask & seg[:, None, None]
+    s = _scores(q, k, scale)
+    mask = _visible(q, k, causal, q_segment_ids, kv_segment_ids, q_offset)
     s = torch.where(mask, s, DEFAULT_MASK_VALUE)
     p = torch.softmax(s, dim=-1)
     # rows with no visible key: zero them (softmax of all-masked is uniform)
@@ -72,11 +102,78 @@ def flash_attention_reference(
     return out.reshape(B, Hq, Sq, D).to(q.dtype)
 
 
+def flash_attention_fwd_lse_reference(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+    causal: bool = False,
+    q_segment_ids: Optional[torch.Tensor] = None,
+    kv_segment_ids: Optional[torch.Tensor] = None,
+    scale: Optional[float] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of K3: `flash_attention_reference`'s output and each
+    row's logsumexp of the scaled visible scores, [B, Hq, Sq] f32, -inf for
+    a row that sees no key (the TPU kernel lane-replicates it to
+    [B, Hq, Sq, 128])."""
+    B, Hq, Sq, D = q.shape
+    if scale is None:
+        scale = 1.0 / math.sqrt(D)
+    out = flash_attention_reference(
+        q, k, v, causal=causal, q_segment_ids=q_segment_ids,
+        kv_segment_ids=kv_segment_ids, scale=scale)
+    s = _scores(q, k, scale)
+    mask = _visible(q, k, causal, q_segment_ids, kv_segment_ids)
+    lse = torch.logsumexp(torch.where(mask, s, float("-inf")), dim=-1)
+    return out, lse.reshape(B, Hq, Sq)
+
+
+def flash_attention_bwd_reference(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
+    do: torch.Tensor, lse: torch.Tensor, *,
+    causal: bool = False,
+    q_segment_ids: Optional[torch.Tensor] = None,
+    kv_segment_ids: Optional[torch.Tensor] = None,
+    scale: Optional[float] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of K4 + K5, the recompute-from-lse math of the TPU
+    kernels (:285-382) in f32: p = exp(s - lse), 0 where lse is not finite
+    or the pair is masked; delta = rowsum(do * o); ds = p (do v^T - delta)
+    scale; dq = ds k, dk = ds^T q and dv = p^T do, the last two summed over
+    each kv head's GQA group. p and ds are rounded to the operands' dtype
+    before their products, as the kernels round them. Returns (dq, dk, dv)
+    in q's, k's and v's dtypes."""
+    B, Hq, Sq, D = q.shape
+    Hkv = k.shape[1]
+    g = Hq // Hkv
+    if scale is None:
+        scale = 1.0 / math.sqrt(D)
+    s = _scores(q, k, scale)
+    mask = _visible(q, k, causal, q_segment_ids, kv_segment_ids)
+    lse5 = lse.reshape(B, Hkv, g, Sq, 1).float()
+    live = torch.isfinite(lse5) & mask
+    p = torch.where(live, torch.exp(s - torch.where(live, lse5, 0.0)), 0.0)
+    dof = do.reshape(B, Hkv, g, Sq, D).float()
+    of = o.reshape(B, Hkv, g, Sq, D).float()
+    delta = (dof * of).sum(dim=-1, keepdim=True)
+    dp = torch.einsum("bhgqd,bhkd->bhgqk", dof, v.float())
+    ds = p * (dp - delta) * scale
+    p = p.to(v.dtype).float()
+    ds = ds.to(q.dtype).float()
+    dq = torch.einsum("bhgqk,bhkd->bhgqd", ds, k.float())
+    dk = torch.einsum("bhgqk,bhgqd->bhkd", ds,
+                      q.reshape(B, Hkv, g, Sq, D).float())
+    dv = torch.einsum("bhgqk,bhgqd->bhkd", p, dof)
+    return (dq.reshape(B, Hq, Sq, D).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
+# ---------------------------------------------------------------------------
+# Kernels
+# ---------------------------------------------------------------------------
+
 def _check_operand(name: str, x: torch.Tensor, dev: torch.device) -> None:
     if x.device != dev:
         raise ValueError(f"{name} is on {x.device}, q on {dev}")
     if x.dtype != torch.bfloat16:
-        raise ValueError(f"flash_attention_cuda takes bfloat16, {name} is "
+        raise ValueError(f"flash attention kernels take bfloat16, {name} is "
                          f"{x.dtype}")
     if x.dim() != 4 or x.stride(-1) != 1:
         raise ValueError(f"{name} must be [B, H, S, D] with a contiguous "
@@ -86,7 +183,7 @@ def _check_operand(name: str, x: torch.Tensor, dev: torch.device) -> None:
             or x.data_ptr() % 16):
         raise ValueError(f"{name}: strides {x.stride()} must be multiples of "
                          f"8 elements and the data 16-byte aligned (the "
-                         f"kernel loads 16 bytes at a time)")
+                         f"kernels load 16 bytes at a time)")
 
 
 def _check_segments(name: str, seg: torch.Tensor, B: int, S: int,
@@ -98,18 +195,9 @@ def _check_segments(name: str, seg: torch.Tensor, B: int, S: int,
                          f"{tuple(seg.shape)} on {seg.device}")
 
 
-def flash_attention_cuda(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-    causal: bool = False,
-    q_segment_ids: Optional[torch.Tensor] = None,
-    kv_segment_ids: Optional[torch.Tensor] = None,
-    scale: Optional[float] = None,
-) -> torch.Tensor:
-    """Launch K1 on CUDA tensors (q_offset 0). Inputs are bf16 [B, H, S, D]
-    with any strides that are multiples of 8 (so the ViT's [T, P, H, D] ->
-    [T, H, P, D] transposes need no copy). The output is [B, Hq, Sq, D]
-    stored as [B, Sq, Hq, D], so the caller's transpose back to tokens is
-    free. Raises on what the kernel does not take."""
+def _check_call(q, k, v, q_segment_ids, kv_segment_ids, scale):
+    """Validate a kernel call's operands; returns the problem's sizes and
+    the scale."""
     dev = q.device
     for name, x in (("q", q), ("k", k), ("v", v)):
         _check_operand(name, x, dev)
@@ -128,26 +216,212 @@ def flash_attention_cuda(
         _check_segments("kv_segment_ids", kv_segment_ids, B, Skv, dev)
     if scale is None:
         scale = 1.0 / math.sqrt(D)
-    out = torch.empty((B, Sq, Hq, D), dtype=q.dtype, device=dev).transpose(1, 2)
+    return B, Hq, Sq, D, Hkv, Skv, float(scale)
+
+
+def _ptr(x: Optional[torch.Tensor]):
+    return None if x is None else x.data_ptr()
+
+
+def _launch_fwd(q, k, v, lse, causal, q_segment_ids, kv_segment_ids, scale,
+                name):
+    """K1 (lse None) or K3; the output is [B, Hq, Sq, D] stored as
+    [B, Sq, Hq, D], so the caller's transpose back to tokens is free."""
+    B, Hq, Sq, D, Hkv, Skv, scale = _check_call(
+        q, k, v, q_segment_ids, kv_segment_ids, scale)
+    out = torch.empty((B, Sq, Hq, D), dtype=q.dtype,
+                      device=q.device).transpose(1, 2)
     if out.numel() == 0:
-        return out
+        return out, False
     if Skv == 0:
-        return out.zero_()
-    lib = _build.library()
-    seg_q = q_segment_ids.data_ptr() if q_segment_ids is not None else None
-    seg_kv = kv_segment_ids.data_ptr() if kv_segment_ids is not None else None
-    rc = lib.fvt_flash_attention_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        seg_q, seg_kv,
+        if lse is not None:
+            lse.fill_(float("-inf"))
+        return out.zero_(), False
+    rc = _build.library().fvt_flash_attention_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _ptr(lse),
+        _ptr(q_segment_ids), _ptr(kv_segment_ids),
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
-        B, Hq, Sq, Skv, Hkv, D, int(causal), float(scale),
-        torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(rc, "flash_attention_cuda")
-    flash_attention_cuda.launches += 1
+        B, Hq, Sq, Skv, Hkv, D, int(causal), scale,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(rc, name)
+    return out, True
+
+
+def flash_attention_cuda(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+    causal: bool = False,
+    q_segment_ids: Optional[torch.Tensor] = None,
+    kv_segment_ids: Optional[torch.Tensor] = None,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Launch K1 on CUDA tensors (q_offset 0). Inputs are bf16 [B, H, S, D]
+    with any strides that are multiples of 8 (so the ViT's [T, P, H, D] ->
+    [T, H, P, D] transposes need no copy). The output is [B, Hq, Sq, D]
+    stored as [B, Sq, Hq, D]. Raises on what the kernel does not take."""
+    out, launched = _launch_fwd(q, k, v, None, causal, q_segment_ids,
+                                kv_segment_ids, scale, "flash_attention_cuda")
+    flash_attention_cuda.launches += launched
     return out
 
 
-flash_attention_cuda.launches = 0
+def flash_attention_fwd_lse_cuda(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+    causal: bool = False,
+    q_segment_ids: Optional[torch.Tensor] = None,
+    kv_segment_ids: Optional[torch.Tensor] = None,
+    scale: Optional[float] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch K3: K1's output and the per-row logsumexp [B, Hq, Sq] f32
+    (-inf for a row that sees no key)."""
+    B, Hq, Sq = q.shape[:3]
+    lse = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
+    out, launched = _launch_fwd(q, k, v, lse, causal, q_segment_ids,
+                                kv_segment_ids, scale,
+                                "flash_attention_fwd_lse_cuda")
+    flash_attention_fwd_lse_cuda.launches += launched
+    return out, lse
+
+
+def _bwd_operand(name: str, x: torch.Tensor, like: torch.Tensor
+                 ) -> torch.Tensor:
+    """o or do for the backward kernels: q's shape, bf16, on q's device.
+    A layout the kernels cannot read (the last dim not contiguous, a stride
+    not a multiple of 8, unaligned data) is copied once, here."""
+    if x.shape != like.shape or x.device != like.device:
+        raise ValueError(f"{name} must have q's shape {tuple(like.shape)} on "
+                         f"{like.device}, got {tuple(x.shape)} on {x.device}")
+    if x.dtype != torch.bfloat16:
+        raise ValueError(f"flash attention kernels take bfloat16, {name} is "
+                         f"{x.dtype}")
+    if (x.stride(-1) != 1 or x.data_ptr() % 16
+            or any(s % 8 for s, n in zip(x.stride()[:3], x.shape[:3])
+                   if n > 1)):
+        x = x.contiguous()
+    return x
+
+
+def _launch_bwd(fn_name, q, k, v, o, do, lse, delta, dq, dk, dv,
+                causal, q_segment_ids, kv_segment_ids, scale):
+    B, Hq, Sq, D, Hkv, Skv, scale = _check_call(
+        q, k, v, q_segment_ids, kv_segment_ids, scale)
+    if (lse.shape != (B, Hq, Sq) or lse.dtype != torch.float32
+            or not lse.is_contiguous() or lse.device != q.device):
+        raise ValueError(f"lse must be a contiguous f32 [{B}, {Hq}, {Sq}] "
+                         f"tensor on {q.device}")
+    # an output the kernel does not write (dq for K5, dk/dv for K4) is a
+    # null pointer with zero strides
+    strides = [s for x in (q, k, v, o, do, dq, dk, dv)
+               for s in (x.stride()[:3] if x is not None else (0, 0, 0))]
+    rc = getattr(_build.library(), fn_name)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), _ptr(dq), _ptr(dk), _ptr(dv),
+        _ptr(q_segment_ids), _ptr(kv_segment_ids),
+        (ctypes.c_longlong * 24)(*strides),
+        B, Hq, Sq, Skv, Hkv, D, int(causal), scale,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(rc, fn_name)
+
+
+def flash_attention_bwd_dq_cuda(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
+    do: torch.Tensor, lse: torch.Tensor, *,
+    causal: bool = False,
+    q_segment_ids: Optional[torch.Tensor] = None,
+    kv_segment_ids: Optional[torch.Tensor] = None,
+    scale: Optional[float] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch K4: dq (q's dtype and layout) and delta = rowsum(do * o)
+    [B, Hq, Sq] f32, which K5 reads."""
+    o, do = _bwd_operand("o", o, q), _bwd_operand("do", do, q)
+    dq = torch.empty_like(q)
+    delta = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+    if q.numel() == 0:
+        return dq, delta
+    if k.shape[2] == 0:
+        _check_call(q, k, v, q_segment_ids, kv_segment_ids, scale)
+        return dq.zero_(), (do.float() * o.float()).sum(-1)
+    _launch_bwd("fvt_flash_attention_bwd_dq", q, k, v, o, do, lse, delta,
+                dq, None, None, causal, q_segment_ids, kv_segment_ids, scale)
+    flash_attention_bwd_dq_cuda.launches += 1
+    return dq, delta
+
+
+def flash_attention_bwd_dkv_cuda(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
+    do: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor, *,
+    causal: bool = False,
+    q_segment_ids: Optional[torch.Tensor] = None,
+    kv_segment_ids: Optional[torch.Tensor] = None,
+    scale: Optional[float] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch K5: dk and dv (k's and v's dtype and layout), each summed over
+    its kv head's GQA group, from K4's delta."""
+    o, do = _bwd_operand("o", o, q), _bwd_operand("do", do, q)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    if k.numel() == 0:
+        return dk, dv
+    if q.shape[2] == 0:
+        _check_call(q, k, v, q_segment_ids, kv_segment_ids, scale)
+        return dk.zero_(), dv.zero_()
+    if (delta.shape != lse.shape or delta.dtype != torch.float32
+            or not delta.is_contiguous()):
+        raise ValueError("delta must be K4's contiguous f32 [B, Hq, Sq]")
+    _launch_bwd("fvt_flash_attention_bwd_dkv", q, k, v, o, do, lse, delta,
+                None, dk, dv, causal, q_segment_ids, kv_segment_ids, scale)
+    flash_attention_bwd_dkv_cuda.launches += 1
+    return dk, dv
+
+
+def flash_attention_bwd_cuda(q, k, v, o, do, lse, **kw
+                             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K4 then K5 on the current stream: (dq, dk, dv). A layout of o or do
+    that the kernels cannot read is copied here, once for both; each
+    wrapper's own check then finds the copy readable and takes it as is."""
+    o, do = _bwd_operand("o", o, q), _bwd_operand("do", do, q)
+    dq, delta = flash_attention_bwd_dq_cuda(q, k, v, o, do, lse, **kw)
+    dk, dv = flash_attention_bwd_dkv_cuda(q, k, v, o, do, lse, delta, **kw)
+    return dq, dk, dv
+
+
+for _fn in (flash_attention_cuda, flash_attention_fwd_lse_cuda,
+            flash_attention_bwd_dq_cuda, flash_attention_bwd_dkv_cuda):
+    _fn.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Autograd and dispatch
+# ---------------------------------------------------------------------------
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """Attention with the fused backward, the port of the JAX `custom_vjp`
+    (:480-500). The forward saves q, k, v, the output and the per-row lse;
+    the backward recomputes p from lse. On CUDA tensors the forward is K3
+    and the backward K4 + K5; on CPU tensors both are the plain versions.
+    Under `torch.utils.checkpoint` the forward runs again in the backward
+    pass, and the lse of that rerun is the one saved. Segment ids, `causal`
+    and `scale` get no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_segment_ids, kv_segment_ids, causal, scale):
+        kw = dict(causal=causal, q_segment_ids=q_segment_ids,
+                  kv_segment_ids=kv_segment_ids, scale=scale)
+        fwd = (flash_attention_fwd_lse_cuda if q.is_cuda
+               else flash_attention_fwd_lse_reference)
+        out, lse = fwd(q, k, v, **kw)
+        ctx.save_for_backward(q, k, v, out, lse, q_segment_ids,
+                              kv_segment_ids)
+        ctx.causal, ctx.scale = causal, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse, q_seg, kv_seg = ctx.saved_tensors
+        bwd = (flash_attention_bwd_cuda if q.is_cuda
+               else flash_attention_bwd_reference)
+        dq, dk, dv = bwd(q, k, v, out, do.to(q.dtype), lse, causal=ctx.causal,
+                         q_segment_ids=q_seg, kv_segment_ids=kv_seg,
+                         scale=ctx.scale)
+        return dq, dk, dv, None, None, None, None
 
 
 def flash_attention(
@@ -162,10 +436,18 @@ def flash_attention(
     Segment id -1 marks padding (never attended); `q_offset` shifts query
     positions for causal decode against a cache prefix."""
     prefill = isinstance(q_offset, int) and q_offset == 0
-    if q.device.type == "cpu" or not prefill:
+    if not prefill:
         return flash_attention_reference(
             q, k, v, causal=causal, q_segment_ids=q_segment_ids,
             kv_segment_ids=kv_segment_ids, q_offset=q_offset, scale=scale)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttentionFunction.apply(q, k, v, q_segment_ids,
+                                            kv_segment_ids, causal, scale)
+    if q.device.type == "cpu":
+        return flash_attention_reference(
+            q, k, v, causal=causal, q_segment_ids=q_segment_ids,
+            kv_segment_ids=kv_segment_ids, scale=scale)
     return flash_attention_cuda(q, k, v, causal=causal,
                                 q_segment_ids=q_segment_ids,
                                 kv_segment_ids=kv_segment_ids, scale=scale)

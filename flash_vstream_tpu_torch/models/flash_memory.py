@@ -1,11 +1,14 @@
-"""Flash Memory (Qwen generation), streaming form: CSM clustered temporal
-memory, DAM retrieved spatial memory, and AM-RoPE visual positions.
+"""Flash Memory (Qwen generation): CSM clustered temporal memory, DAM
+retrieved spatial memory, and AM-RoPE visual positions, in the streaming form
+and the offline form of training.
 
-Port of flash_vstream_tpu/models/flash_memory.py:47-70, 271-293, 351-539.
-`flash_stream_update` folds one clip into a ring-buffered frame bank, re-
-clusters [old clusters | new frames] into K CSM clusters with ordered
-weighted k-means, and retrieves t_dam full-resolution DAM frames, gathered
-out of the bank by the row-gather kernel K2.
+Port of flash_vstream_tpu/models/flash_memory.py:47-70, 127-265, 271-293,
+351-539. `flash_stream_update` folds one clip into a ring-buffered frame
+bank, re-clusters [old clusters | new frames] into K CSM clusters with
+ordered weighted k-means, and retrieves t_dam full-resolution DAM frames,
+gathered out of the bank by the row-gather kernel K2. `flash_consolidate`
+compresses a whole video at once (training), and `cat_spa_tem` lays out the
+[DAM | CSM] token stream for the PatchMerger.
 
 Differences from the JAX version, all of interface:
 - the banks are updated in place (`index_copy_`), where JAX donates and
@@ -15,19 +18,19 @@ Differences from the JAX version, all of interface:
 - the k-means init takes its uniform draws (`init_scores`) from the caller
   where JAX takes a PRNG key (torch cannot reproduce jax.random).
 
-Temporal methods: the k-means family (every name the JAX streaming path
-sends to ordered k-means). 'sample', 'merge', 'drop' and 'attention' raise
-NotImplementedError (ROADMAP A14). Spatial methods: klarge_retrieve(_cos),
-sample, nearest.
+Temporal methods: the k-means family (every name the JAX path sends to
+ordered k-means). 'sample', 'merge', 'drop', 'attention' and the PCA,
+dbscan and gmm methods raise NotImplementedError (ROADMAP A14). Spatial
+methods: klarge_retrieve(_cos), sample, nearest.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
-from flash_vstream_tpu.core.config import FlashMemoryConfig
+from ..core.config import FlashMemoryConfig
 
 from ..kernels.gather_rows import gather_rows
 from ..ops.kmeans import weighted_kmeans
@@ -35,6 +38,7 @@ from ..ops.retrieval import dam_retrieve
 
 INT32_MAX = 2 ** 31 - 1
 UNPORTED_TEMPORAL = ("sample", "merge", "drop", "attention")
+KMEANS_TEMPORAL = ("kmeans_ordered", "fast_kmeans_ordered", "kmeans")
 
 
 class FlashMemoryOutput(NamedTuple):
@@ -212,6 +216,89 @@ def flash_stream_update(
         tem_positions=torch.round(tem_times).to(torch.int32),
     )
     return new_state, out
+
+
+def flash_consolidate(
+    cfg: FlashMemoryConfig,
+    x: torch.Tensor,             # [t, P_full, D] full-res per-frame features
+    small_x: torch.Tensor,       # [t, P_small, D] pooled per-frame features
+    *,
+    init_scores: Optional[torch.Tensor] = None,   # [t] k-means init draws
+    times: Optional[torch.Tensor] = None,
+) -> FlashMemoryOutput:
+    """Offline consolidation of a whole video (FlashMemory.forward's
+    per-sample pipeline). CSM: the t pooled frames themselves when
+    t <= csm_grid_len, else ordered k-means into csm_grid_len clusters (its
+    init drawn from `init_scores`, the uniform draws JAX takes from its key).
+    DAM: every frame when t <= dam_grid_len, else the spatial method's
+    dam_grid_len frames."""
+    t, P_full, D = x.shape
+    P_small = small_x.shape[1]
+    dev = x.device
+    t_csm = min(t, cfg.csm_grid_len)
+    t_dam = min(t, cfg.dam_grid_len)
+    if times is None:
+        times = torch.arange(t, dtype=torch.float32, device=dev)
+
+    # --- CSM: temporal compression ---
+    if t <= cfg.csm_grid_len:
+        tem_x = small_x
+        tem_weights = torch.ones(t, dtype=torch.float32, device=dev)
+        tem_ts = times
+    elif cfg.temporal_method in KMEANS_TEMPORAL:
+        if init_scores is None:
+            raise ValueError("k-means consolidation needs `init_scores`")
+        cents, tem_weights, tem_ts = _ordered_kmeans_with_times(
+            small_x.reshape(t, P_small * D), t_csm,
+            torch.ones(t, dtype=torch.float32, device=dev), times,
+            torch.ones(t, dtype=torch.bool, device=dev), init_scores)
+        tem_x = cents.reshape(t_csm, P_small, D)
+    else:
+        raise NotImplementedError(
+            f"temporal_method {cfg.temporal_method!r} is not ported yet: "
+            f"ROADMAP A14")
+    tem_positions = torch.round(tem_ts).to(torch.int32)
+
+    # --- DAM: spatial retrieval ---
+    if cfg.dam_grid_len == 0:
+        spa_x = x[:0]
+        spa_positions = torch.zeros(0, dtype=torch.int32, device=dev)
+    elif t <= cfg.dam_grid_len:
+        spa_x = x
+        spa_positions = torch.round(times).to(torch.int32)
+    elif cfg.spatial_method in ("klarge_retrieve", "klarge_retrieve_cos"):
+        metric = ("cosine" if cfg.spatial_method.endswith("_cos")
+                  else "euclidean")
+        idx, _ = dam_retrieve(tem_x, tem_weights, small_x,
+                              torch.ones(t, dtype=torch.bool, device=dev),
+                              t_dam, metric)
+        idx = idx.long()
+        spa_x = x[idx]
+        spa_positions = torch.round(times[idx]).to(torch.int32)
+    elif cfg.spatial_method == "sample":
+        pos = torch.linspace(0.0, 1.0, t_dam, device=dev) * float(t - 1)
+        idx = pos.to(torch.int32).long()
+        spa_x = x[idx]
+        spa_positions = torch.round(times[idx]).to(torch.int32)
+    elif cfg.spatial_method == "nearest":
+        top = torch.argsort(-tem_weights, stable=True)[:t_dam]
+        idx = tem_positions[top]
+        spa_x = x[idx.long()]
+        spa_positions = idx
+    else:
+        raise NotImplementedError(f"spatial_method {cfg.spatial_method}")
+    return FlashMemoryOutput(spa_x, spa_positions, tem_x, tem_weights,
+                             tem_positions)
+
+
+def cat_spa_tem(spa_x: torch.Tensor, tem_x: torch.Tensor) -> torch.Tensor:
+    """DAM before CSM, each [t, P, D] flattened to tokens, 2x2 window
+    grouping kept: [N_tok, D] (the wider of the two dtypes, as
+    jnp.concatenate promotes)."""
+    D = spa_x.shape[-1]
+    dtype = torch.promote_types(spa_x.dtype, tem_x.dtype)
+    return torch.cat([spa_x.reshape(-1, D).to(dtype),
+                      tem_x.reshape(-1, D).to(dtype)])
 
 
 def am_rope_visual_positions(

@@ -8,8 +8,9 @@ The arithmetic follows the JAX functions op for op (f32 norms and rotary
 math, the matmul in the activation's dtype, bias added after the matmul) so
 the two packages agree on the CPU.
 
-Only bf16/f32 weights and caches are ported: quantized leaves (int8, int4,
-LoRA) and the int8 KV cache raise NotImplementedError (ROADMAP A10-A12).
+Weights are bf16/f32 tensors or merge-free LoRA views (train/lora.py's
+`LoRAWeight`); quantized leaves (int8, int4) and the int8 KV cache raise
+NotImplementedError (ROADMAP A10-A12).
 """
 from __future__ import annotations
 
@@ -22,7 +23,7 @@ import torch.nn.functional as F
 
 from ..kernels.flash_attention import flash_attention
 
-QUANT_TODO = ("quantized weights (int8, int4, LoRA) are not ported yet: "
+QUANT_TODO = ("quantized weights (int8, int4) are not ported yet: "
               "ROADMAP A10-A12")
 
 
@@ -65,10 +66,17 @@ ACTIVATIONS = {
 
 def dense(x: torch.Tensor, w, b: Optional[torch.Tensor] = None) -> torch.Tensor:
     """x @ w in x's dtype (the weight is cast to it, as in JAX), then the bias
-    in the output's dtype."""
-    if not isinstance(w, torch.Tensor):
+    in the output's dtype. A LoRA view (w, a, b) computes x @ w + (x @ a) @ b
+    with the factors cast to x's dtype (`a` carries the alpha/rank scale), so
+    the merged matrix never exists and only the factors get gradients."""
+    if hasattr(w, "a"):                  # train/lora.LoRAWeight
+        out = dense(x, w.w)
+        lora = torch.matmul(torch.matmul(x, w.a.to(x.dtype)), w.b.to(x.dtype))
+        out = out + lora.to(out.dtype)
+    elif not isinstance(w, torch.Tensor):
         raise NotImplementedError(QUANT_TODO)
-    out = torch.matmul(x, w.to(x.dtype))
+    else:
+        out = torch.matmul(x, w.to(x.dtype))
     if b is not None:
         out = out + b.to(out.dtype)
     return out
@@ -268,10 +276,16 @@ def gelu_mlp(params: dict, x: torch.Tensor,
     return dense(h, params["fc2"]["w"], params["fc2"].get("b"))
 
 
+def _index(v, i: int):
+    if hasattr(v, "_fields"):            # a LoRA view: slice every field
+        return type(v)(*(f[i] for f in v))
+    return v[i]
+
+
 def layer_slice(tree: dict, i: int) -> dict:
     """One layer's parameters out of a tree stacked on a leading [L] axis
     (views, no copy)."""
-    return {k: layer_slice(v, i) if isinstance(v, dict) else v[i]
+    return {k: layer_slice(v, i) if isinstance(v, dict) else _index(v, i)
             for k, v in tree.items()}
 
 

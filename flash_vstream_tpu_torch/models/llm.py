@@ -1,18 +1,22 @@
 """Decoder-only transformer (Qwen2 with M-RoPE, or Llama with 1D RoPE).
 
-Port of flash_vstream_tpu/models/llm.py:38-83, 110-286: random init with the
-JAX tree, `decoder_forward` for a cache prefill (S > 1 tokens, causal and
-segmented attention through K1, k/v written into the cache) and a single-
-token decode step against the cache, `lm_head` and `embed_tokens`. Layers
-run in a Python loop over the stacked [L, ...] parameters.
+Port of flash_vstream_tpu/models/llm.py:38-83, 110-286, 296-421: random
+init with the JAX tree; `decoder_forward` for a cache prefill (S > 1 tokens,
+causal and segmented attention through K1, k/v written into the cache), a
+single-token decode step against the cache, and the no-cache training path
+with gradient checkpointing (`remat`, `remat_group`); `lm_head`,
+`embed_tokens`, `cross_entropy_loss` and `cross_entropy_loss_chunked`.
+Layers run in a Python loop over the stacked [L, ...] parameters.
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
-from flash_vstream_tpu.core.config import LLMConfig
+from ..core.config import LLMConfig
+from ..core.device import resolve_device
 
 from .layers import (
     QUANT_TODO,
@@ -32,7 +36,8 @@ from .layers import (
 def init_llm_params(cfg: LLMConfig, generator: torch.Generator, device=None,
                     dtype=torch.float32) -> dict:
     """Random parameters with the JAX init's tree, layouts and
-    distributions, drawn from `generator` on `device`."""
+    distributions, drawn from `generator` on `device` (default: the card)."""
+    device = resolve_device(device)
     D, I, Dh = cfg.hidden_size, cfg.intermediate_size, cfg.head_dim
     Hq, Hkv, L = cfg.num_heads, cfg.num_kv_heads, cfg.num_layers
     kw = dict(dtype=dtype, device=device)
@@ -78,6 +83,11 @@ def _rope_for(cfg: LLMConfig, positions: torch.Tensor):
     return rope_angles(positions, cfg.head_dim, cfg.rope_theta)
 
 
+def _checkpoint(fn, *args):
+    """Non-reentrant activation checkpoint (nests; no RNG state to keep)."""
+    return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
+
+
 def decoder_forward(
     params: dict,
     cfg: LLMConfig,
@@ -86,12 +96,21 @@ def decoder_forward(
     *,
     segment_ids: Optional[torch.Tensor] = None,   # [B, S]; -1 = padding
     cache: Optional[KVCache] = None,
+    remat: bool = False,
+    remat_group: int = 1,
 ) -> torch.Tensor:
     """Run the decoder stack and return the final hidden states [B, S, D].
 
     With a cache: S > 1 prefills it from position 0 (it must be empty);
     S == 1 is a decode step at `cache.length`. The cache is written in place
-    and advanced by S."""
+    and advanced by S.
+
+    Without a cache (training), `remat` checkpoints every layer: its
+    activations are recomputed in the backward pass instead of kept. With
+    `remat_group` g > 1 dividing the layer count, each group of g layers is
+    one checkpoint holding the g per-layer checkpoints (the JAX nested
+    checkpoint, llm.py:158-172): only every g-th layer input stays resident,
+    at the cost of running each layer's forward once more."""
     cos, sin = _rope_for(cfg, positions)
     x = input_embeds
     B, S, _ = x.shape
@@ -104,7 +123,8 @@ def decoder_forward(
         cache.write_segments(
             segment_ids if segment_ids is not None
             else torch.zeros((B, S), dtype=torch.int32, device=x.device))
-    for i in range(cfg.num_layers):
+
+    def layer(x, i):
         lp = layer_slice(params["layers"], i)
         h = rms_norm(x, lp["attn_norm"], cfg.rms_norm_eps)
         kw = {}
@@ -116,7 +136,24 @@ def decoder_forward(
                     rope=(cos, sin), causal=True, q_segment_ids=segment_ids,
                     kv_segment_ids=segment_ids, **kw)
         h = rms_norm(x, lp["mlp_norm"], cfg.rms_norm_eps)
-        x = x + swiglu_mlp(lp["mlp"], h)
+        return x + swiglu_mlp(lp["mlp"], h)
+
+    L = cfg.num_layers
+    if cache is None and remat:
+        g = max(remat_group, 1)
+        if g > 1 and L % g == 0:
+            def group(x, first):
+                for i in range(first, first + g):
+                    x = _checkpoint(layer, x, i)
+                return x
+            for first in range(0, L, g):
+                x = _checkpoint(group, x, first)
+        else:
+            for i in range(L):
+                x = _checkpoint(layer, x, i)
+    else:
+        for i in range(L):
+            x = layer(x, i)
     if cache is not None:
         cache.length += S
     return rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
@@ -135,6 +172,59 @@ def embed_tokens(params: dict, input_ids: torch.Tensor) -> torch.Tensor:
     if not isinstance(w, torch.Tensor):
         raise NotImplementedError(QUANT_TODO)
     return w[input_ids]
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
+                       ignore_index: int = -100) -> torch.Tensor:
+    """Shifted causal-LM loss, the mean over non-ignored targets
+    (log-softmax in f32)."""
+    shift_logits = logits[:, :-1]
+    shift_labels = labels[:, 1:]
+    valid = shift_labels != ignore_index
+    safe = torch.where(valid, shift_labels, 0)
+    logp = torch.log_softmax(shift_logits.float(), dim=-1)
+    nll = -logp.gather(-1, safe[..., None].long())[..., 0]
+    nll = torch.where(valid, nll, 0.0)
+    return nll.sum() / torch.clamp_min(valid.sum(), 1)
+
+
+def cross_entropy_loss_chunked(params: dict, cfg: LLMConfig,
+                               hidden: torch.Tensor,   # [B, S, D]
+                               labels: torch.Tensor,   # [B, S]
+                               chunk: int = 2048,
+                               ignore_index: int = -100,
+                               vocab_tile: int = 0) -> torch.Tensor:
+    """`cross_entropy_loss(lm_head(hidden), labels)` without materializing
+    the [S, vocab] logits: the shifted sequence runs in chunks of `chunk`
+    tokens, each through lm_head + CE inside one checkpoint, so only one
+    [chunk, vocab] f32 block is live at a time, forward and backward (the
+    backward recomputes each chunk's logits). The JAX `vocab_tile` path for
+    quantized heads is not ported."""
+    if vocab_tile or not isinstance(params.get("lm_head", params["embed"]),
+                                    torch.Tensor):
+        raise NotImplementedError(
+            "the vocab-tiled chunked loss of quantized heads is not ported "
+            "yet: ROADMAP A10-A12")
+    B, S, D = hidden.shape
+    h = hidden[:, :-1]
+    lab = labels[:, 1:]
+
+    def one(hh, ll):
+        logits = lm_head(params, cfg, hh)
+        valid = ll != ignore_index
+        safe = torch.where(valid, ll, 0)
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        nll = -logp.gather(-1, safe[..., None].long())[..., 0]
+        return torch.where(valid, nll, 0.0).sum()
+
+    total = hidden.new_zeros((), dtype=torch.float32)
+    for c0 in range(0, S - 1, chunk):
+        total = total + checkpoint(one, h[:, c0:c0 + chunk],
+                                   lab[:, c0:c0 + chunk],
+                                   use_reentrant=False,
+                                   preserve_rng_state=False)
+    count = (lab != ignore_index).sum()
+    return total / torch.clamp_min(count, 1)
 
 
 class Qwen2Decoder(ParamTree):

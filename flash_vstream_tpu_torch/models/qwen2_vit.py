@@ -1,20 +1,21 @@
 """Qwen2-VL vision transformer (Flash-VStream-Qwen generation).
 
-Port of flash_vstream_tpu/models/qwen2_vit.py:38-107, 153-222, 271-285: the
-frame-batched dual-resolution encoder (`qwen_vit_blocks_frames`) and the
-PatchMerger. Attention in Qwen2-VL is block-diagonal per temporal frame, so
+Port of flash_vstream_tpu/models/qwen2_vit.py:38-107, 153-285: the
+frame-batched dual-resolution encoder (`qwen_vit_blocks_frames`), its
+frame-chunked form (`qwen_vit_encode_frames_chunked`) and the PatchMerger. Attention in Qwen2-VL is block-diagonal per temporal frame, so
 each resolution stream runs as a batch of small full-attention problems
 [frames, heads, tokens, head_dim] through the fused kernel K1, while the
 projections and MLP run once over the concatenated token stream.
 """
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from flash_vstream_tpu.core.config import VitConfig
+from ..core.config import VitConfig
+from ..core.device import resolve_device
 
 from ..kernels.flash_attention import flash_attention
 from .layers import (
@@ -33,7 +34,8 @@ from .layers import (
 def init_qwen_vit_params(cfg: VitConfig, generator: torch.Generator,
                          device=None, dtype=torch.float32) -> dict:
     """Random parameters with the JAX init's tree, layouts and
-    distributions, drawn from `generator` on `device`."""
+    distributions, drawn from `generator` on `device` (default: the card)."""
+    device = resolve_device(device)
     D, I, L = cfg.hidden_size, cfg.intermediate_size, cfg.num_layers
     pd = cfg.in_channels * cfg.temporal_patch_size * cfg.patch_size ** 2
     kw = dict(dtype=dtype, device=device)
@@ -141,14 +143,53 @@ def qwen_vit_blocks_frames(
     return x
 
 
+def qwen_vit_encode_frames_chunked(
+    params: dict,
+    cfg: VitConfig,
+    full: torch.Tensor,          # [T, P_full, pd] raw window-layout patches
+    small: torch.Tensor,         # [T, P_small, pd] pooled patches
+    *,
+    hw_full: Tuple[int, int], hw_small: Tuple[int, int],
+    chunk: int,
+    norm_fn: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Frame-chunked dual-resolution encode: (x [T, P_full, D],
+    sx [T, P_small, D]). Attention is per frame, so frames are independent
+    through the block stack and chunking over frames is exact; only one
+    chunk's activations live at a time. `norm_fn` (uint8 patches) applies
+    per chunk. The JAX `remat` flag has no counterpart: the port runs the
+    ViT without a graph (nothing before the merger is differentiated)."""
+    T, P_full, pd = full.shape
+    P_small = small.shape[1]
+    if T % chunk:
+        raise ValueError(f"frame count {T} not divisible by chunk {chunk}")
+    D = cfg.hidden_size
+    xs, sxs = [], []
+    for c0 in range(0, T, chunk):
+        f, s = full[c0:c0 + chunk], small[c0:c0 + chunk]
+        if norm_fn is not None:
+            f, s = norm_fn(f), norm_fn(s)
+        allp = torch.cat([f.reshape(chunk * P_full, pd),
+                          s.reshape(chunk * P_small, pd)])
+        hidden = qwen_vit_blocks_frames(
+            params, cfg, allp, t_full=chunk, hw_full=hw_full,
+            t_small=chunk, hw_small=hw_small)
+        n_full = chunk * P_full
+        xs.append(hidden[:n_full].reshape(chunk, P_full, D))
+        sxs.append(hidden[n_full:].reshape(chunk, P_small, D))
+    return torch.cat(xs), torch.cat(sxs)
+
+
 def patch_merger(params: dict, x: torch.Tensor) -> torch.Tensor:
     """HF PatchMerger over the ViT tree's "merger": LN, merge 2x2 window
     tokens, 2-layer exact-GELU MLP. x [S, D] (S a multiple of 4) ->
-    [S/4, out_dim]. f32 input is cast to the weight dtype first, as in JAX."""
+    [S/4, out_dim]. f32 input is cast to the weight dtype first (bf16 under
+    LoRA views), as in JAX."""
     m = params["merger"]
     h = layer_norm(x, m["ln_q"]["scale"], m["ln_q"]["bias"], 1e-6)
     if h.dtype == torch.float32:
-        h = h.to(m["fc1"]["w"].dtype)
+        # a LoRA view has no dtype: bf16, as in JAX
+        h = h.to(getattr(m["fc1"]["w"], "dtype", torch.bfloat16))
     h = h.reshape(-1, h.shape[-1] * 4)
     h = gelu_exact(dense(h, m["fc1"]["w"], m["fc1"]["b"]))
     return dense(h, m["fc2"]["w"], m["fc2"]["b"])

@@ -2,9 +2,8 @@
 memory's token count.
 
 Port of flash_vstream_tpu/preprocess/qwen_processor.py:31-131 for the
-streaming case, where the caller gives the visual token count. The byte
-tokenizer and the ChatML template hold no JAX code and come from the JAX
-package.
+streaming case, where the caller gives the visual token count, plus the
+special-token constants and pad ids the training preprocessing uses.
 """
 from __future__ import annotations
 
@@ -12,9 +11,9 @@ from typing import Tuple
 
 import numpy as np
 
-from flash_vstream_tpu.core.config import VStreamQwenConfig
-from flash_vstream_tpu.preprocess.prompts import conv_chatml
-from flash_vstream_tpu.preprocess.tokenizer import ByteTokenizer
+from ..core.config import VStreamQwenConfig
+from .prompts import conv_chatml
+from .tokenizer import ByteTokenizer
 
 VISION_START = "<|vision_start|>"
 VISION_END = "<|vision_end|>"

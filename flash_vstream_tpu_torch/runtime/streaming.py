@@ -27,8 +27,6 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from flash_vstream_tpu.runtime.metrics import MetricMeter, Timer
-
 from ..models.flash_memory import (
     am_rope_visual_positions,
     flash_stream_update,
@@ -39,6 +37,7 @@ from ..ops.pooling import qwen_temporal_pool
 from ..preprocess.image import qwen_device_preprocess, qwen_resize_u8, smart_resize
 from ..preprocess.qwen_processor import build_video_prompt
 from .generation import TODO_A6, GenerationConfig, Generator, trim_stop_strings
+from .metrics import MetricMeter, Timer
 
 
 def bucket_up(real: int, cap: int) -> int:

@@ -1,4 +1,5 @@
-"""Load a parameter tree of the JAX package into the port.
+"""Load a parameter tree, or a LoRA adapter tree, of the JAX package into
+the port.
 
 The port keeps the JAX tree's names and layouts (stacked [L, ...] layers,
 dense weights [din, dout]), so the conversion is the identity on the
@@ -11,12 +12,26 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..core.device import resolve_device
+
+
+def _tensor(v: np.ndarray, device, dtype) -> torch.Tensor:
+    if v.dtype.name == "bfloat16":           # ml_dtypes' bfloat16
+        t = torch.from_numpy(v.view(np.uint16).copy()).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.array(v))
+    if dtype is not None and t.is_floating_point():
+        t = t.to(dtype)
+    return t.to(device)
+
 
 def params_from_numpy(tree: dict, device=None, dtype=None) -> dict:
     """Nested dict of numpy arrays -> nested dict of tensors on `device`
-    (floating leaves cast to `dtype` when given). Raises on quantized or
-    LoRA leaves (QuantWeight, QuantWeight4, LoRAWeight), which the port does
-    not run yet (ROADMAP A10-A12)."""
+    (default: the card; floating leaves cast to `dtype` when given). Raises
+    on quantized leaves (QuantWeight, QuantWeight4), which the port does not
+    run yet (ROADMAP A10-A12), and on LoRA views (`lora_from_numpy` carries
+    an adapter tree)."""
+    device = resolve_device(device)
     out = {}
     for k, v in tree.items():
         if isinstance(v, dict):
@@ -24,13 +39,17 @@ def params_from_numpy(tree: dict, device=None, dtype=None) -> dict:
             continue
         if not isinstance(v, np.ndarray):
             raise NotImplementedError(
-                f"leaf {k!r} is a {type(v).__name__}; quantized and LoRA "
-                f"weights are not ported yet: ROADMAP A10-A12")
-        if v.dtype.name == "bfloat16":       # ml_dtypes' bfloat16
-            t = torch.from_numpy(v.view(np.uint16).copy()).view(torch.bfloat16)
-        else:
-            t = torch.from_numpy(np.array(v))
-        if dtype is not None and t.is_floating_point():
-            t = t.to(dtype)
-        out[k] = t.to(device)
+                f"leaf {k!r} is a {type(v).__name__}; quantized weights are "
+                f"not ported yet: ROADMAP A10-A12")
+        out[k] = _tensor(v, device, dtype)
     return out
+
+
+def lora_from_numpy(lora: dict, device=None, dtype=None) -> dict:
+    """A JAX adapter tree ({path: {"a": [.., din, r], "b": [.., r, dout]}},
+    train/lora.init_lora_params) as numpy arrays -> the same tree of
+    tensors on `device` (default: the card)."""
+    device = resolve_device(device)
+    return {path: {k: _tensor(np.asarray(ab[k]), device, dtype)
+                   for k in ("a", "b")}
+            for path, ab in lora.items()}

@@ -98,7 +98,7 @@ def _attn_params(seed, D=64, Hq=4, Hkv=2, Dh=16):
          "wk": jl.init_dense(ks[1], D, Hkv * Dh, bias=True),
          "wv": jl.init_dense(ks[2], D, Hkv * Dh, bias=True),
          "wo": jl.init_dense(ks[3], Hq * Dh, D)}
-    return p, params_from_numpy(jax.tree.map(np.asarray, p))
+    return p, params_from_numpy(jax.tree.map(np.asarray, p), "cpu")
 
 
 def test_mha_prefill_then_decode_against_cache():
@@ -161,7 +161,7 @@ def test_swiglu_mlp(x):
     p = {"gate": jl.init_dense(ks[0], 64, 128), "up": jl.init_dense(ks[1], 64, 128),
          "down": jl.init_dense(ks[2], 128, 64)}
     want = jl.swiglu_mlp(p, jnp.asarray(x))
-    got = tl.swiglu_mlp(params_from_numpy(jax.tree.map(np.asarray, p)), _t(x))
+    got = tl.swiglu_mlp(params_from_numpy(jax.tree.map(np.asarray, p), "cpu"), _t(x))
     np.testing.assert_allclose(got.numpy(), _np(want), atol=ATOL)
 
 
@@ -171,7 +171,7 @@ def test_gelu_mlp(x, act):
     p = {"fc1": jl.init_dense(ks[0], 64, 128, bias=True),
          "fc2": jl.init_dense(ks[1], 128, 64, bias=True)}
     want = jl.gelu_mlp(p, jnp.asarray(x), act)
-    got = tl.gelu_mlp(params_from_numpy(jax.tree.map(np.asarray, p)), _t(x),
+    got = tl.gelu_mlp(params_from_numpy(jax.tree.map(np.asarray, p), "cpu"), _t(x),
                       act)
     np.testing.assert_allclose(got.numpy(), _np(want), atol=ATOL)
 

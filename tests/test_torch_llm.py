@@ -26,7 +26,7 @@ ATOL = 1e-4
 def setup():
     cfg = tiny_qwen_config().llm
     params = jllm.init_llm_params(jax.random.PRNGKey(0), cfg)
-    tparams = params_from_numpy(jax.tree.map(np.asarray, params))
+    tparams = params_from_numpy(jax.tree.map(np.asarray, params), "cpu")
     model = tllm.Qwen2Decoder(cfg, tparams)
     rng = np.random.default_rng(0)
     S = 40
@@ -110,7 +110,7 @@ def test_init_matches_jax_tree():
     are ones/zeros; random leaves have the JAX init's scale."""
     cfg = tiny_qwen_config()
     want = jax.tree.map(np.asarray, jax_init(jax.random.PRNGKey(0), cfg))
-    got = init_qwen_params(cfg, torch.Generator().manual_seed(0))
+    got = init_qwen_params(cfg, torch.Generator().manual_seed(0), "cpu")
     jleaves = jax.tree_util.tree_leaves_with_path(want)
     tleaves = jax.tree_util.tree_leaves_with_path(
         jax.tree.map(lambda t: t.numpy(), got))
@@ -135,7 +135,7 @@ def test_params_from_numpy_dtype_and_quantized_leaves():
     assert got["ids"].dtype == torch.int32           # only floats are cast
     quant = {"w": quantize_weight(jnp.ones((8, 4)))}
     with pytest.raises(NotImplementedError, match="A10"):
-        params_from_numpy(jax.tree.map(np.asarray, quant))
+        params_from_numpy(jax.tree.map(np.asarray, quant), "cpu")
 
 
 @pytest.mark.parametrize("t,h,w", [(1, 16, 16), (7, 16, 16), (90, 16, 16),

@@ -1,6 +1,10 @@
-"""The port runs without JAX: a tiny ingest + answer on the CPU in a fresh
-interpreter leaves `jax` out of sys.modules (the tests' own conftest imports
-jax, hence the subprocess), and no source file of the port imports it."""
+"""The port runs without JAX and without the JAX package: a tiny ingest +
+answer and a tiny LoRA training step on the CPU in a fresh interpreter leave
+`jax` and `flash_vstream_tpu` out of sys.modules (the tests' own conftest
+imports jax, hence the subprocess); no source file of the port imports
+either; and the port's copy of the config dataclasses equals the JAX
+package's field for field."""
+import dataclasses
 import pathlib
 import re
 import subprocess
@@ -9,17 +13,18 @@ import sys
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
 SCRIPT = """
-import sys
+import sys, tempfile
 import numpy as np
 import torch
-from flash_vstream_tpu.core.config import tiny_qwen_config
+from flash_vstream_tpu_torch.core.config import tiny_qwen_config
 from flash_vstream_tpu_torch.models.vstream_qwen import VStreamQwen, init_qwen_params
 from flash_vstream_tpu_torch.preprocess.qwen_processor import make_byte_qwen_tokenizer
 from flash_vstream_tpu_torch.runtime.generation import GenerationConfig
 from flash_vstream_tpu_torch.runtime.streaming import QwenStreamSession
+from flash_vstream_tpu_torch.train.finetune_flash import make_parser, run_training
 torch.set_num_threads(1)
 cfg = tiny_qwen_config()
-model = VStreamQwen(cfg, init_qwen_params(cfg, torch.Generator().manual_seed(0)))
+model = VStreamQwen(cfg, init_qwen_params(cfg, torch.Generator().manual_seed(0), "cpu"))
 sess = QwenStreamSession(model, make_byte_qwen_tokenizer(), frame_hw=(56, 56),
                          clip_size=2, bank_size=8, max_len=512)
 rng = np.random.default_rng(0)
@@ -29,22 +34,62 @@ for _ in range(6):
 toks = sess.answer_tokens(*sess._published, "what?",
                           GenerationConfig(max_new_tokens=4))
 assert sess.n_frames == 6 and 1 <= len(toks) <= 4
-assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
+with tempfile.TemporaryDirectory() as out:
+    res = run_training(make_parser().parse_args([
+        "--dry-run", "--device", "cpu", "--output-dir", out, "--max-steps", "1",
+        "--grad-accum", "1", "--max-frames", "4", "--frame-bucket", "4",
+        "--max-len", "128", "--max-pixels", str(56 * 56), "--lora-rank", "2"]))
+assert len(res["losses"]) == 1 and np.isfinite(res["losses"][0])
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flash_vstream_tpu"))
+assert not bad, bad
 print("OK")
 """
 
 
 def test_port_runs_without_jax():
     proc = subprocess.run([sys.executable, "-c", SCRIPT], cwd=ROOT,
-                          capture_output=True, text=True, timeout=120)
+                          capture_output=True, text=True, timeout=180)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "OK"
 
 
 def test_port_sources_never_import_jax():
-    pat = re.compile(r"^\s*(import jax|from jax)", re.M)
+    """Neither `jax` nor the JAX package (`flash_vstream_tpu`, not
+    followed by `_torch`) is imported by a source of the port or by
+    chip_smoke.py."""
+    pat = re.compile(r"^\s*(import jax|from jax"
+                     r"|import flash_vstream_tpu(?!_torch)"
+                     r"|from flash_vstream_tpu(?!_torch)[\s.])", re.M)
     files = sorted((ROOT / "flash_vstream_tpu_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert files
     for f in files:
         assert not pat.search(f.read_text()), f
+    assert pat.search("from flash_vstream_tpu.core import config")
+    assert pat.search("import flash_vstream_tpu")
+    assert not pat.search("from flash_vstream_tpu_torch.core import config")
+
+
+def test_config_copy_matches_the_jax_package():
+    """Every dataclass of the port's core/config.py has the JAX one's fields
+    and defaults (`dataclasses.asdict` of a default instance), and the tiny
+    configs agree, so the copy cannot drift."""
+    from flash_vstream_tpu.core import config as jcfg
+    from flash_vstream_tpu_torch.core import config as tcfg
+
+    def dataclasses_of(mod):
+        return {n: c for n, c in vars(mod).items()
+                if dataclasses.is_dataclass(c)}
+    jd, td = dataclasses_of(jcfg), dataclasses_of(tcfg)
+    assert set(jd) == set(td) and jd
+    for name, c in sorted(jd.items()):
+        if isinstance(c, type):         # a class: its default instance
+            want, got = c(), td[name]()
+        else:                           # a preset instance (QWEN2_VL_VIT, ...)
+            want, got = c, td[name]
+        assert dataclasses.asdict(got) == dataclasses.asdict(want), name
+    for fn in ("tiny_qwen_config", "tiny_llava_config"):
+        assert (dataclasses.asdict(getattr(tcfg, fn)())
+                == dataclasses.asdict(getattr(jcfg, fn)())), fn
+    assert tcfg.IGNORE_INDEX == jcfg.IGNORE_INDEX

@@ -32,7 +32,7 @@ def clip():
 def vit():
     cfg = tiny_qwen_config().vit
     params = jv.init_qwen_vit_params(jax.random.PRNGKey(0), cfg)
-    return cfg, params, params_from_numpy(jax.tree.map(np.asarray, params))
+    return cfg, params, params_from_numpy(jax.tree.map(np.asarray, params), "cpu")
 
 
 def test_device_preprocess_f32(clip):

@@ -11,9 +11,14 @@ Phases, one or more lines each; any failure raises and exits non-zero:
 2. build: compiles the CUDA kernels from csrc/ with nvcc into build/;
 3. kernels: K1 (flash attention) and K2 (row gather) against their plain
    PyTorch versions at the slice's own shapes, with times;
+   int4_kernel: K6 (int4 decode matvec) against its plain version at the
+   7B decoder's shapes (B 1; 8 and 32 for the MLP), with times, the bound
+   and torch's own int4 matmul beside it;
 4. reference: a small two-layer model (head dims 80 and 128, the 7B
    config cut in width and depth) streamed
    through the port on the card and on the CPU (plain versions), compared;
+   int4_reference: that model's decoder quantized to int4, card (K6) vs
+   CPU (dequantize path), prefill and 8 teacher-forced decode steps;
 5. slice: the full-width Qwen2-VL-7B streaming session with random weights:
    21 clips ingested (one warm-up), memory saturated, 3 greedy answers,
    with the launch counts of both kernels during ingest and answering;
@@ -26,15 +31,23 @@ Phases, one or more lines each; any failure raises and exits non-zero:
 9. train_slice: `run_training` on Qwen2-VL-7B at full width (random bf16
    base, the serving slice's weights), 240 frames of 224 px, max_len 4096,
    grad_accum 2, 3 optimizer steps, with the launch counts of K1, K3, K4, K5;
-10. production: one step at 448 px, 240 frames, max_len 14,000.
+10. production: one step at 448 px, 240 frames, max_len 14,000;
+11. serve4: the CLI server over the slice's weights quantized to a 4-bit
+   decoder (--load-4bit): 168 frames paced at 8 fps, 3 answers, K6 in every
+   decode matvec, K1/K2/K6 launched exactly as reckoned and no error logged;
+   full-width logits K6 vs the dequantize path; decode and prefill times;
+   the --dry-run --load-4bit server as a subprocess.
 
 `--profile DIR` also traces one training-slice step with torch.profiler and
 writes its kernel table there. The line before the last is one JSON object
-with each kernel's launches, error, times and bound; the last is the device
+with each kernel's launches (in the run of the path it was ported for, and
+per path under `launches_by_path`), error, times, bound and the unit they
+are per (`per`: one call, or K6's decode token); the last is the device
 record {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 import argparse
 import json
+import logging
 import math
 import os
 import shutil
@@ -76,6 +89,23 @@ def _ms(fn, iters, windows=3):
     return best
 
 
+def _eager_ms(fn, iters):
+    """Time per call of `iters` eager calls between CUDA events: the device
+    time or the host's time to launch the call, whichever is longer (for a
+    kernel of a few microseconds, the wrapper's host cost)."""
+    import torch
+    fn(0)
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for i in range(iters):
+        fn(i)
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / iters
+
+
 def _bound(flops, nbytes):
     """(bound_ms, bound_by): the least time the card could take, the larger
     of the operations over the bf16 tensor-core peak and the bytes over the
@@ -92,6 +122,13 @@ def _visible_pairs(q, k, causal, q_seg, kv_seg):
 
 def _nbytes(*xs):
     return sum(x.numel() * x.element_size() for x in xs if x is not None)
+
+
+def _tree_nbytes(tree):
+    """Bytes of a nested dict of tensors and quantized (tuple) leaves."""
+    if isinstance(tree, dict):
+        return sum(_tree_nbytes(v) for v in tree.values())
+    return _nbytes(*tree) if isinstance(tree, tuple) else _nbytes(tree)
 
 
 def _row_err(got, want, rows):
@@ -233,6 +270,259 @@ def check_kernels(dev):
             max_abs_err=0.0, ms=k2_ms, plain_ms=k2_plain,
             bound_ms=k2_bound[0], bound_by=k2_bound[1], library_ms=k2_lib),
     }
+
+
+# K6 at the 7B decoder's shapes: (name, din, dout, calls per decode token)
+K6_SHAPES = (("wq/wo", 3584, 3584, 56), ("wk/wv", 3584, 512, 56),
+             ("gate/up", 3584, 18944, 56), ("down", 18944, 3584, 28),
+             ("lm_head", 3584, 152064, 1))
+# K6 against its plain version: max |err| over max |plain|. The kernel
+# writes bf16 (one rounding, 2^-9 of the value) of f32 sums taken in
+# another order than the plain version's.
+K6_TOL = 1e-2
+
+
+def _int4pack_mm(x, qw):
+    """torch's own int4 matmul on the same weights (groups of 128 along din,
+    (u - 8) * scale + zero with zero 0, bf16 scales), timed as the library
+    yardstick only: (callable, None) or (None, why not)."""
+    import torch
+    try:
+        u = torch.cat([qw.q4 & 0xF, qw.q4 >> 4]).T.contiguous()  # [dout, din]
+        packed = torch._convert_weight_to_int4pack(
+            ((u[:, ::2] << 4) | u[:, 1::2]).contiguous(), 8)
+        group = u.shape[1] // qw.scale.shape[0]
+        sz = torch.stack([qw.scale, torch.zeros_like(qw.scale)],
+                         dim=-1).to(torch.bfloat16).contiguous()
+        fn = lambda: torch._weight_int4pack_mm(x, packed, group, sz)  # noqa
+        fn()
+        return fn, None
+    except Exception as e:                 # an older torch or another shape
+        return None, f"{type(e).__name__}: {str(e).splitlines()[0][:100]}"
+
+
+def check_int4_kernel(dev):
+    """K6 against its plain version at the five 7B shapes at B = 1, gate/up
+    and down also at B = 8 and 32 (down has nb = 148 scale blocks); device
+    times by CUDA-graph replay rotating through enough weight copies to
+    exceed the 50 MB L2 (a decode step finds each weight cold); the bound
+    (bytes); torch's int4 matmul, a bf16 matmul of the dequantized weight
+    and dequantize + matmul on the same inputs. Returns K6's row, summed
+    over one decode token's 197 calls."""
+    import torch
+    from flash_vstream_tpu_torch.kernels.int4_matmul import (
+        int4_matmul_cuda, int4_matmul_reference)
+    from flash_vstream_tpu_torch.weights.quantize import (
+        QuantWeight4, dequantize_weight4, quantize_weight4)
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 3)
+    per_token = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0)
+    worst = 0.0
+    lib_missing = None
+    for name, din, dout, calls in K6_SHAPES:
+        scale = 0.02 if name == "lm_head" else din ** -0.5   # the init's
+        qw = quantize_weight4(torch.randn(din, dout, generator=g,
+                                          device=dev) * scale)
+        nbytes = _nbytes(*qw)
+        copies = [qw] + [QuantWeight4(qw.q4.clone(), qw.scale.clone())
+                         for _ in range(min(63, -(-100_000_000 // nbytes)) - 1)]
+        n = len(copies)
+        for B in ((1, 8, 32) if name in ("gate/up", "down") else (1,)):
+            x = torch.randn(B, din, generator=g, device=dev).to(torch.bfloat16)
+            got = int4_matmul_cuda(x, *qw)
+            want = int4_matmul_reference(x, *qw, torch.float32)
+            torch.cuda.synchronize()
+            err = (got.float() - want).abs().max().item()
+            rel = err / want.abs().max().item()
+            if not torch.isfinite(got).all() or rel > K6_TOL:
+                raise AssertionError(f"K6 {name} B={B}: max err {err} is "
+                                     f"{rel:.3e} of max |plain| > {K6_TOL}")
+            worst = max(worst, err)
+            iters = max(20, 2 * n)
+            ms = _ms(lambda i: int4_matmul_cuda(x, *copies[i % n]), iters)
+            eager = _eager_ms(lambda i: int4_matmul_cuda(x, *copies[i % n]),
+                              200)
+            plain = _ms(lambda i: int4_matmul_reference(x, *copies[i % n]),
+                        min(iters, 8))
+            bound = _bound(2 * B * din * dout,
+                           _nbytes(x, *qw) + B * dout * 2)
+            lib, why = _int4pack_mm(x, qw)
+            lib_ms = _ms(lambda i: lib(), 20) if lib else None
+            lib_err = ((lib().float() - want).abs().max().item()
+                       / want.abs().max().item()) if lib else None
+            w16 = dequantize_weight4(qw, torch.bfloat16)
+            bf16_ms = _ms(lambda i: torch.matmul(x, w16), 20)
+            del w16
+            deq_ms = _ms(lambda i: torch.matmul(
+                x, dequantize_weight4(copies[i % n], torch.bfloat16)),
+                min(iters, 8))
+            print(f"K6 {name}: x[{B}, {din}] @ int4[{din}, {dout}] nb="
+                  f"{qw.scale.shape[0]} max_abs_err={err:.3e} "
+                  f"({rel:.2e} of max, limit {K6_TOL:.0e}) kernel_ms="
+                  f"{ms:.4f} eager_ms={eager:.4f} plain_ms={plain:.4f} "
+                  f"bound_ms={bound[0]:.4f} "
+                  f"({bound[1]}) int4pack_ms="
+                  + (f"{lib_ms:.4f} (err {lib_err:.2e})" if lib
+                     else f"none ({why})")
+                  + f" bf16_matmul_ms={bf16_ms:.4f} dequant_matmul_ms="
+                  f"{deq_ms:.4f} ({n} weight copies rotated)", flush=True)
+            if B == 1:
+                per_token["ms"] += calls * ms
+                per_token["plain_ms"] += calls * plain
+                per_token["bound_ms"] += calls * bound[0]
+                if lib:
+                    per_token["library_ms"] += calls * lib_ms
+                else:
+                    lib_missing = why
+        del copies, qw
+        torch.cuda.empty_cache()
+    if lib_missing:
+        per_token["library_ms"] = None
+    print(f"K6 per decode token (197 calls at B=1): kernel_ms="
+          f"{per_token['ms']:.4f} plain_ms={per_token['plain_ms']:.4f} "
+          f"bound_ms={per_token['bound_ms']:.4f} (bytes) library_ms="
+          + (f"{per_token['library_ms']:.4f}" if per_token["library_ms"]
+             is not None else f"none ({lib_missing})"), flush=True)
+    return {"int4_matmul": dict(
+        max_abs_err=worst, bound_by="bytes",
+        per="decode token: 197 calls at B=1 over the five 7B shapes",
+        **per_token)}
+
+
+def _int4_route(mode):
+    """How the decoder computes an int4 matvec that passes the K6 gate, for
+    the checks: "kernel" (as served: K6 on the card), "dequant" (dequantize
+    + matmul, the JAX package's path for other shapes), "plain" (K6's plain
+    version, on any device) or "fault" (the plain version with the high
+    half's scale blocks off by one: block nb/2 + i/bs + 1, the last kept).
+    A context manager that swaps `dense` in the decoder's modules; the
+    other routes launch no K6."""
+    import contextlib
+    import math as _math
+    import torch
+    from flash_vstream_tpu_torch.kernels.int4_matmul import (
+        int4_matmul_reference, int4_matmul_supported)
+    from flash_vstream_tpu_torch.models import layers, llm
+    from flash_vstream_tpu_torch.weights.quantize import dequantize_weight4
+    served = layers.dense
+
+    def dense(x, w, b=None):
+        if not hasattr(w, "q4"):
+            return served(x, w, b)
+        rows = _math.prod(x.shape[:-1])
+        if mode == "dequant" or not (w.q4.dim() == 2 and int4_matmul_supported(
+                rows, w.q4.shape[0], w.scale.shape[0], w.q4.shape[1])):
+            out = torch.matmul(x, dequantize_weight4(w, x.dtype))
+        else:
+            scale = w.scale
+            if mode == "fault":
+                nbh = scale.shape[0] // 2
+                scale = torch.cat([scale[:nbh], scale[nbh + 1:], scale[-1:]])
+            out = int4_matmul_reference(x.reshape(rows, x.shape[-1]), w.q4,
+                                        scale, x.dtype)
+            out = out.reshape(*x.shape[:-1], w.q4.shape[-1])
+        return out if b is None else out + b.to(out.dtype)
+
+    @contextlib.contextmanager
+    def route():
+        if mode != "kernel":
+            layers.dense = llm.dense = dense
+        try:
+            yield
+        finally:
+            layers.dense = llm.dense = served
+    return route()
+
+
+# The int4 references hold each logit vector's max |error| over its max
+# |logit|, card K6 against the dequantize path. bf16 sets the floor: on the
+# CPU, the kernel's arithmetic (its plain version) against the dequantize
+# path reads up to 2.6e-2 on the small model over a prefill and 8
+# teacher-forced steps, while the high half's scale blocks off by one reads
+# 1.0e-1 to 1.6e-1 on those steps (tests/test_torch_int4_matmul.py reads
+# both).
+INT4_REF_LIMIT = 6e-2
+
+
+def int4_reference_case():
+    """The small model's decoder (hidden 256, intermediate 512, vocab 512,
+    two layers, head_dim 128, GQA 2/1) with bf16 weights quantized by
+    `quantize_params4`: every projection and the lm_head pass the K6 gate
+    (nb 2 or 4, dout a multiple of 128). A 200-token prompt of embedded
+    random ids and 8 teacher-forced tokens."""
+    import numpy as np
+    import torch
+    from flash_vstream_tpu_torch.models.llm import init_llm_params
+    from flash_vstream_tpu_torch.weights.quantize import quantize_params4
+    cfg = _small_cfg().llm
+    params = init_llm_params(cfg, torch.Generator().manual_seed(SEED), "cpu",
+                             dtype=torch.bfloat16)
+    rng = np.random.default_rng(SEED)
+    S = 200
+    ids = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, S)))
+    return dict(cfg=cfg, qparams=quantize_params4(params),
+                embeds=params["embed"][ids],
+                positions=torch.arange(S)[None].expand(3, 1, S).contiguous(),
+                tokens=[int(t) for t in rng.integers(0, cfg.vocab_size, 8)])
+
+
+def int4_logits(generator, embeds, positions, tokens, segment_ids=None,
+                last_idx=None, decode_start=None):
+    """f32 logits [1 + len(tokens), V] on the CPU: the prefill's, then one
+    per teacher-forced decode step."""
+    import torch
+    S = embeds.shape[1]
+    cache = generator.new_cache(1, generator._active_len(S, len(tokens)))
+    out = [generator.prefill(embeds, positions, cache, segment_ids, last_idx)]
+    start = S if decode_start is None else int(decode_start)
+    for i, t in enumerate(tokens):
+        tok = torch.tensor([t], device=embeds.device)
+        out.append(generator.step(tok, start + i, cache))
+    return torch.cat(out).float().cpu()
+
+
+def logit_errors(got, want):
+    """Per row (logit vector): max |got - want| over max |want|."""
+    return ((got - want).abs().amax(1)
+            / want.abs().amax(1).clamp_min(1e-30)).tolist()
+
+
+def int4_reference_logits(case, device, mode="kernel"):
+    from flash_vstream_tpu_torch.models.llm import Qwen2Decoder
+    from flash_vstream_tpu_torch.runtime.generation import Generator
+    model = Qwen2Decoder(case["cfg"], case["qparams"]).to(device)
+    with _int4_route(mode):
+        return int4_logits(Generator(model, max_len=256),
+                           case["embeds"].to(device),
+                           case["positions"].to(device), case["tokens"])
+
+
+def check_int4_reference(dev):
+    """The small int4 decoder on the card (K6 in every projection and the
+    lm_head at decode) against the same int4 weights on the CPU (the
+    dequantize path): a prefill's logits and 8 teacher-forced decode steps,
+    each within INT4_REF_LIMIT of its max |logit|; K6 launched 15 times per
+    step (7 projections x 2 layers + lm_head) and once for the prefill's
+    last row."""
+    import torch
+    from flash_vstream_tpu_torch.kernels.int4_matmul import int4_matmul_cuda
+    case = int4_reference_case()
+    n0 = int4_matmul_cuda.launches
+    card = int4_reference_logits(case, dev)
+    launched = int4_matmul_cuda.launches - n0
+    cpu = int4_reference_logits(case, torch.device("cpu"), "dequant")
+    errs = logit_errors(card, cpu)
+    print(f"int4_reference: small int4 decoder, card (K6, {launched} "
+          f"launches) vs CPU dequantize path, err/max per logit vector: "
+          f"prefill {errs[0]:.3e}, decode max {max(errs[1:]):.3e} (limit "
+          f"{INT4_REF_LIMIT:.0e}; steps " + " ".join(f"{e:.2e}" for e in errs)
+          + ")", flush=True)
+    want = 15 * len(case["tokens"]) + 1
+    if launched != want:
+        raise AssertionError(f"int4_reference: K6 launched {launched} times, "
+                             f"not {want}")
+    if not torch.isfinite(card).all() or max(errs) > INT4_REF_LIMIT:
+        raise AssertionError("int4_reference: the card's logits are off")
 
 
 def check_backward_kernels(dev):
@@ -814,9 +1104,10 @@ def _launches():
 def _reset_launches():
     from flash_vstream_tpu_torch.kernels import flash_attention as fa
     from flash_vstream_tpu_torch.kernels.gather_rows import gather_rows_cuda
+    from flash_vstream_tpu_torch.kernels.int4_matmul import int4_matmul_cuda
     for fn in (fa.flash_attention_cuda, fa.flash_attention_fwd_lse_cuda,
                fa.flash_attention_bwd_dq_cuda, fa.flash_attention_bwd_dkv_cuda,
-               gather_rows_cuda):
+               gather_rows_cuda, int4_matmul_cuda):
         fn.launches = 0
 
 
@@ -929,6 +1220,243 @@ def run_production_step(dev, params, work, cfg=None):
         raise AssertionError(f"production step: loss {loss}")
 
 
+def run_serve4(dev, params, work):
+    """The 4-bit base served through the CLI server's entry points at full
+    width: `_apply_quantization` with --load-4bit on the slice's bf16 7B
+    weights; the int4 and the bf16 decoders' prefill and decode timed in
+    turn (bf16, int4, int4, bf16) on one card; the bf16 decoder freed;
+    `run_server(args, session=...)`
+    over 168 synthetic 224 px frames paced at 8 fps (21 clips of 8, memory
+    saturated by the end), questions every 7 s and one after the stream, 32
+    new tokens each; K6 must launch 197 times per decode step and once per
+    answer's prefill, K1 twice per ViT layer per clip and once per decoder
+    layer per answer, K2 once per clip, and the server must log no error
+    (it logs a failed clip and streams on, as the reference does). Then, on
+    the final snapshot, the first question's
+    prefill logits and 4 teacher-forced decode steps through K6, K6's plain
+    version and the dequantize path (and the plain version with a planted
+    scale fault), held to INT4_REF_LIMIT; and the dry-run server once as a
+    subprocess on the card."""
+    import numpy as np
+    import torch
+    from flash_vstream_tpu_torch.core.config import VStreamQwenConfig
+    from flash_vstream_tpu_torch.kernels.int4_matmul import int4_matmul_cuda
+    from flash_vstream_tpu_torch.models.llm import Qwen2Decoder
+    from flash_vstream_tpu_torch.models.vstream_qwen import VStreamQwen
+    from flash_vstream_tpu_torch.preprocess.qwen_processor import (
+        make_byte_qwen_tokenizer)
+    from flash_vstream_tpu_torch.runtime.streaming import QwenStreamSession
+    from flash_vstream_tpu_torch.serve.cli_server import (
+        _apply_quantization, make_parser, run_server)
+    from flash_vstream_tpu_torch.weights.quantize import QuantWeight4
+
+    cfg = VStreamQwenConfig()
+    os.makedirs(work, exist_ok=True)
+    qfile = os.path.join(work, "questions.txt")
+    with open(qfile, "w") as f:
+        f.write("\n".join(QUESTIONS) + "\n")
+    args = make_parser().parse_args([
+        "--device", str(dev), "--load-4bit", "--synthetic-frames", "168",
+        "--clip-size", "8", "--frame-size", "224", "--fps", "8",
+        "--play_speed", "1", "--questions-file", qfile,
+        "--question_interval", "7", "--max-new-tokens", "32",
+        "--sync-every-clip", "--output-file",
+        os.path.join(work, "serve4.json")])
+    bf16_llm = params.pop("llm")
+    t0 = time.perf_counter()
+    bf16_bytes = _tree_nbytes(bf16_llm)
+    embed_bytes = _tree_nbytes(bf16_llm["embed"])
+    qparams = _apply_quantization({"vit": params["vit"], "llm": bf16_llm},
+                                  args)
+    layers = qparams["llm"]["layers"]
+    n4 = sum(isinstance(p["w"], QuantWeight4) for grp in ("attn", "mlp")
+             for p in layers[grp].values())
+    if n4 != 7 or not isinstance(qparams["llm"]["lm_head"], QuantWeight4):
+        raise AssertionError(f"serve4: {n4}/7 projections int4")
+    int4_bytes = _tree_nbytes(qparams["llm"])
+    torch.cuda.synchronize(dev)
+    quant_s = time.perf_counter() - t0
+    sess = QwenStreamSession(VStreamQwen(cfg, qparams),
+                             make_byte_qwen_tokenizer(), frame_hw=(224, 224),
+                             clip_size=8, bank_size=1024, max_len=4096)
+
+    # decode is host-bound and its time drifts within a run: time the two
+    # decoders in turn on the same synthetic prompt, then free the bf16 one
+    decoders = {"bf16": Qwen2Decoder(cfg.llm, bf16_llm), "int4": sess.model.llm}
+    timed = {"bf16": [], "int4": []}
+    for name in ("bf16", "int4", "int4", "bf16"):
+        timed[name].append(_time_decoder(decoders[name], dev))
+    del decoders, bf16_llm
+    _release(dev)
+    for name, (a, b) in timed.items():
+        print(f"serve4: {name} decoder at S=2989 (bf16, int4, int4, bf16 in "
+              f"turn, this card): prefill {a[0]:.1f} {b[0]:.1f} ms, decode "
+              f"{a[1]:.2f} {b[1]:.2f} ms/token (32 steps, synchronized); "
+              f"profiled decode step: device busy {a[2]:.2f} {b[2]:.2f} "
+              f"ms/token, idle share {1 - a[2] / a[1]:.3f} "
+              f"{1 - b[2] / b[1]:.3f}, {a[3]} device events (kernels, "
+              f"copies) per token, K6 {a[4]:.2f} ms/token", flush=True)
+    print(f"serve4: --load-4bit on the 7B decoder in {quant_s:.2f} s: the "
+          f"7 projections of each layer and lm_head int4; decoder tree "
+          f"{int4_bytes / 2**30:.3f} GiB against {bf16_bytes / 2**30:.3f} "
+          f"GiB bf16, of which the bf16 embed {embed_bytes / 2**30:.3f} GiB "
+          f"in both; resident {torch.cuda.memory_allocated(dev) / 2**30:.2f}"
+          f" GiB", flush=True)
+
+    errors = []
+    catch = logging.Handler(logging.ERROR)
+    catch.emit = errors.append
+    server_log = logging.getLogger("cli_server")
+    server_log.addHandler(catch)
+    _reset_launches()
+    t0 = time.perf_counter()
+    try:
+        summary = run_server(args, session=sess)
+    finally:
+        server_log.removeHandler(catch)
+    wall = time.perf_counter() - t0
+    k = _launches()
+    k6 = int4_matmul_cuda.launches
+    from flash_vstream_tpu_torch.kernels.gather_rows import gather_rows_cuda
+    k2 = gather_rows_cuda.launches
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    m = summary["metrics"]
+    answers = summary["answers"]
+    n_tok = round(m["answer_tokens"]["avg"] * m["answer_tokens"]["count"])
+    steps = n_tok - len(answers)
+    fm = cfg.flash_memory
+    n_csm = int(sess.state.tem_valid.sum())
+    print(f"serve4: {summary['frames_ingested']} frames in {wall:.2f} s: "
+          f"ingest ms/clip mean={m['memory_latency']['avg'] * 1e3:.2f} "
+          f"max={m['memory_latency']['max'] * 1e3:.2f} (synchronized); "
+          f"CSM={n_csm}/{fm.csm_grid_len} DAM={sess._published[0][2].shape[0]}"
+          f"/{fm.dam_grid_len}; {len(answers)} answers at frames "
+          f"{[a['frames'] for a in answers]}, answer seconds mean="
+          f"{m['conv_latency']['avg']:.3f} max={m['conv_latency']['max']:.3f}"
+          f", {n_tok} tokens; peak {peak:.2f} GiB", flush=True)
+    clips = 168 // 8
+    want = {"K6": 197 * steps + len(answers),
+            "K1": 2 * cfg.vit.num_layers * clips
+            + cfg.llm.num_layers * len(answers),
+            "K2": clips}
+    got = {"K6": k6, "K1": k["K1"], "K2": k2}
+    print(f"serve4: launches K6={k6} (197 x {steps} decode steps + "
+          f"{len(answers)} prefills = {want['K6']}), K1={k['K1']} (2 x "
+          f"{cfg.vit.num_layers} ViT layers x {clips} clips + "
+          f"{cfg.llm.num_layers} x {len(answers)} prefills = {want['K1']}), "
+          f"K2={k2} (one per clip); {m['memory_latency']['count']} clips "
+          f"ingested, {len(errors)} errors logged", flush=True)
+    if errors:
+        raise AssertionError("serve4: the server logged errors: "
+                             + "; ".join(r.getMessage() for r in errors))
+    if (summary["frames_ingested"] != 168 or not answers
+            or m["memory_latency"]["count"] != clips
+            or n_csm != fm.csm_grid_len
+            or answers[-1]["frames"] != 168):
+        raise AssertionError(f"serve4: stream or memory not as expected: "
+                             f"{summary['frames_ingested']} frames, "
+                             f"{m['memory_latency']['count']} clips, "
+                             f"{len(answers)} answers, CSM {n_csm}")
+    if got != want:
+        raise AssertionError(f"serve4: launches {got}, reckoned {want}")
+
+    # full-width logits: K6 against the dequantize path on the same weights
+    snap, n = sess._published
+    h = sess._prompt_host(QUESTIONS[0], n)
+    embeds, pos, start, seg = sess._prompt_inputs(snap, h)
+    toks = [int(t) for t in np.random.default_rng(SEED).integers(
+        0, cfg.llm.vocab_size, 4)]
+    logits = {}
+    for mode in ("kernel", "dequant", "plain", "fault"):
+        with _int4_route(mode):
+            logits[mode] = int4_logits(sess.generator, embeds, pos, toks, seg,
+                                       h["last_real"], start)
+    errs = {mode: logit_errors(logits[mode], logits["dequant"])
+            for mode in ("kernel", "plain", "fault")}
+    kp = max(logit_errors(logits["kernel"], logits["plain"]))
+    print(f"serve4: full-width logits (prefill S={h['S']} + 4 teacher-forced "
+          f"steps), err/max against the dequantize path: K6 max "
+          f"{max(errs['kernel']):.3e} (" + " ".join(
+              f"{e:.2e}" for e in errs["kernel"]) + f"), K6's plain version "
+          f"{max(errs['plain']):.3e}, planted scale fault "
+          f"{max(errs['fault']):.3e}; K6 vs plain {kp:.3e}; limit "
+          f"{INT4_REF_LIMIT:.0e}", flush=True)
+    if (not torch.isfinite(logits["kernel"]).all()
+            or max(errs["kernel"]) > INT4_REF_LIMIT):
+        raise AssertionError("serve4: K6 logits off the dequantize path")
+
+    # the entry point itself, on the card, in its own process
+    out = os.path.join(work, "dry_run.json")
+    proc = subprocess.run(
+        [sys.executable, "-m", "flash_vstream_tpu_torch.serve.cli_server",
+         "--dry-run", "--load-4bit", "--prewarm", "--synthetic-frames", "8",
+         "--play_speed", "0", "--question", "What is happening?",
+         "--question_interval", "1000", "--max-new-tokens", "4",
+         "--output-file", out],
+        cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+        text=True, timeout=300)
+    if proc.returncode != 0:
+        raise AssertionError(f"cli_server --dry-run --load-4bit exited "
+                             f"{proc.returncode}: {proc.stderr[-2000:]}")
+    with open(out) as f:
+        dry = json.load(f)
+    if dry["frames_ingested"] != 8 or len(dry["answers"]) != 1:
+        raise AssertionError(f"cli_server --dry-run: {dry}")
+    print(f"serve4: python -m flash_vstream_tpu_torch.serve.cli_server "
+          f"--dry-run --load-4bit --prewarm on the card: exit 0, "
+          f"{dry['frames_ingested']} frames, answer "
+          f"{dry['answers'][0]['answer'][:30]!r}", flush=True)
+    return k6, k["K1"], k2
+
+
+def _time_decoder(llm, dev, S=2989, steps=32):
+    """(prefill ms, decode ms/token, profiled device-busy ms/token, kernel
+    launches/token, K6 device ms/token) of a decoder on a synthetic prompt
+    of S random embeddings (1-D positions, no padding): host clock around
+    synchronized work, after one warm-up prefill and 4 decode steps; then
+    torch.profiler over 8 more steps for the device's busy time (kernels
+    and copies; one stream, so they do not overlap)."""
+    import torch
+    from torch.autograd import DeviceType
+    from flash_vstream_tpu_torch.runtime.generation import Generator
+    g = torch.Generator(device=dev).manual_seed(SEED + 4)
+    embeds = (torch.randn(1, S, llm.cfg.hidden_size, generator=g, device=dev)
+              * 0.02).to(torch.bfloat16)
+    pos = torch.arange(S, device=dev)[None].expand(3, 1, S)
+    gen = Generator(llm, max_len=S + steps + 16)
+    tok = torch.tensor([1], device=dev)
+    for warm in (True, False):
+        cache = gen.new_cache(1, S + steps + 16)
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        gen.prefill(embeds, pos, cache)
+        torch.cuda.synchronize(dev)
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        for i in range(4):
+            gen.step(tok, S + i, cache)
+        torch.cuda.synchronize(dev)
+        if warm:
+            continue
+        t0 = time.perf_counter()
+        for i in range(steps):
+            gen.step(tok, S + 4 + i, cache)
+        torch.cuda.synchronize(dev)
+        decode_ms = (time.perf_counter() - t0) / steps * 1e3
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for i in range(8):
+            gen.step(tok, S + 4 + steps + i, cache)
+        torch.cuda.synchronize(dev)
+    dev_rows = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in dev_rows) / 1e3 / 8
+    launches = sum(e.count for e in dev_rows) // 8
+    k6 = sum(e.self_device_time_total for e in dev_rows
+             if "int4" in e.key) / 1e3 / 8
+    return prefill_ms, decode_ms, busy, launches, k6
+
+
 def profile_train_step(dev, params, data, work, out_dir, step_s, cfg=None):
     """torch.profiler over the second of two training-slice steps: device
     busy time (the kernels' own time; one stream, so they do not overlap),
@@ -973,15 +1501,17 @@ def profile_train_step(dev, params, data, work, out_dir, step_s, cfg=None):
               f"{e.count:6d}x {e.key[:80]}", flush=True)
 
 
-PHASES = ("kernels", "reference", "slice", "backward", "function",
-          "train_reference", "train_slice", "production")
+PHASES = ("kernels", "int4_kernel", "reference", "int4_reference", "slice",
+          "backward", "function", "train_reference", "train_slice",
+          "production", "serve4")
 
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--only", default=",".join(PHASES),
                         help="comma-separated phases to run (default all; "
-                             "the training phases need 'slice')")
+                             "the training phases and serve4 need "
+                             "'slice')")
     parser.add_argument("--profile", default=None, metavar="DIR",
                         help="also profile one training-slice step into DIR")
     opts = parser.parse_args()
@@ -1012,35 +1542,45 @@ def main() -> int:
     print(f"build: {lib.name} in {time.perf_counter() - t0:.1f} s", flush=True)
 
     rows = {}
-    launches = {}
+    paths = {}                # path -> {kernel: launches in that path's run}
     if "kernels" in only:
         rows.update(check_kernels(dev))
+    if "int4_kernel" in only:
+        rows.update(check_int4_kernel(dev))
     if "backward" in only:
         rows.update(check_backward_kernels(dev))
     if "function" in only:
         check_function(dev)
     if "reference" in only:
         check_reference(dev)
+    if "int4_reference" in only:
+        check_int4_reference(dev)
     if "train_reference" in only:
         check_train_reference(dev)
     if "slice" in only:
         _reset_launches()
         k1, k2, params = run_slice(dev)
-        launches.update(flash_attention_fwd=k1, gather_rows=k2)
+        paths["slice"] = dict(flash_attention_fwd=k1, gather_rows=k2)
         work = os.path.join(root, "build", "chip_smoke_train")
         try:
             if "train_slice" in only:
                 total, data, step_s = run_train_slice(dev, params, work)
-                launches["flash_attention_fwd"] += total["K1"]
-                launches.update(flash_attention_fwd_lse=total["K3"],
-                                flash_attention_bwd_dq=total["K4"],
-                                flash_attention_bwd_dkv=total["K5"])
+                paths["train_slice"] = dict(
+                    flash_attention_fwd=total["K1"],
+                    flash_attention_fwd_lse=total["K3"],
+                    flash_attention_bwd_dq=total["K4"],
+                    flash_attention_bwd_dkv=total["K5"])
                 if opts.profile:
                     os.makedirs(opts.profile, exist_ok=True)
                     profile_train_step(dev, params, data, work, opts.profile,
                                        step_s)
             if "production" in only:
                 run_production_step(dev, params, work)
+            if "serve4" in only:
+                _release(dev)
+                k6, k1, k2 = run_serve4(dev, params, work)
+                paths["serve4"] = dict(int4_matmul=k6, flash_attention_fwd=k1,
+                                       gather_rows=k2)
         finally:
             shutil.rmtree(work, ignore_errors=True)
     sources = {
@@ -1049,17 +1589,28 @@ def main() -> int:
         "flash_attention_fwd_lse": ("flash_attention.cu", ":158"),
         "flash_attention_bwd_dq": ("flash_attention_bwd.cu", ":285"),
         "flash_attention_bwd_dkv": ("flash_attention_bwd.cu", ":332"),
+        "int4_matmul": ("int4_matmul.cu", ""),
     }
+    replaces = {"gather_rows": "flash_vstream_tpu/kernels/gather_rows.py:23",
+                "int4_matmul": "flash_vstream_tpu/kernels/int4_matmul.py:45"}
+    # `launches` counts the run of the path the kernel was ported for;
+    # `launches_by_path` each path's own run (counts reset before each)
+    own = {"flash_attention_fwd": "slice", "gather_rows": "slice",
+           "flash_attention_fwd_lse": "train_slice",
+           "flash_attention_bwd_dq": "train_slice",
+           "flash_attention_bwd_dkv": "train_slice", "int4_matmul": "serve4"}
     kernels = []
     for name, row in rows.items():
         src, line = sources[name]
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"flash_vstream_tpu_torch/kernels/csrc/{src}",
-            "replaces": ("flash_vstream_tpu/kernels/gather_rows.py:23"
-                         if name == "gather_rows" else
-                         f"flash_vstream_tpu/kernels/flash_attention.py{line}"),
-            "launches": launches.get(name, 0), **row})
+            "replaces": replaces.get(
+                name, f"flash_vstream_tpu/kernels/flash_attention.py{line}"),
+            "launches": paths.get(own[name], {}).get(name, 0),
+            "launches_by_path": {p: c[name] for p, c in paths.items()
+                                 if name in c},
+            "per": "call", **row})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -36,6 +36,9 @@ _SIGNATURES = {
     "fvt_flash_attention_bwd_dkv": _BWD,
     # bank, idx, out, n_idx, row_bytes, stream
     "fvt_gather_rows": [_P, _P, _P, _I, _LL, _P],
+    # x, q4, scale, partial, out, out_f32, B, dh, dout, nb, splits,
+    # rows_per_split, stream
+    "fvt_int4_matmul": [_P] * 5 + [_I] * 7 + [_P],
 }
 
 _LIB = None          # the loaded library, once per process

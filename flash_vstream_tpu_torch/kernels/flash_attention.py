@@ -38,6 +38,7 @@ import math
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from . import _build
 
@@ -257,7 +258,18 @@ def flash_attention_cuda(
     """Launch K1 on CUDA tensors (q_offset 0). Inputs are bf16 [B, H, S, D]
     with any strides that are multiples of 8 (so the ViT's [T, P, H, D] ->
     [T, H, P, D] transposes need no copy). The output is [B, Hq, Sq, D]
-    stored as [B, Sq, Hq, D]. Raises on what the kernel does not take."""
+    stored as [B, Sq, Hq, D]. A head_dim below the kernel's smallest (64:
+    the tiny test configs) is zero-padded to 64, which leaves the scores
+    and the output's first D columns as they were. Raises on what the
+    kernel does not take."""
+    D = q.shape[-1]
+    if D < HEAD_DIMS[0] and k.shape[-1] == v.shape[-1] == D:
+        pad = (0, HEAD_DIMS[0] - D)
+        out = flash_attention_cuda(
+            *(F.pad(x, pad) for x in (q, k, v)), causal=causal,
+            q_segment_ids=q_segment_ids, kv_segment_ids=kv_segment_ids,
+            scale=1.0 / math.sqrt(D) if scale is None else scale)
+        return out[..., :D]
     out, launched = _launch_fwd(q, k, v, None, causal, q_segment_ids,
                                 kv_segment_ids, scale, "flash_attention_cuda")
     flash_attention_cuda.launches += launched

@@ -8,9 +8,10 @@ The arithmetic follows the JAX functions op for op (f32 norms and rotary
 math, the matmul in the activation's dtype, bias added after the matmul) so
 the two packages agree on the CPU.
 
-Weights are bf16/f32 tensors or merge-free LoRA views (train/lora.py's
-`LoRAWeight`); quantized leaves (int8, int4) and the int8 KV cache raise
-NotImplementedError (ROADMAP A10-A12).
+Weights are bf16/f32 tensors, weight-only int8 `QuantWeight`s, packed int4
+`QuantWeight4`s (weights/quantize.py) or merge-free LoRA views
+(train/lora.py's `LoRAWeight`). The int8 KV cache and w8a8 prefill raise
+NotImplementedError (ROADMAP A10).
 """
 from __future__ import annotations
 
@@ -22,9 +23,8 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels.flash_attention import flash_attention
-
-QUANT_TODO = ("quantized weights (int8, int4) are not ported yet: "
-              "ROADMAP A10-A12")
+from ..kernels.int4_matmul import int4_matmul_cuda, int4_matmul_supported
+from ..weights.quantize import dequantize_weight4
 
 
 # ---------------------------------------------------------------------------
@@ -68,15 +68,36 @@ def dense(x: torch.Tensor, w, b: Optional[torch.Tensor] = None) -> torch.Tensor:
     """x @ w in x's dtype (the weight is cast to it, as in JAX), then the bias
     in the output's dtype. A LoRA view (w, a, b) computes x @ w + (x @ a) @ b
     with the factors cast to x's dtype (`a` carries the alpha/rank scale), so
-    the merged matrix never exists and only the factors get gradients."""
+    the merged matrix never exists and only the factors get gradients.
+
+    An int8 `QuantWeight` multiplies by its int8 values cast to x's dtype and
+    scales the output per channel. A `QuantWeight4` of a 2-D weight, on the
+    card, at a shape the K6 gate takes (a decode matvec: at most 32 rows),
+    launches K6; everywhere else (prefill rows, the CPU) it dequantizes to
+    x's dtype and multiplies, the JAX package's own path (layers.py:95-116),
+    so on the CPU the port matches JAX op for op."""
     if hasattr(w, "a"):                  # train/lora.LoRAWeight
         out = dense(x, w.w)
         lora = torch.matmul(torch.matmul(x, w.a.to(x.dtype)), w.b.to(x.dtype))
         out = out + lora.to(out.dtype)
-    elif not isinstance(w, torch.Tensor):
-        raise NotImplementedError(QUANT_TODO)
-    else:
+    elif hasattr(w, "q"):                # weights/quantize.QuantWeight
+        out = torch.matmul(x, w.q.to(x.dtype))
+        out = out * w.scale.to(out.dtype)
+    elif hasattr(w, "q4"):               # weights/quantize.QuantWeight4
+        rows = math.prod(x.shape[:-1])
+        if (x.is_cuda and w.q4.dim() == 2
+                and int4_matmul_supported(rows, w.q4.shape[0],
+                                          w.scale.shape[0], w.q4.shape[1])):
+            out = int4_matmul_cuda(x.reshape(rows, x.shape[-1]), w.q4,
+                                   w.scale, out_dtype=x.dtype)
+            out = out.reshape(*x.shape[:-1], w.q4.shape[-1])
+        else:
+            out = torch.matmul(x, dequantize_weight4(w, x.dtype))
+    elif isinstance(w, torch.Tensor):
         out = torch.matmul(x, w.to(x.dtype))
+    else:
+        raise TypeError(f"dense takes a tensor, a QuantWeight, a QuantWeight4 "
+                        f"or a LoRA view, not {type(w).__name__}")
     if b is not None:
         out = out + b.to(out.dtype)
     return out
@@ -277,8 +298,8 @@ def gelu_mlp(params: dict, x: torch.Tensor,
 
 
 def _index(v, i: int):
-    if hasattr(v, "_fields"):            # a LoRA view: slice every field
-        return type(v)(*(f[i] for f in v))
+    if hasattr(v, "_fields"):            # a LoRA view or a quantized leaf:
+        return type(v)(*(_index(f, i) for f in v))   # slice every field
     return v[i]
 
 
@@ -293,11 +314,37 @@ def layer_slice(tree: dict, i: int) -> dict:
 # Parameter trees as modules
 # ---------------------------------------------------------------------------
 
+class QuantLeaf(torch.nn.Module):
+    """A quantized leaf (`QuantWeight`, `QuantWeight4`) as a module holding
+    its fields as frozen Parameters under their names (`...w.q4`,
+    `...w.scale`). A module-wide dtype cast moves the fields but keeps their
+    dtypes: the scales stay f32, as the kernels and the JAX tree have them."""
+
+    def __init__(self, leaf):
+        super().__init__()
+        self.kind = type(leaf)
+        for name, t in zip(leaf._fields, leaf):
+            self.register_parameter(
+                name, torch.nn.Parameter(t, requires_grad=False))
+
+    def tree(self):
+        return self.kind(*(self._parameters[n] for n in self.kind._fields))
+
+    def _apply(self, fn, recurse=True):
+        for name, p in self._parameters.items():
+            new = fn(p)
+            if new.dtype != p.dtype:     # a dtype cast: move, keep the dtype
+                new = p.to(new.device)
+            self._parameters[name] = torch.nn.Parameter(new,
+                                                        requires_grad=False)
+        return self
+
+
 class ParamTree(torch.nn.Module):
     """An nn.Module over a nested dict of tensors: each dict level is a
-    submodule and each leaf a frozen Parameter, so `state_dict()` keys are
-    the JAX tree's key paths joined by '.', and a JAX tree converts leaf by
-    leaf (weights/from_jax.py)."""
+    submodule and each leaf a frozen Parameter (a quantized leaf a
+    `QuantLeaf`), so `state_dict()` keys are the JAX tree's key paths joined
+    by '.', and a JAX tree converts leaf by leaf (weights/from_jax.py)."""
 
     def __init__(self, tree: dict):
         super().__init__()
@@ -306,6 +353,8 @@ class ParamTree(torch.nn.Module):
                 self.add_module(k, ParamTree(v))
             elif isinstance(v, torch.nn.Module):
                 self.add_module(k, v)
+            elif hasattr(v, "_fields"):
+                self.add_module(k, QuantLeaf(v))
             else:
                 self.register_parameter(
                     k, torch.nn.Parameter(v, requires_grad=False))

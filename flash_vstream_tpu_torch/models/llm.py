@@ -6,7 +6,9 @@ causal and segmented attention through K1, k/v written into the cache), a
 single-token decode step against the cache, and the no-cache training path
 with gradient checkpointing (`remat`, `remat_group`); `lm_head`,
 `embed_tokens`, `cross_entropy_loss` and `cross_entropy_loss_chunked`.
-Layers run in a Python loop over the stacked [L, ...] parameters.
+Layers run in a Python loop over the stacked [L, ...] parameters. The
+projections and the lm_head may be quantized (weights/quantize.py): `dense`
+dispatches, and a decode step over an int4 base runs K6 in each of them.
 """
 from __future__ import annotations
 
@@ -19,7 +21,6 @@ from ..core.config import LLMConfig
 from ..core.device import resolve_device
 
 from .layers import (
-    QUANT_TODO,
     KVCache,
     ParamTree,
     dense,
@@ -168,9 +169,23 @@ def lm_head(params: dict, cfg: LLMConfig, hidden: torch.Tensor) -> torch.Tensor:
 
 
 def embed_tokens(params: dict, input_ids: torch.Tensor) -> torch.Tensor:
+    """Embedding rows; a quantized table (custom quantization targets) is
+    dequantized at gather time, in bf16, as in JAX (llm.py:268-286)."""
     w = params["embed"]
-    if not isinstance(w, torch.Tensor):
-        raise NotImplementedError(QUANT_TODO)
+    if hasattr(w, "q"):            # int8: gather rows, then scale
+        return (w.q[input_ids].to(torch.bfloat16)
+                * w.scale[0].to(torch.bfloat16))
+    if hasattr(w, "q4"):
+        # int4: rows pack along the vocab axis split-half, so row r lives in
+        # byte row r % (V/2), low nibble below V/2 and high nibble above
+        half = w.q4.shape[0]
+        byte = w.q4[input_ids % half]                      # [..., D] uint8
+        lo = (byte & 0xF).to(torch.int8) - 8
+        hi = (byte >> 4).to(torch.int8) - 8
+        q = torch.where((input_ids < half)[..., None], lo, hi)
+        bs = 2 * half // w.scale.shape[0]
+        sc = w.scale[input_ids // bs]                      # [..., D]
+        return q.to(torch.bfloat16) * sc.to(torch.bfloat16)
     return w[input_ids]
 
 
@@ -199,12 +214,12 @@ def cross_entropy_loss_chunked(params: dict, cfg: LLMConfig,
     tokens, each through lm_head + CE inside one checkpoint, so only one
     [chunk, vocab] f32 block is live at a time, forward and backward (the
     backward recomputes each chunk's logits). The JAX `vocab_tile` path for
-    quantized heads is not ported."""
+    quantized heads (training over a quantized base) is not ported."""
     if vocab_tile or not isinstance(params.get("lm_head", params["embed"]),
                                     torch.Tensor):
         raise NotImplementedError(
             "the vocab-tiled chunked loss of quantized heads is not ported "
-            "yet: ROADMAP A10-A12")
+            "yet: ROADMAP A10, A12 (QLoRA)")
     B, S, D = hidden.shape
     h = hidden[:, :-1]
     lab = labels[:, 1:]
@@ -248,3 +263,8 @@ class Qwen2Decoder(ParamTree):
 
     def embed_tokens(self, input_ids: torch.Tensor) -> torch.Tensor:
         return embed_tokens(self.tree(), input_ids)
+
+    @property
+    def device(self) -> torch.device:
+        """Where the decoder lives (`final_norm` is never quantized)."""
+        return self.final_norm.device

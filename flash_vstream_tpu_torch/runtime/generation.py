@@ -60,7 +60,7 @@ class Generator:
         self.cfg = llm.cfg
         self.max_len = max_len
         self.cache_dtype = cache_dtype
-        self.device = llm.embed.device
+        self.device = llm.device
 
     def new_cache(self, batch: int = 1, length: Optional[int] = None) -> KVCache:
         return KVCache.create(self.cfg.num_layers, batch,

@@ -14,7 +14,8 @@ for one stream on one device:
 
 PyTorch runs eagerly, so the JAX version's jit caches and prompt-shape
 buckets for compilation have no counterpart here; the memory-length buckets
-of the prompt (`bucket_up`) are kept, because they decide the prompt. Not
+of the prompt (`bucket_up`) are kept, because they decide the prompt. The
+model may be quantized (int8 or int4 decoder, int8 ViT blocks). Not
 ported yet: sampling, speculation and preemptible answers (ROADMAP A6),
 streamed text, session save/load and clones (ROADMAP A7), multi-stream and
 disaggregated serving (ROADMAP A15, A16).
@@ -40,10 +41,15 @@ from .generation import TODO_A6, GenerationConfig, Generator, trim_stop_strings
 from .metrics import MetricMeter, Timer
 
 
+def bucket_candidates(cap: int):
+    """The memory lengths `bucket_up` can return for a capacity."""
+    return (max(cap // 4, 1), max(cap // 2, 1), cap)
+
+
 def bucket_up(real: int, cap: int) -> int:
     """Round a memory length up to one of the buckets of `cap` (cap/4,
     cap/2, cap); padded memory slots are masked out by segment ids."""
-    for b in (max(cap // 4, 1), max(cap // 2, 1), cap):
+    for b in bucket_candidates(cap):
         if real <= b:
             return b
     return cap
@@ -54,7 +60,16 @@ class QwenStreamSession:
 
     def __init__(self, model: VStreamQwen, tokenizer, frame_hw=(224, 224),
                  clip_size: int = 2, bank_size: int = 1024,
-                 max_len: int = 16384, max_pixels: int = 4 * 224 * 224):
+                 max_len: int = 16384, max_pixels: int = 4 * 224 * 224,
+                 kv_cache_dtype=None, placement=None):
+        """`model` may carry quantized weights (weights/quantize.py). An
+        int8 KV cache and a disaggregated placement are not ported."""
+        if kv_cache_dtype is not None:
+            raise NotImplementedError("the int8 KV cache is not ported yet: "
+                                      "ROADMAP A10")
+        if placement is not None:
+            raise NotImplementedError("disaggregated serving is not ported "
+                                      "yet: ROADMAP A16")
         if clip_size % 2:
             raise ValueError("Qwen streaming ingests temporal frame pairs; "
                              f"clip_size must be even (got {clip_size})")
@@ -63,7 +78,7 @@ class QwenStreamSession:
         self.tokenizer = tokenizer
         self.clip_size = clip_size
         self.metrics = MetricMeter()
-        self.device = model.llm.embed.device
+        self.device = model.llm.device
         self.generator = Generator(model.llm, max_len=max_len)
         self.resize_hw = smart_resize(*frame_hw, factor=56,
                                       max_pixels=max_pixels)
@@ -196,8 +211,8 @@ class QwenStreamSession:
                                            (gh, gw), (gh // 2, gw // 2))
         pre = torch.as_tensor(h["pre"], device=dev)
         post = torch.as_tensor(h["post_p"], device=dev)
-        embeds = torch.cat([llm.embed_tokens(pre[None]),
-                            vis[None].to(llm.embed.dtype),
+        text_pre = llm.embed_tokens(pre[None])
+        embeds = torch.cat([text_pre, vis[None].to(text_pre.dtype),
                             llm.embed_tokens(post[None])], dim=1)
         # 3D rope positions with the AM-RoPE visual block; text after it
         # resumes at max + 1
@@ -214,7 +229,8 @@ class QwenStreamSession:
                gen: Optional[GenerationConfig] = None) -> str:
         """Answer against the latest published snapshot."""
         with Timer(self.metrics, "llm_latency"):
-            snapshot, n_frames = self._published
+            with Timer(self.metrics, "llm_latency_memoryio"):
+                snapshot, n_frames = self._published
             if snapshot is None:
                 raise RuntimeError("no frames ingested yet")
             return self.answer_snapshot(snapshot, n_frames, question, gen)

@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from ..core.device import resolve_device
+from .quantize import QuantWeight, QuantWeight4
 
 
 def _tensor(v: np.ndarray, device, dtype) -> torch.Tensor:
@@ -25,23 +26,31 @@ def _tensor(v: np.ndarray, device, dtype) -> torch.Tensor:
     return t.to(device)
 
 
+_QUANT = {("q", "scale"): QuantWeight, ("q4", "scale"): QuantWeight4}
+
+
 def params_from_numpy(tree: dict, device=None, dtype=None) -> dict:
     """Nested dict of numpy arrays -> nested dict of tensors on `device`
-    (default: the card; floating leaves cast to `dtype` when given). Raises
-    on quantized leaves (QuantWeight, QuantWeight4), which the port does not
-    run yet (ROADMAP A10-A12), and on LoRA views (`lora_from_numpy` carries
-    an adapter tree)."""
+    (default: the card; floating leaves cast to `dtype` when given).
+    Quantized leaves (JAX `QuantWeight` / `QuantWeight4`, NamedTuples of
+    numpy arrays as `jax.tree.map(np.asarray, ...)` leaves them) become the
+    port's types with their dtypes kept: int8 / uint8 values and f32 scales,
+    whatever `dtype` is. Anything else that is not an array raises (LoRA
+    views: `lora_from_numpy` carries an adapter tree)."""
     device = resolve_device(device)
     out = {}
     for k, v in tree.items():
         if isinstance(v, dict):
             out[k] = params_from_numpy(v, device, dtype)
-            continue
-        if not isinstance(v, np.ndarray):
+        elif tuple(getattr(v, "_fields", ())) in _QUANT:
+            out[k] = _QUANT[tuple(v._fields)](
+                *(_tensor(np.asarray(f), device, None) for f in v))
+        elif isinstance(v, np.ndarray):
+            out[k] = _tensor(v, device, dtype)
+        else:
             raise NotImplementedError(
-                f"leaf {k!r} is a {type(v).__name__}; quantized weights are "
-                f"not ported yet: ROADMAP A10-A12")
-        out[k] = _tensor(v, device, dtype)
+                f"leaf {k!r} is a {type(v).__name__}, not an array or a "
+                f"quantized weight")
     return out
 
 

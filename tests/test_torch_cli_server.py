@@ -1,0 +1,180 @@
+"""The port's CLI server (serve/cli_server.py) held against the JAX server.
+
+Both servers run --dry-run over the same parameter tree (the JAX tiny
+config's, carried by `params_from_numpy` through the port's own
+`build_session` and `_apply_quantization`), stream the same synthetic
+frames and draw the same k-means init values (the JAX session's PRNG keys),
+so the frames ingested and the greedy answers' token ids must be equal.
+Quantized decoders on the CPU take the JAX package's own dequantize path,
+in f32, and the ViT runs in bf16 in both; the greedy tokens must be the
+same, as in tests/test_torch_streaming.py.
+"""
+import json
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from flash_vstream_tpu.core.config import tiny_qwen_config as jax_tiny
+from flash_vstream_tpu.models.vstream_qwen import init_qwen_params as jax_init
+from flash_vstream_tpu.serve import cli_server as jcli
+from flash_vstream_tpu_torch.serve import cli_server as tcli
+from flash_vstream_tpu_torch.weights.from_jax import params_from_numpy
+from flash_vstream_tpu_torch.weights.quantize import QuantWeight, QuantWeight4
+
+torch.set_num_threads(1)
+
+BASE = ["--model-family", "qwen", "--dry-run", "--synthetic-frames", "8",
+        "--clip-size", "2", "--fps", "2", "--play_speed", "0",
+        "--question", "What is happening?", "--max-new-tokens", "6"]
+
+
+def _jax_draws(step, n):
+    return torch.from_numpy(np.array(
+        jax.random.uniform(jax.random.PRNGKey(step), (n,))))
+
+
+def _run_both(monkeypatch, flags):
+    """(JAX summary, port summary, JAX answer ids, port answer ids)."""
+    jparams = jax_init(jax.random.PRNGKey(0), jax_tiny())
+    jids, tids = [], []
+
+    def jax_build(args, build=jcli.build_session):
+        sess = build(args)
+        fused = sess._answer_fused
+
+        def record(*a, **k):
+            out = fused(*a, **k)
+            jids.append([int(t) for t in out])
+            return out
+        sess._answer_fused = record
+        return sess
+
+    def port_init(cfg, generator, device=None, dtype=torch.float32):
+        return params_from_numpy(jax.tree.map(np.asarray, jparams), device)
+
+    def port_build(args, build=tcli.build_session):
+        sess = build(args)
+        sess._init_scores = _jax_draws
+        tokens = sess.answer_tokens
+
+        def record(*a, **k):
+            out = tokens(*a, **k)
+            tids.append(list(out))
+            return out
+        sess.answer_tokens = record
+        return sess
+
+    monkeypatch.setattr(jcli, "build_session", jax_build)
+    monkeypatch.setattr(tcli, "build_session", port_build)
+    monkeypatch.setattr(
+        "flash_vstream_tpu_torch.models.vstream_qwen.init_qwen_params",
+        port_init)
+    argv = BASE + flags
+    want = jcli.run_server(jcli.make_parser().parse_args(argv))
+    got = tcli.run_server(tcli.make_parser().parse_args(
+        argv + ["--device", "cpu"]))
+    return want, got, jids, tids
+
+
+@pytest.mark.parametrize("flags", [
+    ["--load-4bit", "--question_interval", "1000"],
+    ["--load-8bit", "--int8-vit", "--question_interval", "0.0001"],
+], ids=["load_4bit", "load_8bit_int8_vit"])
+def test_dry_run_matches_jax_server(monkeypatch, flags):
+    want, got, jids, tids = _run_both(monkeypatch, flags)
+    assert got["frames_ingested"] == want["frames_ingested"] == 8
+    assert len(tids) == len(jids) == len(got["answers"]) >= 1
+    assert tids == jids
+    assert [a["answer"] for a in got["answers"]] == [
+        a["answer"] for a in want["answers"]]
+    assert [a["frames"] for a in got["answers"]] == [
+        a["frames"] for a in want["answers"]]
+    for name in ("memory_latency", "llm_latency", "llm_latency_memoryio",
+                 "conv_latency", "memory_latency_dispatch",
+                 "memory_latency_host_preprocess"):
+        assert name in got["metrics"] and name in want["metrics"], name
+
+
+def test_quantization_flags_build_quantized_trees():
+    args = tcli.make_parser().parse_args(
+        ["--dry-run", "--device", "cpu", "--load-4bit", "--int8-vit"])
+    sess = tcli.build_session(args)
+    llm, vit = sess.model.llm.tree(), sess.model.vit.tree()
+    assert isinstance(llm["layers"]["mlp"]["up"]["w"], QuantWeight4)
+    assert isinstance(llm["lm_head"], QuantWeight4)
+    assert isinstance(llm["embed"], torch.Tensor)            # stays as is
+    assert isinstance(vit["layers"]["attn"]["wq"]["w"], QuantWeight)
+    assert isinstance(vit["patch_embed"]["w"], torch.Tensor)
+    assert isinstance(vit["merger"]["fc1"]["w"], torch.Tensor)
+    args = tcli.make_parser().parse_args(
+        ["--dry-run", "--device", "cpu", "--load-8bit"])
+    llm = tcli.build_session(args).model.llm.tree()
+    assert isinstance(llm["layers"]["attn"]["wq"]["w"], QuantWeight)
+
+
+def test_question_intervals_output_file_and_prewarm(tmp_path):
+    out = tmp_path / "summary.json"
+    summary = tcli.main(BASE + [
+        "--device", "cpu", "--load-4bit", "--prewarm",
+        "--question_interval", "0.0001", "--output-file", str(out)])
+    assert summary["frames_ingested"] == 8
+    # a question after every clip (4 clips) and one after the stream
+    assert len(summary["answers"]) == 5
+    assert [a["frames"] for a in summary["answers"]] == [2, 4, 6, 8, 8]
+    assert json.loads(out.read_text()) == json.loads(json.dumps(summary))
+    assert summary["metrics"]["answer_tokens"]["count"] == 5   # after prewarm
+
+
+def test_frame_directory_source(tmp_path):
+    from PIL import Image
+    d = tmp_path / "frames"
+    d.mkdir()
+    rng = np.random.default_rng(0)
+    for i in range(6):
+        Image.fromarray(rng.integers(0, 255, (56, 56, 3), dtype=np.uint8)
+                        ).save(d / f"{i:06d}.jpg")
+    summary = tcli.main(["--dry-run", "--device", "cpu", "--video_file",
+                         str(d), "--clip-size", "2", "--play_speed", "0",
+                         "--question", "Q?", "--question_interval", "1000",
+                         "--max-new-tokens", "3"])
+    assert summary["frames_ingested"] == 6 and len(summary["answers"]) == 1
+
+
+@pytest.mark.parametrize("flag,item", [
+    (["--model-family", "llava"], "A13"),
+    (["--model-path", "/nonexistent"], "A10"),
+    (["--w8a8-prefill"], "A10"),
+    (["--kv-int8"], "A10"),
+    (["--stream-output"], "A6/A7"),
+    (["--preempt", "2"], "A6/A7"),
+    (["--prefill-chunk", "64"], "A6/A7"),
+    (["--threaded-ingest"], "A15"),
+    (["--save-session", "x"], "A7"),
+    (["--resume-session", "x"], "A7"),
+    (["--ingest-devices", "1"], "A16"),
+    (["--decode-devices", "1"], "A16"),
+])
+def test_unported_flags_raise(flag, item):
+    with pytest.raises(NotImplementedError, match=item):
+        tcli.main(["--dry-run", "--device", "cpu", *flag])
+
+
+def test_no_checkpoint_loader_yet():
+    with pytest.raises(NotImplementedError, match="A10"):
+        tcli.main(["--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="A10"):
+        tcli._apply_quantization({}, tcli.make_parser().parse_args(
+            ["--w8a8-prefill"]))
+
+
+def test_session_refuses_unported_options():
+    from flash_vstream_tpu_torch.runtime.streaming import QwenStreamSession
+    sess = tcli.build_session(tcli.make_parser().parse_args(
+        ["--dry-run", "--device", "cpu"]))
+    with pytest.raises(NotImplementedError, match="A10"):
+        QwenStreamSession(sess.model, sess.tokenizer,
+                          kv_cache_dtype=torch.int8)
+    with pytest.raises(NotImplementedError, match="A16"):
+        QwenStreamSession(sess.model, sess.tokenizer, placement=object())

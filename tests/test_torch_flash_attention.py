@@ -205,3 +205,20 @@ def test_kernel_raises_instead_of_falling_back(cuda):
     y = torch.zeros(1, 2, 8, 96, device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="head_dim"):
         flash_attention(y, y, y)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D", [8, 16])
+def test_small_head_dims_pad_to_the_kernel(cuda, D):
+    """The tiny configs' head dims (ViT 8, decoder 16) run K1 zero-padded to
+    64; the result is the plain attention's at the true head_dim."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    q, k, v = (torch.randn(2, 4, 40, D, generator=g, device=cuda)
+               .to(torch.bfloat16) for _ in range(3))
+    n0 = flash_attention_cuda.launches
+    got = flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert flash_attention_cuda.launches == n0 + 1
+    assert got.shape == q.shape
+    want = flash_attention_reference(q, k, v, causal=True)
+    assert (got.float() - want.float()).abs().max().item() <= 2e-2

@@ -177,7 +177,13 @@ def test_gelu_mlp(x, act):
 
 
 def test_quantized_leaves_and_int8_cache_raise():
-    with pytest.raises(NotImplementedError, match="A10"):
+    """Quantized leaves are ported (tests/test_torch_quantize.py holds them
+    against JAX); a leaf of no known kind raises, and so does the int8 KV
+    cache, which is not ported yet."""
+    from flash_vstream_tpu_torch.weights.quantize import quantize_weight4
+    qw = quantize_weight4(torch.ones(4, 8))
+    assert tl.dense(torch.ones(2, 4), qw).shape == (2, 8)
+    with pytest.raises(TypeError, match="QuantWeight4"):
         tl.dense(torch.zeros(2, 4), object())
     with pytest.raises(NotImplementedError, match="A10"):
         tl.KVCache.create(1, 1, 1, 8, 4, dtype=torch.int8)

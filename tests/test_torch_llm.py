@@ -134,8 +134,13 @@ def test_params_from_numpy_dtype_and_quantized_leaves():
     assert got["a"]["w"].dtype == torch.bfloat16
     assert got["ids"].dtype == torch.int32           # only floats are cast
     quant = {"w": quantize_weight(jnp.ones((8, 4)))}
-    with pytest.raises(NotImplementedError, match="A10"):
-        params_from_numpy(jax.tree.map(np.asarray, quant), "cpu")
+    got = params_from_numpy(jax.tree.map(np.asarray, quant), "cpu",
+                            torch.bfloat16)["w"]
+    assert type(got).__name__ == "QuantWeight"
+    assert got.q.dtype == torch.int8                 # values stay int8
+    assert got.scale.dtype == torch.float32          # scales stay f32
+    with pytest.raises(NotImplementedError, match="not an array"):
+        params_from_numpy({"w": object()}, "cpu")
 
 
 @pytest.mark.parametrize("t,h,w", [(1, 16, 16), (7, 16, 16), (90, 16, 16),

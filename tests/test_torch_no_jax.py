@@ -1,5 +1,7 @@
 """The port runs without JAX and without the JAX package: a tiny ingest +
-answer and a tiny LoRA training step on the CPU in a fresh interpreter leave
+answer, a tiny LoRA training step, an answer over an int4 decoder (prefill
+and a decode step) and the --load-4bit dry-run server on the CPU in a fresh
+interpreter leave
 `jax` and `flash_vstream_tpu` out of sys.modules (the tests' own conftest
 imports jax, hence the subprocess); no source file of the port imports
 either; and the port's copy of the config dataclasses equals the JAX
@@ -40,6 +42,23 @@ with tempfile.TemporaryDirectory() as out:
         "--grad-accum", "1", "--max-frames", "4", "--frame-bucket", "4",
         "--max-len", "128", "--max-pixels", str(56 * 56), "--lora-rank", "2"]))
 assert len(res["losses"]) == 1 and np.isfinite(res["losses"][0])
+from flash_vstream_tpu_torch.weights.quantize import QuantWeight4, quantize_params4
+qmodel = VStreamQwen(cfg, {"vit": model.vit.tree(),
+                          "llm": quantize_params4(model.llm.tree())})
+assert isinstance(qmodel.llm.tree()["lm_head"], QuantWeight4)
+qsess = QwenStreamSession(qmodel, make_byte_qwen_tokenizer(), frame_hw=(56, 56),
+                          clip_size=2, bank_size=8, max_len=512)
+qsess.ingest_frames([rng.integers(0, 256, (56, 56, 3), dtype=np.uint8)
+                     for _ in range(2)])
+toks = qsess.answer_tokens(*qsess._published, "what?",
+                           GenerationConfig(max_new_tokens=2))
+assert 1 <= len(toks) <= 2
+from flash_vstream_tpu_torch.serve.cli_server import main
+summary = main(["--dry-run", "--device", "cpu", "--load-4bit",
+                "--synthetic-frames", "4", "--play_speed", "0",
+                "--question", "Q?", "--question_interval", "1000",
+                "--max-new-tokens", "2"])
+assert summary["frames_ingested"] == 4 and len(summary["answers"]) == 1
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flash_vstream_tpu"))
 assert not bad, bad

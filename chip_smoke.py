@@ -36,7 +36,17 @@ Phases, one or more lines each; any failure raises and exits non-zero:
    decoder (--load-4bit): 168 frames paced at 8 fps, 3 answers, K6 in every
    decode matvec, K1/K2/K6 launched exactly as reckoned and no error logged;
    full-width logits K6 vs the dequantize path; decode and prefill times;
-   the --dry-run --load-4bit server as a subprocess.
+   the --dry-run --load-4bit server as a subprocess;
+12. bank_gather: P1 (bulk-copy bank gather) bit-exact against its plain
+   version in bf16 and f32 at the DAM-gather probe's shape and odd shapes;
+   P1, K2, index_select and the one-hot matmul timed; the probe
+   (scripts/probe_bank_gather.py) at its defaults, P1/K2 launches exact;
+13. vit_probe: P2 (frame-local attention) against its plain version at the
+   ViT's 224 and 448 px frame shapes, timed beside K1 and SDPA; the ViT
+   probe (scripts/probe_vit_variants.py) at full width, every mode, bf16,
+   --int8-weight-only and --int8, K1/P2 launches exact; w8a8 `dense`
+   against weight-only int8 at prefill shapes; the --dry-run --load-8bit
+   --int8-vit --w8a8-prefill server as a subprocess.
 
 `--profile DIR` also traces one training-slice step with torch.profiler and
 writes its kernel table there. The line before the last is one JSON object
@@ -1093,6 +1103,264 @@ def _synthetic_videos(root, n_items, side):
     return path
 
 
+# P1's odd cases, (bank shape, indices): repeated indices, K = 1, and rows
+# that are not a multiple of the 16 KB stage (18,480 and 1,008 bytes in bf16)
+P1_ODD = (((64, 7, 1320), [5, 63, 5, 0, 5]), ((64, 7, 1320), [17]),
+          ((50, 7, 72), [49, 0, 49]))
+
+
+def check_bank_gather(dev):
+    """P1 against its plain version, bit-exact, at the probe's shape (bank
+    [1024, 256, 1280], 30 indices) in bf16 and f32 and at the odd cases;
+    device times of the probe's four routes at that shape in bf16, 32 index
+    sets rotating so the reads come from device memory, not the 50 MB L2;
+    then the probe's entry point at its defaults, P1 and K2 launched
+    exactly as reckoned. Returns (P1's row, the probe run's launches)."""
+    import torch
+    from flash_vstream_tpu_torch.kernels.bank_gather import (
+        bank_gather_cuda, bank_gather_reference)
+    from flash_vstream_tpu_torch.kernels.gather_rows import gather_rows_cuda
+    from flash_vstream_tpu_torch.scripts import probe_bank_gather as probe
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 5)
+    T, K, P, D = 1024, 30, 256, 1280
+    idxs = [torch.randint(0, T, (K,), generator=g, device=dev,
+                          dtype=torch.int64).to(torch.int32) for _ in range(32)]
+    for dtype in (torch.bfloat16, torch.float32):
+        cases = [(probe.make_bank(T, P, D, dtype, dev, SEED), i)
+                 for i in idxs[:4]]
+        cases += [(probe.make_bank(*shape, dtype, dev, SEED),
+                   torch.tensor(i, dtype=torch.int32, device=dev))
+                  for shape, i in P1_ODD]
+        for bank, idx in cases:
+            got = bank_gather_cuda(bank, idx)
+            torch.cuda.synchronize(dev)
+            if not torch.equal(got, bank_gather_reference(bank, idx)):
+                raise AssertionError(f"P1 {dtype} bank{tuple(bank.shape)} "
+                                     f"idx {idx.tolist()}: not bit-exact")
+        print(f"P1 {str(dtype)[6:]}: bit-exact against index_select at bank"
+              f"[{T}, {P}, {D}] x 4 index sets of {K} and bank[64, 7, 1320] "
+              f"idx [5, 63, 5, 0, 5] / [17], bank[50, 7, 72] idx [49, 0, 49]",
+              flush=True)
+        del cases
+    bank = probe.make_bank(T, P, D, torch.bfloat16, dev, SEED)
+    lidx = [i.long() for i in idxs]
+    ms = _ms(lambda i: bank_gather_cuda(bank, idxs[i % 32]), 64)
+    eager = _eager_ms(lambda i: bank_gather_cuda(bank, idxs[i % 32]), 200)
+    k2 = _ms(lambda i: gather_rows_cuda(bank, idxs[i % 32]), 64)
+    plain = _ms(lambda i: bank_gather_reference(bank, idxs[i % 32]), 64)
+    lib = _ms(lambda i: bank.index_select(0, lidx[i % 32]), 64)
+    onehot = _ms(lambda i: probe.gather_onehot(bank, idxs[i % 32]), 8)
+    bound = _bound(0, 2 * _nbytes(bank[:K]) + _nbytes(idxs[0]))
+    print(f"P1 bank_gather: bank[{T}, {P}, {D}] bf16 idx[{K}] (19.7 MB "
+          f"out) kernel_ms={ms:.4f} eager_ms={eager:.4f} k2_ms={k2:.4f} "
+          f"plain_ms={plain:.4f} (index_select, int32 idx) bound_ms="
+          f"{bound[0]:.4f} ({bound[1]}) library_ms={lib:.4f} (index_select)"
+          f" onehot_ms={onehot:.4f}", flush=True)
+    del bank
+
+    # the probe through its entry point, at its defaults
+    iters = 50
+    _reset_launches()
+    res = probe.main(["--iters", str(iters)])
+    got = {"bank_gather": bank_gather_cuda.launches,
+           "gather_rows": gather_rows_cuda.launches}
+    # the chain runs eagerly once, then once under capture; the replays
+    # launch without passing through the wrappers
+    want = {"bank_gather": 2 * iters, "gather_rows": 2 * iters}
+    print(f"bank_gather: python -m flash_vstream_tpu_torch.scripts."
+          f"probe_bank_gather (defaults, {iters} chained gathers, graph "
+          f"replay best of {probe.TRIALS}) ms per gather: " + " ".join(
+              f"{m}={s * 1e3:.4f}" for m, s in res.items())
+          + f"; launches P1={got['bank_gather']} K2={got['gather_rows']} "
+          f"(2 x {iters} each, reckoned)", flush=True)
+    if got != want or set(res) != set(probe.MODES):
+        raise AssertionError(f"bank_gather probe: launches {got}, reckoned "
+                             f"{want}; routes {list(res)}")
+    row = dict(max_abs_err=0.0, ms=ms, plain_ms=plain, bound_ms=bound[0],
+               bound_by=bound[1], library_ms=lib)
+    return {"bank_gather": row}, got
+
+
+# P2 at the ViT's per-frame shapes: (name, frames, tokens per frame), 16
+# heads of 80; limit as K1's (bf16 outputs of f32 sums)
+P2_CASES = (("224px_full", 4, 256), ("224px_small", 4, 64),
+            ("448px_full", 4, 1024), ("448px_small", 4, 256))
+P2_TOL = 2e-2
+# w8a8 `dense` against weight-only int8 at prefill shapes (rows, din, dout):
+# per-token int8 activations move the output by about 1e-2 of its max
+# (tests/test_torch_w8a8.py reads 0.8e-2 to 1.2e-2 on the CPU)
+W8A8_LIMIT = 3e-2
+W8A8_SHAPES = (("vit wq/wk/wv/wo", 1024, 1280, 1280),
+               ("vit fc1", 1024, 1280, 5120), ("vit fc2", 1024, 5120, 1280),
+               ("decoder wq/wo", 2989, 3584, 3584),
+               ("decoder wk/wv", 2989, 3584, 512),
+               ("decoder gate/up", 2989, 3584, 18944),
+               ("decoder down", 2989, 18944, 3584))
+LONG_QUESTION = "What is happening, and which objects appear? " * 4 + "Say."
+# the ViT probe's modes against base: max |err| over max |base| after 32
+# layers. The modes that compute base's function read 2.35e-2 in bf16 (its
+# attention rounds p to bf16 at other points, and 32 layers carry that),
+# 3.81e-2 under w8a8; onecall reads 0.81 and noattn 1.40 (H100 80GB HBM3,
+# 700 W)
+VIT_MODE_LIMIT = 1e-1
+
+
+def check_frame_attention(dev):
+    """P2 against its plain version at the ViT's 224 and 448 px frame
+    shapes (the ViT's strided [T, P, H, Dh] -> [T, H, P, Dh] views) with
+    head blocks 1 and 8; P2 (both blocks), K1, SDPA and the plain version
+    timed on the same inputs, with the bound. Returns P2's row, at the
+    224 px full stream (head block 8, the probe's default)."""
+    import torch
+    import torch.nn.functional as F
+    from flash_vstream_tpu_torch.kernels.flash_attention import (
+        flash_attention_cuda)
+    from flash_vstream_tpu_torch.kernels.frame_attention import (
+        frame_attention_cuda, frame_attention_reference)
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 6)
+    worst, row = 0.0, None
+    for name, T, S in P2_CASES:
+        q, k, v = (torch.randn(T, S, 16, 80, generator=g, device=dev)
+                   .to(torch.bfloat16).transpose(1, 2) for _ in range(3))
+        ref = frame_attention_reference(q, k, v)
+        errs = []
+        for hb in (1, 8):
+            out = frame_attention_cuda(q, k, v, head_block=hb)
+            torch.cuda.synchronize(dev)
+            errs.append((out.float() - ref.float()).abs().max().item())
+            if not torch.isfinite(out).all() or errs[-1] > P2_TOL:
+                raise AssertionError(f"P2 {name} head_block {hb}: max_abs_err"
+                                     f" {errs[-1]} > {P2_TOL} or non-finite")
+        worst = max(worst, *errs)
+        ms = _ms(lambda i: frame_attention_cuda(q, k, v, head_block=8), 50)
+        ms1 = _ms(lambda i: frame_attention_cuda(q, k, v, head_block=1), 50)
+        k1 = _ms(lambda i: flash_attention_cuda(q, k, v), 50)
+        lib = _ms(lambda i: F.scaled_dot_product_attention(q, k, v), 50)
+        plain = _ms(lambda i: frame_attention_reference(q, k, v), 5)
+        bound = _bound(4 * T * 16 * S * S * 80, _nbytes(q, k, v, q))
+        print(f"P2 {name}: q[{T}, 16, {S}, 80] bf16 max_abs_err hb1="
+              f"{errs[0]:.3e} hb8={errs[1]:.3e} (limit {P2_TOL:.0e}) "
+              f"kernel_ms hb8={ms:.4f} hb1={ms1:.4f} k1_ms={k1:.4f} "
+              f"plain_ms={plain:.4f} bound_ms={bound[0]:.4f} ({bound[1]}) "
+              f"library_ms={lib:.4f} (scaled_dot_product_attention)",
+              flush=True)
+        if row is None:
+            row = dict(ms=ms, plain_ms=plain, bound_ms=bound[0],
+                       bound_by=bound[1], library_ms=lib)
+    return {"frame_attention": dict(max_abs_err=worst, **row)}
+
+
+def check_w8a8(dev, work):
+    """w8a8 `dense` against weight-only int8 `dense` on the same inputs at
+    the ViT's and the decoder's prefill shapes (err over max |weight-only|,
+    held to W8A8_LIMIT; both timed), then the dry-run server with
+    --load-8bit --int8-vit --w8a8-prefill on the card in its own process
+    (a 184-byte question makes its prefill >= 128 rows, which w8a8 takes)."""
+    import torch
+    from flash_vstream_tpu_torch.models import layers
+    from flash_vstream_tpu_torch.weights.quantize import (enable_w8a8_prefill,
+                                                          quantize_weight)
+    g = torch.Generator(device=dev).manual_seed(SEED + 7)
+    for name, rows, din, dout in W8A8_SHAPES:
+        x = torch.randn(rows, din, generator=g, device=dev).to(torch.bfloat16)
+        w = quantize_weight(torch.randn(din, dout, generator=g, device=dev)
+                            / din ** 0.5)
+        timed = {}
+        for on in (False, True):
+            enable_w8a8_prefill(on)       # read when `dense` is called
+            try:
+                timed[on] = (layers.dense(x, w).float(),
+                             _ms(lambda i: layers.dense(x, w), 10))
+            finally:
+                enable_w8a8_prefill(False)
+        wo, w8 = timed[False][0], timed[True][0]
+        err = ((w8 - wo).abs().max() / wo.abs().max()).item()
+        print(f"w8a8 {name}: x[{rows}, {din}] @ int8[{din}, {dout}] err/max "
+              f"against weight-only {err:.3e} (limit {W8A8_LIMIT:.0e}) "
+              f"w8a8_ms={timed[True][1]:.4f} weight_only_ms="
+              f"{timed[False][1]:.4f}", flush=True)
+        if not torch.isfinite(w8).all() or err > W8A8_LIMIT:
+            raise AssertionError(f"w8a8 {name}: err/max {err} > {W8A8_LIMIT}")
+        del x, w, timed
+
+    out = os.path.join(work, "dry_run_w8a8.json")
+    os.makedirs(work, exist_ok=True)
+    proc = subprocess.run(
+        [sys.executable, "-m", "flash_vstream_tpu_torch.serve.cli_server",
+         "--dry-run", "--load-8bit", "--int8-vit", "--w8a8-prefill",
+         "--synthetic-frames", "8", "--play_speed", "0", "--question",
+         LONG_QUESTION, "--question_interval", "1000", "--max-new-tokens",
+         "4", "--output-file", out],
+        cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+        text=True, timeout=300)
+    if proc.returncode != 0:
+        raise AssertionError(f"cli_server --dry-run --w8a8-prefill exited "
+                             f"{proc.returncode}: {proc.stderr[-2000:]}")
+    with open(out) as f:
+        dry = json.load(f)
+    if dry["frames_ingested"] != 8 or len(dry["answers"]) != 1:
+        raise AssertionError(f"cli_server --dry-run --w8a8-prefill: {dry}")
+    print(f"w8a8: python -m flash_vstream_tpu_torch.serve.cli_server "
+          f"--dry-run --load-8bit --int8-vit --w8a8-prefill on the card: "
+          f"exit 0, {dry['frames_ingested']} frames, answer "
+          f"{dry['answers'][0]['answer'][:30]!r}", flush=True)
+
+
+def run_vit_probe(dev, iters=2, trials=2):
+    """The ViT probe through its entry point at full width (32 layers, 1280
+    hidden, 224 px, clip 8), every mode, in bf16, then --int8-weight-only,
+    then --int8: ms/clip by graph replay and eagerly, TF/s, max |err|
+    against base, and K1 and P2 launched exactly as reckoned per mode and
+    over the three runs; the modes that compute base's function within
+    VIT_MODE_LIMIT of base, onecall and noattn beyond it. Returns the
+    launches of the three runs."""
+    from flash_vstream_tpu_torch.kernels.flash_attention import (
+        flash_attention_cuda)
+    from flash_vstream_tpu_torch.kernels.frame_attention import (
+        frame_attention_cuda)
+    from flash_vstream_tpu_torch.models import layers
+    from flash_vstream_tpu_torch.scripts import probe_vit_variants as probe
+
+    L = 32
+    # encodes through the wrappers per mode: the chain eagerly once and
+    # under capture once (graph time), `trials` eager chains, one for err
+    blocks = L * (iters * (2 + trials) + 1)
+    want = {"K1": 0, "P2": 0}
+    _reset_launches()
+    for flag in ("", "--int8-weight-only", "--int8"):
+        res = probe.main(["--modes", ",".join(probe.MODES), "--iters",
+                          str(iters), "--trials", str(trials)]
+                         + ([flag] if flag else []))
+        want["K1"] += 2 * L                    # main's own base encode
+        for mode, r in res.items():
+            per = {"K1": probe.K1_PER_BLOCK.get(mode, 0) * blocks,
+                   "P2": probe.P2_PER_BLOCK.get(mode, 0) * blocks}
+            want = {k: want[k] + per[k] for k in want}
+            print(f"vit_probe {flag or 'bf16'} {mode}: ms/clip graph "
+                  f"{r['s'] * 1e3:.2f} eager {r['eager_s'] * 1e3:.2f} TF/s "
+                  f"{r['tflops']:.1f} max|err| vs base {r['err']:.3e} "
+                  f"({r['err_rel']:.2e} of max, limit {VIT_MODE_LIMIT:.0e} "
+                  f"{'within' if mode in probe.SAME_AS_BASE else 'beyond'}) "
+                  f"launches K1={r['launches']['K1']} P2={r['launches']['P2']}"
+                  f" (reckoned {per['K1']}, {per['P2']})", flush=True)
+            same = mode in probe.SAME_AS_BASE
+            if (r["blocks"] != blocks or r["launches"] != per
+                    or not math.isfinite(r["err_rel"])
+                    or (r["err_rel"] <= VIT_MODE_LIMIT) != same):
+                raise AssertionError(f"vit_probe {flag} {mode}: {r}")
+        if layers.W8A8_PREFILL:
+            raise AssertionError("vit_probe: w8a8 left on after the run")
+    got = {"K1": flash_attention_cuda.launches,
+           "P2": frame_attention_cuda.launches}
+    print(f"vit_probe: launches over the three runs K1={got['K1']} "
+          f"P2={got['P2']} (reckoned {want['K1']}, {want['P2']})", flush=True)
+    if got != want:
+        raise AssertionError(f"vit_probe: launches {got}, reckoned {want}")
+    return {"flash_attention_fwd": got["K1"], "frame_attention": got["P2"]}
+
+
 def _launches():
     from flash_vstream_tpu_torch.kernels import flash_attention as fa
     return {"K1": fa.flash_attention_cuda.launches,
@@ -1103,11 +1371,15 @@ def _launches():
 
 def _reset_launches():
     from flash_vstream_tpu_torch.kernels import flash_attention as fa
+    from flash_vstream_tpu_torch.kernels.bank_gather import bank_gather_cuda
+    from flash_vstream_tpu_torch.kernels.frame_attention import (
+        frame_attention_cuda)
     from flash_vstream_tpu_torch.kernels.gather_rows import gather_rows_cuda
     from flash_vstream_tpu_torch.kernels.int4_matmul import int4_matmul_cuda
     for fn in (fa.flash_attention_cuda, fa.flash_attention_fwd_lse_cuda,
                fa.flash_attention_bwd_dq_cuda, fa.flash_attention_bwd_dkv_cuda,
-               gather_rows_cuda, int4_matmul_cuda):
+               gather_rows_cuda, int4_matmul_cuda, bank_gather_cuda,
+               frame_attention_cuda):
         fn.launches = 0
 
 
@@ -1503,7 +1775,7 @@ def profile_train_step(dev, params, data, work, out_dir, step_s, cfg=None):
 
 PHASES = ("kernels", "int4_kernel", "reference", "int4_reference", "slice",
           "backward", "function", "train_reference", "train_slice",
-          "production", "serve4")
+          "production", "serve4", "bank_gather", "vit_probe")
 
 
 def main() -> int:
@@ -1557,6 +1829,18 @@ def main() -> int:
         check_int4_reference(dev)
     if "train_reference" in only:
         check_train_reference(dev)
+    if "bank_gather" in only:
+        row, paths["probe_bank_gather"] = check_bank_gather(dev)
+        rows.update(row)
+    if "vit_probe" in only:
+        rows.update(check_frame_attention(dev))
+        paths["probe_vit_variants"] = run_vit_probe(dev)
+        work = os.path.join(root, "build", "chip_smoke_w8a8")
+        try:
+            check_w8a8(dev, work)
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+        _release(dev)
     if "slice" in only:
         _reset_launches()
         k1, k2, params = run_slice(dev)
@@ -1590,15 +1874,21 @@ def main() -> int:
         "flash_attention_bwd_dq": ("flash_attention_bwd.cu", ":285"),
         "flash_attention_bwd_dkv": ("flash_attention_bwd.cu", ":332"),
         "int4_matmul": ("int4_matmul.cu", ""),
+        "bank_gather": ("bank_gather.cu", ""),
+        "frame_attention": ("frame_attention.cu", ""),
     }
     replaces = {"gather_rows": "flash_vstream_tpu/kernels/gather_rows.py:23",
-                "int4_matmul": "flash_vstream_tpu/kernels/int4_matmul.py:45"}
+                "int4_matmul": "flash_vstream_tpu/kernels/int4_matmul.py:45",
+                "bank_gather": "scripts/probe_bank_gather.py:81",
+                "frame_attention": "scripts/probe_vit_variants.py:219"}
     # `launches` counts the run of the path the kernel was ported for;
     # `launches_by_path` each path's own run (counts reset before each)
     own = {"flash_attention_fwd": "slice", "gather_rows": "slice",
            "flash_attention_fwd_lse": "train_slice",
            "flash_attention_bwd_dq": "train_slice",
-           "flash_attention_bwd_dkv": "train_slice", "int4_matmul": "serve4"}
+           "flash_attention_bwd_dkv": "train_slice", "int4_matmul": "serve4",
+           "bank_gather": "probe_bank_gather",
+           "frame_attention": "probe_vit_variants"}
     kernels = []
     for name, row in rows.items():
         src, line = sources[name]

@@ -39,6 +39,10 @@ _SIGNATURES = {
     # x, q4, scale, partial, out, out_f32, B, dh, dout, nb, splits,
     # rows_per_split, stream
     "fvt_int4_matmul": [_P] * 5 + [_I] * 7 + [_P],
+    # bank, idx, out, n_idx, row_bytes, stream
+    "fvt_bank_gather": [_P, _P, _P, _I, _LL, _P],
+    # q, k, v, o, 12 strides, B, H, S, D, head_block, scale, stream
+    "fvt_frame_attention": [_P] * 4 + [_LL] * 12 + [_I] * 5 + [_F, _P],
 }
 
 _LIB = None          # the loaded library, once per process

@@ -8,9 +8,10 @@ The arithmetic follows the JAX functions op for op (f32 norms and rotary
 math, the matmul in the activation's dtype, bias added after the matmul) so
 the two packages agree on the CPU.
 
-Weights are bf16/f32 tensors, weight-only int8 `QuantWeight`s, packed int4
+Weights are bf16/f32 tensors, int8 `QuantWeight`s (weight-only, or w8a8 at
+prefill rows once `weights/quantize.enable_w8a8_prefill` is on), packed int4
 `QuantWeight4`s (weights/quantize.py) or merge-free LoRA views
-(train/lora.py's `LoRAWeight`). The int8 KV cache and w8a8 prefill raise
+(train/lora.py's `LoRAWeight`). The int8 KV cache raises
 NotImplementedError (ROADMAP A10).
 """
 from __future__ import annotations
@@ -64,6 +65,42 @@ ACTIVATIONS = {
 }
 
 
+# w8a8 prefill (layers.py:59-75): with the switch on, QuantWeight matmuls of
+# at least _W8A8_MIN_ROWS rows quantize the activations per token to int8 and
+# take an int8 x int8 -> int32 product; decode rows stay weight-only. Set by
+# weights/quantize.enable_w8a8_prefill and read at every call.
+W8A8_PREFILL = False
+_W8A8_MIN_ROWS = 128
+
+
+def _w8a8_dot(x: torch.Tensor, q: torch.Tensor,
+              scale: torch.Tensor) -> torch.Tensor:
+    """x [..., din] @ int8 q [din, dout] with x quantized per token: amax in
+    f32, xs = max(amax / 127, 1e-12), round half to even and clip to
+    [-127, 127]; the int32 product (`torch._int_mm`, exact) times xs and
+    the per-channel scale, cast to x's dtype. On the card `_int_mm` takes
+    more than 16 rows and din, dout multiples of 8: other shapes raise."""
+    if q.dim() != 2:
+        raise ValueError(f"w8a8 takes a 2-D int8 weight, got {tuple(q.shape)}")
+    din, dout = q.shape
+    rows = math.prod(x.shape[:-1])
+    if x.is_cuda and (rows <= 16 or din % 8 or dout % 8):
+        raise ValueError(f"w8a8 on the card needs more than 16 rows and din, "
+                         f"dout multiples of 8, got {rows} rows of "
+                         f"[{din}, {dout}]")
+    xf = x.float()
+    amax = xf.abs().amax(dim=-1, keepdim=True)
+    # divided by a tensor: CUDA turns a division by a Python scalar into a
+    # product with its reciprocal, one ulp off the division JAX does
+    xs = torch.clamp_min(amax / amax.new_full((), 127.0), 1e-12)
+    xq = torch.clamp(torch.round(xf / xs), -127, 127).to(torch.int8)
+    # the weight goes in column-major: cuBLASLt's int8 product takes that
+    # layout at every shape, a row-major one only at some (and slower)
+    out = torch._int_mm(xq.reshape(rows, din), q.t().contiguous().t())
+    out = out.reshape(*x.shape[:-1], dout)
+    return (out.float() * xs * scale).to(x.dtype)
+
+
 def dense(x: torch.Tensor, w, b: Optional[torch.Tensor] = None) -> torch.Tensor:
     """x @ w in x's dtype (the weight is cast to it, as in JAX), then the bias
     in the output's dtype. A LoRA view (w, a, b) computes x @ w + (x @ a) @ b
@@ -71,7 +108,8 @@ def dense(x: torch.Tensor, w, b: Optional[torch.Tensor] = None) -> torch.Tensor:
     the merged matrix never exists and only the factors get gradients.
 
     An int8 `QuantWeight` multiplies by its int8 values cast to x's dtype and
-    scales the output per channel. A `QuantWeight4` of a 2-D weight, on the
+    scales the output per channel; with `W8A8_PREFILL` on and at least 128
+    rows (x.shape[-2], as in JAX) it takes `_w8a8_dot`. A `QuantWeight4` of a 2-D weight, on the
     card, at a shape the K6 gate takes (a decode matvec: at most 32 rows),
     launches K6; everywhere else (prefill rows, the CPU) it dequantizes to
     x's dtype and multiplies, the JAX package's own path (layers.py:95-116),
@@ -81,8 +119,11 @@ def dense(x: torch.Tensor, w, b: Optional[torch.Tensor] = None) -> torch.Tensor:
         lora = torch.matmul(torch.matmul(x, w.a.to(x.dtype)), w.b.to(x.dtype))
         out = out + lora.to(out.dtype)
     elif hasattr(w, "q"):                # weights/quantize.QuantWeight
-        out = torch.matmul(x, w.q.to(x.dtype))
-        out = out * w.scale.to(out.dtype)
+        if W8A8_PREFILL and x.dim() >= 2 and x.shape[-2] >= _W8A8_MIN_ROWS:
+            out = _w8a8_dot(x, w.q, w.scale)
+        else:
+            out = torch.matmul(x, w.q.to(x.dtype))
+            out = out * w.scale.to(out.dtype)
     elif hasattr(w, "q4"):               # weights/quantize.QuantWeight4
         rows = math.prod(x.shape[:-1])
         if (x.is_cuda and w.q4.dim() == 2

@@ -9,6 +9,7 @@ projections and MLP run once over the concatenated token stream.
 """
 from __future__ import annotations
 
+import functools
 from typing import Callable, Optional, Sequence, Tuple
 
 import numpy as np
@@ -91,7 +92,11 @@ def grid_segments(grid_thw: Sequence[Tuple[int, int, int]]) -> np.ndarray:
     return np.concatenate(out)
 
 
+@functools.lru_cache(maxsize=16)
 def _frame_rope(hw: Tuple[int, int], head_dim: int, device):
+    """cos/sin [P, head_dim] of one frame's grid, made once per (grid,
+    device): an encode then copies nothing from the host, so it can be
+    captured in a CUDA graph. Callers only read the tables."""
     pos = torch.from_numpy(grid_positions([(1, *hw)])).to(device)
     return vision_rope_angles(pos[:, 0], pos[:, 1], head_dim)
 
@@ -128,8 +133,8 @@ def qwen_vit_blocks_frames(
     P_small = hw_small[0] * hw_small[1]
     n_full = t_full * P_full
     x = dense(patches, params["patch_embed"]["w"])               # [S, D]
-    rope_f = _frame_rope(hw_full, cfg.head_dim, x.device)
-    rope_s = _frame_rope(hw_small, cfg.head_dim, x.device)
+    rope_f = _frame_rope(tuple(hw_full), cfg.head_dim, x.device)
+    rope_s = _frame_rope(tuple(hw_small), cfg.head_dim, x.device)
     for i in range(cfg.num_layers):
         lp = layer_slice(params["layers"], i)
         h = layer_norm(x, lp["ln1"]["scale"], lp["ln1"]["bias"], 1e-6)

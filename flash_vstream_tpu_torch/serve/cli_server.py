@@ -11,7 +11,8 @@ and the summary dict is the JAX server's.
 
 `--load-4bit` serves from a block-scaled int4 decoder base: every decode
 matvec runs the CUDA kernel K6 (kernels/int4_matmul.py). `--load-8bit`
-serves an int8 decoder and `--int8-vit` int8 ViT blocks. Without a
+serves an int8 decoder and `--int8-vit` int8 ViT blocks; `--w8a8-prefill`
+runs their prefill-scale matmuls as int8 x int8 products. Without a
 checkpoint loader in the port (ROADMAP A10), the server builds its model
 only with --dry-run (the tiny config, random weights from a torch generator
 seeded 0, the byte tokenizer, 56 px frames); `run_server(args, session=...)`
@@ -39,7 +40,6 @@ from ..utils.logging import build_logger
 # flag (argparse attribute), its spelling, the ROADMAP item that ports it
 _NOT_PORTED = (
     ("model_path", "--model-path (the checkpoint loader)", "A10"),
-    ("w8a8_prefill", "--w8a8-prefill", "A10"),
     ("kv_int8", "--kv-int8", "A10"),
     ("stream_output", "--stream-output", "A6/A7"),
     ("preempt", "--preempt", "A6/A7"),
@@ -66,17 +66,19 @@ def _apply_quantization(params: dict, args) -> dict:
     """The reference's load_8bit / load_4bit loader options: the decoder's
     targeted weights become int8 or block-scaled int4 (`quantize_params`,
     `quantize_params4`), and with --int8-vit the ViT blocks int8 (the patch
-    embedding and the merger stay as they are)."""
-    from ..weights.quantize import quantize_params, quantize_params4
-    if getattr(args, "w8a8_prefill", False):
-        raise NotImplementedError("--w8a8-prefill is not ported yet: "
-                                  "ROADMAP A10")
+    embedding and the merger stay as they are); --w8a8-prefill turns on the
+    int8 x int8 product for prefill-scale int8 matmuls, process-wide, as
+    the JAX server does."""
+    from ..weights.quantize import (enable_w8a8_prefill, quantize_params,
+                                    quantize_params4)
     if getattr(args, "load_4bit", False):
         params = dict(params, llm=quantize_params4(params["llm"]))
     elif getattr(args, "load_8bit", False):
         params = dict(params, llm=quantize_params(params["llm"]))
     if getattr(args, "int8_vit", False):
         params = dict(params, vit=quantize_params(params["vit"]))
+    if getattr(args, "w8a8_prefill", False):
+        enable_w8a8_prefill()
     return params
 
 
@@ -265,7 +267,9 @@ def make_parser():
                    help="weight-only int8 ViT blocks (patch merger stays "
                         "bf16)")
     p.add_argument("--w8a8-prefill", action="store_true",
-                   help="not ported yet (ROADMAP A10)")
+                   help="with --load-8bit / --int8-vit: prefill-scale int8 "
+                        "matmuls also quantize the activations per token "
+                        "and run int8 x int8")
     p.add_argument("--kv-int8", action="store_true",
                    help="not ported yet (ROADMAP A10)")
     p.add_argument("--stream-output", action="store_true",

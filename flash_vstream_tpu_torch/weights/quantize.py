@@ -12,8 +12,9 @@ nibble = row i + din/2) and each nibble stores the biased value q + 8 in
 [1, 15]. Both libraries round half to even and divide in f32, so the port
 packs the same bytes and scales from the same weights. Stacked [L, din,
 dout] leaves are quantized one layer at a time: the f32 intermediates of a
-whole 7B MLP leaf would be 7.6 GB each. w8a8 prefill (`enable_w8a8_prefill`)
-is not ported (ROADMAP A10).
+whole 7B MLP leaf would be 7.6 GB each. `enable_w8a8_prefill` (:134) turns
+on the int8 x int8 product for prefill-scale int8 matmuls
+(`models/layers.dense`).
 """
 from __future__ import annotations
 
@@ -147,3 +148,13 @@ def quantize_params4(params: dict,
             return quantize_weight4(x, block=block)
         return x
     return _map_with_path(params, one)
+
+
+def enable_w8a8_prefill(on: bool = True) -> None:
+    """Run prefill-scale `QuantWeight` matmuls (>= 128 rows) as int8 x int8
+    products with the activations quantized per token on the fly; decode
+    rows stay weight-only. Logits drift slightly against weight-only int8,
+    so it is off by default. A process-wide switch, read at each call, as
+    the JAX flag is read at each trace."""
+    from ..models import layers
+    layers.W8A8_PREFILL = bool(on)

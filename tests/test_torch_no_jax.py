@@ -1,7 +1,8 @@
 """The port runs without JAX and without the JAX package: a tiny ingest +
 answer, a tiny LoRA training step, an answer over an int4 decoder (prefill
-and a decode step) and the --load-4bit dry-run server on the CPU in a fresh
-interpreter leave
+and a decode step), the --load-4bit dry-run server, the plain versions of
+P1 and P2 and both probe scripts (the ViT probe with --int8, so w8a8) on
+the CPU in a fresh interpreter leave
 `jax` and `flash_vstream_tpu` out of sys.modules (the tests' own conftest
 imports jax, hence the subprocess); no source file of the port imports
 either; and the port's copy of the config dataclasses equals the JAX
@@ -59,6 +60,21 @@ summary = main(["--dry-run", "--device", "cpu", "--load-4bit",
                 "--question", "Q?", "--question_interval", "1000",
                 "--max-new-tokens", "2"])
 assert summary["frames_ingested"] == 4 and len(summary["answers"]) == 1
+from flash_vstream_tpu_torch.kernels.bank_gather import bank_gather
+from flash_vstream_tpu_torch.kernels.frame_attention import frame_attention
+from flash_vstream_tpu_torch.scripts import probe_bank_gather, probe_vit_variants
+bank = torch.randn(6, 2, 8)
+assert torch.equal(bank_gather(bank, torch.tensor([5, 0, 5], dtype=torch.int32)),
+                   bank[[5, 0, 5]])
+q = torch.randn(2, 4, 9, 8)
+assert frame_attention(q, q, q, head_block=2).shape == q.shape
+import contextlib, io
+with contextlib.redirect_stdout(io.StringIO()):
+    probe_bank_gather.main(["--device", "cpu", "--t", "16", "--k", "3",
+                            "--p", "2", "--d", "16", "--iters", "2"])
+    probe_vit_variants.main(["--device", "cpu", "--side", "56", "--clip", "4",
+                             "--layers", "1", "--iters", "1", "--trials", "1",
+                             "--modes", "base,framekernel", "--int8"])
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flash_vstream_tpu"))
 assert not bad, bad

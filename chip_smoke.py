@@ -46,7 +46,14 @@ Phases, one or more lines each; any failure raises and exits non-zero:
    probe (scripts/probe_vit_variants.py) at full width, every mode, bf16,
    --int8-weight-only and --int8, K1/P2 launches exact; w8a8 `dense`
    against weight-only int8 at prefill shapes; the --dry-run --load-8bit
-   --int8-vit --w8a8-prefill server as a subprocess.
+   --int8-vit --w8a8-prefill server as a subprocess;
+14. int4_probe: P3 (int4 matvec variants v1-v5, v7) and P4 (bf16 matvec
+   v6) against their plain versions at the int4 probe's default shape and
+   small odd shapes at 4, 8 and 16 packed rows per thread per step, timed
+   beside their bound, torch's int4 or bf16 matmul and K6, with the SASS
+   instruction counts of the built kernels; the probe
+   (scripts/probe_int4_variants.py) at its defaults through main and
+   main2, every variant's launches exact.
 
 `--profile DIR` also traces one training-slice step with torch.profiler and
 writes its kernel table there. The line before the last is one JSON object
@@ -292,9 +299,9 @@ K6_SHAPES = (("wq/wo", 3584, 3584, 56), ("wk/wv", 3584, 512, 56),
 K6_TOL = 1e-2
 
 
-def _int4pack_mm(x, qw):
-    """torch's own int4 matmul on the same weights (groups of 128 along din,
-    (u - 8) * scale + zero with zero 0, bf16 scales), timed as the library
+def _int4pack_mm(x, qw, zero=0.0):
+    """torch's own int4 matmul on the same weights (groups of din / nb along
+    din, (u - 8) * scale + zero, bf16 scales), timed as the library
     yardstick only: (callable, None) or (None, why not)."""
     import torch
     try:
@@ -302,7 +309,7 @@ def _int4pack_mm(x, qw):
         packed = torch._convert_weight_to_int4pack(
             ((u[:, ::2] << 4) | u[:, 1::2]).contiguous(), 8)
         group = u.shape[1] // qw.scale.shape[0]
-        sz = torch.stack([qw.scale, torch.zeros_like(qw.scale)],
+        sz = torch.stack([qw.scale, torch.full_like(qw.scale, zero)],
                          dim=-1).to(torch.bfloat16).contiguous()
         fn = lambda: torch._weight_int4pack_mm(x, packed, group, sz)  # noqa
         fn()
@@ -1361,6 +1368,214 @@ def run_vit_probe(dev, iters=2, trials=2):
     return {"flash_attention_fwd": got["K1"], "frame_attention": got["P2"]}
 
 
+# P3/P4 at the int4 probe's default shape and two small odd ones (din, dout,
+# blk): nb 28, 4 and 2
+P3_SHAPES = ((3584, 18944, 512), (512, 384, 128), (256, 384, 128))
+# each variant against its plain version: max |err| over max |plain|. bf16
+# outputs of f32 sums taken in another order, K6's limit; v4's int32 dots
+# are exact, so only its f32 block sums' order differs: the same limit; v7
+# sums integers (exact in f32) and rounds as its plain version: exact
+P3_TOL = {"v7-unpackonly": 0.0}
+P3_LINES = {"v1-current": 35, "v2-biasfold": 58, "v3-floor": 83,
+            "v4-int8dot": 97, "v5-u8mask": 124, "v6-bf16dot": 266,
+            "v7-unpackonly": 273}
+P3_UNSCALED = ("v3-floor", "v7-unpackonly")
+
+
+def _p3_library(name, x, xq, xs, q, s):
+    """The variant's function as one `_weight_int4pack_mm` call on
+    prepared inputs, ((x, QuantWeight4, zero), what it computes): v3 and v7
+    with scale 1 and zero 8 (the weight is then the biased nibble u), v7 on
+    x[0, 0] in every row (x00 * sum u), v4 on xq in bf16 (exact) with the
+    scales s * xs."""
+    import torch
+    from flash_vstream_tpu_torch.weights.quantize import QuantWeight4
+    if name == "v3-floor":
+        return (x, QuantWeight4(q, torch.ones_like(s)), 8.0), "scale 1, zero 8"
+    if name == "v7-unpackonly":
+        return ((x[:, :1].expand_as(x).contiguous(),
+                 QuantWeight4(q, torch.ones_like(s)), 8.0),
+                "x00 in every row, scale 1, zero 8")
+    if name == "v4-int8dot":
+        return ((xq.to(torch.bfloat16), QuantWeight4(q, s * xs.float()), 0.0),
+                "bf16 xq, scale s * xs")
+    return (x, QuantWeight4(q, s), 0.0), ""
+
+
+def _sass_counts(lib_path):
+    """{kernel instance: {opcode: count}} from `cuobjdump -sass` of the
+    built library (NOPs left out), or a string saying why not."""
+    import collections
+    import re
+    from torch.utils.cpp_extension import CUDA_HOME
+    tool = os.path.join(CUDA_HOME or "", "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        return f"not measured (no {tool})"
+    dump = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
+                          text=True, check=True).stdout
+    counts, cur = {}, None
+    for line in dump.splitlines():
+        fn = re.search(r"Function : \S*?(int4_variant_kernelILi(\d+)ELi(\d+)E"
+                       r"|bf16_matvec_kernelILi(\d+)E)", line)
+        if fn:
+            cur = (f"v{fn.group(2)} G{fn.group(3)}" if fn.group(2)
+                   else f"v6 G{fn.group(4)}")
+            counts[cur] = collections.Counter()
+        elif "Function :" in line:
+            cur = None
+        elif cur:
+            op = re.match(r"\s+/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z]\w*)",
+                          line)
+            if op and op.group(1) != "NOP":
+                counts[cur][op.group(1)] += 1
+    return counts
+
+
+def check_int4_probe(dev, iters=50):
+    """P3 (v1-v5, v7) and P4 (v6) against their plain versions at the int4
+    probe's default shape (the 7B gate/up matvec, [1, 3584] @ int4 [3584,
+    18944], blk 512) and at small odd shapes, with random scales; at the
+    default shape each kernel timed by CUDA-graph replay rotating weight
+    copies past the 50 MB L2 (also at 8 and 16 packed rows per thread per
+    step: more loads in flight), eagerly, its plain version, the bound,
+    the library call and K6 on the same inputs, and its SASS instruction
+    counts; then the probe through `main([])` and
+    `main2(['--which', 'v6,v7'])` at its
+    defaults, each variant launched exactly 2 x iters x 16 times (the
+    chain's eager warm-up and its graph capture). Returns (the seven rows,
+    the probe run's launches)."""
+    import torch
+    from flash_vstream_tpu_torch.kernels import _build
+    from flash_vstream_tpu_torch.kernels import int4_variants as iv
+    from flash_vstream_tpu_torch.kernels.int4_matmul import int4_matmul_cuda
+    from flash_vstream_tpu_torch.scripts import probe_int4_variants as probe
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 8)
+    rows, worst = {}, {}
+    for din, dout, blk in P3_SHAPES:
+        full = (din, dout, blk) == P3_SHAPES[0]
+
+        def draw():
+            q = torch.randint(0, 256, (din // 2, dout), generator=g,
+                              device=dev, dtype=torch.uint8)
+            s = torch.rand(din // 128, dout, generator=g, device=dev) * 2e-3
+            return q, s + 5e-4
+        x = torch.randn(1, din, generator=g, device=dev).to(torch.bfloat16)
+        xq, xs = probe.quantize_x(x)
+        # copies of q4 + scale (din * dout / 2 + din * dout / 32 bytes) to
+        # pass 100 MB, twice the L2
+        n4 = max(2, -(-100_000_000 // (din * dout // 2 + din * dout // 32)))
+        weights = [draw() for _ in range(n4 if full else 1)]
+        n16 = 2 if full else 1
+        w16 = [torch.randn(din, dout, generator=g, device=dev)
+               .to(torch.bfloat16) for _ in range(n16)]
+        k6 = None
+        for name, (fn, int8_x) in probe.VARIANTS.items():
+            kern = getattr(iv, fn.__name__ + "_cuda")
+            ref = getattr(iv, fn.__name__ + "_reference")
+            if name == "v6-bf16dot":
+                argsets = [(x, w) for w in w16]
+            elif int8_x:
+                argsets = [(xq, xs, *w) for w in weights]
+            else:
+                argsets = [(x, *w) for w in weights]
+            want = ref(*argsets[0]).float()
+            want_max = want.abs().max().item()
+            tol = P3_TOL.get(name, K6_TOL)
+            shape_err = 0.0
+            for group in iv.GROUPS:          # rows per thread per step
+                got = kern(*argsets[0], blk=blk, group=group)
+                torch.cuda.synchronize(dev)
+                err = (got.float() - want).abs().max().item()
+                rel = err / want_max
+                if not torch.isfinite(got).all() or rel > tol:
+                    raise AssertionError(
+                        f"{name} x[1, {din}] dout {dout} blk {blk} group "
+                        f"{group}: max err {err} is {rel:.3e} of max |plain| "
+                        f"> {tol}")
+                shape_err = max(shape_err, err)
+            worst[name] = max(worst.get(name, 0.0), shape_err)
+            if not full:
+                print(f"P3/P4 {name}: x[1, {din}] dout {dout} blk {blk} nb "
+                      f"{din // 128} max_abs_err={shape_err:.3e} over "
+                      f"groups {iv.GROUPS} (limit {tol:.0e} of max)",
+                      flush=True)
+                continue
+            n = len(argsets)
+            ms = _ms(lambda i: kern(*argsets[i % n], blk=blk), max(20, 2 * n))
+            group_ms = {grp: _ms(lambda i: kern(*argsets[i % n], blk=blk,
+                                                group=grp), max(20, 2 * n))
+                        for grp in iv.GROUPS if grp != 4}
+            eager = _eager_ms(lambda i: kern(*argsets[i % n], blk=blk), 200)
+            plain = _ms(lambda i: ref(*argsets[i % n]), 4)
+            # v3 and v7 do not read the scales
+            read = argsets[0][:2] if name in P3_UNSCALED else argsets[0]
+            bound = _bound(2 * din * dout, _nbytes(*read, got))
+            if name == "v6-bf16dot":
+                lib = lambda i: torch.matmul(*argsets[i % n])  # noqa: E731
+                why = "torch.matmul"
+            else:
+                libs = []
+                for q, s in weights:
+                    args, why = _p3_library(name, x, xq, xs, q, s)
+                    libs.append(_int4pack_mm(*args))
+                lib = (lambda i: libs[i % n][0]()) if libs[0][0] else None
+                why = "_weight_int4pack_mm" + (f", {why}" if why else "") + (
+                    "" if lib else f": {libs[0][1]}")
+            lib_ms = _ms(lib, 20) if lib else None
+            lib_rel = ((lib(0).float() - want).abs().max().item()
+                       / want_max) if lib else None
+            lib = libs = None
+            if k6 is None:
+                k6 = _ms(lambda i: int4_matmul_cuda(x, *weights[i % n]),
+                         max(20, 2 * n))
+            print(f"P3/P4 {name}: x[1, {din}] @ [{din}, {dout}] blk {blk} nb "
+                  f"{din // 128} max_abs_err={shape_err:.3e} "
+                  f"({shape_err / want_max:.2e} of max over groups "
+                  f"{iv.GROUPS}, limit {tol:.0e}) kernel_ms={ms:.4f} "
+                  f"eager_ms={eager:.4f} "
+                  f"plain_ms={plain:.4f} bound_ms={bound[0]:.4f} ({bound[1]})"
+                  f" library_ms=" + (f"{lib_ms:.4f} ({why})" if lib_ms
+                                     is not None else f"none ({why})")
+                  + (f" library_err={lib_rel:.2e} of max" if lib_ms
+                     is not None else "")
+                  + f" k6_ms={k6:.4f} group8_ms={group_ms[8]:.4f} "
+                  f"group16_ms={group_ms[16]:.4f} ({n} weight copies rotated)",
+                  flush=True)
+            rows[fn.__name__] = dict(
+                ms=ms, plain_ms=plain, bound_ms=bound[0], bound_by=bound[1],
+                library_ms=lib_ms, group_ms=group_ms)
+        del weights, w16, argsets
+        torch.cuda.empty_cache()
+    for name, (fn, _) in probe.VARIANTS.items():
+        rows[fn.__name__] = dict(max_abs_err=worst[name], **rows[fn.__name__])
+    sass = _sass_counts(_build.library_path())
+    for kernel, ops in (sass.items() if isinstance(sass, dict) else ()):
+        print(f"int4_probe sass {kernel}: {sum(ops.values())} instructions, "
+              + " ".join(f"{op}={ops[op]}" for op in (
+                  "LDG", "I2FP", "I2F", "FFMA", "FADD", "IDP", "PRMT", "LOP3",
+                  "SHF", "IMAD")), flush=True)
+    if not isinstance(sass, dict):
+        print(f"int4_probe sass: {sass}", flush=True)
+
+    # the probe through its entry points, at its defaults
+    _reset_launches()
+    res = probe.main(["--iters", str(iters)])
+    res.update(probe.main2(["--iters", str(iters), "--which", "v6,v7"]))
+    got = {k.__name__[:-5]: k.launches for k in iv.KERNELS}
+    want = {k: 2 * iters * probe.LAYERS for k in got}
+    print("int4_probe: python -m flash_vstream_tpu_torch.scripts."
+          f"probe_int4_variants (defaults: 16 layers, {iters} iters, graph "
+          "replay best of 4) and --which v6,v7, ms per matvec: " + " ".join(
+              f"{m}={s * 1e3:.4f}" for m, s in res.items())
+          + "; launches " + " ".join(f"{k}={c}" for k, c in got.items())
+          + f" (2 x {iters} x {probe.LAYERS} each, reckoned)", flush=True)
+    if got != want or set(res) != set(probe.VARIANTS):
+        raise AssertionError(f"int4 probe: launches {got}, reckoned {want}; "
+                             f"variants {list(res)}")
+    return rows, got
+
+
 def _launches():
     from flash_vstream_tpu_torch.kernels import flash_attention as fa
     return {"K1": fa.flash_attention_cuda.launches,
@@ -1376,10 +1591,11 @@ def _reset_launches():
         frame_attention_cuda)
     from flash_vstream_tpu_torch.kernels.gather_rows import gather_rows_cuda
     from flash_vstream_tpu_torch.kernels.int4_matmul import int4_matmul_cuda
+    from flash_vstream_tpu_torch.kernels.int4_variants import KERNELS
     for fn in (fa.flash_attention_cuda, fa.flash_attention_fwd_lse_cuda,
                fa.flash_attention_bwd_dq_cuda, fa.flash_attention_bwd_dkv_cuda,
                gather_rows_cuda, int4_matmul_cuda, bank_gather_cuda,
-               frame_attention_cuda):
+               frame_attention_cuda, *KERNELS):
         fn.launches = 0
 
 
@@ -1775,7 +1991,7 @@ def profile_train_step(dev, params, data, work, out_dir, step_s, cfg=None):
 
 PHASES = ("kernels", "int4_kernel", "reference", "int4_reference", "slice",
           "backward", "function", "train_reference", "train_slice",
-          "production", "serve4", "bank_gather", "vit_probe")
+          "production", "serve4", "bank_gather", "vit_probe", "int4_probe")
 
 
 def main() -> int:
@@ -1841,6 +2057,10 @@ def main() -> int:
         finally:
             shutil.rmtree(work, ignore_errors=True)
         _release(dev)
+    if "int4_probe" in only:
+        row, paths["probe_int4_variants"] = check_int4_probe(dev)
+        rows.update(row)
+        _release(dev)
     if "slice" in only:
         _reset_launches()
         k1, k2, params = run_slice(dev)
@@ -1889,6 +2109,11 @@ def main() -> int:
            "flash_attention_bwd_dkv": "train_slice", "int4_matmul": "serve4",
            "bank_gather": "probe_bank_gather",
            "frame_attention": "probe_vit_variants"}
+    for variant, line in P3_LINES.items():       # P3 and P4
+        name = variant.replace("-", "_")
+        sources[name] = ("int4_variants.cu", "")
+        replaces[name] = f"scripts/probe_int4_variants.py:{line}"
+        own[name] = "probe_int4_variants"
     kernels = []
     for name, row in rows.items():
         src, line = sources[name]

@@ -43,7 +43,15 @@ _SIGNATURES = {
     "fvt_bank_gather": [_P, _P, _P, _I, _LL, _P],
     # q, k, v, o, 12 strides, B, H, S, D, head_block, scale, stream
     "fvt_frame_attention": [_P] * 4 + [_LL] * 12 + [_I] * 5 + [_F, _P],
+    # x, w, partial, out, din, dout, blk, splits, rows_per_split, group,
+    # stream
+    "fvt_bf16_v6_bf16dot": [_P] * 4 + [_I] * 6 + [_P],
 }
+# x, q4, scale, aux, partial, out, dh, dout, nb, blk, splits,
+# rows_per_split, group, stream
+for _name in ("v1_current", "v2_biasfold", "v3_floor", "v4_int8dot",
+              "v5_u8mask", "v7_unpackonly"):
+    _SIGNATURES[f"fvt_int4_{_name}"] = [_P] * 6 + [_I] * 7 + [_P]
 
 _LIB = None          # the loaded library, once per process
 

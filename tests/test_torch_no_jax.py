@@ -1,7 +1,8 @@
 """The port runs without JAX and without the JAX package: a tiny ingest +
 answer, a tiny LoRA training step, an answer over an int4 decoder (prefill
 and a decode step), the --load-4bit dry-run server, the plain versions of
-P1 and P2 and both probe scripts (the ViT probe with --int8, so w8a8) on
+P1 and P2, the ViT and gather probes (the ViT probe with --int8, so
+w8a8), the int4 probe's variants (P3, P4) and its `main` and `main2` on
 the CPU in a fresh interpreter leave
 `jax` and `flash_vstream_tpu` out of sys.modules (the tests' own conftest
 imports jax, hence the subprocess); no source file of the port imports
@@ -75,6 +76,11 @@ with contextlib.redirect_stdout(io.StringIO()):
     probe_vit_variants.main(["--device", "cpu", "--side", "56", "--clip", "4",
                              "--layers", "1", "--iters", "1", "--trials", "1",
                              "--modes", "base,framekernel", "--int8"])
+    from flash_vstream_tpu_torch.scripts import probe_int4_variants
+    tiny = ["--device", "cpu", "--din", "256", "--dout", "256", "--blk",
+            "128", "--iters", "1", "--trials", "1"]
+    assert len(probe_int4_variants.main(tiny)) == 5
+    assert len(probe_int4_variants.main2(tiny + ["--which", "v6,v7"])) == 2
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flash_vstream_tpu"))
 assert not bad, bad
@@ -98,7 +104,9 @@ def test_port_sources_never_import_jax():
                      r"|from flash_vstream_tpu(?!_torch)[\s.])", re.M)
     files = sorted((ROOT / "flash_vstream_tpu_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
-    assert files
+    names = {f.relative_to(ROOT).as_posix() for f in files}
+    assert {"flash_vstream_tpu_torch/kernels/int4_variants.py",
+            "flash_vstream_tpu_torch/scripts/probe_int4_variants.py"} <= names
     for f in files:
         assert not pat.search(f.read_text()), f
     assert pat.search("from flash_vstream_tpu.core import config")

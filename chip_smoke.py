@@ -42,9 +42,11 @@ Phases, one or more lines each; any failure raises and exits non-zero:
    P1, K2, index_select and the one-hot matmul timed; the probe
    (scripts/probe_bank_gather.py) at its defaults, P1/K2 launches exact;
 13. vit_probe: P2 (frame-local attention) against its plain version at the
-   ViT's 224 and 448 px frame shapes, timed beside K1 and SDPA; the ViT
-   probe (scripts/probe_vit_variants.py) at full width, every mode, bf16,
-   --int8-weight-only and --int8, K1/P2 launches exact; w8a8 `dense`
+   ViT's 224 and 448 px frame shapes, head blocks 1 and 8 bit for bit,
+   timed beside K1 and SDPA, with its ptxas registers and SASS counts; the
+   ViT probe (scripts/probe_vit_variants.py) at full width, every mode,
+   bf16, --int8-weight-only and --int8, and at 448 px base, framekernel
+   and xlaattn in bf16, K1/P2 launches exact; w8a8 `dense`
    against weight-only int8 at prefill shapes; the --dry-run --load-8bit
    --int8-vit --w8a8-prefill server as a subprocess;
 14. int4_probe: P3 (int4 matvec variants v1-v5, v7) and P4 (bf16 matvec
@@ -67,6 +69,7 @@ import json
 import logging
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -1189,11 +1192,12 @@ def check_bank_gather(dev):
     return {"bank_gather": row}, got
 
 
-# P2 at the ViT's per-frame shapes: (name, frames, tokens per frame), 16
-# heads of 80; limit as K1's (bf16 outputs of f32 sums)
-P2_CASES = (("224px_full", 4, 256), ("224px_small", 4, 64),
-            ("448px_full", 4, 1024), ("448px_small", 4, 256))
-P2_TOL = 2e-2
+# P2 against its plain version: max |err| over the plain output's max |value|.
+# The kernel lands at most one bf16 step from it, at most 2^-7 of the max (an
+# H100 80GB HBM3 at 700 W read max |err| 9.8e-4 at 448 px and 2.0e-3 at 224
+# px: one step; PERF.md, PR 7), so a row sum 5% off shows
+P2_TOL = 1e-2
+P2_INSTANCES = 11          # template instances of P2 in the build
 # w8a8 `dense` against weight-only int8 at prefill shapes (rows, din, dout):
 # per-token int8 activations move the output by about 1e-2 of its max
 # (tests/test_torch_w8a8.py reads 0.8e-2 to 1.2e-2 on the CPU)
@@ -1216,46 +1220,81 @@ VIT_MODE_LIMIT = 1e-1
 def check_frame_attention(dev):
     """P2 against its plain version at the ViT's 224 and 448 px frame
     shapes (the ViT's strided [T, P, H, Dh] -> [T, H, P, Dh] views) with
-    head blocks 1 and 8; P2 (both blocks), K1, SDPA and the plain version
-    timed on the same inputs, with the bound. Returns P2's row, at the
-    224 px full stream (head block 8, the probe's default)."""
+    head blocks 1 and 8, which must agree bit for bit (the grid is one
+    block per (q tile, head, frame) at every head block). P2 (both blocks),
+    K1, SDPA and the plain version timed on the same inputs, with the
+    function's bound and the bound with the second Q K^T that two passes
+    compute. First the P2 instances' ptxas registers and spills and their
+    SASS counts of ldmatrix (LDSM), cp.async (LDGSTS) and mma (HMMA).
+    Returns P2's row, at the 224 px full stream (head block 8, the probe's
+    default)."""
     import torch
     import torch.nn.functional as F
+    from flash_vstream_tpu_torch.kernels import _build
+    from flash_vstream_tpu_torch.kernels import frame_attention as fra
     from flash_vstream_tpu_torch.kernels.flash_attention import (
         flash_attention_cuda)
     from flash_vstream_tpu_torch.kernels.frame_attention import (
-        frame_attention_cuda, frame_attention_reference)
+        P2_CASES, frame_attention_cuda, frame_attention_reference)
+
+    lib = _build.library_path()
+    ptxas = _ptxas_counts(lib.with_suffix(".log"), _p2_instance)
+    sass = _sass_counts(lib, _p2_instance)
+    for inst in sorted(ptxas):
+        regs, st, ld = ptxas[inst]
+        ops = sass.get(inst, {}) if isinstance(sass, dict) else {}
+        print(f"P2 ptxas {inst}: {regs} registers, spill stores {st} B, "
+              f"spill loads {ld} B; sass LDSM={ops.get('LDSM', 0)} "
+              f"LDGSTS={ops.get('LDGSTS', 0)} HMMA={ops.get('HMMA', 0)} "
+              f"MUFU={ops.get('MUFU', 0)}", flush=True)
+    if not isinstance(sass, dict) or len(ptxas) < P2_INSTANCES or not all(
+            sass.get(i, {}).get("LDSM") and sass[i].get("LDGSTS")
+            for i in ptxas):
+        raise AssertionError(f"P2: ptxas {ptxas}, sass {sass}: expected "
+                             f"{P2_INSTANCES} instances, each with LDSM and "
+                             f"LDGSTS")
 
     g = torch.Generator(device=dev).manual_seed(SEED + 6)
     worst, row = 0.0, None
     for name, T, S in P2_CASES:
         q, k, v = (torch.randn(T, S, 16, 80, generator=g, device=dev)
                    .to(torch.bfloat16).transpose(1, 2) for _ in range(3))
-        ref = frame_attention_reference(q, k, v)
-        errs = []
+        ref = frame_attention_reference(q, k, v).float()
+        top = ref.abs().max().item()
+        errs, outs = [], []
         for hb in (1, 8):
-            out = frame_attention_cuda(q, k, v, head_block=hb)
+            outs.append(frame_attention_cuda(q, k, v, head_block=hb))
             torch.cuda.synchronize(dev)
-            errs.append((out.float() - ref.float()).abs().max().item())
-            if not torch.isfinite(out).all() or errs[-1] > P2_TOL:
+            errs.append((outs[-1].float() - ref).abs().max().item())
+            if not torch.isfinite(outs[-1]).all() or errs[-1] > P2_TOL * top:
                 raise AssertionError(f"P2 {name} head_block {hb}: max_abs_err"
-                                     f" {errs[-1]} > {P2_TOL} or non-finite")
+                                     f" {errs[-1]} > {P2_TOL} x max {top} or "
+                                     f"non-finite")
+        if not torch.equal(outs[0], outs[1]):
+            raise AssertionError(f"P2 {name}: head blocks 1 and 8 differ")
+        plan = fra._launch_plan(T, 16, S, 80)
         worst = max(worst, *errs)
         ms = _ms(lambda i: frame_attention_cuda(q, k, v, head_block=8), 50)
         ms1 = _ms(lambda i: frame_attention_cuda(q, k, v, head_block=1), 50)
         k1 = _ms(lambda i: flash_attention_cuda(q, k, v), 50)
-        lib = _ms(lambda i: F.scaled_dot_product_attention(q, k, v), 50)
+        lib_ms = _ms(lambda i: F.scaled_dot_product_attention(q, k, v), 50)
         plain = _ms(lambda i: frame_attention_reference(q, k, v), 5)
-        bound = _bound(4 * T * 16 * S * S * 80, _nbytes(q, k, v, q))
-        print(f"P2 {name}: q[{T}, 16, {S}, 80] bf16 max_abs_err hb1="
-              f"{errs[0]:.3e} hb8={errs[1]:.3e} (limit {P2_TOL:.0e}) "
-              f"kernel_ms hb8={ms:.4f} hb1={ms1:.4f} k1_ms={k1:.4f} "
-              f"plain_ms={plain:.4f} bound_ms={bound[0]:.4f} ({bound[1]}) "
-              f"library_ms={lib:.4f} (scaled_dot_product_attention)",
-              flush=True)
+        flops = 4 * T * 16 * S * S * 80
+        bound = _bound(flops, _nbytes(q, k, v, q))
+        bound2 = _bound(flops * 3 // 2, _nbytes(q, k, v, q))
+        gx, gy, gz = plan.grid
+        print(f"P2 {name}: q[{T}, 16, {S}, 80] bf16 {plan.variant} "
+              f"{gx * gy * gz} blocks of {plan.rows_per_block} rows, "
+              f"{plan.smem_bytes} shared bytes; max_abs_err hb1="
+              f"{errs[0]:.3e} hb8={errs[1]:.3e} of max {top:.3e} (limit "
+              f"{P2_TOL:.0e} x max, hb1 = hb8 bit for bit) kernel_ms hb8="
+              f"{ms:.4f} hb1={ms1:.4f} k1_ms={k1:.4f} plain_ms={plain:.4f} "
+              f"bound_ms={bound[0]:.4f} ({bound[1]}) with the second Q K^T "
+              f"{bound2[0]:.4f} ({bound2[1]}) library_ms={lib_ms:.4f} "
+              f"(scaled_dot_product_attention)", flush=True)
         if row is None:
             row = dict(ms=ms, plain_ms=plain, bound_ms=bound[0],
-                       bound_by=bound[1], library_ms=lib)
+                       bound_by=bound[1], library_ms=lib_ms)
     return {"frame_attention": dict(max_abs_err=worst, **row)}
 
 
@@ -1318,11 +1357,12 @@ def check_w8a8(dev, work):
 def run_vit_probe(dev, iters=2, trials=2):
     """The ViT probe through its entry point at full width (32 layers, 1280
     hidden, 224 px, clip 8), every mode, in bf16, then --int8-weight-only,
-    then --int8: ms/clip by graph replay and eagerly, TF/s, max |err|
-    against base, and K1 and P2 launched exactly as reckoned per mode and
-    over the three runs; the modes that compute base's function within
-    VIT_MODE_LIMIT of base, onecall and noattn beyond it. Returns the
-    launches of the three runs."""
+    then --int8, then at 448 px (S 1,024 and 256 per frame) in bf16 with
+    base, framekernel and xlaattn (--iters 1 --trials 1): ms/clip by graph
+    replay and eagerly, TF/s, max |err| against base, and K1 and P2
+    launched exactly as reckoned per mode and over the four runs; the modes
+    that compute base's function within VIT_MODE_LIMIT of base, onecall and
+    noattn beyond it. Returns the launches of the four runs."""
     from flash_vstream_tpu_torch.kernels.flash_attention import (
         flash_attention_cuda)
     from flash_vstream_tpu_torch.kernels.frame_attention import (
@@ -1331,22 +1371,26 @@ def run_vit_probe(dev, iters=2, trials=2):
     from flash_vstream_tpu_torch.scripts import probe_vit_variants as probe
 
     L = 32
-    # encodes through the wrappers per mode: the chain eagerly once and
-    # under capture once (graph time), `trials` eager chains, one for err
-    blocks = L * (iters * (2 + trials) + 1)
     want = {"K1": 0, "P2": 0}
     _reset_launches()
-    for flag in ("", "--int8-weight-only", "--int8"):
-        res = probe.main(["--modes", ",".join(probe.MODES), "--iters",
-                          str(iters), "--trials", str(trials)]
+    runs = [("", "224", probe.MODES, iters, trials),
+            ("--int8-weight-only", "224", probe.MODES, iters, trials),
+            ("--int8", "224", probe.MODES, iters, trials),
+            ("", "448", ("base", "framekernel", "xlaattn"), 1, 1)]
+    for flag, side, modes, n_it, n_tr in runs:
+        # encodes through the wrappers per mode: the chain eagerly once and
+        # under capture once (graph time), `n_tr` eager chains, one for err
+        blocks = L * (n_it * (2 + n_tr) + 1)
+        res = probe.main(["--side", side, "--modes", ",".join(modes),
+                          "--iters", str(n_it), "--trials", str(n_tr)]
                          + ([flag] if flag else []))
         want["K1"] += 2 * L                    # main's own base encode
         for mode, r in res.items():
             per = {"K1": probe.K1_PER_BLOCK.get(mode, 0) * blocks,
                    "P2": probe.P2_PER_BLOCK.get(mode, 0) * blocks}
             want = {k: want[k] + per[k] for k in want}
-            print(f"vit_probe {flag or 'bf16'} {mode}: ms/clip graph "
-                  f"{r['s'] * 1e3:.2f} eager {r['eager_s'] * 1e3:.2f} TF/s "
+            print(f"vit_probe {side}px {flag or 'bf16'} {mode}: ms/clip graph"
+                  f" {r['s'] * 1e3:.2f} eager {r['eager_s'] * 1e3:.2f} TF/s "
                   f"{r['tflops']:.1f} max|err| vs base {r['err']:.3e} "
                   f"({r['err_rel']:.2e} of max, limit {VIT_MODE_LIMIT:.0e} "
                   f"{'within' if mode in probe.SAME_AS_BASE else 'beyond'}) "
@@ -1356,12 +1400,12 @@ def run_vit_probe(dev, iters=2, trials=2):
             if (r["blocks"] != blocks or r["launches"] != per
                     or not math.isfinite(r["err_rel"])
                     or (r["err_rel"] <= VIT_MODE_LIMIT) != same):
-                raise AssertionError(f"vit_probe {flag} {mode}: {r}")
+                raise AssertionError(f"vit_probe {side}px {flag} {mode}: {r}")
         if layers.W8A8_PREFILL:
             raise AssertionError("vit_probe: w8a8 left on after the run")
     got = {"K1": flash_attention_cuda.launches,
            "P2": frame_attention_cuda.launches}
-    print(f"vit_probe: launches over the three runs K1={got['K1']} "
+    print(f"vit_probe: launches over the four runs K1={got['K1']} "
           f"P2={got['P2']} (reckoned {want['K1']}, {want['P2']})", flush=True)
     if got != want:
         raise AssertionError(f"vit_probe: launches {got}, reckoned {want}")
@@ -1402,11 +1446,32 @@ def _p3_library(name, x, xq, xs, q, s):
     return (x, QuantWeight4(q, s), 0.0), ""
 
 
-def _sass_counts(lib_path):
+def _int4_instance(name):
+    """The P3/P4 kernel instance a SASS or ptxas function name matches, or
+    None."""
+    m = re.search(r"(int4_variant_kernelILi(\d+)ELi(\d+)E"
+                  r"|bf16_matvec_kernelILi(\d+)E)", name)
+    if not m:
+        return None
+    return f"v{m.group(2)} G{m.group(3)}" if m.group(2) else f"v6 G{m.group(4)}"
+
+
+def _p2_instance(name):
+    """The P2 kernel instance a SASS or ptxas function name matches
+    (whole<D,tiles> or tiled<D>), or None."""
+    m = re.search(r"frame_attention_(whole|tiled)ILi(\d+)E(?:Li(\d+)E)?",
+                  name)
+    if not m:
+        return None
+    return f"{m.group(1)}<{m.group(2)}" + (f",{m.group(3)}>" if m.group(3)
+                                           else ">")
+
+
+def _sass_counts(lib_path, instance):
     """{kernel instance: {opcode: count}} from `cuobjdump -sass` of the
-    built library (NOPs left out), or a string saying why not."""
+    built library (NOPs left out) for the functions `instance` names, or a
+    string saying why not."""
     import collections
-    import re
     from torch.utils.cpp_extension import CUDA_HOME
     tool = os.path.join(CUDA_HOME or "", "bin", "cuobjdump")
     if not os.path.exists(tool):
@@ -1415,20 +1480,37 @@ def _sass_counts(lib_path):
                           text=True, check=True).stdout
     counts, cur = {}, None
     for line in dump.splitlines():
-        fn = re.search(r"Function : \S*?(int4_variant_kernelILi(\d+)ELi(\d+)E"
-                       r"|bf16_matvec_kernelILi(\d+)E)", line)
-        if fn:
-            cur = (f"v{fn.group(2)} G{fn.group(3)}" if fn.group(2)
-                   else f"v6 G{fn.group(4)}")
-            counts[cur] = collections.Counter()
-        elif "Function :" in line:
-            cur = None
+        if "Function :" in line:
+            cur = instance(line)
+            if cur:
+                counts[cur] = collections.Counter()
         elif cur:
             op = re.match(r"\s+/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z]\w*)",
                           line)
             if op and op.group(1) != "NOP":
                 counts[cur][op.group(1)] += 1
     return counts
+
+
+def _ptxas_counts(log_path, instance):
+    """{kernel instance: (registers, spill store bytes, spill load bytes)}
+    from the build's `-Xptxas -v` log for the functions `instance` names."""
+    out, cur = {}, None
+    text = log_path.read_text() if log_path.exists() else ""
+    for line in text.splitlines():
+        entry = re.search(r"Compiling entry function '(\S+)'", line)
+        if entry:
+            cur = instance(entry.group(1))
+            continue
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          line)
+        used = re.search(r"Used (\d+) registers", line)
+        if cur and spill:
+            out[cur] = (None, int(spill.group(1)), int(spill.group(2)))
+        elif cur and used:
+            out[cur] = (int(used.group(1)),) + out.get(cur, (0, 0, 0))[1:]
+            cur = None
+    return out
 
 
 def check_int4_probe(dev, iters=50):
@@ -1549,7 +1631,7 @@ def check_int4_probe(dev, iters=50):
         torch.cuda.empty_cache()
     for name, (fn, _) in probe.VARIANTS.items():
         rows[fn.__name__] = dict(max_abs_err=worst[name], **rows[fn.__name__])
-    sass = _sass_counts(_build.library_path())
+    sass = _sass_counts(_build.library_path(), _int4_instance)
     for kernel, ops in (sass.items() if isinstance(sass, dict) else ()):
         print(f"int4_probe sass {kernel}: {sum(ops.values())} instructions, "
               + " ".join(f"{op}={ops[op]}" for op in (

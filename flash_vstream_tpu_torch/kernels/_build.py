@@ -41,8 +41,9 @@ _SIGNATURES = {
     "fvt_int4_matmul": [_P] * 5 + [_I] * 7 + [_P],
     # bank, idx, out, n_idx, row_bytes, stream
     "fvt_bank_gather": [_P, _P, _P, _I, _LL, _P],
-    # q, k, v, o, 12 strides, B, H, S, D, head_block, scale, stream
-    "fvt_frame_attention": [_P] * 4 + [_LL] * 12 + [_I] * 5 + [_F, _P],
+    # q, k, v, o, 12 strides, B, H, S, D, q tiles, threads, variant,
+    # shared bytes, scale, stream
+    "fvt_frame_attention": [_P] * 4 + [_LL] * 12 + [_I] * 8 + [_F, _P],
     # x, w, partial, out, din, dout, blk, splits, rows_per_split, group,
     # stream
     "fvt_bf16_v6_bf16dot": [_P] * 4 + [_I] * 6 + [_P],

@@ -1,6 +1,7 @@
 // Helpers shared by the attention kernels (K1/K3 in flash_attention.cu,
-// K4/K5 in flash_attention_bwd.cu): bf16 packing and the m16n8k16 bf16
-// tensor-core product with f32 accumulation.
+// K4/K5 in flash_attention_bwd.cu, P2 in frame_attention.cu): bf16 packing,
+// the m16n8k16 bf16 tensor-core product with f32 accumulation, `ldmatrix`
+// fragment loads and 16-byte `cp.async` copies.
 //
 // Fragment layout of mma.sync.m16n8k16 (g = lane / 4, t4 = lane % 4):
 //   A 16x16 row-major: a0 (row g, cols 2t4..+1), a1 (row g+8, same cols),
@@ -9,6 +10,20 @@
 //   C 16x8:            c0,c1 (row g, cols 2t4..+1), c2,c3 (row g+8, same)
 // so two adjacent 8-column C tiles, packed to bf16, are the A operand of the
 // next product (no trip through shared memory).
+//
+// ldmatrix.x4 reads four 8x8 bf16 matrices from shared memory; lanes 8i..8i+7
+// give the addresses of matrix i's eight 16-byte rows, and register i of
+// lane l receives matrix i's (row l / 4, cols 2(l % 4)..+1), which is the
+// fragment layout above:
+//   - A (16 rows x 16 cols, row-major): matrices (rows 0-7, cols 0-7),
+//     (rows 8-15, cols 0-7), (rows 0-7, cols 8-15), (rows 8-15, cols 8-15)
+//     give a0..a3;
+//   - B from an [n][k] tile (K's rows for Q K^T): matrices (n 0-7, k 0-7),
+//     (n 0-7, k 8-15), (n 8-15, k 0-7), (n 8-15, k 8-15) give b0, b1 of two
+//     adjacent 8-column tiles;
+//   - B from a [k][n] tile (V's rows for P V) with .trans, which gives lane l
+//     (rows 2(l % 4)..+1, col l / 4): matrices (k 0-7, n 0-7), (k 8-15,
+//     n 0-7), (k 0-7, n 8-15), (k 8-15, n 8-15) give b0, b1 of two tiles.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -50,6 +65,50 @@ __device__ __forceinline__ void mma_16816(float* d, const uint32_t* a,
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// Four 8x8 bf16 matrices from shared memory (see the layout note above).
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* smem) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a)
+      : "memory");
+}
+
+// The same, each matrix transposed on the way to the registers.
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const void* smem) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a)
+      : "memory");
+}
+
+// 16 bytes global -> shared without a trip through registers; the first
+// `src_bytes` (0 or 16) are read and the rest of the 16 are zero-filled.
+__device__ __forceinline__ void cp_async_16(void* smem, const void* gmem,
+                                            int src_bytes) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(a),
+               "l"(gmem), "r"(src_bytes)
+               : "memory");
+}
+
+// Closes the group of this thread's cp.async copies issued since the last.
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most N of this thread's groups are in flight; the other
+// threads' copies are visible after a barrier that follows.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 __device__ __forceinline__ float quad_max(float x) {

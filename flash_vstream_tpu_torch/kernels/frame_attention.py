@@ -7,16 +7,18 @@ each frame, q, k, v [B, H, S, Dh] (B frames), scale 1/sqrt(Dh), with the TPU
 body's arithmetic: f32 scores, the row max over all S keys, p = exp(s - m),
 p / l in f32 rounded to q's dtype before the P V product, f32 sums, the
 output in q's dtype. K1 (kernels/flash_attention.py) computes the same
-function with an online softmax; this kernel keeps each row whole where a
-head's keys fit on chip (csrc/frame_attention.cu).
+function with an online softmax; this kernel keeps each row whole
+(csrc/frame_attention.cu).
 
 Dispatch is by device: a CPU tensor takes `frame_attention_reference`, a
 CUDA tensor launches the kernel (`frame_attention_cuda`), which raises on
-what it does not take.
+what it does not take. `_launch_plan` shapes the grid: one block per (q
+tile, head, frame), whatever the TPU program's `head_block`.
 """
 from __future__ import annotations
 
 import math
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -24,6 +26,66 @@ from . import _build
 
 HEAD_DIMS = (64, 80, 128)
 MAX_LEN = 1024          # tokens per frame: a 448 px frame's 32 x 32 patches
+N_SM = 132              # an H100 SXM's SMs: a plan puts at least this many
+                        # blocks on the card where the shape allows
+MAX_SMEM = 232_448      # shared bytes a block can opt into on Hopper
+BLOCK_N = 64            # keys per tile
+PAD = 8                 # shared-memory row padding, elements (kPad)
+STAGES = 3              # the two-pass ring's slots (kStages)
+# the C entry's variant codes: one pass over 1, 2 or 4 tiles of 64 keys, or
+# two passes through the ring
+VARIANTS = {"whole1": 1, "whole2": 2, "whole4": 4, "tiled": 0}
+# the ViT's per-frame shapes: (name, frames, tokens per frame), 16 heads of
+# 80; chip_smoke.py holds P2 at each
+P2_CASES = (("224px_full", 4, 256), ("224px_small", 4, 64),
+            ("448px_full", 4, 1024), ("448px_small", 4, 256))
+
+
+class LaunchPlan(NamedTuple):
+    """grid (q tiles, heads, frames); query rows per block (16 a warp);
+    dynamic shared bytes (the C entry refuses any other number); variant (a
+    key of VARIANTS)."""
+    grid: Tuple[int, int, int]
+    rows_per_block: int
+    smem_bytes: int
+    variant: str
+
+    @property
+    def threads(self) -> int:
+        """32 a warp."""
+        return 2 * self.rows_per_block
+
+
+def _launch_plan(B: int, H: int, S: int, D: int,
+                 head_block: int = 8) -> LaunchPlan:
+    """P2's launch for q [B, H, S, D]. `head_block` is checked (H must be a
+    multiple of min(head_block, H), the TPU program's contract) and shapes
+    nothing. One pass where a head's K and V fit (S <= 256 at Dh 64/80,
+    S <= 128 at Dh 128), else two passes. Rows per block start at 64 (one
+    pass) or 128 (two passes), no more than S needs, and halve down to 16
+    while the grid has fewer than N_SM blocks."""
+    hb = min(head_block, H)
+    if hb < 1 or H % hb:
+        raise ValueError(f"{H} heads are not a multiple of head_block {hb}")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"head_dim {D} not in {HEAD_DIMS}")
+    if S > MAX_LEN:
+        raise ValueError(f"at most {MAX_LEN} tokens per frame (a 448 px "
+                         f"frame), got {S}")
+    ld, nt = D + PAD, -(-S // BLOCK_N)
+    whole = next((n for n in (1, 2, 4) if nt <= n <= (4 if D <= 80 else 2)),
+                 None)
+    rows = 64 if whole else 128
+    while rows > 16 and rows // 2 >= S:
+        rows //= 2
+    while rows > 16 and B * H * -(-S // rows) < N_SM:
+        rows //= 2
+    grid = (-(-S // rows), H, B)
+    if whole:
+        return LaunchPlan(grid, rows, 2 * ld * (rows + 2 * whole * BLOCK_N),
+                          f"whole{whole}")
+    return LaunchPlan(grid, rows, 2 * ld * (rows + 2 * STAGES * BLOCK_N),
+                      "tiled")
 
 
 def frame_attention_reference(q: torch.Tensor, k: torch.Tensor,
@@ -55,11 +117,11 @@ def frame_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, head_block: int = 8) -> torch.Tensor:
     """Launch P2 on CUDA tensors [B, H, S, Dh], bf16, any strides that are
     multiples of 8 (the ViT's [T, P, H, Dh] -> [T, H, P, Dh] views need no
-    copy). `head_block` heads run in turn in one block (min(head_block, H),
-    as in the TPU probe; H must be a multiple of it). Dh 64, 80 or 128;
-    S <= 1024. The output is [B, H, S, Dh] stored as [B, S, H, Dh], so the
-    caller's transpose back to tokens is free. Raises on what the kernel
-    does not take."""
+    copy). H must be a multiple of min(head_block, H), as in the TPU probe;
+    the output does not depend on it. Dh 64, 80 or 128; S <= 1024. The
+    output is [B, H, S, Dh] stored as [B, S, H, Dh], so the caller's
+    transpose back to tokens is free. Raises on what the kernel does not
+    take."""
     if not q.is_cuda:
         raise ValueError(f"frame_attention_cuda takes CUDA tensors, q is on "
                          f"{q.device}")
@@ -68,14 +130,7 @@ def frame_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     for name, x in (("q", q), ("k", k), ("v", v)):
         _check_operand(name, x, q)
     B, H, S, D = q.shape
-    if D not in HEAD_DIMS:
-        raise ValueError(f"head_dim {D} not in {HEAD_DIMS}")
-    if S > MAX_LEN:
-        raise ValueError(f"at most {MAX_LEN} tokens per frame (a 448 px "
-                         f"frame), got {S}")
-    hb = min(head_block, H)
-    if hb < 1 or H % hb:
-        raise ValueError(f"{H} heads are not a multiple of head_block {hb}")
+    plan = _launch_plan(B, H, S, D, head_block)
     out = torch.empty((B, S, H, D), dtype=q.dtype,
                       device=q.device).transpose(1, 2)
     if out.numel() == 0:
@@ -83,7 +138,8 @@ def frame_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     rc = _build.library().fvt_frame_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
-        B, H, S, D, hb, 1.0 / math.sqrt(D),
+        B, H, S, D, plan.grid[0], plan.threads, VARIANTS[plan.variant],
+        plan.smem_bytes, 1.0 / math.sqrt(D),
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(rc, "frame_attention_cuda")
     frame_attention_cuda.launches += 1
@@ -96,7 +152,8 @@ frame_attention_cuda.launches = 0
 def frame_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     head_block: int = 8) -> torch.Tensor:
     """Unmasked frame-local attention, q, k, v [B, H, S, Dh] -> [B, H, S, Dh]
-    in q's dtype. `head_block` only shapes the kernel's grid."""
+    in q's dtype. `head_block` is the TPU program's heads per program: H
+    must be a multiple of it; it changes nothing in the result."""
     if q.device.type == "cpu":
         return frame_attention_reference(q, k, v)
     return frame_attention_cuda(q, k, v, head_block=head_block)

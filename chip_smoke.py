@@ -10,7 +10,11 @@ Phases, one or more lines each; any failure raises and exits non-zero:
    power limit (nvidia-smi) and the torch / CUDA versions;
 2. build: compiles the CUDA kernels from csrc/ with nvcc into build/;
 3. kernels: K1 (flash attention) and K2 (row gather) against their plain
-   PyTorch versions at the slice's own shapes, with times;
+   PyTorch versions at the slice's own shapes, with times; K1 first shows
+   its ptxas registers and SASS counts, is held row by row at the ViT's
+   224 and 448 px shapes, the prefill, a masked row and the tile cases,
+   equal bit for bit at every rows per block, and timed at each beside
+   SDPA and its bound;
    int4_kernel: K6 (int4 decode matvec) against its plain version at the
    7B decoder's shapes (B 1; 8 and 32 for the MLP), with times, the bound
    and torch's own int4 matmul beside it;
@@ -23,7 +27,8 @@ Phases, one or more lines each; any failure raises and exits non-zero:
    21 clips ingested (one warm-up), memory saturated, 3 greedy answers,
    with the launch counts of both kernels during ingest and answering;
 6. backward: K3 (forward + lse), K4 (dq) and K5 (dk/dv) against their plain
-   versions at the training shape and two small edge cases, with times;
+   versions at the training shape, two small edge cases and the tile
+   cases, with times;
 7. function: FlashAttentionFunction on the card against autograd of the
    plain attention;
 8. train_reference: one LoRA loss + backward of the small model on the card
@@ -195,14 +200,130 @@ def _sdpa(q, k, v, causal):
                                           enable_gqa=True)
 
 
-def check_kernels(dev):
-    """K1 and K2 against their plain versions at the slice's shapes."""
+def _k1_instance(name):
+    """The K1/K3 kernel instance a SASS or ptxas function name matches
+    (flash_fwd<D>), or None."""
+    m = re.search(r"flash_fwd_kernelILi(\d+)E", name)
+    return f"flash_fwd<{m.group(1)}>" if m else None
+
+
+K1_INSTANCES = 3           # head dims 64, 80, 128
+K1_SASS = ("LDSM", "LDGSTS", "HMMA", "MUFU", "LDS.U16")
+
+
+def check_k1_build():
+    """K1/K3's ptxas registers and spills and its SASS counts per instance;
+    fails unless every instance loads fragments by ldmatrix (LDSM) and K/V
+    by cp.async (LDGSTS), and none reads shared memory 16 bits at a time
+    (the first version's V loads)."""
+    from flash_vstream_tpu_torch.kernels import _build
+    lib = _build.library_path()
+    ptxas = _ptxas_counts(lib.with_suffix(".log"), _k1_instance)
+    sass = _sass_counts(lib, _k1_instance, full=True)
+    counts = {}
+    for inst in sorted(ptxas):
+        regs, st, ld = ptxas[inst]
+        ops = sass.get(inst, {}) if isinstance(sass, dict) else {}
+        counts[inst] = {op: sum(n for o, n in ops.items()
+                                if o == op or o.startswith(op + "."))
+                        for op in K1_SASS}
+        print(f"K1 ptxas {inst}: {regs} registers, spill stores {st} B, "
+              f"spill loads {ld} B; sass instructions={sum(ops.values())} "
+              + " ".join(
+                  f"{op}={n}" for op, n in counts[inst].items()), flush=True)
+    if not isinstance(sass, dict) or len(ptxas) < K1_INSTANCES or not all(
+            c["LDSM"] and c["LDGSTS"] and not c["LDS.U16"]
+            for c in counts.values()):
+        raise AssertionError(f"K1: ptxas {ptxas}, sass {counts}: expected "
+                             f"{K1_INSTANCES} instances, each with LDSM and "
+                             f"LDGSTS and no LDS.U16")
+
+
+def _fwd_seen(q, k, kw):
+    """[B, Hq, Sq] bool: the query rows that see at least one key."""
+    from flash_vstream_tpu_torch.kernels.flash_attention import _visible
+    return (_visible(q, k, kw.get("causal", False), kw.get("q_segment_ids"),
+                     kw.get("kv_segment_ids"))[:, 0, 0].any(-1)[:, None]
+            .expand(-1, q.shape[1], -1))
+
+
+def check_fwd(name, got, want, q, k, kw):
+    """K1/K3's output against the plain version's: (max abs err, row err).
+    Fails past 2e-2 absolute over the tensor, past ROW_TOL of its own max
+    in any row that sees a key (`_row_err`), or if a row that sees no key
+    is not exactly 0."""
     import torch
+    from flash_vstream_tpu_torch.kernels.flash_attention import ROW_TOL
+    seen = _fwd_seen(q, k, kw)
+    err = (got.float() - want.float()).abs().max().item()
+    row = _row_err(got, want, seen)
+    if not torch.isfinite(got).all() or err > 2e-2 or row > ROW_TOL:
+        raise AssertionError(f"{name}: max_abs_err {err:.3e} (limit 2e-2), "
+                             f"row err {row:.3e} (limit {ROW_TOL:.0e} of the "
+                             f"row's max) or non-finite output")
+    if got[~seen].any():
+        raise AssertionError(f"{name}: a row that sees no key is not 0")
+    return err, row
+
+
+def check_fwd_bits(name, args, kw, out, lse=None):
+    """K1 (lse None) or K3 at every rows per block the C entry takes: the
+    same output (and lse) bits as the plan's."""
+    import torch
+    from flash_vstream_tpu_torch.kernels import flash_attention as fa
+    for rows in fa.ROWS_PER_BLOCK:
+        l2 = None if lse is None else torch.empty_like(lse)
+        o2, _ = fa._launch_fwd(*args, l2, kw.get("causal", False),
+                               kw.get("q_segment_ids"),
+                               kw.get("kv_segment_ids"), None, name,
+                               rows_per_block=rows)
+        torch.cuda.synchronize()
+        if not torch.equal(o2, out) or (lse is not None
+                                        and not torch.equal(l2, lse)):
+            raise AssertionError(f"{name}: {rows} rows per block differ from "
+                                 f"the plan's bits")
+
+
+def _fwd_ms_by_rows(args, kw, iters, lse=None):
+    """K1 (or K3, given an lse buffer) timed at every rows per block the C
+    entry takes, as one printable string: what the plan's choice is
+    measured against."""
+    from flash_vstream_tpu_torch.kernels import flash_attention as fa
+    times = [_ms(lambda i: fa._launch_fwd(
+        *args, lse, kw.get("causal", False), kw.get("q_segment_ids"),
+        kw.get("kv_segment_ids"), None, "K1", rows_per_block=rows), iters)
+        for rows in fa.ROWS_PER_BLOCK]
+    return "ms by rows per block " + " ".join(
+        f"{r}={t:.4f}" for r, t in zip(fa.ROWS_PER_BLOCK, times))
+
+
+def tile_case(dev, g, name):
+    """A TILE_CASES entry as bf16 card tensors (from `g`) and keywords."""
+    import torch
+    from flash_vstream_tpu_torch.kernels import flash_attention as fa
+    B, Hq, Hkv, Sq, Skv, D, causal, q_runs, kv_runs = fa.TILE_CASES[name]
+    q, k, v = (torch.randn(B, H, S, D, generator=g, device=dev)
+               .to(torch.bfloat16)
+               for H, S in ((Hq, Sq), (Hkv, Skv), (Hkv, Skv)))
+    return (q, k, v), dict(
+        causal=causal, q_segment_ids=fa.segment_ids(q_runs, B, Sq, dev),
+        kv_segment_ids=fa.segment_ids(kv_runs, B, Skv, dev))
+
+
+def check_kernels(dev):
+    """K1 and K2 against their plain versions at the slice's shapes. K1:
+    its ptxas and SASS counts first; the ViT's frame attention at 224 and
+    448 px (strided views), the answer prefill, a masked row and the tile
+    cases (`TILE_CASES`), each held by `check_fwd` and equal bit for bit at
+    every rows per block; the timed shapes beside SDPA and the bound."""
+    import torch
+    from flash_vstream_tpu_torch.kernels import flash_attention as fa
     from flash_vstream_tpu_torch.kernels.flash_attention import (
         flash_attention_cuda, flash_attention_reference)
     from flash_vstream_tpu_torch.kernels.gather_rows import (
         gather_rows_cuda, gather_rows_reference)
 
+    check_k1_build()
     g = torch.Generator(device=dev).manual_seed(SEED)
 
     def randn(*shape):
@@ -222,46 +343,58 @@ def check_kernels(dev):
     kv_seg = torch.zeros(2, 100, dtype=torch.int32, device=dev)
     cases = {
         "vit_full": ((heads(4, 256, 16, 80), heads(4, 256, 16, 80),
-                      heads(4, 256, 16, 80)), {}, None),
+                      heads(4, 256, 16, 80)), {}),
         "vit_small": ((heads(4, 64, 16, 80), heads(4, 64, 16, 80),
-                       heads(4, 64, 16, 80)), {}, None),
+                       heads(4, 64, 16, 80)), {}),
+        "vit_448": ((heads(4, 1024, 16, 80), heads(4, 1024, 16, 80),
+                     heads(4, 1024, 16, 80)), {}),
         "prefill": ((randn(1, 28, S, 128), randn(1, 4, S, 128),
                      randn(1, 4, S, 128)),
-                    dict(causal=True, q_segment_ids=seg, kv_segment_ids=seg),
-                    (slice(None), slice(None), slice(64 + 2880 + 40, None))),
+                    dict(causal=True, q_segment_ids=seg, kv_segment_ids=seg)),
         "masked_row": ((randn(2, 4, 100, 64), randn(2, 4, 100, 64),
                         randn(2, 4, 100, 64)),
-                       dict(q_segment_ids=q_seg, kv_segment_ids=kv_seg),
-                       (slice(None), slice(None), 17)),
+                       dict(q_segment_ids=q_seg, kv_segment_ids=kv_seg)),
     }
+    cases.update({name: tile_case(dev, g, name) for name in fa.TILE_CASES})
+    timed = ("vit_full", "vit_small", "vit_448", "prefill")
     k1_err, k1_times = 0.0, {}
-    for name, (args, kw, masked) in cases.items():
+    for name, (args, kw) in cases.items():
         out = flash_attention_cuda(*args, **kw)
         ref = flash_attention_reference(*args, **kw)
         torch.cuda.synchronize()
-        err = (out.float() - ref.float()).abs().max().item()
-        if not torch.isfinite(out).all() or err > 2e-2:
-            raise AssertionError(f"K1 {name}: max_abs_err {err} > 2e-2 or "
-                                 f"non-finite output")
-        if masked is not None and out[masked].abs().max().item() != 0.0:
-            raise AssertionError(f"K1 {name}: a fully masked row is not 0")
-        iters = 20 if name == "prefill" else 50
-        ms = _ms(lambda i: flash_attention_cuda(*args, **kw), iters)
-        plain = _ms(lambda i: flash_attention_reference(*args, **kw), 5)
+        err, row = check_fwd(f"K1 {name}", out, ref, args[0], args[1], kw)
+        check_fwd_bits(f"K1 {name}", args, kw, out)
         k1_err = max(k1_err, err)
-        k1_times[name] = (ms, plain)
-        print(f"K1 {name}: shape q{tuple(args[0].shape)} k{tuple(args[1].shape)}"
-              f" {kw.get('causal', False) and 'causal ' or ''}"
-              f"max_abs_err={err:.3e} kernel_ms={ms:.4f} plain_ms={plain:.4f}",
-              flush=True)
-    (q, k, v), kw, _ = cases["prefill"]
-    k1_bound = _bound(
-        _visible_pairs(q, k, True, seg, seg) * 4 * q.shape[-1],
-        _nbytes(q, k, v, q, seg, seg))                 # o is q-sized
-    k1_lib = _ms(lambda i: _sdpa(q, k, v, True), 20)
-    print(f"K1 prefill: bound_ms={k1_bound[0]:.4f} ({k1_bound[1]}) "
-          f"library_ms={k1_lib:.4f} (scaled_dot_product_attention, causal "
-          f"only, no segment mask)", flush=True)
+        plan = fa._launch_plan(*args[0].shape)
+        line = (f"K1 {name}: shape q{tuple(args[0].shape)} "
+                f"k{tuple(args[1].shape)} "
+                f"{kw.get('causal', False) and 'causal ' or ''}"
+                f"{'segments ' if 'q_segment_ids' in kw else ''}"
+                f"max_abs_err={err:.3e} row_err={row:.3e} (limit "
+                f"{fa.ROW_TOL:.0e} of the row's max), equal bit for bit at "
+                f"rows per block {'/'.join(map(str, fa.ROWS_PER_BLOCK))}; "
+                f"plan {plan.blocks} blocks of {plan.rows_per_block} rows")
+        if name in timed:
+            q, k, v = args
+            iters = 20 if name in ("prefill", "vit_448") else 50
+            ms = _ms(lambda i: flash_attention_cuda(*args, **kw), iters)
+            plain = _ms(lambda i: flash_attention_reference(*args, **kw), 5)
+            lib = _ms(lambda i: _sdpa(q, k, v, kw.get("causal", False)),
+                      iters)
+            bound = _bound(
+                _visible_pairs(q, k, kw.get("causal", False),
+                               kw.get("q_segment_ids"),
+                               kw.get("kv_segment_ids")) * 4 * q.shape[-1],
+                _nbytes(q, k, v, q, kw.get("q_segment_ids"),
+                        kw.get("kv_segment_ids")))     # o is q-sized
+            k1_times[name] = (ms, plain, lib, bound)
+            line += (f" kernel_ms={ms:.4f} plain_ms={plain:.4f} "
+                     f"bound_ms={bound[0]:.4f} ({bound[1]}) library_ms="
+                     f"{lib:.4f} (scaled_dot_product_attention"
+                     f"{', causal only, no segment mask' if kw else ''}); "
+                     + _fwd_ms_by_rows(args, kw, iters))
+        print(line, flush=True)
+    ms, plain, k1_lib, k1_bound = k1_times["prefill"]
 
     # 30 frames out of the 1024-frame bank; 32 index sets rotate so the
     # timed reads come from device memory, not from the 50 MB L2
@@ -283,8 +416,7 @@ def check_kernels(dev):
           f"library_ms={k2_lib:.4f} (index_select)", flush=True)
     return {
         "flash_attention_fwd": dict(
-            max_abs_err=k1_err, ms=k1_times["prefill"][0],
-            plain_ms=k1_times["prefill"][1], bound_ms=k1_bound[0],
+            max_abs_err=k1_err, ms=ms, plain_ms=plain, bound_ms=k1_bound[0],
             bound_by=k1_bound[1], library_ms=k1_lib),
         "gather_rows": dict(
             max_abs_err=0.0, ms=k2_ms, plain_ms=k2_plain,
@@ -549,11 +681,13 @@ def check_backward_kernels(dev):
     """K3, K4 and K5 against their plain versions: the training shape (q
     [1, 28, 4096, 128], k/v [1, 4, 4096, 128], causal, the prompt's segment
     row with a -1 run inside and a -1 tail), a ragged GQA case at head_dim
-    80 and one with a fully masked row; then times at the training shape.
-    Bounds: out 2e-2 abs; lse 1e-3 abs where finite and -inf exactly where
-    the plain version has it; dq/dk/dv 2e-2 x max |plain| over the whole
-    tensor and, row by row, 2e-2 x the row's max |plain| (bf16 outputs of
-    f32 sums in another order); masked rows exactly 0."""
+    80, one with a fully masked row and the tile cases (`TILE_CASES`); then
+    times at the training shape. Bounds: out by `check_fwd` (2e-2 abs,
+    ROW_TOL of each row's max), out and lse equal bit for bit at every rows
+    per block; lse 1e-3 abs where finite and -inf exactly where the plain
+    version has it; dq/dk/dv 2e-2 x max |plain| over the whole tensor and,
+    row by row, 2e-2 x the row's max |plain| (bf16 outputs of f32 sums in
+    another order); masked rows exactly 0."""
     import torch
     from flash_vstream_tpu_torch.kernels import flash_attention as fa
 
@@ -562,18 +696,12 @@ def check_backward_kernels(dev):
     def randn(*shape):
         return torch.randn(*shape, generator=g, device=dev).to(torch.bfloat16)
 
-    def segs(B, S, runs):
-        s = torch.zeros(B, S, dtype=torch.int32, device=dev)
-        for a, b, val in runs:
-            s[:, a:b] = val
-        return s
-
     S = 4096
-    train_seg = segs(1, S, [(3000, 3100, -1), (3900, S, -1)])
-    rag_q = segs(2, 333, [(300, 333, -1)])
-    rag_k = segs(2, 301, [(290, 301, -1)])
-    mq = segs(1, 100, [(17, 18, 5)])         # row 17: an id no key has
-    mk = segs(1, 100, [])
+    train_seg = fa.segment_ids([(3000, 3100, -1), (3900, S, -1)], 1, S, dev)
+    rag_q = fa.segment_ids([(300, 333, -1)], 2, 333, dev)
+    rag_k = fa.segment_ids([(290, 301, -1)], 2, 301, dev)
+    mq = fa.segment_ids([(17, 18, 5)], 1, 100, dev)  # row 17: an id no key has
+    mk = fa.segment_ids([], 1, 100, dev)
     cases = {
         "train": ((randn(1, 28, S, 128), randn(1, 4, S, 128),
                    randn(1, 4, S, 128)),
@@ -586,6 +714,7 @@ def check_backward_kernels(dev):
                             randn(1, 1, 100, 64)),
                            dict(q_segment_ids=mq, kv_segment_ids=mk)),
     }
+    cases.update({name: tile_case(dev, g, name) for name in fa.TILE_CASES})
     errs = {"K3": 0.0, "K4": 0.0, "K5": 0.0}
     for name, ((q, k, v), kw) in cases.items():
         do = randn(*q.shape)
@@ -608,7 +737,8 @@ def check_backward_kernels(dev):
                 (lse[~fin] == float("-inf")).all()):
             raise AssertionError(f"K3 {name}: lse is not -inf exactly where "
                                  f"the plain version has -inf")
-        e_out = (out.float() - p_out.float()).abs().max().item()
+        e_out, r_out = check_fwd(f"K3 {name}", out, p_out, q, k, kw)
+        check_fwd_bits(f"K3 {name}", (q, k, v), kw, out, lse)
         e_lse = (lse[fin] - p_lse[fin]).abs().max().item()
         q_rows, k_rows = _grad_rows(q, k, kw)
         grads = (("dq", dq, p_dq, q_rows), ("dk", dk, p_dk, k_rows),
@@ -643,7 +773,8 @@ def check_backward_kernels(dev):
             (dv.float() - p_dv.float()).abs().max().item()))
         print(f"backward {name}: q{tuple(q.shape)} k{tuple(k.shape)} "
               f"{'causal ' if kw.get('causal') else ''}max_abs_err out="
-              f"{e_out:.3e} lse={e_lse:.3e} dq/max={rel['dq']:.3e} "
+              f"{e_out:.3e} (by row {r_out:.3e}, equal bit for bit at every "
+              f"rows per block) lse={e_lse:.3e} dq/max={rel['dq']:.3e} "
               f"dk/max={rel['dk']:.3e} dv/max={rel['dv']:.3e} by row: "
               f"dq={row['dq']:.3e} dk={row['dk']:.3e} dv={row['dv']:.3e} "
               f"({int(q_rows.sum())} dq rows, {int(k_rows.sum())} dk/dv rows); "
@@ -661,6 +792,7 @@ def check_backward_kernels(dev):
     seg_b = 2 * _nbytes(train_seg)
     res = {}
     ms = _ms(lambda i: fa.flash_attention_fwd_lse_cuda(q, k, v, **kw), 10)
+    k3_rows = _fwd_ms_by_rows((q, k, v), kw, 10, lse.clone())
     plain = _ms(lambda i: fa.flash_attention_fwd_lse_reference(q, k, v, **kw),
                 2)
     lib = _ms(lambda i: _sdpa(q, k, v, True), 10)
@@ -697,7 +829,9 @@ def check_backward_kernels(dev):
               f"segments kernel_ms={ms:.4f} plain_ms={plain:.4f} "
               f"bound_ms={bound:.4f} ({by}) library_ms={lib:.4f} "
               f"({'SDPA forward' if kid == 'K3' else 'SDPA backward, dq+dk+dv'}"
-              f", causal only){' plain = the one plain backward' if kid != 'K3' else ''}",
+              f", causal only)"
+              + (" plain = the one plain backward" if kid != "K3"
+                 else "; " + k3_rows),
               flush=True)
         out_rows[name] = dict(max_abs_err=errs[kid], ms=ms, plain_ms=plain,
                               bound_ms=bound, bound_by=by, library_ms=lib)
@@ -1467,10 +1601,11 @@ def _p2_instance(name):
                                            else ">")
 
 
-def _sass_counts(lib_path, instance):
+def _sass_counts(lib_path, instance, full=False):
     """{kernel instance: {opcode: count}} from `cuobjdump -sass` of the
     built library (NOPs left out) for the functions `instance` names, or a
-    string saying why not."""
+    string saying why not. `full` keys the counts by the opcode with its
+    modifiers (LDS.U16, not LDS)."""
     import collections
     from torch.utils.cpp_extension import CUDA_HOME
     tool = os.path.join(CUDA_HOME or "", "bin", "cuobjdump")
@@ -1485,10 +1620,10 @@ def _sass_counts(lib_path, instance):
             if cur:
                 counts[cur] = collections.Counter()
         elif cur:
-            op = re.match(r"\s+/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z]\w*)",
-                          line)
+            op = re.match(r"\s+/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z]\w*)"
+                          + (r"((?:\.\w+)*)" if full else ""), line)
             if op and op.group(1) != "NOP":
-                counts[cur][op.group(1)] += 1
+                counts[cur][op.group(1) + (op.group(2) if full else "")] += 1
     return counts
 
 

@@ -30,8 +30,8 @@ _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_flo
 _BWD = [_P] * 12 + [ctypes.POINTER(_LL)] + [_I] * 7 + [_F, _P]
 _SIGNATURES = {
     # q, k, v, o, lse, q_seg, kv_seg, 12 strides, B, Hq, Sq, Skv, Hkv, D,
-    # causal, scale, stream
-    "fvt_flash_attention_fwd": [_P] * 7 + [_LL] * 12 + [_I] * 7 + [_F, _P],
+    # causal, rows per block, shared bytes, scale, stream
+    "fvt_flash_attention_fwd": [_P] * 7 + [_LL] * 12 + [_I] * 9 + [_F, _P],
     "fvt_flash_attention_bwd_dq": _BWD,
     "fvt_flash_attention_bwd_dkv": _BWD,
     # bank, idx, out, n_idx, row_bytes, stream

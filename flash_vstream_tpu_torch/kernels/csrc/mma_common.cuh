@@ -1,7 +1,9 @@
 // Helpers shared by the attention kernels (K1/K3 in flash_attention.cu,
 // K4/K5 in flash_attention_bwd.cu, P2 in frame_attention.cu): bf16 packing,
 // the m16n8k16 bf16 tensor-core product with f32 accumulation, `ldmatrix`
-// fragment loads and 16-byte `cp.async` copies.
+// fragment loads, `cp.async` copies, and the tile steps the two forward
+// kernels (K1/K3, P2) share: rows into a padded shared tile, Q's A
+// fragments, one 64-key tile's scores and P V, the output's store.
 //
 // Fragment layout of mma.sync.m16n8k16 (g = lane / 4, t4 = lane % 4):
 //   A 16x16 row-major: a0 (row g, cols 2t4..+1), a1 (row g+8, same cols),
@@ -99,6 +101,16 @@ __device__ __forceinline__ void cp_async_16(void* smem, const void* gmem,
                : "memory");
 }
 
+// 4 bytes global -> shared (cp.async.ca: .cg takes only 16); `src_bytes` 0
+// or 4, the rest zero-filled.
+__device__ __forceinline__ void cp_async_4(void* smem, const void* gmem,
+                                           int src_bytes) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(a),
+               "l"(gmem), "r"(src_bytes)
+               : "memory");
+}
+
 // Closes the group of this thread's cp.async copies issued since the last.
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
@@ -109,6 +121,118 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// 2^x on the SFU (ex2.approx; results below 2^-126 flush to 0).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Rows [r0, r0 + rows) of one head (row stride ss) into dst (row stride
+// D + kPad) by 16-byte cp.async from every thread of the block; rows at or
+// past S are zero-filled and not read.
+template <int D>
+__device__ __forceinline__ void copy_rows(__nv_bfloat16* dst,
+                                          const __nv_bfloat16* src,
+                                          long long ss, int r0, int rows,
+                                          int s) {
+  constexpr int kLd = D + kPad, kVec = D / 8;
+  for (int i = threadIdx.x; i < rows * kVec; i += blockDim.x) {
+    const int r = i / kVec, c = (i % kVec) * 8;
+    const bool live = r0 + r < s;
+    cp_async_16(dst + r * kLd + c, live ? src + (r0 + r) * ss + c : src,
+                live ? 16 : 0);
+  }
+}
+
+// Lane offsets (in elements) of the ldmatrix row addresses: `a` for A
+// fragments and .trans B fragments (matrix i = lane / 8 at row 8 (i % 2),
+// col 8 (i / 2)), `b` for B fragments from [n][k] rows (row 8 (i / 2),
+// col 8 (i % 2)).
+template <int D>
+__device__ __forceinline__ int lane_off_a(int lane) {
+  return (((lane >> 3) & 1) * 8 + (lane & 7)) * (D + kPad) + (lane >> 4) * 8;
+}
+template <int D>
+__device__ __forceinline__ int lane_off_b(int lane) {
+  return ((lane >> 4) * 8 + (lane & 7)) * (D + kPad) + ((lane >> 3) & 1) * 8;
+}
+
+// The warp's 16 rows of Q as A fragments (sQ: its first row).
+template <int D>
+__device__ __forceinline__ void load_q(uint32_t (&qf)[D / 16][4],
+                                       const __nv_bfloat16* sQ, int off) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    ldmatrix_x4(qf[kk], sQ + kk * 16 + off);
+}
+
+// Raw scores (f32, unscaled) of the warp's 16 rows against one 64-key tile
+// (sK: [64][D + kPad]).
+template <int D>
+__device__ __forceinline__ void tile_scores(float (&s)[8][4],
+                                            const uint32_t (&qf)[D / 16][4],
+                                            const __nv_bfloat16* sK, int off) {
+  constexpr int kLd = D + kPad;
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt)
+    s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+#pragma unroll
+    for (int np = 0; np < 4; ++np) {
+      uint32_t b[4];
+      ldmatrix_x4(b, sK + np * 16 * kLd + kk * 16 + off);
+      mma_16816(s[2 * np], qf[kk], b);
+      mma_16816(s[2 * np + 1], qf[kk], b + 2);
+    }
+  }
+}
+
+// acc += P V for one 64-key tile, P as packed bf16 A fragments (4 k-steps).
+template <int D>
+__device__ __forceinline__ void tile_pv(float (&acc)[D / 8][4],
+                                        const uint32_t (&pa)[4][4],
+                                        const __nv_bfloat16* sV, int off) {
+  constexpr int kLd = D + kPad;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+    for (int dp = 0; dp < D / 16; ++dp) {
+      uint32_t b[4];
+      ldmatrix_x4_trans(b, sV + kk * 16 * kLd + dp * 16 + off);
+      mma_16816(acc[2 * dp], pa[kk], b);
+      mma_16816(acc[2 * dp + 1], pa[kk], b + 2);
+    }
+  }
+}
+
+// The warp's 16 output rows through its own rows of shared memory (sO,
+// which held its Q rows), then 16-byte stores of the rows below S.
+template <int D>
+__device__ __forceinline__ void store_o(const float (&acc)[D / 8][4],
+                                        __nv_bfloat16* sO,
+                                        __nv_bfloat16* ob, long long ss,
+                                        int row0, int s, int lane) {
+  constexpr int kLd = D + kPad, kVec = D / 8;
+  const int g = lane >> 2, t4 = lane & 3;
+#pragma unroll
+  for (int dt = 0; dt < D / 8; ++dt) {
+    const int c = dt * 8 + t4 * 2;
+    *reinterpret_cast<uint32_t*>(&sO[g * kLd + c]) =
+        pack_f32(acc[dt][0], acc[dt][1]);
+    *reinterpret_cast<uint32_t*>(&sO[(g + 8) * kLd + c]) =
+        pack_f32(acc[dt][2], acc[dt][3]);
+  }
+  __syncwarp();
+  for (int i = lane; i < 16 * kVec; i += 32) {
+    const int r = i / kVec, c = (i % kVec) * 8;
+    if (row0 + r < s)
+      *reinterpret_cast<uint4*>(ob + (row0 + r) * ss + c) =
+          *reinterpret_cast<const uint4*>(&sO[r * kLd + c]);
+  }
 }
 
 __device__ __forceinline__ float quad_max(float x) {

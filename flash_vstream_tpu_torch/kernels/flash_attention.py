@@ -27,15 +27,18 @@ take; nothing on the card falls back to a plain version.
 The kernels (csrc/flash_attention.cu, csrc/flash_attention_bwd.cu) keep their
 sums in registers and run every product as `mma.sync` bf16 tensor-core
 fragments; their source notes say what bounds them on Hopper and what the
-design does about it. The TPU version's crossover (`Sq >= 512` before fusing)
-was tuned on a v5e and is not carried over: every q_offset-0 call on the card
-runs a kernel.
+design does about it. K1/K3 take one block per (q tile, head, batch);
+`_launch_plan` picks the q rows per block (16 to 128, 16 a warp): no more
+than Sq needs, and fewer where a long call would put under 132 blocks on
+the card; the output and lse are the same bit for bit whatever that choice.
+The TPU version's crossover (`Sq >= 512` before fusing) was tuned on a v5e
+and is not carried over: every q_offset-0 call on the card runs a kernel.
 """
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -44,6 +47,46 @@ from . import _build
 
 DEFAULT_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 HEAD_DIMS = (64, 80, 128)
+N_SM = 132              # an H100 SXM's SMs: a plan puts at least this many
+                        # blocks on the card where the shape allows
+ROWS_PER_BLOCK = (16, 32, 64, 128)   # q rows a K1/K3 block, as the C entry
+                                     # takes them
+BLOCK_N = 64            # keys per K/V tile (kBlockN)
+PAD = 8                 # shared-memory row padding, elements (kPad)
+STAGES = 3              # slots of the K/V ring (kStages)
+FILL_MIN_SQ = 4 * BLOCK_N   # a plan halves its rows to fill the card only
+                            # above this Sq (over four key tiles a block)
+# The card's limit on K1/K3's output, row by row: each row that sees a key
+# within ROW_TOL of its own max |plain|, beside 2e-2 absolute over the
+# tensor, which a late prefill row's outputs of 0.02-0.1 pass with a tile
+# lost. The kernels read one or two bf16 steps (7.6e-3 to 9.4e-3) at every
+# case; a planted lost tile or doubled rescale 9e-2 or more (PERF.md).
+ROW_TOL = 2e-2
+# K1/K3 cases that give the kernel every kind of (warp, 64-key tile): a -1
+# run that starts and ends inside a tile and covers another whole, q rows of
+# two ids inside one warp, Sq != Skv both ragged, causal with Sq not a
+# multiple of 128, GQA 7:1 at each head dim. name: (B, Hq, Hkv, Sq, Skv, D,
+# causal, q id runs, kv id runs), a run (start, end, id) over a row of 0s
+# (`segment_ids`); the card tests and chip_smoke.py hold K1/K3 at each.
+_PROMPT_RUNS = ((200, 330, -1), (330, 405, 1), (405, 700, 2))
+TILE_CASES = {
+    "gqa7_causal_d128": (1, 7, 1, 700, 700, 128, True, _PROMPT_RUNS,
+                         _PROMPT_RUNS),
+    "gqa7_ragged_d80": (2, 14, 2, 333, 301, 80, False,
+                        ((150, 320, 1), (320, 333, -1)),
+                        ((130, 140, -1), (140, 301, 1))),
+    "gqa7_ragged_causal_d64": (1, 7, 1, 301, 333, 64, True,
+                               ((290, 301, 3),),
+                               ((64, 128, -1), (250, 333, 3))),
+}
+
+
+def segment_ids(runs, B: int, S: int, device=None) -> torch.Tensor:
+    """int32 [B, S] segment ids: 0, then each (start, end, id) run."""
+    ids = torch.zeros(B, S, dtype=torch.int32, device=device)
+    for a, b, val in runs:
+        ids[:, a:b] = val
+    return ids
 
 
 # ---------------------------------------------------------------------------
@@ -220,16 +263,59 @@ def _check_call(q, k, v, q_segment_ids, kv_segment_ids, scale):
     return B, Hq, Sq, D, Hkv, Skv, float(scale)
 
 
+class FwdPlan(NamedTuple):
+    """K1/K3's launch: q rows per block (16 a warp), blocks in the grid
+    (q tiles x Hq x B) and dynamic shared bytes (the C entry refuses any
+    other number for those rows)."""
+    rows_per_block: int
+    blocks: int
+    smem_bytes: int
+
+
+def _smem_bytes(rows: int, D: int) -> int:
+    """Q [rows][D + PAD] bf16, STAGES slots of K and V [64][D + PAD] bf16
+    and of 64 int32 kv segment ids (csrc/flash_attention.cu
+    `smem_needed`)."""
+    return (2 * (D + PAD) * (rows + 2 * STAGES * BLOCK_N)
+            + 4 * STAGES * BLOCK_N)
+
+
+def _launch_plan(B: int, Hq: int, Sq: int, D: int,
+                 rows_per_block: Optional[int] = None) -> FwdPlan:
+    """K1/K3's launch for q [B, Hq, Sq, D]. Rows per block start at 128, no
+    more than Sq needs; above FILL_MIN_SQ they halve down to 16 while the
+    grid has fewer than N_SM blocks. At Sq <= FILL_MIN_SQ a block's loop is
+    short and each extra block loads its K/V again: the ViT's S 64 and 256
+    ran faster at 64 and 128 rows than at the 16 and 64 that fill the card
+    (PERF.md). `rows_per_block` forces one of ROWS_PER_BLOCK instead (the
+    result is the same bit for bit)."""
+    if D not in HEAD_DIMS:
+        raise ValueError(f"head_dim {D} not in {HEAD_DIMS}")
+    rows = ROWS_PER_BLOCK[-1] if rows_per_block is None else rows_per_block
+    if rows not in ROWS_PER_BLOCK:
+        raise ValueError(f"rows_per_block {rows} not in {ROWS_PER_BLOCK}")
+    if rows_per_block is None:
+        while rows > 16 and rows // 2 >= Sq:
+            rows //= 2
+        while (rows > 16 and Sq > FILL_MIN_SQ
+               and B * Hq * -(-Sq // rows) < N_SM):
+            rows //= 2
+    return FwdPlan(rows, B * Hq * -(-Sq // rows), _smem_bytes(rows, D))
+
+
 def _ptr(x: Optional[torch.Tensor]):
     return None if x is None else x.data_ptr()
 
 
 def _launch_fwd(q, k, v, lse, causal, q_segment_ids, kv_segment_ids, scale,
-                name):
+                name, rows_per_block=None):
     """K1 (lse None) or K3; the output is [B, Hq, Sq, D] stored as
-    [B, Sq, Hq, D], so the caller's transpose back to tokens is free."""
+    [B, Sq, Hq, D], so the caller's transpose back to tokens is free.
+    `rows_per_block` overrides the plan's (the tests hold every choice to
+    the same bits)."""
     B, Hq, Sq, D, Hkv, Skv, scale = _check_call(
         q, k, v, q_segment_ids, kv_segment_ids, scale)
+    plan = _launch_plan(B, Hq, Sq, D, rows_per_block)
     out = torch.empty((B, Sq, Hq, D), dtype=q.dtype,
                       device=q.device).transpose(1, 2)
     if out.numel() == 0:
@@ -242,7 +328,8 @@ def _launch_fwd(q, k, v, lse, causal, q_segment_ids, kv_segment_ids, scale,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _ptr(lse),
         _ptr(q_segment_ids), _ptr(kv_segment_ids),
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
-        B, Hq, Sq, Skv, Hkv, D, int(causal), scale,
+        B, Hq, Sq, Skv, Hkv, D, int(causal), plan.rows_per_block,
+        plan.smem_bytes, scale,
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(rc, name)
     return out, True

@@ -26,9 +26,11 @@ Phases, one or more lines each; any failure raises and exits non-zero:
 5. slice: the full-width Qwen2-VL-7B streaming session with random weights:
    21 clips ingested (one warm-up), memory saturated, 3 greedy answers,
    with the launch counts of both kernels during ingest and answering;
-6. backward: K3 (forward + lse), K4 (dq) and K5 (dk/dv) against their plain
-   versions at the training shape, two small edge cases and the tile
-   cases, with times;
+6. backward: K4/K5's ptxas registers and SASS counts first; K3 (forward +
+   lse), K4 (dq) and K5 (dk/dv) against their plain versions at the
+   training shape, two small edge cases and the tile cases, K4/K5 equal bit
+   for bit run to run and at 64 and 128 rows per block, with times (K4/K5
+   at each rows per block);
 7. function: FlashAttentionFunction on the card against autograd of the
    plain attention;
 8. train_reference: one LoRA loss + backward of the small model on the card
@@ -36,7 +38,9 @@ Phases, one or more lines each; any failure raises and exits non-zero:
 9. train_slice: `run_training` on Qwen2-VL-7B at full width (random bf16
    base, the serving slice's weights), 240 frames of 224 px, max_len 4096,
    grad_accum 2, 3 optimizer steps, with the launch counts of K1, K3, K4, K5;
-10. production: one step at 448 px, 240 frames, max_len 14,000;
+10. production: one step at 448 px, 240 frames, max_len 14,000, its peak
+   memory; then K4, K5 and SDPA's backward timed at the step's own
+   attention shape and segment ids (read from its first backward call);
 11. serve4: the CLI server over the slice's weights quantized to a 4-bit
    decoder (--load-4bit): 168 frames paced at 8 fps, 3 answers, K6 in every
    decode matvec, K1/K2/K6 launched exactly as reckoned and no error logged;
@@ -237,6 +241,68 @@ def check_k1_build():
         raise AssertionError(f"K1: ptxas {ptxas}, sass {counts}: expected "
                              f"{K1_INSTANCES} instances, each with LDSM and "
                              f"LDGSTS and no LDS.U16")
+
+
+def _bwd_instance(name):
+    """The K4 or K5 kernel instance a SASS or ptxas function name matches
+    (dq<D>, dkv<D>; not K5's second pass, which sums partials), or None."""
+    m = re.search(r"flash_bwd_(dq|dkv)_kernelILi(\d+)E", name)
+    return f"{m.group(1)}<{m.group(2)}>" if m else None
+
+
+BWD_INSTANCES = 6          # K4 and K5 at head dims 64, 80, 128
+
+
+def check_bwd_build():
+    """K4/K5's ptxas registers and spills and their SASS counts per
+    instance; fails unless every instance loads fragments by ldmatrix
+    (LDSM) and its tiles by cp.async (LDGSTS), and none reads shared memory
+    16 bits at a time (the first version's B fragments)."""
+    from flash_vstream_tpu_torch.kernels import _build
+    lib = _build.library_path()
+    ptxas = _ptxas_counts(lib.with_suffix(".log"), _bwd_instance)
+    sass = _sass_counts(lib, _bwd_instance, full=True)
+    counts = {}
+    for inst in sorted(ptxas):
+        regs, st, ld = ptxas[inst]
+        ops = sass.get(inst, {}) if isinstance(sass, dict) else {}
+        counts[inst] = {op: sum(n for o, n in ops.items()
+                                if o == op or o.startswith(op + "."))
+                        for op in K1_SASS}
+        print(f"backward ptxas {inst}: {regs} registers, spill stores {st} "
+              f"B, spill loads {ld} B; sass instructions={sum(ops.values())} "
+              + " ".join(
+                  f"{op}={n}" for op, n in counts[inst].items()), flush=True)
+    if not isinstance(sass, dict) or len(ptxas) < BWD_INSTANCES or not all(
+            c["LDSM"] and c["LDGSTS"] and not c["LDS.U16"]
+            for c in counts.values()):
+        raise AssertionError(f"K4/K5: ptxas {ptxas}, sass {counts}: expected "
+                             f"{BWD_INSTANCES} instances, each with LDSM and "
+                             f"LDGSTS and no LDS.U16")
+
+
+def check_bwd_bits(name, args, kw, grads):
+    """K4 then K5 at every rows per block the C entries take, the plan's
+    first (so it runs twice: run to run): dq, delta, dk and dv the same
+    bits as `grads`, the plan's first run."""
+    import torch
+    from flash_vstream_tpu_torch.kernels import flash_attention as fa
+    q, k, v, out, do, lse = args
+    causal = kw.get("causal", False)
+    seg = (kw.get("q_segment_ids"), kw.get("kv_segment_ids"))
+    for rows in (None, *fa.BWD_ROWS_PER_BLOCK):
+        dq, delta = torch.empty_like(q), torch.empty_like(lse)
+        dk, dv = torch.empty_like(k), torch.empty_like(v)
+        fa._launch_bwd("dq", q, k, v, out, do, lse, delta, dq, None, None,
+                       causal, *seg, None, rows_per_block=rows)
+        fa._launch_bwd("dkv", q, k, v, out, do, lse, delta, None, dk, dv,
+                       causal, *seg, None, rows_per_block=rows)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip((dq, delta, dk, dv),
+                                                     grads)):
+            raise AssertionError(f"backward {name}: "
+                                 f"{rows or 'the plan'}'s rows per block "
+                                 f"differ from the first run's bits")
 
 
 def _fwd_seen(q, k, kw):
@@ -687,10 +753,13 @@ def check_backward_kernels(dev):
     per block; lse 1e-3 abs where finite and -inf exactly where the plain
     version has it; dq/dk/dv 2e-2 x max |plain| over the whole tensor and,
     row by row, 2e-2 x the row's max |plain| (bf16 outputs of f32 sums in
-    another order); masked rows exactly 0."""
+    another order); masked rows exactly 0; dq, delta, dk and dv equal bit
+    for bit run to run and at every rows per block (`check_bwd_bits`).
+    K4/K5's ptxas and SASS counts come first (`check_bwd_build`)."""
     import torch
     from flash_vstream_tpu_torch.kernels import flash_attention as fa
 
+    check_bwd_build()
     g = torch.Generator(device=dev).manual_seed(SEED + 1)
 
     def randn(*shape):
@@ -739,6 +808,7 @@ def check_backward_kernels(dev):
                                  f"the plain version has -inf")
         e_out, r_out = check_fwd(f"K3 {name}", out, p_out, q, k, kw)
         check_fwd_bits(f"K3 {name}", (q, k, v), kw, out, lse)
+        check_bwd_bits(name, (q, k, v, out, do, lse), kw, (dq, delta, dk, dv))
         e_lse = (lse[fin] - p_lse[fin]).abs().max().item()
         q_rows, k_rows = _grad_rows(q, k, kw)
         grads = (("dq", dq, p_dq, q_rows), ("dk", dk, p_dk, k_rows),
@@ -749,8 +819,10 @@ def check_backward_kernels(dev):
         row = {n: _row_err(a, b, r) for n, a, b, r in grads}
         if (e_out > 2e-2 or e_lse > 1e-3 or max(rel.values()) > 2e-2
                 or max(row.values()) > 2e-2):
-            raise AssertionError(f"backward {name}: out {e_out:.3e} lse "
-                                 f"{e_lse:.3e} grads/max {rel} by row {row}")
+            raise AssertionError(
+                f"backward {name}: out {e_out:.3e} lse {e_lse:.3e} grads/max "
+                + " ".join(f"{n}={rel[n]:.3e}" for n in rel) + " by row "
+                + " ".join(f"{n}={row[n]:.3e}" for n in row))
         # rows no key reaches, and keys no query reaches, are exactly 0
         dead_q = ~fin                                           # [B, Hq, Sq]
         seen_k = (fa._visible(q, k, kw.get("causal", False),
@@ -779,7 +851,10 @@ def check_backward_kernels(dev):
               f"dq={row['dq']:.3e} dk={row['dk']:.3e} dv={row['dv']:.3e} "
               f"({int(q_rows.sum())} dq rows, {int(k_rows.sum())} dk/dv rows); "
               f"{int(dead_q.sum())} masked query rows, "
-              f"{int(unseen.sum())} unseen keys exactly 0", flush=True)
+              f"{int(unseen.sum())} unseen keys exactly 0; dq/dk/dv equal bit "
+              f"for bit run to run and at every rows per block; plan rows "
+              f"K4 {_bwd_plan('dq', q, k).rows_per_block} "
+              f"K5 {_bwd_plan('dkv', q, k).rows_per_block}", flush=True)
         del p_out, p_lse, p_dq, p_dk, p_dv
 
     # times at the training shape
@@ -800,8 +875,40 @@ def check_backward_kernels(dev):
         pairs * 4 * D, _nbytes(q, k, v, out, lse) + seg_b))
     plain_bwd = _ms(lambda i: fa.flash_attention_bwd_reference(
         q, k, v, out, do, lse, **kw), 1)
-    # the library backward: SDPA's gradient for q, k, v (one call computes
-    # all three), timed with events around autograd over a kept graph
+    lib_bwd = _sdpa_bwd_ms(q, k, v, do)
+    ms, by_rows = _bwd_ms((q, k, v, out, do, lse, delta), kw)
+    res["flash_attention_bwd_dq"] = (ms[0], plain_bwd, lib_bwd, _bound(
+        pairs * 6 * D, _nbytes(q, k, v, out, do, lse, dq, delta) + seg_b))
+    res["flash_attention_bwd_dkv"] = (ms[1], plain_bwd, lib_bwd, _bound(
+        pairs * 8 * D, _nbytes(q, k, v, do, lse, delta, k, v) + seg_b))
+    out_rows = {}
+    for (name, (ms, plain, lib, (bound, by))), kid in zip(
+            res.items(), ("K3", "K4", "K5")):
+        print(f"{kid} {name}: q{tuple(q.shape)} k{tuple(k.shape)} causal "
+              f"segments kernel_ms={ms:.4f} plain_ms={plain:.4f} "
+              f"bound_ms={bound:.4f} ({by}) library_ms={lib:.4f} "
+              f"({'SDPA forward' if kid == 'K3' else 'SDPA backward, dq+dk+dv'}"
+              f", causal only)"
+              + ("; " + k3_rows if kid == "K3" else
+                 " plain = the one plain backward; " + by_rows[kid]),
+              flush=True)
+        out_rows[name] = dict(max_abs_err=errs[kid], ms=ms, plain_ms=plain,
+                              bound_ms=bound, bound_by=by, library_ms=lib)
+    return out_rows
+
+
+def _bwd_plan(kernel, q, k):
+    """The plan K4 ("dq") or K5 ("dkv") launches with for q and k."""
+    from flash_vstream_tpu_torch.kernels import flash_attention as fa
+    B, Hq, Sq, D = q.shape
+    return fa._bwd_launch_plan(kernel, B, Hq, k.shape[1], Sq, k.shape[2], D)
+
+
+def _sdpa_bwd_ms(q, k, v, do):
+    """The library backward: SDPA's gradient for q, k, v (one call computes
+    all three; GQA, causal, no segment mask), timed with events around
+    autograd over a kept graph."""
+    import torch
     ql, kl, vl = (x.detach().requires_grad_() for x in (q, k, v))
     lo = _sdpa(ql, kl, vl, True)
     for _ in range(2):
@@ -812,30 +919,36 @@ def check_backward_kernels(dev):
         torch.autograd.grad(lo, (ql, kl, vl), do, retain_graph=True)
     e1.record()
     torch.cuda.synchronize()
-    lib_bwd = e0.elapsed_time(e1) / 5
-    del lo, ql, kl, vl
-    ms = _ms(lambda i: fa.flash_attention_bwd_dq_cuda(q, k, v, out, do, lse,
-                                                      **kw), 10)
-    res["flash_attention_bwd_dq"] = (ms, plain_bwd, lib_bwd, _bound(
-        pairs * 6 * D, _nbytes(q, k, v, out, do, lse, dq, delta) + seg_b))
-    ms = _ms(lambda i: fa.flash_attention_bwd_dkv_cuda(
-        q, k, v, out, do, lse, delta, **kw), 10)
-    res["flash_attention_bwd_dkv"] = (ms, plain_bwd, lib_bwd, _bound(
-        pairs * 8 * D, _nbytes(q, k, v, do, lse, delta, k, v) + seg_b))
-    out_rows = {}
-    for (name, (ms, plain, lib, (bound, by))), kid in zip(
-            res.items(), ("K3", "K4", "K5")):
-        print(f"{kid} {name}: q{tuple(q.shape)} k{tuple(k.shape)} causal "
-              f"segments kernel_ms={ms:.4f} plain_ms={plain:.4f} "
-              f"bound_ms={bound:.4f} ({by}) library_ms={lib:.4f} "
-              f"({'SDPA forward' if kid == 'K3' else 'SDPA backward, dq+dk+dv'}"
-              f", causal only)"
-              + (" plain = the one plain backward" if kid != "K3"
-                 else "; " + k3_rows),
-              flush=True)
-        out_rows[name] = dict(max_abs_err=errs[kid], ms=ms, plain_ms=plain,
-                              bound_ms=bound, bound_by=by, library_ms=lib)
-    return out_rows
+    return e0.elapsed_time(e1) / 5
+
+
+def _bwd_ms(args, kw, iters=10):
+    """K4's and K5's ms at the plan's rows per block, and each timed at
+    every rows per block the C entries take ({"K4": str, "K5": str}): what
+    the plan's choice is measured against."""
+    import torch
+    from flash_vstream_tpu_torch.kernels import flash_attention as fa
+    q, k, v, out, do, lse, delta = args
+    causal = kw.get("causal", False)
+    seg = (kw.get("q_segment_ids"), kw.get("kv_segment_ids"))
+    ms = (_ms(lambda i: fa.flash_attention_bwd_dq_cuda(q, k, v, out, do, lse,
+                                                       **kw), iters),
+          _ms(lambda i: fa.flash_attention_bwd_dkv_cuda(
+              q, k, v, out, do, lse, delta, **kw), iters))
+    by_rows = {}
+    for kid, kernel in (("K4", "dq"), ("K5", "dkv")):
+        outs = ((torch.empty_like(q), torch.empty_like(lse), None, None)
+                if kernel == "dq" else
+                (None, delta, torch.empty_like(k), torch.empty_like(v)))
+        times = [_ms(lambda i: fa._launch_bwd(
+            kernel, q, k, v, out, do, lse, outs[1], outs[0], outs[2],
+            outs[3], causal, *seg, None, rows_per_block=rows), iters)
+            for rows in fa.BWD_ROWS_PER_BLOCK]
+        by_rows[kid] = (f"plan rows {_bwd_plan(kernel, q, k).rows_per_block},"
+                        " ms by rows per block " + " ".join(
+                            f"{r}={t:.4f}" for r, t in
+                            zip(fa.BWD_ROWS_PER_BLOCK, times)))
+    return ms, by_rows
 
 
 def check_function(dev):
@@ -1903,18 +2016,34 @@ def run_train_slice(dev, params, work, cfg=None):
 
 def run_production_step(dev, params, work, cfg=None):
     """One optimizer step at the reference's production shape: 448 px,
-    240 frames (11,520 visual tokens), max_len 14,000, remat group 4."""
+    240 frames (11,520 visual tokens), max_len 14,000, remat group 4. The
+    backward's attention shapes and segment ids are read from the step
+    (its first K4 + K5 call) and K4, K5 and SDPA's backward timed there."""
     import torch
     from flash_vstream_tpu_torch.core.config import VStreamQwenConfig
+    from flash_vstream_tpu_torch.kernels import flash_attention as fa
     from flash_vstream_tpu_torch.train.finetune_flash import run_training
 
     data = _synthetic_videos(os.path.join(work, "data448"), 1, 448)
     _release(dev)
-    recs = []
-    res = run_training(_train_args(dev, os.path.join(work, "run448"), data,
-                                   14000, 1, 1),
-                       cfg=cfg or VStreamQwenConfig(), params=params,
-                       on_step=lambda s, t, r: recs.append(r))
+    recs, seen = [], {}
+    bwd = fa.flash_attention_bwd_cuda
+
+    def observed(q, k, v, o, do, lse, **kw):
+        if not seen:
+            seen.update(q=q.shape, k=k.shape, kw={
+                n: x.clone() if torch.is_tensor(x) else x
+                for n, x in kw.items()})
+        return bwd(q, k, v, o, do, lse, **kw)
+
+    fa.flash_attention_bwd_cuda = observed
+    try:
+        res = run_training(_train_args(dev, os.path.join(work, "run448"),
+                                       data, 14000, 1, 1),
+                           cfg=cfg or VStreamQwenConfig(), params=params,
+                           on_step=lambda s, t, r: recs.append(r))
+    finally:
+        fa.flash_attention_bwd_cuda = bwd
     peak = torch.cuda.max_memory_allocated(dev) / 2**30
     loss = res["losses"][0]
     print(f"production step: 448 px, 240 frames, max_len 14000, 1 step: "
@@ -1923,6 +2052,52 @@ def run_production_step(dev, params, work, cfg=None):
           f"{peak:.2f} GiB", flush=True)
     if not math.isfinite(loss):
         raise AssertionError(f"production step: loss {loss}")
+    del res
+    _release(dev)
+    time_backward_at(dev, seen["q"], seen["k"], seen["kw"])
+
+
+def time_backward_at(dev, q_shape, k_shape, kw):
+    """K4, K5 and SDPA's backward (dq + dk + dv, causal, no segment mask)
+    at the given shapes and keywords, on seeded random bf16 inputs with K3's
+    out and lse; the bounds count this run's visible pairs. No plain
+    version: its [B, Hq, Sq, Skv] f32 scores do not fit at this length."""
+    import torch
+    from flash_vstream_tpu_torch.kernels import flash_attention as fa
+    g = torch.Generator(device=dev).manual_seed(SEED + 3)
+    q, do = (torch.randn(q_shape, generator=g, device=dev).to(torch.bfloat16)
+             for _ in range(2))
+    k, v = (torch.randn(k_shape, generator=g, device=dev).to(torch.bfloat16)
+            for _ in range(2))
+    out, lse = fa.flash_attention_fwd_lse_cuda(q, k, v, **kw)
+    dq, delta = fa.flash_attention_bwd_dq_cuda(q, k, v, out, do, lse, **kw)
+    dk, dv = fa.flash_attention_bwd_dkv_cuda(q, k, v, out, do, lse, delta,
+                                             **kw)
+    torch.cuda.synchronize()
+    if not all(torch.isfinite(x).all() for x in (dq, dk, dv)):
+        raise AssertionError("backward at the production length: non-finite "
+                             "gradients")
+    ms, by_rows = _bwd_ms((q, k, v, out, do, lse, delta), kw, iters=3)
+    lib = _sdpa_bwd_ms(q, k, v, do)
+    pairs = _visible_pairs(q, k, kw.get("causal", False),
+                           kw.get("q_segment_ids"), kw.get("kv_segment_ids"))
+    D, seg_b = q.shape[-1], 2 * _nbytes(kw.get("q_segment_ids"))
+    bounds = (_bound(pairs * 6 * D, _nbytes(q, k, v, out, do, lse, dq, delta)
+                     + seg_b),
+              _bound(pairs * 8 * D, _nbytes(q, k, v, do, lse, delta, k, v)
+                     + seg_b))
+    live = int((kw["q_segment_ids"] >= 0).sum()) if kw.get(
+        "q_segment_ids") is not None else q.shape[2]
+    scratch = _bwd_plan("dkv", q, k).scratch
+    for kid, t, (bound, by) in zip(("K4", "K5"), ms, bounds):
+        print(f"{kid} at the production length: q{tuple(q.shape)} "
+              f"k{tuple(k.shape)} ({live} tokens with a segment id >= 0) "
+              f"kernel_ms={t:.4f} bound_ms={bound:.4f} ({by}) "
+              f"library_ms={lib:.4f} (SDPA backward, dq+dk+dv, causal only); "
+              + by_rows[kid]
+              + (f"; scratch {scratch} f32 "
+                 f"{math.prod(scratch) * 4 / 2**20:.0f} MiB"
+                 if kid == "K5" and scratch else ""), flush=True)
 
 
 def run_serve4(dev, params, work):

@@ -25,9 +25,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-# q, k, v, o, dout, lse, delta, dq, dk, dv, q_seg, kv_seg, the 24 strides (a
-# pointer to long long), B, Hq, Sq, Skv, Hkv, D, causal, scale, stream
-_BWD = [_P] * 12 + [ctypes.POINTER(_LL)] + [_I] * 7 + [_F, _P]
+# q, k, v, o, dout, lse, delta, dq, dk, dv, q_seg, kv_seg, scratch, the 24
+# strides (a pointer to long long), B, Hq, Sq, Skv, Hkv, D, causal, rows per
+# block, shared bytes, scale, stream
+_BWD = [_P] * 13 + [ctypes.POINTER(_LL)] + [_I] * 9 + [_F, _P]
 _SIGNATURES = {
     # q, k, v, o, lse, q_seg, kv_seg, 12 strides, B, Hq, Sq, Skv, Hkv, D,
     # causal, rows per block, shared bytes, scale, stream

@@ -98,7 +98,7 @@ namespace {
 
 using namespace fvt;
 
-constexpr int kBlockN = 64;       // keys per tile
+constexpr int kBlockN = kTileRows;  // keys per tile
 constexpr int kStages = 3;        // slots of the K/V ring
 constexpr int kMaxRows = 128;     // q rows per block: 8 warps of 16
 constexpr int kMaxSmem = 232448;  // the per-block opt-in on Hopper
@@ -125,44 +125,6 @@ int smem_needed(int rows, int d) {
   return 2 * (d + kPad) * (rows + 2 * kStages * kBlockN) +
          4 * kStages * kBlockN;
 }
-
-// One thread's walk over the 16-byte chunks of a 64-row K or V tile: column
-// chunk c of rows r, r + step, ...; a row has D / 8 chunks, counted on a
-// grid of kCols (a power of two) so the walk is a shift and adds, the lanes
-// past D / 8 idle. Built once per thread; each tile is then one pointer
-// add, a row test and a cp.async per chunk.
-template <int D>
-struct TileCopy {
-  static constexpr int kVec = D / 8, kCols = kVec <= 8 ? 8 : 16;
-  static constexpr int kLd = D + kPad;
-  int c, r, step;
-  __device__ __forceinline__ TileCopy()
-      : c(threadIdx.x % kCols), r(threadIdx.x / kCols),
-        step(blockDim.x / kCols) {}
-  // rows [0, valid) of the tile at src (row stride ss) into dst, the rest
-  // zero-filled and not read
-  __device__ __forceinline__ void operator()(__nv_bfloat16* dst,
-                                             const __nv_bfloat16* src,
-                                             long long ss, int valid) const {
-    if (c >= kVec) return;
-    const __nv_bfloat16* g = src + r * ss + c * 8;
-    __nv_bfloat16* d = dst + r * kLd + c * 8;
-    const long long gstep = step * ss;
-    if (valid >= kBlockN) {
-      for (int row = r; row < kBlockN; row += step, g += gstep, d += step * kLd)
-        cp_async_16(d, g, 16);
-    } else {
-      for (int row = r; row < kBlockN; row += step, g += gstep, d += step * kLd)
-        cp_async_16(d, row < valid ? g : src, row < valid ? 16 : 0);
-    }
-  }
-};
-
-// What a 64-key tile is for one warp's 16 rows.
-struct TileCase {
-  int slot, kv0, nv;  // ring slot, first key, keys below Skv
-  bool skip, full;    // no pair visible; every pair visible
-};
 
 template <int D>
 __global__ void __launch_bounds__(2 * kMaxRows, D > 80 ? 1 : 2)
@@ -245,29 +207,11 @@ __global__ void __launch_bounds__(2 * kMaxRows, D > 80 ? 1 : 2)
   // which case tile j is for this warp's rows (warp-uniform); its ids have
   // landed
   auto classify = [&](int j) {
-    TileCase t;
-    t.slot = j % kStages;
-    t.kv0 = j * kBlockN;
-    t.nv = min(kBlockN, p.skv - t.kv0);
-    t.skip = w0 >= p.sq;
-    t.full = t.nv == kBlockN;
-    if (p.causal) {
-      t.skip |= t.kv0 > w1;
-      t.full &= t.kv0 + kBlockN - 1 <= w0;
-    }
-    if (seg) {
-      const int* ts = sSeg + t.slot * kBlockN;
-      const int a = ts[lane], e = ts[lane + 32];
-      const int kmin = __reduce_min_sync(
-          0xffffffffu,
-          min(lane < t.nv ? a : INT_MAX, lane + 32 < t.nv ? e : INT_MAX));
-      const int kmax = __reduce_max_sync(
-          0xffffffffu,
-          max(lane < t.nv ? a : INT_MIN, lane + 32 < t.nv ? e : INT_MIN));
-      t.skip |= kmax < 0 || kmax < qmin || kmin > qmax;
-      t.full &= kmin == kmax && qmin == qmax && kmin == qmin;
-    }
-    return t;
+    const int slot = j % kStages;
+    return classify_tile(slot, j * kBlockN, p.skv, w0, w1, w0 < p.sq,
+                         p.causal, true,
+                         seg ? sSeg + slot * kBlockN : nullptr, qmin, qmax,
+                         lane);
   };
   // the warp's raw scores against tile t; a masked score is -inf, so its p
   // is exactly 0
@@ -285,7 +229,7 @@ __global__ void __launch_bounds__(2 * kMaxRows, D > 80 ? 1 : 2)
           const int ks = ts[cl];
           vis = vis && ks >= 0 && ks == (e < 2 ? seg0 : seg1);
         }
-        if (p.causal) vis = vis && t.kv0 + cl <= (e < 2 ? row0 : row1);
+        if (p.causal) vis = vis && t.t0 + cl <= (e < 2 ? row0 : row1);
         if (!vis) s[nt][e] = -INFINITY;
       }
     }

@@ -1,9 +1,11 @@
 // Helpers shared by the attention kernels (K1/K3 in flash_attention.cu,
 // K4/K5 in flash_attention_bwd.cu, P2 in frame_attention.cu): bf16 packing,
 // the m16n8k16 bf16 tensor-core product with f32 accumulation, `ldmatrix`
-// fragment loads, `cp.async` copies, and the tile steps the two forward
-// kernels (K1/K3, P2) share: rows into a padded shared tile, Q's A
-// fragments, one 64-key tile's scores and P V, the output's store.
+// fragment loads, `cp.async` copies, the tile steps the two forward
+// kernels (K1/K3, P2) share (rows into a padded shared tile, Q's A
+// fragments, one 64-key tile's scores and P V, the output's store), and
+// what K1/K3 and K4/K5 share: the 64-row tile copy of their cp.async rings
+// and the skip/full/masked case of a (warp, tile).
 //
 // Fragment layout of mma.sync.m16n8k16 (g = lane / 4, t4 = lane % 4):
 //   A 16x16 row-major: a0 (row g, cols 2t4..+1), a1 (row g+8, same cols),
@@ -29,6 +31,7 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <limits.h>
 #include <stdint.h>
 
 namespace fvt {
@@ -38,6 +41,7 @@ constexpr float kLn2 = 0.6931471805599453f;
 constexpr int kPad = 8;  // shared-memory row padding, in bf16 elements: a row
                          // stride of D + 8 keeps the fragment loads of the 8
                          // rows of a quad group on distinct banks
+constexpr int kTileRows = 64;  // rows of a ring tile (TileCopy, TileCase)
 
 // Two bf16 values packed in a 32-bit register, as floats (.x the low half).
 __device__ __forceinline__ float2 unpack_f32(uint32_t u) {
@@ -51,12 +55,6 @@ __device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
 __device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x is the low half
   return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo,
-                                              __nv_bfloat16 hi) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
-         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
 }
 
 // d += a * b for one m16n8k16 tile: a 16x16 (row), b 16x8 (col), d 16x8 f32.
@@ -243,6 +241,90 @@ __device__ __forceinline__ float quad_max(float x) {
 __device__ __forceinline__ float quad_sum(float x) {
   x += __shfl_xor_sync(0xffffffffu, x, 1);
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// One thread's walk over the 16-byte chunks of a 64-row tile: column
+// chunk c of rows r, r + step, ...; a row has D / 8 chunks, counted on a
+// grid of kCols (a power of two) so the walk is a shift and adds, the lanes
+// past D / 8 idle. Built once per thread; each tile is then one pointer
+// add, a row test and a cp.async per chunk.
+template <int D>
+struct TileCopy {
+  static constexpr int kVec = D / 8, kCols = kVec <= 8 ? 8 : 16;
+  static constexpr int kLd = D + kPad;
+  int c, r, step;
+  __device__ __forceinline__ TileCopy()
+      : c(threadIdx.x % kCols), r(threadIdx.x / kCols),
+        step(blockDim.x / kCols) {}
+  // rows [0, valid) of the tile at src (row stride ss) into dst, the rest
+  // zero-filled and not read
+  __device__ __forceinline__ void operator()(__nv_bfloat16* dst,
+                                             const __nv_bfloat16* src,
+                                             long long ss, int valid) const {
+    if (c >= kVec) return;
+    const __nv_bfloat16* g = src + r * ss + c * 8;
+    __nv_bfloat16* d = dst + r * kLd + c * 8;
+    const long long gstep = step * ss;
+    if (valid >= kTileRows) {
+      for (int row = r; row < kTileRows; row += step, g += gstep,
+               d += step * kLd)
+        cp_async_16(d, g, 16);
+    } else {
+      for (int row = r; row < kTileRows; row += step, g += gstep,
+               d += step * kLd)
+        cp_async_16(d, row < valid ? g : src, row < valid ? 16 : 0);
+    }
+  }
+};
+
+// What a 64-row tile is for one warp's 16 rows.
+struct TileCase {
+  int slot, t0, nv;  // ring slot, first row, rows below the length
+  bool skip, full;   // no pair visible; every pair visible
+};
+
+// The case of the tile in `slot` whose rows start at t0, `len` rows long in
+// all, for the warp's rows w0..w1 (w1 its last below its own length;
+// `live`: w0 is below it). `keys_in_tile`: the tile holds keys and the warp
+// queries (K1/K3, K4), else the reverse (K5); a causal pair is visible when
+// key <= query. `ids`: the tile's segment ids in shared memory, or null
+// without segments; [rmin, rmax] the id range of the warp's rows. Skip: no
+// pair can be visible (past the diagonal, every key id -1, or id ranges
+// apart); full: every pair is (inside both lengths and the diagonal, one id
+// >= 0 for all). Warp-uniform; the ids have landed.
+__device__ __forceinline__ TileCase classify_tile(int slot, int t0, int len,
+                                                  int w0, int w1, bool live,
+                                                  bool causal,
+                                                  bool keys_in_tile,
+                                                  const int* ids, int rmin,
+                                                  int rmax, int lane) {
+  TileCase t;
+  t.slot = slot;
+  t.t0 = t0;
+  t.nv = min(kTileRows, len - t0);
+  t.skip = !live;
+  t.full = t.nv == kTileRows;
+  if (causal) {
+    if (keys_in_tile) {
+      t.skip |= t0 > w1;
+      t.full &= t0 + kTileRows - 1 <= w0;
+    } else {
+      t.skip |= t0 + t.nv - 1 < w0;
+      t.full &= t0 >= w1;
+    }
+  }
+  if (ids != nullptr) {
+    const int a = ids[lane], e = ids[lane + 32];
+    const int tmin = __reduce_min_sync(
+        0xffffffffu,
+        min(lane < t.nv ? a : INT_MAX, lane + 32 < t.nv ? e : INT_MAX));
+    const int tmax = __reduce_max_sync(
+        0xffffffffu,
+        max(lane < t.nv ? a : INT_MIN, lane + 32 < t.nv ? e : INT_MIN));
+    t.skip |= (keys_in_tile ? tmax : rmax) < 0 || tmax < rmin || tmin > rmax;
+    t.full &= tmin == tmax && rmin == rmax && tmin == rmin;
+  }
+  return t;
 }
 
 }  // namespace fvt

@@ -31,6 +31,11 @@ design does about it. K1/K3 take one block per (q tile, head, batch);
 `_launch_plan` picks the q rows per block (16 to 128, 16 a warp): no more
 than Sq needs, and fewer where a long call would put under 132 blocks on
 the card; the output and lse are the same bit for bit whatever that choice.
+K4 takes one block per (q tile, q head, batch) and K5 one per (kv tile,
+q head, batch), 64 or 128 rows a block by `_bwd_launch_plan`; where a kv
+head serves several q heads, K5 sums their partial dk/dv in a second,
+fixed-order pass from an f32 scratch the wrapper allocates. dq, dk and dv
+are the same bit for bit from run to run and at either rows per block.
 The TPU version's crossover (`Sq >= 512` before fusing) was tuned on a v5e
 and is not carried over: every q_offset-0 call on the card runs a kernel.
 """
@@ -56,6 +61,11 @@ PAD = 8                 # shared-memory row padding, elements (kPad)
 STAGES = 3              # slots of the K/V ring (kStages)
 FILL_MIN_SQ = 4 * BLOCK_N   # a plan halves its rows to fill the card only
                             # above this Sq (over four key tiles a block)
+BWD_ROWS_PER_BLOCK = (64, 128)   # q rows a K4 block, kv rows a K5 block, as
+                                 # the C entries take them
+BWD_WIDE_MIN_S = 8192   # K4/K5 take 128 rows a block only above this length
+DQ_STAGES = 3           # slots of K4's K/V ring (kStagesDq)
+DKV_STAGES = 2          # slots of K5's Q/dO ring (kStagesDkv)
 # The card's limit on K1/K3's output, row by row: each row that sees a key
 # within ROW_TOL of its own max |plain|, beside 2e-2 absolute over the
 # tensor, which a late prefill row's outputs of 0.02-0.1 pass with a tile
@@ -399,24 +409,86 @@ def _bwd_operand(name: str, x: torch.Tensor, like: torch.Tensor
     return x
 
 
-def _launch_bwd(fn_name, q, k, v, o, do, lse, delta, dq, dk, dv,
-                causal, q_segment_ids, kv_segment_ids, scale):
+class BwdPlan(NamedTuple):
+    """K4's or K5's launch: rows per block (q rows for K4, kv rows for K5;
+    16 a warp), blocks in the grid (tiles x Hq x B), dynamic shared bytes
+    (the C entries refuse any other number for those rows) and the shape of
+    K5's f32 scratch for the partial dk and dv of each q head, [2, B, Hq,
+    Skv, D] (None for K4, and for K5 where Hq == Hkv: no second pass)."""
+    rows_per_block: int
+    blocks: int
+    smem_bytes: int
+    scratch: Optional[Tuple[int, int, int, int, int]]
+
+
+def _bwd_smem_bytes(kernel: str, rows: int, D: int) -> int:
+    """K4 ("dq"): DQ_STAGES slots of K and V [64][D + PAD] bf16 and of 64
+    int32 kv ids, whatever the rows. K5 ("dkv"): K and V [rows][D + PAD]
+    bf16, then DKV_STAGES slots of Q and dO [64][D + PAD] bf16 and of 64
+    lse, delta and q ids (csrc/flash_attention_bwd.cu `dq_smem_bytes`,
+    `dkv_smem_bytes`)."""
+    if kernel == "dq":
+        return 2 * (D + PAD) * 2 * DQ_STAGES * BLOCK_N + 4 * DQ_STAGES * BLOCK_N
+    return (2 * (D + PAD) * (2 * rows + 2 * DKV_STAGES * BLOCK_N)
+            + 12 * DKV_STAGES * BLOCK_N)
+
+
+def _bwd_launch_plan(kernel: str, B: int, Hq: int, Hkv: int, Sq: int,
+                     Skv: int, D: int,
+                     rows_per_block: Optional[int] = None) -> BwdPlan:
+    """K4's ("dq": one block per q tile, q head and batch) or K5's ("dkv":
+    per kv tile, q head and batch) launch. Rows per block are 64, or 128
+    where the rows the grid covers (Sq for K4, Skv for K5) exceed
+    BWD_WIDE_MIN_S and 128-row blocks still number N_SM or more: on an H100
+    64 rows ran 1-5% faster at S 4,096 (the training step) and 128 rows
+    3.5-5% faster at S 14,000 (the production step; PERF.md).
+    `rows_per_block` forces one of BWD_ROWS_PER_BLOCK instead (the result
+    is the same bit for bit)."""
+    if kernel not in ("dq", "dkv"):
+        raise ValueError(f"kernel {kernel!r} is not 'dq' or 'dkv'")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"head_dim {D} not in {HEAD_DIMS}")
+    S = Sq if kernel == "dq" else Skv
+    rows = rows_per_block
+    if rows is None:
+        small, big = BWD_ROWS_PER_BLOCK
+        rows = (big if S > BWD_WIDE_MIN_S and B * Hq * -(-S // big) >= N_SM
+                else small)
+    elif rows not in BWD_ROWS_PER_BLOCK:
+        raise ValueError(f"rows_per_block {rows} not in {BWD_ROWS_PER_BLOCK}")
+    scratch = ((2, B, Hq, Skv, D) if kernel == "dkv" and Hq > Hkv else None)
+    return BwdPlan(rows, B * Hq * -(-S // rows),
+                   _bwd_smem_bytes(kernel, rows, D), scratch)
+
+
+def _launch_bwd(kernel, q, k, v, o, do, lse, delta, dq, dk, dv,
+                causal, q_segment_ids, kv_segment_ids, scale,
+                rows_per_block=None):
+    """K4 ("dq": writes dq and delta) or K5 ("dkv": writes dk and dv, with
+    its f32 scratch where Hq > Hkv). `rows_per_block` overrides the plan's
+    (the tests hold every choice to the same bits)."""
     B, Hq, Sq, D, Hkv, Skv, scale = _check_call(
         q, k, v, q_segment_ids, kv_segment_ids, scale)
     if (lse.shape != (B, Hq, Sq) or lse.dtype != torch.float32
             or not lse.is_contiguous() or lse.device != q.device):
         raise ValueError(f"lse must be a contiguous f32 [{B}, {Hq}, {Sq}] "
                          f"tensor on {q.device}")
+    plan = _bwd_launch_plan(kernel, B, Hq, Hkv, Sq, Skv, D, rows_per_block)
+    scratch = (None if plan.scratch is None else
+               torch.empty(plan.scratch, dtype=torch.float32,
+                           device=q.device))
     # an output the kernel does not write (dq for K5, dk/dv for K4) is a
     # null pointer with zero strides
     strides = [s for x in (q, k, v, o, do, dq, dk, dv)
                for s in (x.stride()[:3] if x is not None else (0, 0, 0))]
+    fn_name = f"fvt_flash_attention_bwd_{kernel}"
     rc = getattr(_build.library(), fn_name)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), _ptr(dq), _ptr(dk), _ptr(dv),
-        _ptr(q_segment_ids), _ptr(kv_segment_ids),
+        _ptr(q_segment_ids), _ptr(kv_segment_ids), _ptr(scratch),
         (ctypes.c_longlong * 24)(*strides),
-        B, Hq, Sq, Skv, Hkv, D, int(causal), scale,
+        B, Hq, Sq, Skv, Hkv, D, int(causal), plan.rows_per_block,
+        plan.smem_bytes, scale,
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(rc, fn_name)
 
@@ -439,8 +511,8 @@ def flash_attention_bwd_dq_cuda(
     if k.shape[2] == 0:
         _check_call(q, k, v, q_segment_ids, kv_segment_ids, scale)
         return dq.zero_(), (do.float() * o.float()).sum(-1)
-    _launch_bwd("fvt_flash_attention_bwd_dq", q, k, v, o, do, lse, delta,
-                dq, None, None, causal, q_segment_ids, kv_segment_ids, scale)
+    _launch_bwd("dq", q, k, v, o, do, lse, delta, dq, None, None, causal,
+                q_segment_ids, kv_segment_ids, scale)
     flash_attention_bwd_dq_cuda.launches += 1
     return dq, delta
 
@@ -465,8 +537,8 @@ def flash_attention_bwd_dkv_cuda(
     if (delta.shape != lse.shape or delta.dtype != torch.float32
             or not delta.is_contiguous()):
         raise ValueError("delta must be K4's contiguous f32 [B, Hq, Sq]")
-    _launch_bwd("fvt_flash_attention_bwd_dkv", q, k, v, o, do, lse, delta,
-                None, dk, dv, causal, q_segment_ids, kv_segment_ids, scale)
+    _launch_bwd("dkv", q, k, v, o, do, lse, delta, None, dk, dv, causal,
+                q_segment_ids, kv_segment_ids, scale)
     flash_attention_bwd_dkv_cuda.launches += 1
     return dk, dv
 

@@ -157,9 +157,9 @@ PATCHES = {
          "  int tiles_done = 0;\n"),
         (_RESCALE, _RESCALE + f"    if (tiles_done++ == 1 && {_FAULT_ROWS})"
          " {\n" + _RESCALE + "    }\n")],
-    "fault_skip": [("    t.skip = w0 >= p.sq;\n",
-                    f"    t.skip = w0 >= p.sq || (j == 46 && {_FAULT_ROWS});"
-                    "\n")],
+    "fault_skip": [("p.skv, w0, w1, w0 < p.sq,",
+                    f"p.skv, w0, w1, w0 < p.sq && !(j == 46 && {_FAULT_ROWS}),"
+                    )],
 }
 # the wrapper's copy of the ring's slot count (its shared-byte formula)
 _PY_SLOTS = ("STAGES = 3 ", "STAGES = 2 ")

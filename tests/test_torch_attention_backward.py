@@ -10,11 +10,14 @@ and 2e-2 x the row's max |plain| row by row (bf16 outputs of f32 sums). The mach
 there the card tests run alone:
     python -m pytest --noconftest -m gpu tests/test_torch_attention_backward.py
 """
+import ctypes
+
 import numpy as np
 import pytest
 import torch
 
 from flash_vstream_tpu_torch.kernels import flash_attention as fa
+from flash_vstream_tpu_torch.scripts import probe_flash_bwd
 
 torch.set_num_threads(1)
 REL = 1e-4
@@ -34,6 +37,8 @@ CASES = {
     "causal_gqa_segments_d128": (2, 8, 2, 37, 37, 128, True, True),
     "segments_ragged_d80": (1, 6, 3, 21, 29, 80, False, True),
     "segments_d64": (2, 2, 1, 16, 16, 64, False, True),
+    # the training's group size: 7 q heads a kv head
+    "gqa7_causal_segments_d64": (1, 7, 1, 70, 70, 64, True, True),
 }
 
 
@@ -190,6 +195,125 @@ def test_no_grad_keeps_the_forward_without_lse():
 
 
 # ---------------------------------------------------------------------------
+# K4/K5's launch plan and probe
+# ---------------------------------------------------------------------------
+
+def _blocks(kernel, plan, B, Hq, S):
+    """(batch, head, tile) of each block in launch order, as the C kernels
+    map blockIdx (x: tiles x Hq, heads fastest; y: batch): K4 walks its q
+    tiles from the last, K5 its kv tiles from the first."""
+    n = -(-S // plan.rows_per_block)
+    out = []
+    for b in range(B):
+        for x in range(n * Hq):
+            t = x // Hq
+            out.append((b, x % Hq, n - 1 - t if kernel == "dq" else t))
+    return out
+
+
+def _causal_work(kernel, tile, rows, Sq, Skv):
+    """64-row tiles a causal block walks: K4's kv tiles up to its last q
+    row, K5's q tiles from its first kv row's tile to the end."""
+    if kernel == "dq":
+        return -(-min((tile + 1) * rows, Sq, Skv) // fa.BLOCK_N)
+    return -(-Sq // fa.BLOCK_N) - (tile * rows) // fa.BLOCK_N
+
+
+@pytest.mark.parametrize("kernel", ["dq", "dkv"])
+@pytest.mark.parametrize("S", [1, 15, 16, 17, 63, 64, 65, 333, 700, 4096])
+@pytest.mark.parametrize("D", [64, 80, 128])
+@pytest.mark.parametrize("g", [1, 2, 7])
+def test_bwd_launch_plan_covers_every_tile_once(kernel, S, D, g):
+    """K4's plan covers every (batch, q head, q tile) and K5's every
+    (batch, q head, kv tile) exactly once, heaviest first under causality;
+    rows per block one the C entries take, tiles covering S; shared bytes
+    within the 227 KB opt-in; K5's scratch [2, B, Hq, Skv, D] f32 only for
+    a group of more than one q head."""
+    for B, Hkv in ((1, 4), (2, 1)):
+        Hq = g * Hkv
+        plan = fa._bwd_launch_plan(kernel, B, Hq, Hkv, S, S, D)
+        rows = plan.rows_per_block
+        assert rows in fa.BWD_ROWS_PER_BLOCK
+        n = -(-S // rows)
+        assert (n - 1) * rows < S <= n * rows
+        blocks = _blocks(kernel, plan, B, Hq, S)
+        assert len(blocks) == plan.blocks == len(set(blocks))
+        assert set(blocks) == {(b, h, t) for b in range(B)
+                               for h in range(Hq) for t in range(n)}
+        work = [_causal_work(kernel, t, rows, S, S) for _, _, t in blocks]
+        for b in range(B):
+            w = work[b * n * Hq:(b + 1) * n * Hq]
+            assert w == sorted(w, reverse=True)
+        assert plan.smem_bytes == fa._bwd_smem_bytes(kernel, rows, D)
+        assert plan.smem_bytes <= 232_448
+        want = (2, B, Hq, S, D) if kernel == "dkv" and g > 1 else None
+        assert plan.scratch == want
+
+
+@pytest.mark.parametrize("kernel, B, Hq, Hkv, S, rows", [
+    ("dq", 1, 28, 4, 4096, 64), ("dkv", 1, 28, 4, 4096, 64),
+    ("dq", 1, 28, 4, 8192, 64), ("dkv", 1, 28, 4, 8193, 128),
+    ("dq", 1, 28, 4, 14000, 128), ("dkv", 1, 28, 4, 14000, 128),
+    ("dq", 1, 28, 4, 64, 64), ("dkv", 1, 1, 1, 14000, 64),
+    ("dq", 1, 1, 1, 4096, 64), ("dkv", 2, 6, 2, 301, 64)])
+def test_bwd_launch_plan_rows(kernel, B, Hq, Hkv, S, rows):
+    """64 rows a block (the training shape), 128 above BWD_WIDE_MIN_S (the
+    production length) unless 128-row blocks would leave SMs idle."""
+    assert fa._bwd_launch_plan(kernel, B, Hq, Hkv, S, S,
+                               128).rows_per_block == rows
+
+
+def test_bwd_launch_plan_takes_a_forced_rows_per_block():
+    for kernel in ("dq", "dkv"):
+        for rows in fa.BWD_ROWS_PER_BLOCK:
+            plan = fa._bwd_launch_plan(kernel, 1, 28, 4, 4096, 4096, 128,
+                                       rows)
+            assert plan.rows_per_block == rows
+            assert plan.blocks == 28 * -(-4096 // rows)
+        with pytest.raises(ValueError, match="rows_per_block"):
+            fa._bwd_launch_plan(kernel, 1, 28, 4, 4096, 4096, 128, 32)
+        with pytest.raises(ValueError, match="head_dim"):
+            fa._bwd_launch_plan(kernel, 1, 28, 4, 4096, 4096, 96)
+    with pytest.raises(ValueError, match="kernel"):
+        fa._bwd_launch_plan("dk", 1, 28, 4, 4096, 4096, 128)
+    # K4's bytes do not depend on its rows; K5's hold its K and V rows
+    assert fa._bwd_smem_bytes("dq", 64, 128) == fa._bwd_smem_bytes(
+        "dq", 128, 128)
+    assert (fa._bwd_smem_bytes("dkv", 128, 128)
+            - fa._bwd_smem_bytes("dkv", 64, 128)) == 2 * 64 * 136 * 2
+
+
+@pytest.mark.parametrize("variant", sorted(probe_flash_bwd.PATCHES))
+def test_probe_bwd_variants_patch_the_kernel_source(tmp_path, variant):
+    """Every edit of the K4/K5 probe (ablations, planted faults) applies
+    exactly once to the kernel source as it is."""
+    d = probe_flash_bwd.make_variant(variant, tmp_path)
+    cu = (d / "flash_vstream_tpu_torch/kernels/csrc/flash_attention_bwd.cu"
+          ).read_text()
+    base = (probe_flash_bwd.PKG / probe_flash_bwd.SRC).read_text()
+    assert (cu == base) == (variant == "base")
+    assert (d / "chip_smoke.py").exists()
+
+
+@pytest.mark.parametrize("message, caught", [
+    ("AssertionError: backward train: out 7.812e-03 lse 1.907e-06 grads/max "
+     "dq=4.120e-03 dk=3.900e-03 dv=4.000e-03 by row dq=1.300e-01 "
+     "dk=7.800e-03 dv=7.700e-03", True),
+    ("AssertionError: backward train: out 7.812e-03 lse 1.907e-06 grads/max "
+     "dq=4.120e-02 dk=3.900e-03 dv=4.000e-03 by row dq=1.300e-01 "
+     "dk=7.800e-03 dv=7.700e-03", False),
+    ("AssertionError: backward train: out 7.812e-03 lse 1.907e-06 grads/max "
+     "dq=4.120e-03 dk=3.900e-03 dv=4.000e-03 by row dq=1.000e-02 "
+     "dk=7.800e-03 dv=7.700e-03", False),
+    ("AssertionError: backward train: a masked query row is not exactly 0",
+     False)])
+def test_probe_bwd_counts_a_fault_caught_by_the_row_limit_alone(message,
+                                                                caught):
+    """A planted fault counts only if the 2e-2-of-max bound would pass it."""
+    assert probe_flash_bwd.caught_by_row(message) is caught
+
+
+# ---------------------------------------------------------------------------
 # On the card
 # ---------------------------------------------------------------------------
 
@@ -201,15 +325,52 @@ def cuda():
     return torch.device("cuda")
 
 
+def _card_case(dev, name):
+    """A CASES or TILE_CASES entry as bf16 card tensors (q, k, v, do) and
+    keywords."""
+    tb = lambda x: torch.from_numpy(x).to(dev, torch.bfloat16)
+    if name in fa.TILE_CASES:
+        B, Hq, Hkv, Sq, Skv, D, causal, q_runs, kv_runs = fa.TILE_CASES[name]
+        q, k, v, do, _, _ = _inputs(5, B, Hq, Hkv, Sq, Skv, D, False)
+        return tuple(map(tb, (q, k, v, do))), dict(
+            causal=causal, q_segment_ids=fa.segment_ids(q_runs, B, Sq, dev),
+            kv_segment_ids=fa.segment_ids(kv_runs, B, Skv, dev))
+    B, Hq, Hkv, Sq, Skv, D, causal, seg = CASES[name]
+    q, k, v, do, qs, ks = _inputs(4, B, Hq, Hkv, Sq, Skv, D, seg)
+    ti = lambda x: None if x is None else torch.from_numpy(x).to(dev)
+    return tuple(map(tb, (q, k, v, do))), dict(
+        causal=causal, q_segment_ids=ti(qs), kv_segment_ids=ti(ks))
+
+
+def _assert_grads_close(q, k, v, out, do, lse, grads, kw):
+    """K4/K5's dq, dk, dv against their plain version on their own inputs
+    (K3's out and lse): 2e-2 x max |plain| over the tensor and, row by row,
+    2e-2 x the row's max |plain|, so the large gradients of a causal run's
+    first rows cannot hide the rest (a query that sees one key has a
+    gradient of 0 up to rounding and is held by the first bound); dq of a
+    query that sees no key and dk/dv of a key no query sees exactly 0."""
+    p_grads = fa.flash_attention_bwd_reference(q, k, v, out, do, lse, **kw)
+    vis = fa._visible(q, k, kw["causal"], kw["q_segment_ids"],
+                      kw["kv_segment_ids"])[:, 0, 0]
+    q_rows = (vis.sum(-1) >= 2)[:, None].expand(-1, q.shape[1], -1)
+    k_rows = vis.any(1)[:, None].expand(-1, k.shape[1], -1)
+    for got, want, rows in zip(grads, p_grads, (q_rows, k_rows, k_rows)):
+        assert torch.isfinite(got).all()
+        err = (got.float() - want.float()).abs()
+        assert err.max() <= 2e-2 * want.float().abs().max()
+        row_scale = want.float().abs().amax(-1).clamp_min(1e-30)
+        assert (err.amax(-1) / row_scale)[rows].max() <= 2e-2
+    dq, dk, dv = grads
+    dead_q = ~vis.any(-1)[:, None].expand(-1, q.shape[1], -1)
+    unseen = ~vis.any(1)[:, None].expand(-1, k.shape[1], -1)
+    assert not dq[dead_q].any()
+    assert not dk[unseen].any() and not dv[unseen].any()
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("name", sorted(CASES))
 def test_kernels_match_plain_on_card(cuda, name):
-    B, Hq, Hkv, Sq, Skv, D, causal, seg = CASES[name]
-    q, k, v, do, qs, ks = _inputs(4, B, Hq, Hkv, Sq, Skv, D, seg)
-    tb = lambda x: torch.from_numpy(x).to(cuda, torch.bfloat16)
-    ti = lambda x: None if x is None else torch.from_numpy(x).to(cuda)
-    q, k, v, do = map(tb, (q, k, v, do))
-    kw = dict(causal=causal, q_segment_ids=ti(qs), kv_segment_ids=ti(ks))
+    (q, k, v, do), kw = _card_case(cuda, name)
     n = [f.launches for f in (fa.flash_attention_fwd_lse_cuda,
                               fa.flash_attention_bwd_dq_cuda,
                               fa.flash_attention_bwd_dkv_cuda)]
@@ -225,23 +386,71 @@ def test_kernels_match_plain_on_card(cuda, name):
     assert (out.float() - p_out.float()).abs().max().item() <= 2e-2
     # K4/K5's plain version on their own inputs: K3's out and lse
     _, lse = fa.flash_attention_fwd_lse_cuda(q, k, v, **kw)
-    p_dq, p_dk, p_dv = fa.flash_attention_bwd_reference(q, k, v, out, do,
-                                                        lse, **kw)
-    # row by row too, each against its own scale, so the large gradients of
-    # a causal run's first rows cannot hide the rest; a query that sees one
-    # key has a gradient of 0 up to rounding and is held by the first bound
-    vis = fa._visible(q, k, causal, kw["q_segment_ids"],
-                      kw["kv_segment_ids"])[:, 0, 0]
-    q_rows = (vis.sum(-1) >= 2)[:, None].expand(-1, Hq, -1)
-    k_rows = vis.any(1)[:, None].expand(-1, Hkv, -1)
-    for got, want, rows in ((dq, p_dq, q_rows), (dk, p_dk, k_rows),
-                            (dv, p_dv, k_rows)):
-        err = (got.float() - want.float()).abs()
-        assert err.max() <= 2e-2 * want.float().abs().max()
-        row_scale = want.float().abs().amax(-1).clamp_min(1e-30)
-        assert (err.amax(-1) / row_scale)[rows].max() <= 2e-2
-    if seg:
+    _assert_grads_close(q, k, v, out.detach(), do, lse, (dq, dk, dv), kw)
+    if kw["q_segment_ids"] is not None:
         assert torch.equal(dq[:, :, -3:], torch.zeros_like(dq[:, :, -3:]))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(fa.TILE_CASES))
+def test_tile_cases_through_backward_kernels_on_card(cuda, name):
+    """K4 and K5 at the tile cases, which give each kernel every kind of
+    (warp, tile): skip, full and masked."""
+    (q, k, v, do), kw = _card_case(cuda, name)
+    out, lse = fa.flash_attention_fwd_lse_cuda(q, k, v, **kw)
+    grads = fa.flash_attention_bwd_cuda(q, k, v, out, do, lse, **kw)
+    torch.cuda.synchronize()
+    _assert_grads_close(q, k, v, out, do, lse, grads, kw)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(CASES) + sorted(fa.TILE_CASES))
+def test_backward_bit_identical_across_runs_and_rows_per_block(cuda, name):
+    """dq, delta, dk and dv: the same bits in a second run and at every
+    rows per block the C entries take (no atomics, fixed-order sums)."""
+    (q, k, v, do), kw = _card_case(cuda, name)
+    out, lse = fa.flash_attention_fwd_lse_cuda(q, k, v, **kw)
+    dq, delta = fa.flash_attention_bwd_dq_cuda(q, k, v, out, do, lse, **kw)
+    dk, dv = fa.flash_attention_bwd_dkv_cuda(q, k, v, out, do, lse, delta,
+                                             **kw)
+    args = (kw["causal"], kw["q_segment_ids"], kw["kv_segment_ids"], None)
+    for rows in (None, *fa.BWD_ROWS_PER_BLOCK):
+        got = (torch.empty_like(q), torch.empty_like(delta),
+               torch.empty_like(k), torch.empty_like(v))
+        fa._launch_bwd("dq", q, k, v, out, do, lse, got[1], got[0], None,
+                       None, *args, rows_per_block=rows)
+        fa._launch_bwd("dkv", q, k, v, out, do, lse, got[1], None, got[2],
+                       got[3], *args, rows_per_block=rows)
+        torch.cuda.synchronize()
+        for a, b in zip(got, (dq, delta, dk, dv)):
+            assert torch.equal(a, b), rows
+
+
+@pytest.mark.gpu
+def test_bwd_c_entries_refuse_a_plan_they_do_not_take(cuda):
+    """Rows per block outside {64, 128}, shared bytes other than the
+    kernel's own, or (K5) a group of q heads without scratch, or scratch
+    without one, are refused before launch."""
+    from flash_vstream_tpu_torch.kernels import _build
+    lib = _build.library()
+    q = torch.zeros(1, 2, 64, 64, device=cuda, dtype=torch.bfloat16)
+    lse = torch.zeros(1, 2, 64, device=cuda)
+    buf = torch.zeros(2, 1, 2, 64, 64, device=cuda)
+    strides = (ctypes.c_longlong * 24)(*(list(q.stride()[:3]) * 8))
+    for kernel, hkv, rows, smem, scratch in (
+            ("dq", 2, 32, fa._bwd_smem_bytes("dq", 64, 64), None),
+            ("dq", 2, 64, fa._bwd_smem_bytes("dq", 64, 64) + 16, None),
+            ("dkv", 2, 96, fa._bwd_smem_bytes("dkv", 64, 64), None),
+            ("dkv", 2, 128, fa._bwd_smem_bytes("dkv", 64, 64), None),
+            ("dkv", 1, 64, fa._bwd_smem_bytes("dkv", 64, 64), None),
+            ("dkv", 2, 64, fa._bwd_smem_bytes("dkv", 64, 64), buf)):
+        p = q.data_ptr()
+        rc = getattr(lib, f"fvt_flash_attention_bwd_{kernel}")(
+            p, p, p, p, p, lse.data_ptr(), lse.data_ptr(), p, p, p, None,
+            None, None if scratch is None else scratch.data_ptr(), strides,
+            1, 2, 64, 64, hkv, 64, 0, rows, smem, 0.125,
+            torch.cuda.current_stream(cuda).cuda_stream)
+        assert rc != 0, (kernel, hkv, rows, smem)
 
 
 @pytest.mark.gpu

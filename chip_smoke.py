@@ -17,7 +17,10 @@ Phases, one or more lines each; any failure raises and exits non-zero:
    SDPA and its bound;
    int4_kernel: K6 (int4 decode matvec) against its plain version at the
    7B decoder's shapes (B 1; 8 and 32 for the MLP), with times, the bound
-   and torch's own int4 matmul beside it;
+   and torch's own int4 matmul beside it, its plan (cluster, warps, rows),
+   one launch a call and the same bits run to run; first the B = 1
+   kernel's ptxas registers and spills and SASS counts (it fails without
+   HMMA, with any I2F or with a spill);
 4. reference: a small two-layer model (head dims 80 and 128, the 7B
    config cut in width and depth) streamed
    through the port on the card and on the CPU (plain versions), compared;
@@ -35,6 +38,10 @@ Phases, one or more lines each; any failure raises and exits non-zero:
    plain attention;
 8. train_reference: one LoRA loss + backward of the small model on the card
    (kernels) and on the CPU (plain versions), compared;
+   dry_run_train: the trainer's --dry-run on the card (C1): the entry
+   point with no --device, then its inputs in bf16 through K3, K4, K5 at
+   the tiny head dims (zero-padded to 64) against the CPU run, the
+   adapters' updates after step 2 compared;
 9. train_slice: `run_training` on Qwen2-VL-7B at full width (random bf16
    base, the serving slice's weights), 240 frames of 224 px, max_len 4096,
    grad_accum 2, 3 optimizer steps, with the launch counts of K1, K3, K4, K5;
@@ -533,6 +540,10 @@ def check_int4_kernel(dev):
     from flash_vstream_tpu_torch.weights.quantize import (
         QuantWeight4, dequantize_weight4, quantize_weight4)
 
+    from flash_vstream_tpu_torch.kernels import _build
+    from flash_vstream_tpu_torch.kernels.int4_matmul import _plan, _sms
+
+    check_k6_build(_build.library_path())
     g = torch.Generator(device=dev).manual_seed(SEED + 3)
     per_token = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0)
     worst = 0.0
@@ -547,7 +558,10 @@ def check_int4_kernel(dev):
         n = len(copies)
         for B in ((1, 8, 32) if name in ("gate/up", "down") else (1,)):
             x = torch.randn(B, din, generator=g, device=dev).to(torch.bfloat16)
+            n0 = int4_matmul_cuda.launches
             got = int4_matmul_cuda(x, *qw)
+            per_call = int4_matmul_cuda.launches - n0
+            again = int4_matmul_cuda(x, *qw)
             want = int4_matmul_reference(x, *qw, torch.float32)
             torch.cuda.synchronize()
             err = (got.float() - want).abs().max().item()
@@ -555,6 +569,16 @@ def check_int4_kernel(dev):
             if not torch.isfinite(got).all() or rel > K6_TOL:
                 raise AssertionError(f"K6 {name} B={B}: max err {err} is "
                                      f"{rel:.3e} of max |plain| > {K6_TOL}")
+            if not torch.equal(got, again):
+                raise AssertionError(f"K6 {name} B={B}: two runs differ")
+            plan = _plan(B, din // 2, qw.scale.shape[0], dout,
+                         _sms(dev.index))
+            # the kernel's own launches per call (a second, the reduction
+            # of the f32 partials, follows at B > 1 where split > 1)
+            kernels_per_call = 1 + (B > 1 and plan.split > 1)
+            if per_call != 1:
+                raise AssertionError(f"K6 {name} B={B}: {per_call} counted "
+                                     f"launches per call")
             worst = max(worst, err)
             iters = max(20, 2 * n)
             ms = _ms(lambda i: int4_matmul_cuda(x, *copies[i % n]), iters)
@@ -583,7 +607,12 @@ def check_int4_kernel(dev):
                   + (f"{lib_ms:.4f} (err {lib_err:.2e})" if lib
                      else f"none ({why})")
                   + f" bf16_matmul_ms={bf16_ms:.4f} dequant_matmul_ms="
-                  f"{deq_ms:.4f} ({n} weight copies rotated)", flush=True)
+                  f"{deq_ms:.4f} ({n} weight copies rotated); plan "
+                  + (f"cluster={plan.split} warps={plan.warps} rows="
+                     f"{plan.rows}" if B == 1 else
+                     f"splits={plan.split} rows={plan.rows}")
+                  + f", {kernels_per_call} kernel launch(es) per call, "
+                  f"bit-identical run to run", flush=True)
             if B == 1:
                 per_token["ms"] += calls * ms
                 per_token["plain_ms"] += calls * plain
@@ -605,6 +634,43 @@ def check_int4_kernel(dev):
         max_abs_err=worst, bound_by="bytes",
         per="decode token: 197 calls at B=1 over the five 7B shapes",
         **per_token)}
+
+
+def _k6_instance(name):
+    """K6's B = 1 kernel instance a SASS or ptxas function name matches,
+    or None."""
+    return "int4_fold_kernel" if "int4_fold_kernel" in name else None
+
+
+def check_k6_build(lib_path):
+    """K6's B = 1 kernel as built: ptxas registers and spills, and SASS
+    counts of HMMA, PRMT, LOP3, I2F and 128-bit global loads. It fails
+    without HMMA (the products on the tensor cores), with any I2F (a nibble
+    converted on the FP32 pipe) or with a spill."""
+    regs = _ptxas_counts(lib_path.with_suffix(".log"), _k6_instance)
+    sass = _sass_counts(lib_path, _k6_instance, full=True)
+    if "int4_fold_kernel" not in regs:
+        raise AssertionError("K6 ptxas: no int4_fold_kernel in the build log")
+    r, st, ld = regs["int4_fold_kernel"]
+    line = (f"K6 ptxas int4_fold_kernel (B=1): registers={r} spill stores="
+            f"{st} B spill loads={ld} B")
+    if isinstance(sass, str):
+        print(line + f"; SASS {sass}", flush=True)
+    else:
+        c = sass.get("int4_fold_kernel", {})
+        pick = lambda f: sum(v for k, v in c.items() if f(k))  # noqa: E731
+        n = {"HMMA": pick(lambda k: k.startswith("HMMA")),
+             "PRMT": pick(lambda k: k.startswith("PRMT")),
+             "LOP3": pick(lambda k: k.startswith("LOP3")),
+             "I2F": pick(lambda k: k.startswith("I2F")),
+             "LDG.128": pick(lambda k: k.startswith("LDG")
+                             and ".128" in k)}
+        print(line + "; SASS " + " ".join(f"{k}={v}" for k, v in n.items())
+              + f" of {sum(c.values())} instructions", flush=True)
+        if not n["HMMA"] or n["I2F"]:
+            raise AssertionError(f"K6 SASS: HMMA {n['HMMA']}, I2F {n['I2F']}")
+    if st or ld:
+        raise AssertionError("K6 ptxas: int4_fold_kernel spills")
 
 
 def _int4_route(mode):
@@ -1335,6 +1401,125 @@ def _train_args(dev, out_dir, data_path, max_len, steps, grad_accum,
     if profile_dir:
         argv += ["--profile-dir", profile_dir, "--profile-steps", "1"]
     return make_parser().parse_args(argv)
+
+
+DRY_RUN_ARGS = ("--dry-run", "--max-steps", "2", "--max-frames", "8",
+                "--max-len", "128")
+# The card dry run holds each adapter leaf's update after step 2 (adapter
+# minus its init; only the b leaves move, a gets no gradient while b is 0)
+# to this relative L2 error against the CPU run on the same bf16 base (plain
+# versions), worst leaf. Adam's first steps normalize each element by its
+# own gradient, so small gradients amplify rounding: on the CPU the bf16
+# base against the f32 one reads 0.115-0.162 per leaf (why the card is held
+# to the bf16 run), and dk scaled by 0.9 in the attention backward reads
+# 0.245 in the worst leaf (tests/test_torch_train_reference.py reads both);
+# the card against the CPU read 0.108 in the worst leaf on an H100.
+DRY_RUN_LIMIT = 1.5e-1
+
+
+def dry_run_case(work):
+    """The card dry run's inputs, made on the CPU so that both runs start
+    alike: the tiny config, its f32 base from a CPU generator seeded 0,
+    adapters from one seeded 1 (the entry point's seeds) and the synthetic
+    dataset of `--dry-run`."""
+    import torch
+    from flash_vstream_tpu_torch.core.config import tiny_qwen_config
+    from flash_vstream_tpu_torch.models.vstream_qwen import init_qwen_params
+    from flash_vstream_tpu_torch.train.finetune_flash import (
+        build_synthetic_dataset, make_parser)
+    from flash_vstream_tpu_torch.train.lora import (QWEN_TARGETS,
+                                                    init_lora_params)
+    rank = make_parser().parse_args(
+        [*DRY_RUN_ARGS, "--output-dir", work]).lora_rank
+    cfg = tiny_qwen_config()
+    params = init_qwen_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    lora = init_lora_params(torch.Generator().manual_seed(1), params,
+                            rank=rank, targets=QWEN_TARGETS)
+    data = build_synthetic_dataset(os.path.join(work, "synthetic"))
+    return dict(cfg=cfg, params=params, lora=lora, data=data, work=work)
+
+
+def dry_run_updates(case, device, dtype, tag):
+    """`run_training` as `--dry-run` runs it (2 steps, 8 frames, max_len
+    128) on `device` with the case's base in `dtype` and its f32 adapters:
+    (losses, {"<path>.<a|b>": adapter after step 2 minus its init, f32 on
+    the CPU})."""
+    import torch
+    from flash_vstream_tpu_torch.train.finetune_flash import (make_parser,
+                                                              run_training)
+    args = make_parser().parse_args([
+        *DRY_RUN_ARGS, "--device", str(device), "--output-dir",
+        os.path.join(case["work"], tag), "--data-path", case["data"][0],
+        "--video-dir", case["data"][1]])
+    lora = {p: {k: v.to(device).clone() for k, v in ab.items()}
+            for p, ab in case["lora"].items()}
+    res = run_training(args, cfg=case["cfg"],
+                       params=_tree_to(case["params"], device, dtype),
+                       lora=lora)
+    return res["losses"], {
+        f"{p}.{k}": res["lora"][p][k].float().cpu() - v.float()
+        for p, ab in sorted(case["lora"].items()) for k, v in sorted(ab.items())}
+
+
+def run_dry_run_train(dev, work):
+    """C1: the trainer's `--dry-run` on the card. The entry point as a
+    subprocess with no --device (exit 0, two finite losses in its scalars
+    file); then `run_training` in this process on the dry run's own inputs
+    made on the CPU, bf16 base on the card (K3, K4, K5 at the tiny head dims
+    8 and 16, zero-padded to 64) against the same on the CPU (plain
+    versions): losses within 1e-2, each adapter leaf's update within
+    DRY_RUN_LIMIT. Returns the kernels' launches in the card run."""
+    import torch
+    root = os.path.dirname(os.path.abspath(__file__))
+    out = os.path.join(work, "entry")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "flash_vstream_tpu_torch.train.finetune_flash",
+         *DRY_RUN_ARGS, "--output-dir", out], cwd=root, capture_output=True,
+        text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"finetune_flash --dry-run exited "
+                             f"{proc.returncode}: {proc.stderr[-3000:]}")
+    with open(os.path.join(out, "scalars.jsonl")) as f:
+        recs = [json.loads(ln) for ln in f if ln.strip()]
+    losses = [r["loss"] for r in recs if "loss" in r]
+    print(f"dry_run_train: python -m flash_vstream_tpu_torch.train."
+          f"finetune_flash {' '.join(DRY_RUN_ARGS)} on the card (no "
+          f"--device): exit 0 in {time.perf_counter() - t0:.1f} s, losses "
+          + " ".join(f"{x:.5f}" for x in losses), flush=True)
+    if len(losses) != 2 or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"dry_run_train: losses {losses}")
+
+    case = dry_run_case(os.path.join(work, "case"))
+    _reset_launches()
+    l_card, d_card = dry_run_updates(case, dev, torch.bfloat16, "card")
+    k = _launches()
+    cpu = torch.device("cpu")
+    l_cpu, d_cpu = dry_run_updates(case, cpu, torch.bfloat16, "cpu")
+    _, d_f32 = dry_run_updates(case, cpu, torch.float32, "cpu_f32")
+    errs = leaf_errors(d_card, d_cpu)
+    moved = {n: e for n, e in errs.items() if d_cpu[n].norm() > 0}
+    worst = max(moved, key=moved.get)
+    f32 = leaf_errors(d_cpu, d_f32)
+    print(f"dry_run_train: run_training --dry-run inputs, card bf16 vs CPU "
+          f"bf16: losses {' '.join(f'{x:.5f}' for x in l_card)} vs "
+          f"{' '.join(f'{x:.5f}' for x in l_cpu)}; adapter updates after "
+          f"step 2, rel L2 per moved leaf: max {moved[worst]:.3e} ({worst}) "
+          f"limit {DRY_RUN_LIMIT:.1e}; CPU bf16 vs f32 base max "
+          f"{max(f32.values()):.3e}; launches K1={k['K1']} K3={k['K3']} "
+          f"K4={k['K4']} K5={k['K5']} (head dims 8, 16 padded to 64)",
+          flush=True)
+    print("dry_run_train: per leaf " + " ".join(
+        f"{n}={e:.3e}" for n, e in sorted(moved.items())), flush=True)
+    if not (k["K3"] and k["K4"] and k["K5"]):
+        raise AssertionError(f"dry_run_train: launches {k}")
+    if (not all(map(math.isfinite, l_card))
+            or max(abs(a - b) / abs(b) for a, b in zip(l_card, l_cpu)) > 1e-2):
+        raise AssertionError(f"dry_run_train: losses {l_card} vs {l_cpu}")
+    if len(moved) == 0 or moved[worst] > DRY_RUN_LIMIT:
+        raise AssertionError(f"dry_run_train: adapter update {worst} "
+                             f"{moved.get(worst)} > {DRY_RUN_LIMIT}")
+    return k
 
 
 def _synthetic_videos(root, n_items, side):
@@ -2176,6 +2361,10 @@ def run_serve4(dev, params, work):
               f"ms/token, idle share {1 - a[2] / a[1]:.3f} "
               f"{1 - b[2] / b[1]:.3f}, {a[3]} device events (kernels, "
               f"copies) per token, K6 {a[4]:.2f} ms/token", flush=True)
+    print(f"serve4: int4 decode, device busy per token {timed['int4'][0][2]:.2f}"
+          f" {timed['int4'][1][2]:.2f} ms, K6 {timed['int4'][0][4]:.2f} "
+          f"{timed['int4'][1][4]:.2f} ms of it (K6's previous form read "
+          f"9.8-9.9 busy, K6 4.6 of it; PERF.md)", flush=True)
     print(f"serve4: --load-4bit on the 7B decoder in {quant_s:.2f} s: the "
           f"7 projections of each layer and lm_head int4; decoder tree "
           f"{int4_bytes / 2**30:.3f} GiB against {bf16_bytes / 2**30:.3f} "
@@ -2382,7 +2571,8 @@ def profile_train_step(dev, params, data, work, out_dir, step_s, cfg=None):
 
 
 PHASES = ("kernels", "int4_kernel", "reference", "int4_reference", "slice",
-          "backward", "function", "train_reference", "train_slice",
+          "backward", "function", "train_reference", "dry_run_train",
+          "train_slice",
           "production", "serve4", "bank_gather", "vit_probe", "int4_probe")
 
 
@@ -2437,6 +2627,16 @@ def main() -> int:
         check_int4_reference(dev)
     if "train_reference" in only:
         check_train_reference(dev)
+    if "dry_run_train" in only:
+        work = os.path.join(root, "build", "chip_smoke_dry_run")
+        try:
+            k = run_dry_run_train(dev, work)
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+        paths["dry_run_train"] = dict(
+            flash_attention_fwd=k["K1"], flash_attention_fwd_lse=k["K3"],
+            flash_attention_bwd_dq=k["K4"], flash_attention_bwd_dkv=k["K5"])
+        _release(dev)
     if "bank_gather" in only:
         row, paths["probe_bank_gather"] = check_bank_gather(dev)
         rows.update(row)

@@ -32,3 +32,9 @@ def resolve_device(device: Optional[Union[str, torch.device]]) -> torch.device:
     if dev.type == "cuda":
         _require_cuda()
     return dev
+
+
+def dry_run_dtype(device: torch.device) -> torch.dtype:
+    """The dtype of a --dry-run base on `device`: f32 on the CPU, as the JAX
+    dry run; bf16 on the card, the only type the attention kernels take."""
+    return torch.float32 if device.type == "cpu" else torch.bfloat16

@@ -345,6 +345,41 @@ def _launch_fwd(q, k, v, lse, causal, q_segment_ids, kv_segment_ids, scale,
     return out, True
 
 
+def _needs_pad(q, k, v) -> bool:
+    D = q.shape[-1]
+    return D < HEAD_DIMS[0] and k.shape[-1] == v.shape[-1] == D
+
+
+def _pad_head_dim(*xs):
+    """Each tensor's last dim zero-padded to the kernels' smallest head_dim
+    (64: the tiny test configs have 8 and 16)."""
+    return tuple(F.pad(x, (0, HEAD_DIMS[0] - x.shape[-1])) for x in xs)
+
+
+def fwd_padded(fwd, q, k, v, *, scale=None, **kw):
+    """`fwd` (K1, K3 or a plain version) on q, k, v zero-padded to head_dim
+    64, at the scale of the unpadded D: the scores are unchanged, so the
+    output's first D columns (returned) and the lse are too."""
+    D = q.shape[-1]
+    res = fwd(*_pad_head_dim(q, k, v),
+              scale=1.0 / math.sqrt(D) if scale is None else scale, **kw)
+    if isinstance(res, tuple):
+        return res[0][..., :D], res[1]
+    return res[..., :D]
+
+
+def bwd_padded(bwd, q, k, v, o, do, lse, *, scale=None, **kw):
+    """`bwd` (K4 + K5 or the plain backward) on q, k, v, o, do zero-padded
+    to head_dim 64, at the scale of the unpadded D; dq, dk and dv sliced
+    back to D. delta = rowsum(do * o) and the scores are unchanged, and the
+    padded columns' gradients are exactly zero (products with zero
+    columns)."""
+    D = q.shape[-1]
+    grads = bwd(*_pad_head_dim(q, k, v, o, do), lse,
+                scale=1.0 / math.sqrt(D) if scale is None else scale, **kw)
+    return tuple(g[..., :D] for g in grads)
+
+
 def flash_attention_cuda(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     causal: bool = False,
@@ -359,14 +394,10 @@ def flash_attention_cuda(
     the tiny test configs) is zero-padded to 64, which leaves the scores
     and the output's first D columns as they were. Raises on what the
     kernel does not take."""
-    D = q.shape[-1]
-    if D < HEAD_DIMS[0] and k.shape[-1] == v.shape[-1] == D:
-        pad = (0, HEAD_DIMS[0] - D)
-        out = flash_attention_cuda(
-            *(F.pad(x, pad) for x in (q, k, v)), causal=causal,
-            q_segment_ids=q_segment_ids, kv_segment_ids=kv_segment_ids,
-            scale=1.0 / math.sqrt(D) if scale is None else scale)
-        return out[..., :D]
+    if _needs_pad(q, k, v):
+        return fwd_padded(flash_attention_cuda, q, k, v, causal=causal,
+                          q_segment_ids=q_segment_ids,
+                          kv_segment_ids=kv_segment_ids, scale=scale)
     out, launched = _launch_fwd(q, k, v, None, causal, q_segment_ids,
                                 kv_segment_ids, scale, "flash_attention_cuda")
     flash_attention_cuda.launches += launched
@@ -381,7 +412,13 @@ def flash_attention_fwd_lse_cuda(
     scale: Optional[float] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch K3: K1's output and the per-row logsumexp [B, Hq, Sq] f32
-    (-inf for a row that sees no key)."""
+    (-inf for a row that sees no key). A head_dim below 64 is zero-padded
+    as K1's is; the lse is the unpadded one, since zero columns add nothing
+    to a score."""
+    if _needs_pad(q, k, v):
+        return fwd_padded(flash_attention_fwd_lse_cuda, q, k, v,
+                          causal=causal, q_segment_ids=q_segment_ids,
+                          kv_segment_ids=kv_segment_ids, scale=scale)
     B, Hq, Sq = q.shape[:3]
     lse = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
     out, launched = _launch_fwd(q, k, v, lse, causal, q_segment_ids,
@@ -547,7 +584,11 @@ def flash_attention_bwd_cuda(q, k, v, o, do, lse, **kw
                              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K4 then K5 on the current stream: (dq, dk, dv). A layout of o or do
     that the kernels cannot read is copied here, once for both; each
-    wrapper's own check then finds the copy readable and takes it as is."""
+    wrapper's own check then finds the copy readable and takes it as is.
+    A head_dim below 64 is zero-padded as K1's is, and the gradients sliced
+    back (the padded columns' are exactly zero)."""
+    if _needs_pad(q, k, v):
+        return bwd_padded(flash_attention_bwd_cuda, q, k, v, o, do, lse, **kw)
     o, do = _bwd_operand("o", o, q), _bwd_operand("do", do, q)
     dq, delta = flash_attention_bwd_dq_cuda(q, k, v, o, do, lse, **kw)
     dk, dv = flash_attention_bwd_dkv_cuda(q, k, v, o, do, lse, delta, **kw)

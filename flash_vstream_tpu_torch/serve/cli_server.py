@@ -30,7 +30,7 @@ from typing import List
 import numpy as np
 import torch
 
-from ..core.device import resolve_device
+from ..core.device import dry_run_dtype, resolve_device
 from ..preprocess.video import SyntheticSource, load_video
 from ..runtime.generation import GenerationConfig
 from ..runtime.metrics import MetricMeter, Timer
@@ -101,7 +101,7 @@ def build_session(args):
     cfg = tiny_qwen_config()
     params = init_qwen_params(
         cfg, torch.Generator(device=device).manual_seed(0), device,
-        dtype=torch.float32 if device.type == "cpu" else torch.bfloat16)
+        dtype=dry_run_dtype(device))
     params = _apply_quantization(params, args)
     return QwenStreamSession(VStreamQwen(cfg, params),
                              make_byte_qwen_tokenizer(), frame_hw=(56, 56),

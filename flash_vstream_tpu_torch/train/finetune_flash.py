@@ -203,7 +203,7 @@ def run_training(args, *, cfg=None, params: Optional[dict] = None,
     checkpoint model; `on_step(step, trainer, record)` runs after every
     optimizer step with the record written to the scalars file."""
     from ..core.config import FlashMemoryConfig, tiny_qwen_config
-    from ..core.device import resolve_device
+    from ..core.device import dry_run_dtype, resolve_device
     from ..models.vstream_qwen import init_qwen_params
     from ..preprocess.image import (_resize_bilinear, _to_float_chw,
                                     qwen_preprocess, smart_resize)
@@ -232,9 +232,12 @@ def run_training(args, *, cfg=None, params: Optional[dict] = None,
                 "training from a checkpoint needs load_qwen_checkpoint, not "
                 "ported yet: ROADMAP A10 (pass --dry-run, or hand "
                 "run_training a config and parameters)")
+        # bf16 on the card (the kernels' type), f32 on the CPU; the
+        # adapters and the optimizer keep their own dtypes
         cfg = tiny_qwen_config()
         params = init_qwen_params(
-            cfg, torch.Generator(device=device).manual_seed(0), device)
+            cfg, torch.Generator(device=device).manual_seed(0), device,
+            dtype=dry_run_dtype(device))
         if not args.data_path:
             args.data_path, args.video_dir = build_synthetic_dataset(
                 os.path.join(args.output_dir, "synthetic"))

@@ -462,3 +462,93 @@ def test_function_raises_instead_of_falling_back(cuda):
                     requires_grad=True)
     with pytest.raises(ValueError, match="head_dim"):
         fa.flash_attention(y, y, y)
+
+
+# --- head dims below 64: K3 and K4/K5 zero-pad them as K1 does -------------
+
+# the tiny dry-run config's head dims (LLM 16, ViT 8), with GQA, causal
+# masks and segments
+SMALL_D_CASES = {
+    "d8_causal_gqa_segments": (2, 4, 2, 23, 23, 8, True, True),
+    "d16_causal_gqa": (1, 4, 2, 40, 40, 16, True, False),
+    "d16_segments_ragged": (1, 2, 1, 19, 27, 16, False, True),
+}
+
+
+def _small_case(name, seed=6):
+    B, Hq, Hkv, Sq, Skv, D, causal, seg = SMALL_D_CASES[name]
+    q, k, v, do, qs, ks = _inputs(seed, B, Hq, Hkv, Sq, Skv, D, seg)
+    return (tuple(map(_t, (q, k, v, do))),
+            dict(causal=causal, q_segment_ids=_t(qs), kv_segment_ids=_t(ks)))
+
+
+@pytest.mark.parametrize("name", sorted(SMALL_D_CASES))
+def test_padded_plain_equals_unpadded_plain(name):
+    """`fwd_padded`/`bwd_padded`, the wrappers' padding, around the plain
+    versions (f32): the output, lse, dq, dk and dv equal the unpadded plain
+    versions' up to f32 summation order (1e-6 of each tensor's max)."""
+    (q, k, v, do), kw = _small_case(name)
+    want_o, want_lse = fa.flash_attention_fwd_lse_reference(q, k, v, **kw)
+    got_o, got_lse = fa.fwd_padded(fa.flash_attention_fwd_lse_reference,
+                                   q, k, v, **kw)
+    assert got_o.shape == want_o.shape and got_lse.shape == want_lse.shape
+    tol = lambda w: 1e-6 * max(w.abs().max().item(), 1e-30)   # noqa: E731
+    assert (got_o - want_o).abs().max().item() <= tol(want_o)
+    live = torch.isfinite(want_lse)
+    assert torch.equal(live, torch.isfinite(got_lse))
+    assert (got_lse[live] - want_lse[live]).abs().max().item() <= tol(
+        want_lse[live])
+    want = fa.flash_attention_bwd_reference(q, k, v, want_o, do, want_lse,
+                                            **kw)
+    got = fa.bwd_padded(fa.flash_attention_bwd_reference, q, k, v, want_o,
+                        do, want_lse, **kw)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        assert (g - w).abs().max().item() <= tol(w)
+
+
+@pytest.mark.parametrize("name", sorted(SMALL_D_CASES))
+def test_padded_columns_get_exactly_zero_gradients(name):
+    """The plain backward on the padded operands writes exact zeros in the
+    columns the padding added, so slicing them off loses nothing, and the
+    padded forward's extra output columns are exactly zero."""
+    (q, k, v, do), kw = _small_case(name)
+    D = q.shape[-1]
+    pq, pk, pv, pdo = fa._pad_head_dim(q, k, v, do)
+    scale = 1.0 / np.sqrt(D)
+    out, lse = fa.flash_attention_fwd_lse_reference(pq, pk, pv, scale=scale,
+                                                    **kw)
+    assert out.shape[-1] == fa.HEAD_DIMS[0]
+    assert not out[..., D:].any()
+    for g in fa.flash_attention_bwd_reference(pq, pk, pv, out, pdo, lse,
+                                              scale=scale, **kw):
+        assert not g[..., D:].any()
+        assert g[..., :D].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(SMALL_D_CASES))
+def test_padded_kernels_match_plain_on_card(cuda, name):
+    """K3 and K4/K5 at head dims 8 and 16 (zero-padded to 64 by their
+    wrappers) within the card checks' limits: the output within 2e-2, the
+    gradients within 2e-2 of the tensor's and of each row's max."""
+    (q, k, v, do), kw = _small_case(name)
+    q, k, v, do = (x.to(cuda, torch.bfloat16) for x in (q, k, v, do))
+    kw = {n: x.to(cuda) if torch.is_tensor(x) else x for n, x in kw.items()}
+    n = [f.launches for f in (fa.flash_attention_fwd_lse_cuda,
+                              fa.flash_attention_bwd_dq_cuda,
+                              fa.flash_attention_bwd_dkv_cuda)]
+    out, lse = fa.flash_attention_fwd_lse_cuda(q, k, v, **kw)
+    grads = fa.flash_attention_bwd_cuda(q, k, v, out, do, lse, **kw)
+    torch.cuda.synchronize()
+    assert [f.launches for f in (fa.flash_attention_fwd_lse_cuda,
+                                 fa.flash_attention_bwd_dq_cuda,
+                                 fa.flash_attention_bwd_dkv_cuda)] == [
+        c + 1 for c in n]
+    assert out.shape == q.shape and all(
+        g.shape == x.shape for g, x in zip(grads, (q, k, v)))
+    p_out, p_lse = fa.flash_attention_fwd_lse_reference(q, k, v, **kw)
+    assert (out.float() - p_out.float()).abs().max().item() <= 2e-2
+    live = torch.isfinite(p_lse)
+    assert (lse[live] - p_lse[live]).abs().max().item() <= 2e-2
+    _assert_grads_close(q, k, v, out, do, lse, grads, kw)

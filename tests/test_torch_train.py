@@ -471,3 +471,38 @@ def test_unported_paths_raise(tmp_path, tiny):
         ttrainer.Trainer(lambda p, b, k: 0, {"w": torch.zeros(2)},
                          ttrainer.TrainConfig(zero_stage=3))
     assert QWEN_TARGETS[-1] == r"merger/fc[12]/w$"
+
+
+@pytest.mark.parametrize("device,dtype", [("cpu", torch.float32),
+                                          ("cuda", torch.bfloat16)])
+def test_dry_run_base_dtype_per_device(monkeypatch, tmp_path, device, dtype):
+    """`run_training --dry-run` builds the tiny base in f32 on the CPU (as
+    the JAX dry run) and in bf16 on the card (the attention kernels' only
+    type), as the dry-run server does. The device and the generator are
+    stood in for, so the card's choice is read on any machine; the run
+    stops at the base's construction."""
+    from flash_vstream_tpu_torch.core import device as core_device
+    from flash_vstream_tpu_torch.models import vstream_qwen
+
+    class Stop(Exception):
+        pass
+
+    def init(cfg, generator, dev, dtype=torch.float32):
+        raise Stop(dev, dtype)
+
+    class Gen:
+        def __init__(self, device=None):
+            pass
+
+        def manual_seed(self, seed):
+            return self
+
+    assert core_device.dry_run_dtype(torch.device(device)) is dtype
+    monkeypatch.setattr(core_device, "resolve_device",
+                        lambda d: torch.device(device))
+    monkeypatch.setattr(vstream_qwen, "init_qwen_params", init)
+    monkeypatch.setattr(torch, "Generator", Gen)
+    with pytest.raises(Stop) as stop:
+        tft.run_training(tft.make_parser().parse_args(
+            ["--dry-run", "--output-dir", str(tmp_path)]))
+    assert stop.value.args == (torch.device(device), dtype)

@@ -69,7 +69,11 @@ Phases, one or more lines each; any failure raises and exits non-zero:
    v6) against their plain versions at the int4 probe's default shape and
    small odd shapes at 4, 8 and 16 packed rows per thread per step, timed
    beside their bound, torch's int4 or bf16 matmul and K6, with the SASS
-   instruction counts of the built kernels; the probe
+   instruction counts of the built kernels; v2 and v5 (K6's B = 1 kernel
+   with a per-element and a packed conversion) first with their ptxas
+   registers and spills and SASS counts (each fails without HMMA, v5 with
+   any I2F or I2FP, v2 without I2FP, either with a spill at group 4), then
+   bit-identical run to run and one device kernel a call; the probe
    (scripts/probe_int4_variants.py) at its defaults through main and
    main2, every variant's launches exact.
 
@@ -636,10 +640,19 @@ def check_int4_kernel(dev):
         **per_token)}
 
 
+def _fold_instance(name):
+    """(conversion, steps of loads in flight) of the B = 1 kernel template
+    (csrc/int4_b1.cuh `int4_fold_kernel<Conv, kSteps>`) that a SASS or
+    ptxas function name is an instance of, or None."""
+    m = re.search(r"int4_fold_kernelI\w*?(Packed|PerElement)ELi(\d+)E", name)
+    return (m.group(1), int(m.group(2))) if m else None
+
+
 def _k6_instance(name):
-    """K6's B = 1 kernel instance a SASS or ptxas function name matches,
-    or None."""
-    return "int4_fold_kernel" if "int4_fold_kernel" in name else None
+    """K6's B = 1 kernel instance (the Packed conversion, one step of loads
+    in flight) a SASS or ptxas function name matches, or None."""
+    return ("int4_fold_kernel" if _fold_instance(name) == ("Packed", 1)
+            else None)
 
 
 def check_k6_build(lib_path):
@@ -1852,6 +1865,9 @@ P3_SHAPES = ((3584, 18944, 512), (512, 384, 128), (256, 384, 128))
 # are exact, so only its f32 block sums' order differs: the same limit; v7
 # sums integers (exact in f32) and rounds as its plain version: exact
 P3_TOL = {"v7-unpackonly": 0.0}
+# the variants that run K6's B = 1 kernel (csrc/int4_b1.cuh): one launch a
+# call, the same bits run to run
+P3_FOLD = ("v2-biasfold", "v5-u8mask")
 P3_LINES = {"v1-current": 35, "v2-biasfold": 58, "v3-floor": 83,
             "v4-int8dot": 97, "v5-u8mask": 124, "v6-bf16dot": 266,
             "v7-unpackonly": 273}
@@ -1880,12 +1896,66 @@ def _p3_library(name, x, xq, xs, q, s):
 
 def _int4_instance(name):
     """The P3/P4 kernel instance a SASS or ptxas function name matches, or
-    None."""
+    None: v2 and v5 are the B = 1 kernel with the PerElement and the Packed
+    conversion at 1, 2 or 4 steps of loads in flight (groups 4, 8, 16); K6's
+    own instance is v5 G4's."""
+    fold = _fold_instance(name)
+    if fold:
+        return ({"Packed": "v5", "PerElement": "v2"}[fold[0]]
+                + f" G{4 * fold[1]}")
     m = re.search(r"(int4_variant_kernelILi(\d+)ELi(\d+)E"
                   r"|bf16_matvec_kernelILi(\d+)E)", name)
     if not m:
         return None
     return f"v{m.group(2)} G{m.group(3)}" if m.group(2) else f"v6 G{m.group(4)}"
+
+
+def check_fold_build(lib_path):
+    """P3 v2 and v5 as built, at each group: ptxas registers and spills and
+    SASS counts. Each fails without HMMA (the products on the tensor
+    cores); v5 fails with any I2F or I2FP (its nibbles convert in the
+    packed domain), v2 without I2FP (each nibble converted on its own);
+    a spill fails at group 4 and is only shown at 8 and 16."""
+    regs = _ptxas_counts(lib_path.with_suffix(".log"), _int4_instance)
+    sass = _sass_counts(lib_path, _int4_instance)
+    for v in ("v5", "v2"):
+        for group in (4, 8, 16):
+            inst = f"{v} G{group}"
+            if inst not in regs:
+                raise AssertionError(f"int4_probe ptxas: no {inst} in the "
+                                     f"build log")
+            r, st, ld = regs[inst]
+            line = (f"int4_probe ptxas {inst} (int4_fold_kernel): registers="
+                    f"{r} spill stores={st} B spill loads={ld} B")
+            if isinstance(sass, str):
+                print(line + f"; SASS {sass}", flush=True)
+            else:
+                c = sass.get(inst, {})
+                n = {op: c.get(op, 0) for op in ("HMMA", "I2FP", "I2F",
+                                                 "F2FP", "PRMT", "LOP3")}
+                print(line + "; SASS " + " ".join(
+                    f"{k}={val}" for k, val in n.items())
+                    + f" of {sum(c.values())} instructions", flush=True)
+                if not n["HMMA"] or (v == "v5" and (n["I2F"] or n["I2FP"])
+                                     ) or (v == "v2" and not n["I2FP"]):
+                    raise AssertionError(f"int4_probe SASS {inst}: {n}")
+            if group == 4 and (st or ld):
+                raise AssertionError(f"int4_probe ptxas {inst} spills")
+
+
+def _device_kernels(fn):
+    """{device kernel: launches} in one call of fn, by torch.profiler (not
+    the wrappers' counts)."""
+    import torch
+    from torch.autograd import DeviceType
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key: e.count for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA}
 
 
 def _p2_instance(name):
@@ -1954,17 +2024,20 @@ def check_int4_probe(dev, iters=50):
     copies past the 50 MB L2 (also at 8 and 16 packed rows per thread per
     step: more loads in flight), eagerly, its plain version, the bound,
     the library call and K6 on the same inputs, and its SASS instruction
-    counts; then the probe through `main([])` and
-    `main2(['--which', 'v6,v7'])` at its
-    defaults, each variant launched exactly 2 x iters x 16 times (the
-    chain's eager warm-up and its graph capture). Returns (the seven rows,
-    the probe run's launches)."""
+    counts; v2 and v5 (K6's B = 1 kernel) first as built
+    (`check_fold_build`), then the same bits run to run at every shape and
+    group and one device kernel a call (torch.profiler); then the probe
+    through `main([])` and `main2(['--which', 'v6,v7'])` at its defaults,
+    each variant launched exactly 2 x iters x 16 times (the chain's eager
+    warm-up and its graph capture). Returns (the seven rows, the probe
+    run's launches)."""
     import torch
     from flash_vstream_tpu_torch.kernels import _build
     from flash_vstream_tpu_torch.kernels import int4_variants as iv
     from flash_vstream_tpu_torch.kernels.int4_matmul import int4_matmul_cuda
     from flash_vstream_tpu_torch.scripts import probe_int4_variants as probe
 
+    check_fold_build(_build.library_path())
     g = torch.Generator(device=dev).manual_seed(SEED + 8)
     rows, worst = {}, {}
     for din, dout, blk in P3_SHAPES:
@@ -2008,6 +2081,10 @@ def check_int4_probe(dev, iters=50):
                         f"{name} x[1, {din}] dout {dout} blk {blk} group "
                         f"{group}: max err {err} is {rel:.3e} of max |plain| "
                         f"> {tol}")
+                if name in P3_FOLD and not torch.equal(
+                        got, kern(*argsets[0], blk=blk, group=group)):
+                    raise AssertionError(f"{name} x[1, {din}] dout {dout} "
+                                         f"group {group}: two runs differ")
                 shape_err = max(shape_err, err)
             worst[name] = max(worst.get(name, 0.0), shape_err)
             if not full:
@@ -2044,6 +2121,15 @@ def check_int4_probe(dev, iters=50):
             if k6 is None:
                 k6 = _ms(lambda i: int4_matmul_cuda(x, *weights[i % n]),
                          max(20, 2 * n))
+            one = ""
+            if name in P3_FOLD:
+                ran = _device_kernels(lambda: kern(*argsets[0], blk=blk))
+                if (sum(ran.values()) != 1
+                        or not any("int4_fold_kernel" in k for k in ran)):
+                    raise AssertionError(f"{name}: device kernels of one "
+                                         f"call {ran}, not one launch")
+                one = ("; 1 device kernel a call (torch.profiler), "
+                       "bit-identical run to run")
             print(f"P3/P4 {name}: x[1, {din}] @ [{din}, {dout}] blk {blk} nb "
                   f"{din // 128} max_abs_err={shape_err:.3e} "
                   f"({shape_err / want_max:.2e} of max over groups "
@@ -2055,8 +2141,8 @@ def check_int4_probe(dev, iters=50):
                   + (f" library_err={lib_rel:.2e} of max" if lib_ms
                      is not None else "")
                   + f" k6_ms={k6:.4f} group8_ms={group_ms[8]:.4f} "
-                  f"group16_ms={group_ms[16]:.4f} ({n} weight copies rotated)",
-                  flush=True)
+                  f"group16_ms={group_ms[16]:.4f} ({n} weight copies rotated)"
+                  + one, flush=True)
             rows[fn.__name__] = dict(
                 ms=ms, plain_ms=plain, bound_ms=bound[0], bound_by=bound[1],
                 library_ms=lib_ms, group_ms=group_ms)
@@ -2068,8 +2154,8 @@ def check_int4_probe(dev, iters=50):
     for kernel, ops in (sass.items() if isinstance(sass, dict) else ()):
         print(f"int4_probe sass {kernel}: {sum(ops.values())} instructions, "
               + " ".join(f"{op}={ops[op]}" for op in (
-                  "LDG", "I2FP", "I2F", "FFMA", "FADD", "IDP", "PRMT", "LOP3",
-                  "SHF", "IMAD")), flush=True)
+                  "LDG", "HMMA", "I2FP", "I2F", "F2FP", "FFMA", "FADD", "IDP",
+                  "PRMT", "LOP3", "SHF", "IMAD")), flush=True)
     if not isinstance(sass, dict):
         print(f"int4_probe sass: {sass}", flush=True)
 
@@ -2703,7 +2789,8 @@ def main() -> int:
            "frame_attention": "probe_vit_variants"}
     for variant, line in P3_LINES.items():       # P3 and P4
         name = variant.replace("-", "_")
-        sources[name] = ("int4_variants.cu", "")
+        sources[name] = ("int4_b1.cuh" if variant in P3_FOLD
+                         else "int4_variants.cu", "")
         replaces[name] = f"scripts/probe_int4_variants.py:{line}"
         own[name] = "probe_int4_variants"
     kernels = []

@@ -51,9 +51,12 @@ _SIGNATURES = {
 }
 # x, q4, scale, aux, partial, out, dh, dout, nb, blk, splits,
 # rows_per_split, group, stream
-for _name in ("v1_current", "v2_biasfold", "v3_floor", "v4_int8dot",
-              "v5_u8mask", "v7_unpackonly"):
+for _name in ("v1_current", "v3_floor", "v4_int8dot", "v7_unpackonly"):
     _SIGNATURES[f"fvt_int4_{_name}"] = [_P] * 6 + [_I] * 7 + [_P]
+# x, q4, scale, out, dh, dout, nb, the plan (split, warps, rows), steps of
+# loads in flight, stream
+for _name in ("v2_biasfold", "v5_u8mask"):
+    _SIGNATURES[f"fvt_int4_{_name}"] = [_P] * 4 + [_I] * 7 + [_P]
 
 _LIB = None          # the loaded library, once per process
 

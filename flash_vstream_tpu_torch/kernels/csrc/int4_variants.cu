@@ -20,25 +20,33 @@
 // (input block of din/nb rows, column): the high nibbles of byte row i take
 // scale block nb/2 + i / bs, bs = din/nb. Output [1, dout] bf16.
 //
-// One skeleton, a template over the variant: grid (dout / blk, splits),
-// block (blk / 8, 256 / (blk / 8)). A thread owns 8 output columns (one
-// 8-byte load of a packed row, 16 bytes for v6) and walks groups of G
-// consecutive packed rows (G = 4 by default; 8 or 16 put more loads in
-// flight before the arithmetic that uses them), strided by the block's
-// rows of threads. The x
-// rows of the block's split are staged once in shared memory (f32; int8
-// for v4). Splits of the packed rows give enough blocks for the 132 SMs
+// P3 v5 and v2 are K6's B = 1 kernel (int4_b1.cuh), `int4_fold_kernel`
+// with the Packed and the PerElement conversion: mma.sync bf16 products of
+// fragments built in registers, the bias folded into each scale block's
+// partial sums, one launch a matvec through a thread-block cluster along the
+// packed rows; grid (dout / 128, split), K6's plan (int4_matmul.py
+// `_b1_plan`), the probe's group of 4, 8 or 16 packed rows a lane loads
+// before the products that use them as 1, 2 or 4 steps of loads in flight.
+// What they isolate on this card: a nibble converted in the packed domain
+// (v5: byte_perm and lop3 give bf16 128 + n for two nibbles) against one
+// converted int -> f32 on its own (v2: I2FP.F32.U32 on the FP32 pipe, then a
+// pack of two f32 into bf16x2), on the tensor-core form.
+//
+// The others share one skeleton, a template over the variant: grid
+// (dout / blk, splits), block (blk / 8, 256 / (blk / 8)). A thread owns 8
+// output columns (one 8-byte load of a packed row, 16 bytes for v6) and
+// walks groups of G consecutive packed rows (G = 4 by default; 8 or 16 put
+// more loads in flight before the arithmetic that uses them), strided by
+// the block's rows of threads. The x rows of the block's split are staged
+// once in shared memory (f32; int8 for v4). Splits of the packed rows give enough blocks for the 132 SMs
 // (37 column tiles at the probe's dout 18,944 and blk 512) and hold whole
 // scale blocks, so a scale applies to a whole block's partial sum. Each
 // block sums its rows of threads in a fixed order and writes f32 partials
 // [splits, dout]; a second kernel adds the splits in order and rounds (no
 // atomics, deterministic). What each variant isolates on this card:
-//   v1, v2, v3, v7: a nibble converts int -> f32 per element (for sm_90a
-//     nvcc emits I2FP.F32.U32, on the FP32 pipe); v1 adds a subtract per
+//   v1, v3, v7: a nibble converts int -> f32 per element (for sm_90a nvcc
+//     emits I2FP.F32.U32, on the FP32 pipe); v1 adds a subtract per
 //     element;
-//   v5: two nibbles per 32-bit operation (prmt, lop3) put into bf16 lanes
-//     as 0x4300 | n = 128 + n (exact), widened to f32 by a shift, minus 128:
-//     no conversion instruction; the products and sums stay in f32;
 //   v4: a 4 x 4 byte transpose (prmt) turns four packed rows of a column
 //     into one word of four int8 lanes for __dp4a against four int8 x;
 //     the int32 block dot is exact, the scales apply in f32;
@@ -53,12 +61,14 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "int4_b1.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kCols = 8;       // output columns per thread
 
-enum Variant { kV1 = 1, kV2 = 2, kV3 = 3, kV4 = 4, kV5 = 5, kV6 = 6, kV7 = 7 };
+enum Variant { kV1 = 1, kV3 = 3, kV4 = 4, kV6 = 6, kV7 = 7 };
 
 __device__ __forceinline__ float bf16_round(float v) {
   return __bfloat162float(__float2bfloat16(v));
@@ -74,34 +84,15 @@ __device__ __forceinline__ void load8(const float* p, float* v) {
 // The 8 columns' low and high nibbles of one packed row, as f32.
 template <int V>
 __device__ __forceinline__ void unpack8(uint2 w, float* lo, float* hi) {
-  if (V == kV5) {
-    const unsigned words[2] = {w.x, w.y};
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-#pragma unroll
-      for (int p = 0; p < 2; ++p) {
-        // bytes 2p, 2p + 1 into the low bytes of two 16-bit lanes
-        const unsigned pr = __byte_perm(words[h], 0u, p == 0 ? 0x4140 : 0x4342);
-        const unsigned l = (pr & 0x000F000Fu) | 0x43004300u;   // bf16 128 + n
-        const unsigned u = ((pr >> 4) & 0x000F000Fu) | 0x43004300u;
-        const int c = 4 * h + 2 * p;
-        lo[c] = __uint_as_float(l << 16) - 128.f;
-        lo[c + 1] = __uint_as_float(l & 0xFFFF0000u) - 128.f;
-        hi[c] = __uint_as_float(u << 16) - 128.f;
-        hi[c + 1] = __uint_as_float(u & 0xFFFF0000u) - 128.f;
-      }
-    }
-  } else {
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) {
-      const unsigned word = c < 4 ? w.x : w.y;
-      const unsigned byte = (word >> (8 * (c & 3))) & 0xFFu;
-      lo[c] = static_cast<float>(byte & 15u);
-      hi[c] = static_cast<float>(byte >> 4);
-      if (V == kV1) {
-        lo[c] -= 8.f;
-        hi[c] -= 8.f;
-      }
+  for (int c = 0; c < kCols; ++c) {
+    const unsigned w32 = c < 4 ? w.x : w.y;
+    const unsigned byte = (w32 >> (8 * (c & 3))) & 0xFFu;
+    lo[c] = static_cast<float>(byte & 15u);
+    hi[c] = static_cast<float>(byte >> 4);
+    if (V == kV1) {
+      lo[c] -= 8.f;
+      hi[c] -= 8.f;
     }
   }
 }
@@ -190,7 +181,6 @@ __global__ void __launch_bounds__(kThreads)
       p_lo[c] = p_hi[c] = 0.f;
       d_lo[c] = d_hi[c] = 0;
     }
-    float sx_lo = 0.f, sx_hi = 0.f;
     int si_lo = 0, si_hi = 0;
     for (int g = b0 + ty * G; g < b1; g += step) {
       uint2 w[G];
@@ -231,10 +221,6 @@ __global__ void __launch_bounds__(kThreads)
           }
           const float xl = xs[j + k];
           const float xh = xs[rows_per_split + j + k];
-          if (V == kV2 || V == kV5) {
-            sx_lo += xl;
-            sx_hi += xh;
-          }
 #pragma unroll
           for (int c = 0; c < kCols; ++c) {
             if (V == kV3) {
@@ -248,7 +234,7 @@ __global__ void __launch_bounds__(kThreads)
         }
       }
     }
-    if (V == kV1 || V == kV2 || V == kV4 || V == kV5) {
+    if (V == kV1 || V == kV4) {
       const int b = b0 / bs;
       float s_lo[kCols], s_hi[kCols];
       load8(scale + static_cast<long long>(b) * dout + col0, s_lo);
@@ -257,12 +243,9 @@ __global__ void __launch_bounds__(kThreads)
       for (int c = 0; c < kCols; ++c) {
         if (V == kV1) {
           acc[c] += p_lo[c] * s_lo[c] + p_hi[c] * s_hi[c];
-        } else if (V == kV4) {
+        } else {
           acc[c] += static_cast<float>(d_lo[c] - 8 * si_lo) * s_lo[c] +
                     static_cast<float>(d_hi[c] - 8 * si_hi) * s_hi[c];
-        } else {
-          acc[c] += (p_lo[c] - 8.f * sx_lo) * s_lo[c] +
-                    (p_hi[c] - 8.f * sx_hi) * s_hi[c];
         }
       }
     }
@@ -396,6 +379,27 @@ int launch_group(const void* x, const void* q4, const void* scale,
   }
 }
 
+// P3 v5 and v2: the B = 1 kernel with `Conv` at 1, 2 or 4 steps of loads
+// in flight.
+template <class Conv>
+int launch_fold_depth(const void* x, const void* q4, const void* scale,
+                      void* out, int dh, int dout, int nb, int split,
+                      int warps, int rows, int depth, cudaStream_t s) {
+  switch (depth) {
+    case 1:
+      return static_cast<int>(launch_fold<Conv, 1>(
+          x, q4, scale, out, 0, dh, dout, nb, split, warps, rows, s));
+    case 2:
+      return static_cast<int>(launch_fold<Conv, 2>(
+          x, q4, scale, out, 0, dh, dout, nb, split, warps, rows, s));
+    case 4:
+      return static_cast<int>(launch_fold<Conv, 4>(
+          x, q4, scale, out, 0, dh, dout, nb, split, warps, rows, s));
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 template <int G>
 int launch_bf16(const void* x, const void* w, void* partial, void* out,
                 int din, int dout, int blk, int splits, int rows_per_split,
@@ -412,8 +416,8 @@ int launch_bf16(const void* x, const void* w, void* partial, void* out,
 
 }  // namespace
 
-// P3 entries. x [1, 2 * dh] (bf16; int8 for v4), q4 [dh, dout] uint8 (8-byte
-// aligned), scale [nb, dout] f32 (16-byte aligned; unread by v3 and v7),
+// P3 v1, v3, v4, v7. x [1, 2 * dh] (bf16; int8 for v4), q4 [dh, dout] uint8
+// (8-byte aligned), scale [nb, dout] f32 (16-byte aligned; unread by v3, v7),
 // aux: v4's xs (bf16 scalar), v7's x, else unread; partial f32 scratch
 // [splits, dout]; out [1, dout] bf16. blk a multiple of 8 dividing dout,
 // at most 2048; group (packed rows per thread per step) 4, 8 or 16; dh,
@@ -430,12 +434,28 @@ int launch_bf16(const void* x, const void* w, void* partial, void* out,
                            blk, splits, rows_per_split, group, stream);      \
   }
 FVT_INT4_ENTRY(fvt_int4_v1_current, kV1)
-FVT_INT4_ENTRY(fvt_int4_v2_biasfold, kV2)
 FVT_INT4_ENTRY(fvt_int4_v3_floor, kV3)
 FVT_INT4_ENTRY(fvt_int4_v4_int8dot, kV4)
-FVT_INT4_ENTRY(fvt_int4_v5_u8mask, kV5)
 FVT_INT4_ENTRY(fvt_int4_v7_unpackonly, kV7)
 #undef FVT_INT4_ENTRY
+
+// P3 v5 (Packed) and v2 (PerElement), one launch each. x [1, 2 * dh] bf16,
+// q4 [dh, dout] uint8, scale [nb, dout] f32, out [1, dout] bf16, all
+// contiguous and 16-byte aligned; the plan (split, warps, rows) and the shape
+// as launch_fold (int4_b1.cuh) takes them; depth 1, 2 or 4 steps of loads in
+// flight. A shape, plan or depth it does not take returns
+// cudaErrorInvalidValue before any launch; else the launch's cudaError_t.
+#define FVT_INT4_FOLD_ENTRY(NAME, CONV)                                       \
+  extern "C" int NAME(const void* x, const void* q4, const void* scale,       \
+                      void* out, int dh, int dout, int nb, int split,         \
+                      int warps, int rows, int depth, void* stream) {         \
+    return launch_fold_depth<CONV>(x, q4, scale, out, dh, dout, nb, split,    \
+                                   warps, rows, depth,                        \
+                                   static_cast<cudaStream_t>(stream));        \
+  }
+FVT_INT4_FOLD_ENTRY(fvt_int4_v5_u8mask, Packed)
+FVT_INT4_FOLD_ENTRY(fvt_int4_v2_biasfold, PerElement)
+#undef FVT_INT4_FOLD_ENTRY
 
 // P4 entry. x [1, din] bf16, w [din, dout] bf16 (16-byte aligned), partial
 // f32 scratch [splits, dout], out [1, dout] bf16; blk and group as above;

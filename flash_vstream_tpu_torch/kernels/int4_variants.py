@@ -26,10 +26,21 @@ v3 and v7 do not read it), out [1, dout] bf16. `<variant>_reference` is the
 TPU body's arithmetic in plain PyTorch; `<variant>_cuda` launches the
 kernel (csrc/int4_variants.cu) on CUDA tensors and raises ValueError on
 what it does not take; `<variant>` takes the plain version for a CPU
-tensor and the kernel for a CUDA one. `blk` is the columns per block of
-the kernel's grid, as the TPU grid's (dout / blk blocks); `group` (4, 8 or
-16; 4 by default) the consecutive packed rows a thread loads before the
-arithmetic that uses them, which sets the loads in flight.
+tensor and the kernel for a CUDA one. `group` (4, 8 or 16; 4 by default)
+is the packed rows a thread loads before the arithmetic that uses them,
+which sets the loads in flight.
+
+v2 and v5 run K6's B = 1 kernel (csrc/int4_b1.cuh) with the per-element
+and the packed conversion: one launch a matvec at the shapes K6's gate
+takes, a grid of K6's 128-column warp tiles (dout / 128 of them, so dout
+must be a multiple of 128) and K6's plan of the packed rows
+(int4_matmul.py `_plan`); `blk` is checked as for the others and not
+used; `group` sets the steps of loads in flight (`load_depth`: a lane
+loads 4 packed rows a step). `per_element_pair` and `per_element_fragment`
+mirror the per-element conversion for the CPU tests, as int4_matmul.py's
+`magic_nibbles` and `fragment_map` mirror the packed one. The others run one skeleton: `blk` columns per block, as the
+TPU grid's (dout / blk blocks), f32 partials over splits of the packed
+rows summed by a second launch.
 """
 from __future__ import annotations
 
@@ -39,7 +50,8 @@ from typing import Optional
 import torch
 
 from . import _build
-from .int4_matmul import _pick_block
+from .int4_matmul import (WARP_COLS, _pick_block, _plan as _k6_plan, _sms,
+                          int4_matmul_supported)
 
 MAX_STAGE_BYTES = 32 * 1024    # x staged in shared memory per block
 _UNSCALED_UNIT = 64            # packed rows per split unit without scales
@@ -72,12 +84,13 @@ def v1_current_reference(x, q4, scale):
     return (part[0] + part[1]).sum(0, keepdim=True).to(torch.bfloat16)
 
 
-def v2_biasfold_reference(x, q4, scale):
-    """Per block b and half: (x_b . n_b - 8 sum x_b) * s_b in f32, summed."""
+def v2_biasfold_reference(x, q4, scale, out_dtype=torch.bfloat16):
+    """Per block b and half: (x_b . n_b - 8 sum x_b) * s_b in f32, summed,
+    in `out_dtype` (the TPU body's bf16 by default)."""
     xf, n, s = _blocked(x.to(torch.bfloat16), q4, scale)
     part = (torch.einsum("hbk,hbkd->hbd", xf, n)
             - 8.0 * xf.sum(-1, keepdim=True)) * s
-    return (part[0] + part[1]).sum(0, keepdim=True).to(torch.bfloat16)
+    return (part[0] + part[1]).sum(0, keepdim=True).to(out_dtype)
 
 
 def v3_floor_reference(x, q4, scale=None):
@@ -125,11 +138,43 @@ def v7_unpackonly_reference(x, q4, scale=None):
     return (acc.to(torch.bfloat16).float() * x00).to(torch.bfloat16)
 
 
+# ---------------- v2's conversion, mirrored for the CPU tests ----------------
+
+def per_element_pair(n0: int, n1: int) -> int:
+    """The bf16x2 bits csrc/int4_b1.cuh `PerElement::pair` makes of two
+    nibbles: each converted to f32 on its own, the pair rounded to bf16
+    (`__floats2bfloat162_rn`), n0 in the low half."""
+    bits = torch.tensor([float(n0), float(n1)]).to(torch.bfloat16).view(
+        torch.int16).tolist()
+    return (bits[0] & 0xFFFF) | ((bits[1] & 0xFFFF) << 16)
+
+
+def per_element_fragment(w, j: int, lane: int) -> tuple:
+    """The A fragment (a0..a3) that lane `lane` builds for tile j from a
+    step's packed bytes w [16, 128] uint8 in P3 v2, as csrc/int4_b1.cuh
+    `PerElement::tile` does: byte j % 4 of word j / 4 of the lane's rows
+    4t4..4t4+3 at columns 16g..16g+15 (column 16g + j), each nibble masked
+    out of it; a0 the low nibbles of rows 0 and 1, a1 their high nibbles,
+    a2 and a3 the same of rows 2 and 3."""
+    g, t4 = lane // 4, lane % 4
+    rows = [int.from_bytes(bytes(w[4 * t4 + r, 16 * g:16 * g + 16]),
+                           "little") for r in range(4)]
+    b = [(rows[r] >> (32 * (j >> 2) + 8 * (j & 3))) & 0xFF for r in range(4)]
+    return (per_element_pair(b[0] & 15, b[1] & 15),
+            per_element_pair(b[0] >> 4, b[1] >> 4),
+            per_element_pair(b[2] & 15, b[3] & 15),
+            per_element_pair(b[2] >> 4, b[3] >> 4))
+
+
 # ---------------- kernels ----------------
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(device_index: int) -> int:
-    return torch.cuda.get_device_properties(device_index).multi_processor_count
+def load_depth(group: int) -> int:
+    """The steps of loads in flight of v2 and v5 for the probe's `group`:
+    a lane of K6's B = 1 kernel loads 4 packed rows a 16-row step, so group
+    4 is one step (K6's own depth), 8 two and 16 four."""
+    if group not in GROUPS:
+        raise ValueError(f"group {group} must be one of {GROUPS}")
+    return group // 4
 
 
 @functools.lru_cache(maxsize=None)
@@ -142,7 +187,7 @@ def _plan(rows: int, unit: int, stage_per_row: int, blocks_x: int,
         raise ValueError(f"a split of {unit} rows stages {unit * stage_per_row}"
                          f" bytes of x, more than {MAX_STAGE_BYTES}")
     units = -(-rows // unit)
-    want = -(-2 * _sm_count(device_index) // blocks_x)
+    want = -(-2 * _sms(device_index) // blocks_x)
     per = max(1, -(-units // want))
     if stage_per_row:
         per = min(per, MAX_STAGE_BYTES // (unit * stage_per_row))
@@ -175,9 +220,10 @@ def _on_card(name: str, *ts: torch.Tensor) -> torch.device:
     return dev
 
 
-def _launch_int4(fn, x, q4, scale, aux, blk, group, x_dtype, scaled,
-                 stage_per_row):
-    name = fn.__name__
+def _check_operands(name, x, q4, scale, aux, x_dtype, align):
+    """The operands' device, shapes, types and layout (contiguous, q4
+    `align`-byte and scale 16-byte aligned); returns (device, dh, dout,
+    nb)."""
     dev = _on_card(name, x, q4, scale, *([aux] if aux is not None else []))
     if q4.dim() != 2 or scale.dim() != 2 or x.dim() != 2:
         raise ValueError(f"{name} takes x [1, din], q4 [dh, dout], scale "
@@ -193,10 +239,17 @@ def _launch_int4(fn, x, q4, scale, aux, blk, group, x_dtype, scaled,
         raise ValueError(f"{name} takes x {x_dtype}, q4 uint8 and scale f32, "
                          f"got {x.dtype}, {q4.dtype}, {scale.dtype}")
     if not (x.is_contiguous() and q4.is_contiguous()
-            and scale.is_contiguous()) or q4.data_ptr() % 8 or (
+            and scale.is_contiguous()) or q4.data_ptr() % align or (
                 scale.data_ptr() % 16):
         raise ValueError(f"{name}: x, q4 and scale must be contiguous, q4 "
-                         f"8-byte and scale 16-byte aligned")
+                         f"{align}-byte and scale 16-byte aligned")
+    return dev, dh, dout, nb
+
+
+def _launch_int4(fn, x, q4, scale, aux, blk, group, x_dtype, scaled,
+                 stage_per_row):
+    name = fn.__name__
+    dev, dh, dout, nb = _check_operands(name, x, q4, scale, aux, x_dtype, 8)
     if nb < 2 or nb % 2 or dh % (nb // 2) or (dh // (nb // 2)) % 4 or dh % 4:
         raise ValueError(f"{name}: dh {dh} must split into nb/2 = {nb // 2} "
                          f"scale blocks of a multiple of 4 rows")
@@ -216,6 +269,35 @@ def _launch_int4(fn, x, q4, scale, aux, blk, group, x_dtype, scaled,
     return out
 
 
+def _launch_fold(fn, x, q4, scale, blk, group, plan=None):
+    """v2 or v5 (by `fn`) as one launch of K6's B = 1 kernel, at the shapes
+    K6's gate takes and with K6's plan; `plan` overrides it (the card tests
+    hold every plan to the same result)."""
+    name = fn.__name__
+    dev, dh, dout, nb = _check_operands(name, x, q4, scale, None,
+                                        torch.bfloat16, 16)
+    if x.data_ptr() % 8:
+        raise ValueError(f"{name}: x must be 8-byte aligned")
+    _check_blk(name, dout, blk)
+    if dout % WARP_COLS:
+        raise ValueError(f"{name}: dout {dout} must be a multiple of the "
+                         f"kernel's {WARP_COLS}-column warp tiles")
+    if not int4_matmul_supported(1, dh, nb, dout):
+        raise ValueError(f"{name}: dh {dh} must be a multiple of 32 and "
+                         f"split into nb/2 = {nb // 2} scale blocks of a "
+                         f"multiple of 8 rows (K6's gate)")
+    depth = load_depth(group)
+    if plan is None:
+        plan = _k6_plan(1, dh, nb, dout, _sms(dev.index))
+    out = torch.empty((1, dout), dtype=torch.bfloat16, device=dev)
+    rc = getattr(_build.library(), f"fvt_int4_{name[:-5]}")(
+        x.data_ptr(), q4.data_ptr(), scale.data_ptr(), out.data_ptr(), dh,
+        dout, nb, *plan, depth, torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(rc, name)
+    fn.launches += 1
+    return out
+
+
 def v1_current_cuda(x, q4, scale, *, blk=None, group=4):
     """Launch P3 v1."""
     return _launch_int4(v1_current_cuda, x, q4, scale, None, blk, group,
@@ -223,9 +305,8 @@ def v1_current_cuda(x, q4, scale, *, blk=None, group=4):
 
 
 def v2_biasfold_cuda(x, q4, scale, *, blk=None, group=4):
-    """Launch P3 v2."""
-    return _launch_int4(v2_biasfold_cuda, x, q4, scale, None, blk, group,
-                        torch.bfloat16, True, 8)
+    """Launch P3 v2: K6's B = 1 kernel, each nibble converted on its own."""
+    return _launch_fold(v2_biasfold_cuda, x, q4, scale, blk, group)
 
 
 def v3_floor_cuda(x, q4, scale, *, blk=None, group=4):
@@ -244,9 +325,8 @@ def v4_int8dot_cuda(xq, xs, q4, scale, *, blk=None, group=4):
 
 
 def v5_u8mask_cuda(x, q4, scale, *, blk=None, group=4):
-    """Launch P3 v5."""
-    return _launch_int4(v5_u8mask_cuda, x, q4, scale, None, blk, group,
-                        torch.bfloat16, True, 8)
+    """Launch P3 v5: K6's B = 1 kernel, two nibbles converted at a time."""
+    return _launch_fold(v5_u8mask_cuda, x, q4, scale, blk, group)
 
 
 def v7_unpackonly_cuda(x, q4, scale, *, blk=None, group=4):

@@ -1,8 +1,9 @@
 """Probe: K6's B = 1 kernel on the card, against patched copies of its source.
 
 Each variant is a copy of this package (and of chip_smoke.py) under
-build/probe_int4_k6/<variant>/ with one edit to kernels/csrc/int4_matmul.cu
-(`PATCHES`), built there by its own `_build` and run in a process of its
+build/probe_int4_k6/<variant>/ with one edit to kernels/csrc/int4_b1.cuh
+(`PATCHES`), the B = 1 kernel template that K6 and the int4 probe's P3 v5
+and v2 share, built there by its own `_build` and run in a process of its
 own, in the order given:
   alternative  sub128 (the 128 of the bf16 magic taken off per pair by a
                bf16x2 subtract, the fold then p - 8 sum x, against the
@@ -12,8 +13,10 @@ own, in the order given:
                warps an SM, not 16), l2_128 (plain 16-byte loads, without
                the hint that asks the L2 for 256-byte fetches), barriers
                (rank 0 reads the ranks' sums between full cluster
-               barriers, not one barrier after their writes); timed, with
-               the error against the plain version;
+               barriers, not one barrier after their writes), pe_prmt
+               (P3 v2's pair of f32 nibbles packed into bf16x2 by one
+               byte_perm of their high halves, exact for 0..15, not by
+               F2FP); timed, with the error against the plain version;
   ablation     loads_only (no conversion or product: the loaded words are
                only XORed together), the memory floor of the kernel's load
                pattern; nosync (each rank writes its own partial: no
@@ -22,13 +25,16 @@ own, in the order given:
                wrong and only timed;
   faults       fault_fold (warp 1's fold drops the -8 sum x part of its
                bias correction for scale block 1), fault_pair (lane 0's k
-               slots paired with x of the next packed row): chip_smoke.py
-               `--only int4_kernel` must fail on each; its error is shown.
+               slots paired with x of the next packed row), in the shared
+               code: chip_smoke.py `--only int4_kernel` (K6) and `--only
+               int4_probe` (P3 v2 and v5) must each fail; their errors are
+               shown.
 `base` is the source as it is. Times are K6 ms by CUDA-graph replay at the
 five 7B decode shapes (B = 1, weights rotated past the L2) and their sum
-over one decode token's 197 calls, with the variant's ptxas registers and
-its error over the plain version's max at gate/up. Needs the card and nvcc,
-and a checkout (chip_smoke.py at its root).
+over one decode token's 197 calls, then P3 v5 and v2 at the int4 probe's
+shape ([1, 3584] @ int4 [3584, 18944], bytes 0-255), with the variant's
+ptxas registers and its errors over the plain versions' max. Needs the
+card and nvcc, and a checkout (chip_smoke.py at its root).
 
 Usage: python -m flash_vstream_tpu_torch.scripts.probe_int4_k6
            [--variants base,sub128,...,base]
@@ -44,17 +50,12 @@ from pathlib import Path
 PKG = Path(__file__).resolve().parents[1]
 ROOT = PKG.parent
 WORK = ROOT / "build" / "probe_int4_k6"
-SRC = "kernels/csrc/int4_matmul.cu"
+SRC = "kernels/csrc/int4_b1.cuh"
 
 _TILES = """#pragma unroll
       for (int j = 0; j < 16; ++j) {
-        // byte j % 4 of word j / 4: rows 0 and 1, rows 2 and 3
-        const uint32_t v01 = __byte_perm(word(now.w[0], j >> 2),
-                                         word(now.w[1], j >> 2), sel(j));
-        const uint32_t v23 = __byte_perm(word(now.w[2], j >> 2),
-                                         word(now.w[3], j >> 2), sel(j));
-        const uint32_t a[4] = {magic(v01), magic(v01 >> 4), magic(v23),
-                               magic(v23 >> 4)};
+        uint32_t a[4];
+        Conv::tile(now, j, a);
         mma_fold(p_lo[j], p_hi[j], a, b0, b1);
       }
 """
@@ -111,6 +112,12 @@ _BARRIERS = ("""  asm volatile("barrier.cluster.wait.aligned;\\n" ::: "memory");
   cluster.sync();   // no rank leaves while rank 0 still reads its sum
 }
 """)
+# P3 v2's pair of f32 nibbles rounded into bf16x2 (F2FP)
+_PAIR = """\
+    const __nv_bfloat162 v = __floats2bfloat162_rn(static_cast<float>(n0),
+                                                   static_cast<float>(n1));
+    return *reinterpret_cast<const uint32_t*>(&v);
+"""
 # the fold does not wait for the scales' copies
 _NOWAIT = ('    asm volatile("cp.async.wait_all;\\n" ::: "memory");\n', "")
 _CAP = ("__launch_bounds__(kMaxWarps * 32, 2)\n    int4_fold_kernel",
@@ -118,11 +125,12 @@ _CAP = ("__launch_bounds__(kMaxWarps * 32, 2)\n    int4_fold_kernel",
 
 PATCHES = {
     "base": [],
-    "sub128": [("  return (v & 0x000F000Fu) | 0x43004300u;\n",
-                "  uint32_t r = (v & 0x000F000Fu) | 0x43004300u;\n"
-                "  asm(\"sub.rn.bf16x2 %0, %0, %1;\" : \"+r\"(r) : "
-                "\"r\"(0x43004300u));\n  return r;\n"),
-               ("const float bias = 136.f;", "const float bias = 8.f;")],
+    "sub128": [("    return (v & 0x000F000Fu) | 0x43004300u;\n",
+                "    uint32_t r = (v & 0x000F000Fu) | 0x43004300u;\n"
+                "    asm(\"sub.rn.bf16x2 %0, %0, %1;\" : \"+r\"(r) : "
+                "\"r\"(0x43004300u));\n    return r;\n"),
+               ("static constexpr float kBias = 136.f;",
+                "static constexpr float kBias = 8.f;")],
     "depth2": [(_DEPTH, "constexpr int kDepth = 2;")],
     "depth3": [(_DEPTH, "constexpr int kDepth = 3;")],
     "depth4": [(_DEPTH, "constexpr int kDepth = 4;"), _CAP],
@@ -131,6 +139,10 @@ PATCHES = {
     "barriers": [_START, _BARRIERS],
     "nosync": [_NOSYNC],
     "nowait": [_NOWAIT],
+    "pe_prmt": [(_PAIR, """\
+    return __byte_perm(__float_as_uint(static_cast<float>(n0)),
+                       __float_as_uint(static_cast<float>(n1)), 0x7632);
+""")],
     "loads_only_nosync": [(_TILES, _XOR), _NOSYNC],
     "fault_fold": [(_K, _K.replace("bias *", "(bias - (warp == 1 && cur == 1"
                                    " ? 8.f : 0.f)) *"))],
@@ -171,12 +183,26 @@ for name, din, dout, calls in cs.K6_SHAPES:
     out.append(f"{name}={ms:.4f}")
     del copies, qw
     torch.cuda.empty_cache()
-regs = cs._ptxas_counts(_build.library_path().with_suffix(".log"),
-                        cs._k6_instance)
-print("ms " + " ".join(out) + f" per_token={total:.4f}; err/max at gate/up "
-      f"{err:.3e}; registers " + " ".join(
-          f"{k}={v[0]} spills={v[1]}/{v[2]}" for k, v in sorted(regs.items())),
-      flush=True)
+from flash_vstream_tpu_torch.kernels import int4_variants as iv
+q = [torch.randint(0, 256, (1792, 18944), generator=g, device=dev,
+                   dtype=torch.uint8) for _ in range(3)]
+s = [torch.rand(28, 18944, generator=g, device=dev) * 2e-3 + 5e-4
+     for _ in range(3)]
+x = torch.randn(1, 3584, generator=g, device=dev).to(torch.bfloat16)
+want = iv.v2_biasfold_reference(x, q[0], s[0], torch.float32)
+for kern in (iv.v5_u8mask_cuda, iv.v2_biasfold_cuda):
+    e = ((kern(x, q[0], s[0]).float() - want).abs().max()
+         / want.abs().max()).item()
+    ms = cs._ms(lambda i: kern(x, q[i % 3], s[i % 3]), 20)
+    out.append(f"{kern.__name__[:-5]}={ms:.4f} (err/max {e:.2e})")
+log = _build.library_path().with_suffix(".log")
+regs = cs._ptxas_counts(log, cs._k6_instance)
+regs.update((k, v) for k, v in cs._ptxas_counts(log, cs._int4_instance).items()
+            if k in ("v5 G4", "v2 G4"))
+print("ms " + " ".join(out[:5]) + f" per_token={total:.4f}; err/max at "
+      f"gate/up {err:.3e}; P3 " + " ".join(out[5:]) + "; registers "
+      + " ".join(f"{k}={v[0]} spills={v[1]}/{v[2]}"
+                 for k, v in sorted(regs.items())), flush=True)
 """
 
 
@@ -240,18 +266,21 @@ def make_variant(name: str, work: Path = WORK) -> Path:
 
 def run_variant(name: str) -> bool:
     """Build and run one variant; print its line. False when a fault was
-    not caught or a timing run failed."""
+    not caught (by either phase) or a timing run failed."""
     d = make_variant(name)
     if name.startswith("fault_"):
-        res = subprocess.run([sys.executable, "chip_smoke.py", "--only",
-                              "int4_kernel"], cwd=d, capture_output=True,
-                             text=True)
-        err = [ln for ln in (res.stdout + res.stderr).splitlines()
-               if ln.startswith("AssertionError")]
-        print(f"probe_int4_k6 {name}: "
-              + (err[-1] if err else f"not caught (rc {res.returncode})"),
-              flush=True)
-        return res.returncode != 0 and bool(err)
+        caught = []
+        for phase in ("int4_kernel", "int4_probe"):
+            res = subprocess.run([sys.executable, "chip_smoke.py", "--only",
+                                  phase], cwd=d, capture_output=True,
+                                 text=True)
+            err = [ln for ln in (res.stdout + res.stderr).splitlines()
+                   if ln.startswith("AssertionError")]
+            print(f"probe_int4_k6 {name} {phase}: "
+                  + (err[-1] if err else f"not caught (rc {res.returncode})"),
+                  flush=True)
+            caught.append(res.returncode != 0 and bool(err))
+        return all(caught)
     res = subprocess.run([sys.executable, "-c", _TIMING], cwd=d,
                          capture_output=True, text=True)
     lines = res.stdout.strip().splitlines()

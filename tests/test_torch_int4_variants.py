@@ -26,6 +26,7 @@ import numpy as np
 import pytest
 import torch
 
+from flash_vstream_tpu_torch.kernels import int4_matmul as im
 from flash_vstream_tpu_torch.kernels import int4_variants as iv
 from flash_vstream_tpu_torch.kernels.int4_matmul import int4_matmul_reference
 from flash_vstream_tpu_torch.scripts import probe_int4_variants as probe
@@ -258,6 +259,179 @@ def test_probe_main_and_main2_run_on_cpu(capsys):
     assert all("GB/s stored-weight" in ln for ln in lines if "ms/matvec" in ln)
 
 
+# --- v2 and v5 on K6's B = 1 kernel: conversions, schedule, load depth ----
+
+# the two conversions of csrc/int4_b1.cuh: (A fragment mirror, what the
+# fragment holds for a nibble n, the fold's bias constant)
+CONVERSIONS = {"PerElement": (iv.per_element_fragment, 0, 8.0),
+               "Packed": (im.fragment_map, 128, 136.0)}
+
+
+def _bf16_bits_to_float(bits):
+    return torch.tensor(np.asarray(bits, np.uint16).view(np.int16)).view(
+        torch.bfloat16).float().numpy()
+
+
+@pytest.mark.parametrize("half", ["low", "high"])
+def test_per_element_conversion_gives_every_nibble_exactly(half):
+    """v2's conversion, emulated as the source does it, on all 256 bytes at
+    each byte of a word: the nibble masked out of its byte, converted to
+    f32 on its own and rounded into a bf16 pair is n exactly (0..15, both
+    halves of the pair); in the fold, n x - 8 x = (n - 8) x exactly for
+    integer x."""
+    vals = np.arange(256)
+    n = vals & 15 if half == "low" else vals >> 4
+    other = (vals * 7) % 256
+    n2 = other & 15 if half == "low" else other >> 4
+    for pos in range(4):
+        got = []
+        for b, c in zip(vals, other):
+            w0, w1 = int(b) << (8 * pos), int(c) << (8 * pos)
+            b0, b1 = (w0 >> (8 * pos)) & 0xFF, (w1 >> (8 * pos)) & 0xFF
+            if half == "low":
+                bits = iv.per_element_pair(b0 & 15, b1 & 15)
+            else:
+                bits = iv.per_element_pair(b0 >> 4, b1 >> 4)
+            got.append((bits & 0xFFFF, bits >> 16))
+        got = np.array(got)
+        lo = _bf16_bits_to_float(got[:, 0])
+        hi = _bf16_bits_to_float(got[:, 1])
+        np.testing.assert_array_equal(lo, n)
+        np.testing.assert_array_equal(hi, n2)
+    x = np.arange(-128, 128, dtype=np.float32)
+    np.testing.assert_array_equal(lo * x - 8 * x, (n - 8) * x)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_per_element_fragments_pair_every_nibble_with_its_own_x(seed):
+    """One warp step of v2's conversion, on bytes 0-255: the A fragments of
+    every lane and tile put into the m16n8k16 matrix by the PTX fragment
+    layout, times B from x at each lane's k rows; lane (g, 0)'s c0 and c3
+    equal, exactly, column 16g + j's sums of n x over the step's 16 rows
+    for the low and the high nibbles (Packed's fragments, 128 + n, are
+    held the same way in test_torch_int4_matmul.py)."""
+    frag, offset, _ = CONVERSIONS["PerElement"]
+    rng = np.random.default_rng(seed)
+    w = rng.integers(0, 256, (16, 128), dtype=np.uint8)
+    w[0, :16] = np.arange(0, 256, 16)      # every high nibble, every low 0
+    w[1, :16] = np.arange(16)               # every low nibble
+    xs = rng.integers(-1000, 1000, (2, 16)).astype(np.float64)
+    B = np.zeros((16, 8))
+    for lane in range(8):
+        g, t4 = lane // 4, lane % 4
+        rows = im.fragment_k_rows(lane)
+        for slot, k in enumerate((2 * t4, 2 * t4 + 1, 2 * t4 + 8,
+                                  2 * t4 + 9)):
+            B[k, g] = xs[g, rows[slot]]
+    for j in range(16):
+        A = np.zeros((16, 16))
+        for lane in range(32):
+            g, t4 = lane // 4, lane % 4
+            a = frag(w, j, lane)
+            for r, (row, k0) in enumerate(((g, 2 * t4), (g + 8, 2 * t4),
+                                           (g, 2 * t4 + 8),
+                                           (g + 8, 2 * t4 + 8))):
+                A[row, k0:k0 + 2] = _bf16_bits_to_float(
+                    [a[r] & 0xFFFF, a[r] >> 16])
+        C = A @ B
+        for g in range(8):
+            col = w[:, 16 * g + j].astype(np.float64)
+            assert C[g, 0] == ((offset + col % 16) * xs[0]).sum()
+            assert C[g + 8, 1] == ((offset + col // 16) * xs[1]).sum()
+
+
+def _emulate_b1(x, q4, scale, plan, offset, bias):
+    """csrc/int4_b1.cuh `int4_fold_kernel` step by step in numpy (f32), for
+    a conversion whose fragments hold offset + n and whose fold takes bias
+    sum x off: each warp's steps in order, a step's two passes where it
+    spans two scale blocks, the fold at each block change with the quad's
+    x sums, then the warps summed in warp order and the ranks in rank
+    order. The products are taken exactly (f64, then rounded once a
+    step)."""
+    dh, dout = q4.shape
+    nbh = scale.shape[0] // 2
+    bs = dh // nbh
+    xf = torch.from_numpy(x).to(torch.bfloat16).float().numpy()[0]
+    lo_n = (q4 & 15).astype(np.float64) + offset
+    hi_n = (q4 >> 4).astype(np.float64) + offset
+    ranks = []
+    for rank in range(plan.split):
+        warps = []
+        for warp in range(plan.warps):
+            r = im.warp_rows(plan, dh, rank, warp)
+            acc = np.zeros(dout, np.float32)
+            if len(r):
+                p_lo = np.zeros(dout, np.float32)
+                p_hi = np.zeros(dout, np.float32)
+                sx = np.zeros((2, 4), np.float32)      # per half, per t4
+                cur = r.start // bs
+
+                def fold():
+                    k = [np.float32(bias) * ((sx[h, 0] + sx[h, 1])
+                                             + (sx[h, 2] + sx[h, 3]))
+                         for h in range(2)]
+                    out = acc + (p_lo - k[0]) * scale[cur]
+                    out = out + (p_hi - k[1]) * scale[nbh + cur]
+                    return out.astype(np.float32)
+                for row0 in range(r.start, r.stop, 16):
+                    for blk in range(row0 // bs, (row0 + 8) // bs + 1):
+                        if blk != cur:
+                            acc = fold()
+                            p_lo[:] = 0
+                            p_hi[:] = 0
+                            sx[:] = 0
+                            cur = blk
+                        on = [(row0 + 4 * t) // bs == blk for t in range(4)]
+                        rows = [row0 + 4 * t + i for t in range(4) if on[t]
+                                for i in range(4)]
+                        for t in range(4):
+                            if on[t]:
+                                for h in range(2):
+                                    v = xf[h * dh + row0 + 4 * t:
+                                           h * dh + row0 + 4 * t + 4]
+                                    sx[h, t] += np.float32(
+                                        (v[0] + v[1]) + (v[2] + v[3]))
+                        p_lo += (xf[rows] @ lo_n[rows]).astype(np.float32)
+                        p_hi += (xf[[dh + i for i in rows]]
+                                 @ hi_n[rows]).astype(np.float32)
+                acc = fold()
+            warps.append(acc)
+        ranks.append(np.sum(np.stack(warps), axis=0, dtype=np.float32))
+    return np.sum(np.stack(ranks), axis=0, dtype=np.float32)
+
+
+@pytest.mark.parametrize("conv", sorted(CONVERSIONS))
+@pytest.mark.parametrize("din,dout,sms", [
+    (512, 128, 132), (768, 256, 132), (3584, 128, 132), (3584, 256, 8),
+    (1024, 384, 16)])
+def test_fold_schedule_emulation_matches_v2_reference(conv, din, dout, sms):
+    """The B = 1 kernel's schedule (K6's plan, warps, steps, folds) with
+    each conversion, emulated on the CPU on bytes 0-255 with scale blocks
+    of 128 packed rows (the probe's nb = din / 128), equals v2's plain
+    version in f32 within 1e-5 of the output's max: no row is missed or
+    counted twice, each block's bias and scales are its own, also where a
+    warp starts mid-block."""
+    _, offset, bias = CONVERSIONS[conv]
+    x, q, s = _inputs(din, dout, seed=din + dout)
+    plan = im._plan(1, din // 2, din // 128, dout, sms)
+    got = _emulate_b1(x, q, s, plan, offset, bias)
+    want = iv.v2_biasfold_reference(torch.from_numpy(x), torch.from_numpy(q),
+                                    torch.from_numpy(s),
+                                    torch.float32).numpy()[0]
+    np.testing.assert_allclose(got, want, atol=1e-5 * np.abs(want).max())
+
+
+def test_load_depth_maps_groups_to_steps_in_flight():
+    """group packed rows a lane loads before the products that use them =
+    4 a step x the steps of loads in flight: 4 -> 1 (K6's own), 8 -> 2,
+    16 -> 4; any other group is refused."""
+    assert {g: iv.load_depth(g) for g in iv.GROUPS} == {4: 1, 8: 2, 16: 4}
+    assert all(4 * iv.load_depth(g) == g for g in iv.GROUPS)
+    for bad in (0, 2, 6, 12, 32):
+        with pytest.raises(ValueError, match="group"):
+            iv.load_depth(bad)
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -325,3 +499,84 @@ def test_kernels_raise_instead_of_falling_back(cuda):
         iv.v6_bf16dot_cuda(x[:, :24], torch.zeros(24, 384, device=cuda,
                                                   dtype=torch.bfloat16),
                            group=16)
+
+
+# --- v2 and v5 on the card: one launch, the same bits, the plans ---------
+
+FOLD = {"v2-biasfold": iv.v2_biasfold_cuda, "v5-u8mask": iv.v5_u8mask_cuda}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("din,dout", [(3584, 18944), (512, 384)])
+@pytest.mark.parametrize("name", sorted(FOLD))
+def test_fold_variants_same_bits_across_runs_and_plans(cuda, name, din,
+                                                       dout):
+    """v2 and v5 give the same bits from run to run at K6's plan and at
+    others (one cluster, 8 warps; two ranks of 4 warps); v5 gives K6's own
+    bits at each plan (one template, one conversion); across plans the
+    f32 sums differ only in order, so the bf16 outputs agree within one
+    bf16 step of the output (2^-7 of it) plus 1e-4 of its max."""
+    x, q, s = _card_inputs(din, dout, cuda, din)
+    dh = din // 2
+    kernel = FOLD[name]
+    want = iv.v2_biasfold_reference(x, q, s, torch.float32)
+    scale = want.abs().max().item()
+    outs = []
+    for plan in (None, im.Int4Plan(1, 8, dh), im.Int4Plan(2, 4, dh // 2)):
+        got = [iv._launch_fold(kernel, x, q, s, None, 4, plan)
+               for _ in range(3)]
+        torch.cuda.synchronize()
+        assert all(torch.equal(got[0], o) for o in got[1:]), plan
+        if name == "v5-u8mask":
+            k6 = im.int4_matmul_cuda(x, q, s, plan=plan or im._plan(
+                1, dh, s.shape[0], dout, im._sms(cuda.index)))
+            assert torch.equal(got[0], k6), plan
+        outs.append(got[0].float())
+    for o in outs[1:]:
+        assert ((o - outs[0]).abs() <= 2 ** -7 * outs[0].abs()
+                + 1e-4 * scale).all()
+    assert (outs[0] - want).abs().max().item() <= 1e-2 * scale
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("group", iv.GROUPS)
+@pytest.mark.parametrize("name", sorted(FOLD))
+def test_fold_variants_launch_one_kernel_a_call(cuda, name, group):
+    """One call is one device kernel, K6's B = 1 kernel, by torch.profiler
+    (chip_smoke.py's `_device_kernels`, not the wrapper's count): no
+    scratch and no second pass."""
+    import chip_smoke as cs
+    x, q, s = _card_inputs(3584, 18944, cuda, 1)
+    FOLD[name](x, q, s, group=group)
+    ran = cs._device_kernels(lambda: FOLD[name](x, q, s, group=group))
+    assert sum(ran.values()) == 1, ran
+    assert "int4_fold_kernel" in next(iter(ran)), ran
+
+
+@pytest.mark.gpu
+def test_fold_c_entries_refuse_what_they_do_not_take(cuda):
+    """The C entries of v2 and v5 refuse, before any launch, a depth other
+    than 1, 2 or 4, a plan that does not cover the rows or exceeds its
+    sizes, and a dout off the 128-column tiles; the wrappers refuse such a
+    dout with a ValueError."""
+    from flash_vstream_tpu_torch.kernels import _build
+    lib = _build.library()
+    x, q, s = _card_inputs(512, 384, cuda, 2)
+    out = torch.empty(1, 384, device=cuda, dtype=torch.bfloat16)
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    for fn in (lib.fvt_int4_v2_biasfold, lib.fvt_int4_v5_u8mask):
+        def rc(dout=384, split=1, warps=8, rows=256, depth=1):
+            return fn(x.data_ptr(), q.data_ptr(), s.data_ptr(),
+                      out.data_ptr(), 256, dout, s.shape[0], split, warps,
+                      rows, depth, stream)
+        assert rc() == 0
+        for bad in (dict(depth=3), dict(depth=8), dict(rows=240),
+                    dict(split=2, rows=64), dict(warps=9), dict(split=9,
+                                                               rows=32),
+                    dict(dout=320)):
+            assert rc(**bad) != 0, bad
+    torch.cuda.synchronize()
+    xs, qs, ss = _card_inputs(512, 320, cuda, 3)
+    for kernel in FOLD.values():
+        with pytest.raises(ValueError, match="multiple of the kernel"):
+            kernel(xs, qs, ss, blk=64)

@@ -69,13 +69,14 @@ Phases, one or more lines each; any failure raises and exits non-zero:
    v6) against their plain versions at the int4 probe's default shape and
    small odd shapes at 4, 8 and 16 packed rows per thread per step, timed
    beside their bound, torch's int4 or bf16 matmul and K6, with the SASS
-   instruction counts of the built kernels; v2 and v5 (K6's B = 1 kernel
-   with a per-element and a packed conversion) first with their ptxas
-   registers and spills and SASS counts (each fails without HMMA, v5 with
-   any I2F or I2FP, v2 without I2FP, either with a spill at group 4), then
-   bit-identical run to run and one device kernel a call; the probe
-   (scripts/probe_int4_variants.py) at its defaults through main and
-   main2, every variant's launches exact.
+   instruction counts of the built kernels; v1, v2, v3 and v5 (K6's B = 1
+   kernel with the unbiased, per-element, unscaled and packed conversions)
+   first with their ptxas registers and spills and SASS counts (each fails
+   without HMMA or with a spill at group 4, v2 without I2FP, the others
+   with any I2F or I2FP, v1 without its bf16x2 subtract HADD2.BF16_V2, v3
+   with any LDGSTS), then bit-identical run to run and one device kernel a
+   call; the probe (scripts/probe_int4_variants.py) at its defaults
+   through main and main2, every variant's launches exact.
 
 `--profile DIR` also traces one training-slice step with torch.profiler and
 writes its kernel table there. The line before the last is one JSON object
@@ -644,7 +645,8 @@ def _fold_instance(name):
     """(conversion, steps of loads in flight) of the B = 1 kernel template
     (csrc/int4_b1.cuh `int4_fold_kernel<Conv, kSteps>`) that a SASS or
     ptxas function name is an instance of, or None."""
-    m = re.search(r"int4_fold_kernelI\w*?(Packed|PerElement)ELi(\d+)E", name)
+    m = re.search(r"int4_fold_kernelI\w*?(Packed|PerElement|Unbiased|Floor)"
+                  r"ELi(\d+)E", name)
     return (m.group(1), int(m.group(2))) if m else None
 
 
@@ -1867,7 +1869,10 @@ P3_SHAPES = ((3584, 18944, 512), (512, 384, 128), (256, 384, 128))
 P3_TOL = {"v7-unpackonly": 0.0}
 # the variants that run K6's B = 1 kernel (csrc/int4_b1.cuh): one launch a
 # call, the same bits run to run
-P3_FOLD = ("v2-biasfold", "v5-u8mask")
+P3_FOLD = ("v1-current", "v2-biasfold", "v3-floor", "v5-u8mask")
+# the B = 1 kernel's conversion of each of them
+P3_CONVERSIONS = {"Packed": "v5", "PerElement": "v2", "Unbiased": "v1",
+                  "Floor": "v3"}
 P3_LINES = {"v1-current": 35, "v2-biasfold": 58, "v3-floor": 83,
             "v4-int8dot": 97, "v5-u8mask": 124, "v6-bf16dot": 266,
             "v7-unpackonly": 273}
@@ -1896,13 +1901,12 @@ def _p3_library(name, x, xq, xs, q, s):
 
 def _int4_instance(name):
     """The P3/P4 kernel instance a SASS or ptxas function name matches, or
-    None: v2 and v5 are the B = 1 kernel with the PerElement and the Packed
-    conversion at 1, 2 or 4 steps of loads in flight (groups 4, 8, 16); K6's
-    own instance is v5 G4's."""
+    None: v1, v2, v3 and v5 are the B = 1 kernel with the Unbiased,
+    PerElement, Floor and Packed conversions at 1, 2 or 4 steps of loads in
+    flight (groups 4, 8, 16); K6's own instance is v5 G4's."""
     fold = _fold_instance(name)
     if fold:
-        return ({"Packed": "v5", "PerElement": "v2"}[fold[0]]
-                + f" G{4 * fold[1]}")
+        return P3_CONVERSIONS[fold[0]] + f" G{4 * fold[1]}"
     m = re.search(r"(int4_variant_kernelILi(\d+)ELi(\d+)E"
                   r"|bf16_matvec_kernelILi(\d+)E)", name)
     if not m:
@@ -1911,14 +1915,17 @@ def _int4_instance(name):
 
 
 def check_fold_build(lib_path):
-    """P3 v2 and v5 as built, at each group: ptxas registers and spills and
-    SASS counts. Each fails without HMMA (the products on the tensor
-    cores); v5 fails with any I2F or I2FP (its nibbles convert in the
-    packed domain), v2 without I2FP (each nibble converted on its own);
-    a spill fails at group 4 and is only shown at 8 and 16."""
+    """P3 v5, v2, v1 and v3 as built, at each group: ptxas registers and
+    spills and SASS counts. Each fails without HMMA (the products on the
+    tensor cores); v5, v1 and v3 fail with any I2F or I2FP (their nibbles
+    convert in the packed domain), v2 without I2FP (each nibble converted
+    on its own); v1 fails without its bf16x2 subtract (nvcc 12.8 emits
+    HADD2.BF16_V2 for `__hsub2`, 64 a step), v3 with any LDGSTS (it
+    fetches no scales); a spill fails at group 4 and is only shown at 8
+    and 16."""
     regs = _ptxas_counts(lib_path.with_suffix(".log"), _int4_instance)
-    sass = _sass_counts(lib_path, _int4_instance)
-    for v in ("v5", "v2"):
+    sass = _sass_counts(lib_path, _int4_instance, full=True)
+    for v in P3_CONVERSIONS.values():
         for group in (4, 8, 16):
             inst = f"{v} G{group}"
             if inst not in regs:
@@ -1931,13 +1938,18 @@ def check_fold_build(lib_path):
                 print(line + f"; SASS {sass}", flush=True)
             else:
                 c = sass.get(inst, {})
-                n = {op: c.get(op, 0) for op in ("HMMA", "I2FP", "I2F",
-                                                 "F2FP", "PRMT", "LOP3")}
+                n = {op: sum(val for k, val in c.items()
+                             if k.split(".")[0] == op)
+                     for op in ("HMMA", "I2FP", "I2F", "F2FP", "PRMT", "LOP3",
+                                "LDGSTS")}
+                n["HADD2.BF16_V2"] = c.get("HADD2.BF16_V2", 0)
                 print(line + "; SASS " + " ".join(
                     f"{k}={val}" for k, val in n.items())
                     + f" of {sum(c.values())} instructions", flush=True)
-                if not n["HMMA"] or (v == "v5" and (n["I2F"] or n["I2FP"])
-                                     ) or (v == "v2" and not n["I2FP"]):
+                if (not n["HMMA"] or (v != "v2" and (n["I2F"] or n["I2FP"]))
+                        or (v == "v2" and not n["I2FP"])
+                        or (v == "v1" and not n["HADD2.BF16_V2"])
+                        or (v == "v3" and n["LDGSTS"])):
                     raise AssertionError(f"int4_probe SASS {inst}: {n}")
             if group == 4 and (st or ld):
                 raise AssertionError(f"int4_probe ptxas {inst} spills")
@@ -2024,7 +2036,7 @@ def check_int4_probe(dev, iters=50):
     copies past the 50 MB L2 (also at 8 and 16 packed rows per thread per
     step: more loads in flight), eagerly, its plain version, the bound,
     the library call and K6 on the same inputs, and its SASS instruction
-    counts; v2 and v5 (K6's B = 1 kernel) first as built
+    counts; v1, v2, v3 and v5 (K6's B = 1 kernel) first as built
     (`check_fold_build`), then the same bits run to run at every shape and
     group and one device kernel a call (torch.profiler); then the probe
     through `main([])` and `main2(['--which', 'v6,v7'])` at its defaults,
@@ -2154,8 +2166,9 @@ def check_int4_probe(dev, iters=50):
     for kernel, ops in (sass.items() if isinstance(sass, dict) else ()):
         print(f"int4_probe sass {kernel}: {sum(ops.values())} instructions, "
               + " ".join(f"{op}={ops[op]}" for op in (
-                  "LDG", "HMMA", "I2FP", "I2F", "F2FP", "FFMA", "FADD", "IDP",
-                  "PRMT", "LOP3", "SHF", "IMAD")), flush=True)
+                  "LDG", "LDGSTS", "HMMA", "I2FP", "I2F", "F2FP", "FFMA",
+                  "FADD", "HADD2", "HFMA2", "IDP", "PRMT", "LOP3", "SHF",
+                  "IMAD")), flush=True)
     if not isinstance(sass, dict):
         print(f"int4_probe sass: {sass}", flush=True)
 

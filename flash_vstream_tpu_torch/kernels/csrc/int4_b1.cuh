@@ -3,9 +3,10 @@
 // the biased nibbles n (0..15) of scale block b. One kernel template,
 // `int4_fold_kernel<Conv, kSteps>`, over how a nibble becomes a bf16
 // (`Conv`) and the steps of each warp's loads in flight (`kSteps`). It is
-// K6's B = 1 kernel (int4_matmul.cu: Packed, kDepth) and the int4 probe's
-// P3 v5 (Packed) and v2 (PerElement) (int4_variants.cu: kSteps 1, 2, 4 for
-// the probe's groups 4, 8, 16).
+// K6's B = 1 kernel (int4_matmul.cu: Packed, kDepth) and four of the int4
+// probe's P3 variants (int4_variants.cu: kSteps 1, 2, 4 for the probe's
+// groups 4, 8, 16): v5 (Packed), v2 (PerElement), v1 (Unbiased) and v3
+// (Floor, x_lo . n_lo + x_hi . n_hi with no scales).
 //
 // Layout (weights/quantize.QuantWeight4): byte row i of q4 holds input row i
 // in its low nibble and row i + dh in its high nibble; scale [nb, dout] f32
@@ -40,7 +41,8 @@
 //   zero, so lane (g, 0)'s c0 is column 16g + j's low-half partial and c3
 //   its high-half partial; the cross terms c1, c2 are dropped
 //   (int4_matmul.py `fragment_map` mirrors this for the tests);
-// - conversion, the template's `Conv`:
+// - conversion, the template's `Conv`; each says what it isolates against
+//   Packed on this one kernel:
 //   Packed (K6, P3 v5): one byte_perm puts byte j of two rows in the low
 //     bytes of two 16-bit lanes; (v & 0x000F000F) | 0x43004300 (one lop3)
 //     is bf16 128 + n for both low nibbles, the same of v >> 4 for the high
@@ -50,14 +52,25 @@
 //   PerElement (P3 v2): each nibble masked out of its byte and converted
 //     int -> f32 on its own (I2FP.F32.U32, on the FP32 pipe), a pair packed
 //     into bf16x2 (F2FP.BF16.F32.PACK_AB); the fold takes off 8 sum x_b.
-//   Both are exact for every nibble 0..15;
+//     Isolates a conversion per element against one in the packed domain;
+//   Unbiased (P3 v1): Packed's words less bf16x2 (136, 136), one subtract
+//     per pair: the fragments hold n - 8 and the fold takes nothing off
+//     (nor sums x). Isolates the unbias per element against the unbias in
+//     the fold;
+//   Floor (P3 v3): Packed's fragments, no scales: the kernel fetches none,
+//     never changes block, and folds once at the end of each warp's rows,
+//     p - 128 sum x over all of them. Isolates what the scales and the
+//     per-block folds cost.
+//   All are exact for every nibble 0..15 (128..143 and -8..7 are bf16
+//   integers);
 // - fold: x is read per step (8 bytes a lane, lanes g < 2; L1/L2-resident)
 //   and each lane sums its own rows of x in f32. At a scale block's end the
 //   quad sums are reduced in a fixed order and lanes (g, 0) fold the
 //   block's partials into their columns' sums in shared memory, acc +=
 //   (p_lo - k sx_lo) s_lo + (p_hi - k sx_hi) s_hi, with the block's scales
 //   fetched by cp.async into the warp's shared slot when the warp entered
-//   the block;
+//   the block (a conversion without scales, `kScaled` false, folds once,
+//   acc += (p_lo - k sx_lo) + (p_hi - k sx_hi), and fetches nothing);
 // - one launch: the warps of a block split its rank's rows and are summed
 //   in shared memory in warp order; where the packed rows split over
 //   several blocks (`split` > 1), they form a thread-block cluster: the
@@ -145,9 +158,11 @@ struct Step {
 // The conversions: `tile` gives tile j's A fragment (a0..a3: the low
 // nibbles of rows 0 and 1, their high nibbles, the same of rows 2 and 3,
 // each word two bf16, the first row's in the low half) from a step's
-// words; the fold takes kBias sum x_b off each block's partial sums.
+// words; the fold takes kBias sum x_b off each block's partial sums and,
+// where kScaled, scales them.
 struct Packed {
   static constexpr float kBias = 136.f;   // 8, and the magic's 128
+  static constexpr bool kScaled = true;
 
   // bf16x2 of 128 + n for the low nibbles of bytes 0 and 2 of v
   static __device__ __forceinline__ uint32_t magic(uint32_t v) {
@@ -170,6 +185,7 @@ struct Packed {
 
 struct PerElement {
   static constexpr float kBias = 8.f;
+  static constexpr bool kScaled = true;
 
   // bf16x2 of (n0, n1), each nibble converted to f32 on its own
   static __device__ __forceinline__ uint32_t pair(uint32_t n0, uint32_t n1) {
@@ -188,6 +204,29 @@ struct PerElement {
     a[2] = pair(b[2] & 15u, b[3] & 15u);
     a[3] = pair((b[2] >> 4) & 15u, (b[3] >> 4) & 15u);
   }
+};
+
+struct Unbiased {
+  static constexpr float kBias = 0.f;
+  static constexpr bool kScaled = true;
+
+  static __device__ __forceinline__ void tile(const Step& st, int j,
+                                              uint32_t (&a)[4]) {
+    Packed::tile(st, j, a);
+    // bf16x2 (128 + n) - (136, 136) = n - 8, exact for n 0..15
+    const __nv_bfloat162 k = __floats2bfloat162_rn(136.f, 136.f);
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const __nv_bfloat162 v =
+          __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&a[r]), k);
+      a[r] = *reinterpret_cast<const uint32_t*>(&v);
+    }
+  }
+};
+
+struct Floor : Packed {   // Packed's fragments
+  static constexpr float kBias = 128.f;   // the magic's 128
+  static constexpr bool kScaled = false;
 };
 
 // grid (dout / 128, split), block 32 * warps, cluster (1, split, 1).
@@ -236,15 +275,17 @@ __global__ void __launch_bounds__(kMaxWarps * 32, 2)
 
   float* sslot = &ss[warp][0][0];
   auto fetch_scales = [&](int blk) {   // the block's lo and hi scales
+    if constexpr (Conv::kScaled) {
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int c = lane + 32 * i;           // 64 chunks of 4 floats
-      const int h = c >> 5, off = 4 * (c & 31);
-      cp_async_16(sslot + h * kWarpCols + off,
-                  scale + static_cast<long long>(blk + h * nbh) * dout +
-                      col0 + off);
+      for (int i = 0; i < 2; ++i) {
+        const int c = lane + 32 * i;           // 64 chunks of 4 floats
+        const int h = c >> 5, off = 4 * (c & 31);
+        cp_async_16(sslot + h * kWarpCols + off,
+                    scale + static_cast<long long>(blk + h * nbh) * dout +
+                        col0 + off);
+      }
+      asm volatile("cp.async.commit_group;\n" ::: "memory");
     }
-    asm volatile("cp.async.commit_group;\n" ::: "memory");
   };
 
   // lanes t4 == 0 sum their columns' folded blocks in red[warp]
@@ -257,28 +298,39 @@ __global__ void __launch_bounds__(kMaxWarps * 32, 2)
   }
   float sx = 0.f;   // lanes g < 2: the sum of this lane's x in the block
   const float bias = Conv::kBias;
+  constexpr bool kSumX = Conv::kBias != 0.f;   // the fold takes bias sum x
   // the scale block being summed, cur, and its first row, b_lo; no integer
   // division (nvcc would convert through float: I2F)
   int cur = 0, b_lo = 0;
 
   auto fold = [&]() {
-    float t = sx;
-    t += __shfl_xor_sync(0xffffffffu, t, 1);
-    t += __shfl_xor_sync(0xffffffffu, t, 2);
-    const float k_lo = bias * __shfl_sync(0xffffffffu, t, 0);
-    const float k_hi = bias * __shfl_sync(0xffffffffu, t, 4);
-    sx = 0.f;
-    asm volatile("cp.async.wait_all;\n" ::: "memory");
-    __syncwarp();
-#pragma unroll
-    for (int j = 0; j < 16; ++j) {
-      const float v = fmaf(p_lo[j] - k_lo, sslot[16 * g + j], acc[j]);
-      if (t4 == 0) {
-        acc[j] = fmaf(p_hi[j] - k_hi, sslot[kWarpCols + 16 * g + j], v);
-      }
-      p_lo[j] = p_hi[j] = 0.f;
+    float k_lo = 0.f, k_hi = 0.f;
+    if constexpr (kSumX) {
+      float t = sx;
+      t += __shfl_xor_sync(0xffffffffu, t, 1);
+      t += __shfl_xor_sync(0xffffffffu, t, 2);
+      k_lo = bias * __shfl_sync(0xffffffffu, t, 0);
+      k_hi = bias * __shfl_sync(0xffffffffu, t, 4);
+      sx = 0.f;
     }
-    __syncwarp();
+    if constexpr (Conv::kScaled) {
+      asm volatile("cp.async.wait_all;\n" ::: "memory");
+      __syncwarp();
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const float v = fmaf(p_lo[j] - k_lo, sslot[16 * g + j], acc[j]);
+        if (t4 == 0) {
+          acc[j] = fmaf(p_hi[j] - k_hi, sslot[kWarpCols + 16 * g + j], v);
+        }
+        p_lo[j] = p_hi[j] = 0.f;
+      }
+      __syncwarp();
+    } else {   // once, at the end of the warp's rows
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        if (t4 == 0) acc[j] += (p_lo[j] - k_lo) + (p_hi[j] - k_hi);
+      }
+    }
   };
 
   auto advance = [&]() {
@@ -289,19 +341,24 @@ __global__ void __launch_bounds__(kMaxWarps * 32, 2)
   };
 
   // step s of this warp: its products into p_lo / p_hi, folding where a
-  // scale block ends
+  // scale block ends (without scales: one block, no fold here)
   auto sum_step = [&](const Step& now, int s) {
-    const int row0 = w_begin + s * kStepRows;
-    if (row0 >= b_lo + bs) advance();
-    // a step spans two scale blocks only where bs % 16 == 8 (rows 0-7 and
-    // 8-15, lanes t4 < 2 and t4 >= 2): each block's rows then go through
-    // the products in a pass of their own
-    const bool two = row0 + 8 >= b_lo + bs;
+    bool two = false;
+    if constexpr (Conv::kScaled) {
+      const int row0 = w_begin + s * kStepRows;
+      if (row0 >= b_lo + bs) advance();
+      // a step spans two scale blocks only where bs % 16 == 8 (rows 0-7
+      // and 8-15, lanes t4 < 2 and t4 >= 2): each block's rows then go
+      // through the products in a pass of their own
+      two = row0 + 8 >= b_lo + bs;
+    }
     for (int pass = 0; pass <= static_cast<int>(two); ++pass) {
-      if (pass == 1) advance();
+      if constexpr (Conv::kScaled) {
+        if (pass == 1) advance();
+      }
       const bool on = !two || ((t4 < 2) == (pass == 0));
       const uint32_t b0 = on ? now.x.x : 0u, b1 = on ? now.x.y : 0u;
-      if (on) {
+      if (kSumX && on) {
         const float2 x01 = __bfloat1622float2(
             *reinterpret_cast<const __nv_bfloat162*>(&now.x.x));
         const float2 x23 = __bfloat1622float2(
@@ -318,9 +375,11 @@ __global__ void __launch_bounds__(kMaxWarps * 32, 2)
   };
 
   if (steps > 0) {
-    while (b_lo + bs <= w_begin) {
-      b_lo += bs;
-      ++cur;
+    if constexpr (Conv::kScaled) {
+      while (b_lo + bs <= w_begin) {
+        b_lo += bs;
+        ++cur;
+      }
     }
     // a ring of kSteps steps in registers: step s + kSteps is loaded into
     // step s's registers as soon as step s is summed
@@ -387,8 +446,10 @@ inline bool covers(int dh, int split, int rows, int unit) {
 // `_b1_plan`): `split` ranks of one cluster (1..8) of `warps` warps (4..8),
 // each rank `rows` packed rows (a multiple of 16). dout must be a multiple of
 // 128, nb even, dh a multiple of 16 and of nb / 2 with dh / (nb / 2) a
-// multiple of 8. A shape or plan it does not take returns
-// cudaErrorInvalidValue before any launch; else the launch's cudaError_t.
+// multiple of 8. A conversion without scales (Floor) takes the scale's shape
+// as the others and runs dh's rows as one block (bs = dh). A shape or plan
+// it does not take returns cudaErrorInvalidValue before any launch; else
+// the launch's cudaError_t.
 template <class Conv, int kSteps>
 cudaError_t launch_fold(const void* x, const void* q4, const void* scale,
                         void* out, int out_f32, int dh, int dout, int nb,
@@ -415,8 +476,8 @@ cudaError_t launch_fold(const void* x, const void* q4, const void* scale,
   const cudaError_t err = cudaLaunchKernelEx(
       &cfg, int4_fold_kernel<Conv, kSteps>,
       static_cast<const __nv_bfloat16*>(x), static_cast<const uint8_t*>(q4),
-      static_cast<const float*>(scale), out, out_f32, dh, dout, dh / nbh,
-      nbh, rows,
+      static_cast<const float*>(scale), out, out_f32, dh, dout,
+      Conv::kScaled ? dh / nbh : dh, nbh, rows,
       (rows + warps * kStepRows - 1) / (warps * kStepRows) * kStepRows);
   return err != cudaSuccess ? err : cudaGetLastError();
 }

@@ -20,33 +20,37 @@
 // (input block of din/nb rows, column): the high nibbles of byte row i take
 // scale block nb/2 + i / bs, bs = din/nb. Output [1, dout] bf16.
 //
-// P3 v5 and v2 are K6's B = 1 kernel (int4_b1.cuh), `int4_fold_kernel`
-// with the Packed and the PerElement conversion: mma.sync bf16 products of
-// fragments built in registers, the bias folded into each scale block's
-// partial sums, one launch a matvec through a thread-block cluster along the
-// packed rows; grid (dout / 128, split), K6's plan (int4_matmul.py
-// `_b1_plan`), the probe's group of 4, 8 or 16 packed rows a lane loads
-// before the products that use them as 1, 2 or 4 steps of loads in flight.
-// What they isolate on this card: a nibble converted in the packed domain
-// (v5: byte_perm and lop3 give bf16 128 + n for two nibbles) against one
-// converted int -> f32 on its own (v2: I2FP.F32.U32 on the FP32 pipe, then a
-// pack of two f32 into bf16x2), on the tensor-core form.
+// P3 v1, v2, v3 and v5 are K6's B = 1 kernel (int4_b1.cuh),
+// `int4_fold_kernel` with the Unbiased, PerElement, Floor and Packed
+// conversions: mma.sync bf16 products of fragments built in registers, one
+// launch a matvec through a thread-block cluster along the packed rows;
+// grid (dout / 128, split), K6's plan (int4_matmul.py `_b1_plan`), the
+// probe's group of 4, 8 or 16 packed rows a lane loads before the products
+// that use them as 1, 2 or 4 steps of loads in flight. What they isolate on
+// this card, each against v5 (byte_perm and lop3 give bf16 128 + n for two
+// nibbles, the bias folded into each scale block's partial sums):
+//   v2: a nibble converted int -> f32 on its own (I2FP.F32.U32 on the FP32
+//     pipe, then a pack of two f32 into bf16x2);
+//   v1: the unbias per element (a bf16x2 subtract of 136 per pair, n - 8
+//     in the fragments) against the unbias in the fold;
+//   v3: no scales, no per-block folds (one fold at the end of each warp's
+//     rows) and 2.1 MB fewer bytes.
 //
-// The others share one skeleton, a template over the variant: grid
+// v4 and v7 share one skeleton, a template over the variant: grid
 // (dout / blk, splits), block (blk / 8, 256 / (blk / 8)). A thread owns 8
-// output columns (one 8-byte load of a packed row, 16 bytes for v6) and
-// walks groups of G consecutive packed rows (G = 4 by default; 8 or 16 put
-// more loads in flight before the arithmetic that uses them), strided by
-// the block's rows of threads. The x rows of the block's split are staged
-// once in shared memory (f32; int8 for v4). Splits of the packed rows give enough blocks for the 132 SMs
-// (37 column tiles at the probe's dout 18,944 and blk 512) and hold whole
-// scale blocks, so a scale applies to a whole block's partial sum. Each
-// block sums its rows of threads in a fixed order and writes f32 partials
-// [splits, dout]; a second kernel adds the splits in order and rounds (no
-// atomics, deterministic). What each variant isolates on this card:
-//   v1, v3, v7: a nibble converts int -> f32 per element (for sm_90a nvcc
-//     emits I2FP.F32.U32, on the FP32 pipe); v1 adds a subtract per
-//     element;
+// output columns (one 8-byte load of a packed row) and walks groups of G
+// consecutive packed rows (G = 4 by default; 8 or 16 put more loads in
+// flight before the arithmetic that uses them), strided by the block's rows
+// of threads. v4's int8 x rows of the block's split are staged once in
+// shared memory. Splits of the packed rows give enough blocks for the 132
+// SMs (37 column tiles at the probe's dout 18,944 and blk 512) and hold
+// whole scale blocks, so a scale applies to a whole block's partial sum.
+// Each block sums its rows of threads in a fixed order and writes f32
+// partials [splits, dout]; a second kernel adds the splits in order and
+// rounds (no atomics, deterministic). P4 (v6) has a skeleton of the same
+// shape over bf16 rows (16-byte loads). What each isolates on this card:
+//   v7: a nibble converts int -> f32 per element (for sm_90a nvcc emits
+//     I2FP.F32.U32, on the FP32 pipe), and nothing else;
 //   v4: a 4 x 4 byte transpose (prmt) turns four packed rows of a column
 //     into one word of four int8 lanes for __dp4a against four int8 x;
 //     the int32 block dot is exact, the scales apply in f32;
@@ -68,7 +72,7 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kCols = 8;       // output columns per thread
 
-enum Variant { kV1 = 1, kV3 = 3, kV4 = 4, kV6 = 6, kV7 = 7 };
+enum Variant { kV4 = 4, kV6 = 6, kV7 = 7 };
 
 __device__ __forceinline__ float bf16_round(float v) {
   return __bfloat162float(__float2bfloat16(v));
@@ -82,7 +86,6 @@ __device__ __forceinline__ void load8(const float* p, float* v) {
 }
 
 // The 8 columns' low and high nibbles of one packed row, as f32.
-template <int V>
 __device__ __forceinline__ void unpack8(uint2 w, float* lo, float* hi) {
 #pragma unroll
   for (int c = 0; c < kCols; ++c) {
@@ -90,10 +93,6 @@ __device__ __forceinline__ void unpack8(uint2 w, float* lo, float* hi) {
     const unsigned byte = (w32 >> (8 * (c & 3))) & 0xFFu;
     lo[c] = static_cast<float>(byte & 15u);
     hi[c] = static_cast<float>(byte >> 4);
-    if (V == kV1) {
-      lo[c] -= 8.f;
-      hi[c] -= 8.f;
-    }
   }
 }
 
@@ -131,9 +130,9 @@ __device__ __forceinline__ void write_partials(const float* acc, float* red,
   }
 }
 
-// P3. Split y covers packed rows [y * rows_per_split, ...), whole scale
-// blocks of bs rows (v3, v7: bs = rows_per_split, no scales); G packed rows
-// per thread per step.
+// P3 v4 and v7. Split y covers packed rows [y * rows_per_split, ...),
+// whole scale blocks of bs rows (v7: bs = rows_per_split, no scales); G
+// packed rows per thread per step.
 template <int V, int G>
 __global__ void __launch_bounds__(kThreads)
     int4_variant_kernel(const void* __restrict__ xv,
@@ -143,8 +142,7 @@ __global__ void __launch_bounds__(kThreads)
                         int bs, int nbh, int rows_per_split) {
   extern __shared__ float4 smem[];
   float* red = reinterpret_cast<float*>(smem);              // [ty][blk]
-  float* xs = red + blockDim.y * blk;                       // [2][rows]
-  int8_t* xq = reinterpret_cast<int8_t*>(xs);               // v4: [2][rows]
+  int8_t* xq = reinterpret_cast<int8_t*>(red + blockDim.y * blk);  // v4
   const int tx = threadIdx.x, ty = threadIdx.y;
   const int nthreads = blockDim.x * blockDim.y;
   const int tid = ty * blockDim.x + tx;
@@ -153,17 +151,11 @@ __global__ void __launch_bounds__(kThreads)
   const int r1 = min(r0 + rows_per_split, dh);
   const int rows = r1 - r0;
 
-  if (V == kV4) {
+  if (V == kV4) {   // [2][rows_per_split]
     const int8_t* x = static_cast<const int8_t*>(xv);
     for (int i = tid; i < 2 * rows; i += nthreads) {
       const int h = i / rows, j = i - h * rows;
       xq[h * rows_per_split + j] = x[h * dh + r0 + j];
-    }
-  } else if (V != kV7) {
-    const __nv_bfloat16* x = static_cast<const __nv_bfloat16*>(xv);
-    for (int i = tid; i < 2 * rows; i += nthreads) {
-      const int h = i / rows, j = i - h * rows;
-      xs[h * rows_per_split + j] = __bfloat162float(x[h * dh + r0 + j]);
     }
   }
   __syncthreads();
@@ -174,13 +166,9 @@ __global__ void __launch_bounds__(kThreads)
   const int step = blockDim.y * G;
   for (int b0 = r0; b0 < r1; b0 += bs) {
     const int b1 = min(b0 + bs, r1);
-    float p_lo[kCols], p_hi[kCols];
     int d_lo[kCols], d_hi[kCols];
 #pragma unroll
-    for (int c = 0; c < kCols; ++c) {
-      p_lo[c] = p_hi[c] = 0.f;
-      d_lo[c] = d_hi[c] = 0;
-    }
+    for (int c = 0; c < kCols; ++c) d_lo[c] = d_hi[c] = 0;
     int si_lo = 0, si_hi = 0;
     for (int g = b0 + ty * G; g < b1; g += step) {
       uint2 w[G];
@@ -209,44 +197,25 @@ __global__ void __launch_bounds__(kThreads)
             d_hi[c] = __dp4a(hi, xh, d_hi[c]);
           }
         }
-      } else {
+      } else {   // v7
 #pragma unroll
         for (int k = 0; k < G; ++k) {
           float n_lo[kCols], n_hi[kCols];
-          unpack8<V>(w[k], n_lo, n_hi);
-          if (V == kV7) {
+          unpack8(w[k], n_lo, n_hi);
 #pragma unroll
-            for (int c = 0; c < kCols; ++c) acc[c] += n_lo[c] + n_hi[c];
-            continue;
-          }
-          const float xl = xs[j + k];
-          const float xh = xs[rows_per_split + j + k];
-#pragma unroll
-          for (int c = 0; c < kCols; ++c) {
-            if (V == kV3) {
-              acc[c] = fmaf(xl, n_lo[c], acc[c]);
-              acc[c] = fmaf(xh, n_hi[c], acc[c]);
-            } else {
-              p_lo[c] = fmaf(xl, n_lo[c], p_lo[c]);
-              p_hi[c] = fmaf(xh, n_hi[c], p_hi[c]);
-            }
-          }
+          for (int c = 0; c < kCols; ++c) acc[c] += n_lo[c] + n_hi[c];
         }
       }
     }
-    if (V == kV1 || V == kV4) {
+    if (V == kV4) {
       const int b = b0 / bs;
       float s_lo[kCols], s_hi[kCols];
       load8(scale + static_cast<long long>(b) * dout + col0, s_lo);
       load8(scale + static_cast<long long>(nbh + b) * dout + col0, s_hi);
 #pragma unroll
       for (int c = 0; c < kCols; ++c) {
-        if (V == kV1) {
-          acc[c] += p_lo[c] * s_lo[c] + p_hi[c] * s_hi[c];
-        } else {
-          acc[c] += static_cast<float>(d_lo[c] - 8 * si_lo) * s_lo[c] +
-                    static_cast<float>(d_hi[c] - 8 * si_hi) * s_hi[c];
-        }
+        acc[c] += static_cast<float>(d_lo[c] - 8 * si_lo) * s_lo[c] +
+                  static_cast<float>(d_hi[c] - 8 * si_hi) * s_hi[c];
       }
     }
   }
@@ -345,12 +314,9 @@ int launch_variant(const void* x, const void* q4, const void* scale,
                    void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const dim3 block = block_shape(blk);
-  const bool scaled = V != kV3 && V != kV7;
   const int nbh = nb / 2;
-  const int bs = scaled ? dh / nbh : rows_per_split;
-  const size_t stage = V == kV4 ? 2 * rows_per_split
-                       : V == kV7 ? 0
-                                  : 2 * rows_per_split * sizeof(float);
+  const int bs = V == kV4 ? dh / nbh : rows_per_split;   // v7: no scales
+  const size_t stage = V == kV4 ? 2 * rows_per_split : 0;
   const size_t smem = block.y * blk * sizeof(float) + stage;
   int4_variant_kernel<V, G><<<dim3(dout / blk, splits), block, smem, s>>>(
       x, static_cast<const uint8_t*>(q4), static_cast<const float*>(scale),
@@ -379,8 +345,8 @@ int launch_group(const void* x, const void* q4, const void* scale,
   }
 }
 
-// P3 v5 and v2: the B = 1 kernel with `Conv` at 1, 2 or 4 steps of loads
-// in flight.
+// P3 v1, v2, v3 and v5: the B = 1 kernel with `Conv` at 1, 2 or 4 steps
+// of loads in flight.
 template <class Conv>
 int launch_fold_depth(const void* x, const void* q4, const void* scale,
                       void* out, int dh, int dout, int nb, int split,
@@ -416,15 +382,14 @@ int launch_bf16(const void* x, const void* w, void* partial, void* out,
 
 }  // namespace
 
-// P3 v1, v3, v4, v7. x [1, 2 * dh] (bf16; int8 for v4), q4 [dh, dout] uint8
-// (8-byte aligned), scale [nb, dout] f32 (16-byte aligned; unread by v3, v7),
-// aux: v4's xs (bf16 scalar), v7's x, else unread; partial f32 scratch
-// [splits, dout]; out [1, dout] bf16. blk a multiple of 8 dividing dout,
-// at most 2048; group (packed rows per thread per step) 4, 8 or 16; dh,
-// rows_per_split and (scaled variants) the scale block dh / (nb / 2)
-// multiples of group, rows_per_split a multiple of the scale block; shared
-// memory (blk x 32 bytes + the staged x) under 48 KB. Each returns the
-// cudaError_t of its two launches.
+// P3 v4, v7. x [1, 2 * dh] (int8 for v4, bf16 for v7), q4 [dh, dout] uint8
+// (8-byte aligned), scale [nb, dout] f32 (16-byte aligned; unread by v7),
+// aux: v4's xs (bf16 scalar), v7's x; partial f32 scratch [splits, dout];
+// out [1, dout] bf16. blk a multiple of 8 dividing dout, at most 2048;
+// group (packed rows per thread per step) 4, 8 or 16; dh, rows_per_split
+// and (v4) the scale block dh / (nb / 2) multiples of group, rows_per_split
+// a multiple of the scale block; shared memory (blk x 32 bytes + the staged
+// x) under 48 KB. Each returns the cudaError_t of its two launches.
 #define FVT_INT4_ENTRY(NAME, V)                                              \
   extern "C" int NAME(const void* x, const void* q4, const void* scale,      \
                       const void* aux, void* partial, void* out, int dh,     \
@@ -433,17 +398,15 @@ int launch_bf16(const void* x, const void* w, void* partial, void* out,
     return launch_group<V>(x, q4, scale, aux, partial, out, dh, dout, nb,    \
                            blk, splits, rows_per_split, group, stream);      \
   }
-FVT_INT4_ENTRY(fvt_int4_v1_current, kV1)
-FVT_INT4_ENTRY(fvt_int4_v3_floor, kV3)
 FVT_INT4_ENTRY(fvt_int4_v4_int8dot, kV4)
 FVT_INT4_ENTRY(fvt_int4_v7_unpackonly, kV7)
 #undef FVT_INT4_ENTRY
 
-// P3 v5 (Packed) and v2 (PerElement), one launch each. x [1, 2 * dh] bf16,
-// q4 [dh, dout] uint8, scale [nb, dout] f32, out [1, dout] bf16, all
-// contiguous and 16-byte aligned; the plan (split, warps, rows) and the shape
-// as launch_fold (int4_b1.cuh) takes them; depth 1, 2 or 4 steps of loads in
-// flight. A shape, plan or depth it does not take returns
+// P3 v5 (Packed), v2 (PerElement), v1 (Unbiased) and v3 (Floor), one launch
+// each. x [1, 2 * dh] bf16, q4 [dh, dout] uint8, scale [nb, dout] f32 (v3
+// does not read it), out [1, dout] bf16, all contiguous and 16-byte aligned;
+// the plan (split, warps, rows) and the shape as launch_fold (int4_b1.cuh)
+// takes them; depth 1, 2 or 4 steps of loads in flight. A shape, plan or depth it does not take returns
 // cudaErrorInvalidValue before any launch; else the launch's cudaError_t.
 #define FVT_INT4_FOLD_ENTRY(NAME, CONV)                                       \
   extern "C" int NAME(const void* x, const void* q4, const void* scale,       \
@@ -455,6 +418,8 @@ FVT_INT4_ENTRY(fvt_int4_v7_unpackonly, kV7)
   }
 FVT_INT4_FOLD_ENTRY(fvt_int4_v5_u8mask, Packed)
 FVT_INT4_FOLD_ENTRY(fvt_int4_v2_biasfold, PerElement)
+FVT_INT4_FOLD_ENTRY(fvt_int4_v1_current, Unbiased)
+FVT_INT4_FOLD_ENTRY(fvt_int4_v3_floor, Floor)
 #undef FVT_INT4_FOLD_ENTRY
 
 // P4 entry. x [1, din] bf16, w [din, dout] bf16 (16-byte aligned), partial

@@ -30,17 +30,19 @@ tensor and the kernel for a CUDA one. `group` (4, 8 or 16; 4 by default)
 is the packed rows a thread loads before the arithmetic that uses them,
 which sets the loads in flight.
 
-v2 and v5 run K6's B = 1 kernel (csrc/int4_b1.cuh) with the per-element
-and the packed conversion: one launch a matvec at the shapes K6's gate
-takes, a grid of K6's 128-column warp tiles (dout / 128 of them, so dout
-must be a multiple of 128) and K6's plan of the packed rows
-(int4_matmul.py `_plan`); `blk` is checked as for the others and not
+v1, v2, v3 and v5 run K6's B = 1 kernel (csrc/int4_b1.cuh) with the
+Unbiased, PerElement, Floor and Packed conversions: one launch a matvec at
+the shapes K6's gate takes, a grid of K6's 128-column warp tiles (dout /
+128 of them, so dout must be a multiple of 128) and K6's plan of the packed
+rows (int4_matmul.py `_plan`); `blk` is checked as for the others and not
 used; `group` sets the steps of loads in flight (`load_depth`: a lane
-loads 4 packed rows a step). `per_element_pair` and `per_element_fragment`
-mirror the per-element conversion for the CPU tests, as int4_matmul.py's
-`magic_nibbles` and `fragment_map` mirror the packed one. The others run one skeleton: `blk` columns per block, as the
-TPU grid's (dout / blk blocks), f32 partials over splits of the packed
-rows summed by a second launch.
+loads 4 packed rows a step). A shape outside K6's gate raises ValueError.
+`per_element_pair` and `per_element_fragment` mirror the per-element
+conversion for the CPU tests, `unbias_pair` and `unbiased_fragment` the
+unbiased one, as int4_matmul.py's `magic_nibbles` and `fragment_map` mirror
+the packed one (Floor's fragments are Packed's). v4 and v7 run one
+skeleton: `blk` columns per block, as the TPU grid's (dout / blk blocks),
+f32 partials over splits of the packed rows summed by a second launch.
 """
 from __future__ import annotations
 
@@ -51,7 +53,7 @@ import torch
 
 from . import _build
 from .int4_matmul import (WARP_COLS, _pick_block, _plan as _k6_plan, _sms,
-                          int4_matmul_supported)
+                          fragment_map, int4_matmul_supported)
 
 MAX_STAGE_BYTES = 32 * 1024    # x staged in shared memory per block
 _UNSCALED_UNIT = 64            # packed rows per split unit without scales
@@ -77,11 +79,12 @@ def _blocked(x: torch.Tensor, q4: torch.Tensor, scale: torch.Tensor,
             scale.float().reshape(2, nbh, dout))
 
 
-def v1_current_reference(x, q4, scale):
-    """Per block b and half: (x_b . (n_b - 8)) * s_b in f32, summed."""
+def v1_current_reference(x, q4, scale, out_dtype=torch.bfloat16):
+    """Per block b and half: (x_b . (n_b - 8)) * s_b in f32, summed, in
+    `out_dtype` (the TPU body's bf16 by default)."""
     xf, n, s = _blocked(x.to(torch.bfloat16), q4, scale)
     part = torch.einsum("hbk,hbkd->hbd", xf, n - 8.0) * s
-    return (part[0] + part[1]).sum(0, keepdim=True).to(torch.bfloat16)
+    return (part[0] + part[1]).sum(0, keepdim=True).to(out_dtype)
 
 
 def v2_biasfold_reference(x, q4, scale, out_dtype=torch.bfloat16):
@@ -93,14 +96,15 @@ def v2_biasfold_reference(x, q4, scale, out_dtype=torch.bfloat16):
     return (part[0] + part[1]).sum(0, keepdim=True).to(out_dtype)
 
 
-def v3_floor_reference(x, q4, scale=None):
-    """x_lo @ n_lo + x_hi @ n_hi on the biased nibbles in f32; no scales."""
+def v3_floor_reference(x, q4, scale=None, out_dtype=torch.bfloat16):
+    """x_lo @ n_lo + x_hi @ n_hi on the biased nibbles in f32; no scales;
+    in `out_dtype` (the TPU body's bf16 by default)."""
     dh = q4.shape[0]
     if x.shape != (1, 2 * dh):
         raise ValueError(f"x {tuple(x.shape)} does not fit q4 {tuple(q4.shape)}")
     xf = x.to(torch.bfloat16).float()
     return (xf[:, :dh] @ (q4 & 0xF).float()
-            + xf[:, dh:] @ (q4 >> 4).float()).to(torch.bfloat16)
+            + xf[:, dh:] @ (q4 >> 4).float()).to(out_dtype)
 
 
 def v4_int8dot_reference(xq, xs, q4, scale):
@@ -116,9 +120,9 @@ def v4_int8dot_reference(xq, xs, q4, scale):
     return (y * xs.to(torch.bfloat16).float().reshape(())).to(torch.bfloat16)
 
 
-def v5_u8mask_reference(x, q4, scale):
+def v5_u8mask_reference(x, q4, scale, out_dtype=torch.bfloat16):
     """v2's function: the TPU body differs only in how it converts."""
-    return v2_biasfold_reference(x, q4, scale)
+    return v2_biasfold_reference(x, q4, scale, out_dtype)
 
 
 def v6_bf16dot_reference(x, w):
@@ -138,7 +142,7 @@ def v7_unpackonly_reference(x, q4, scale=None):
     return (acc.to(torch.bfloat16).float() * x00).to(torch.bfloat16)
 
 
-# ---------------- v2's conversion, mirrored for the CPU tests ----------------
+# ---------- v2's and v1's conversions, mirrored for the CPU tests ----------
 
 def per_element_pair(n0: int, n1: int) -> int:
     """The bf16x2 bits csrc/int4_b1.cuh `PerElement::pair` makes of two
@@ -164,6 +168,25 @@ def per_element_fragment(w, j: int, lane: int) -> tuple:
             per_element_pair(b[0] >> 4, b[1] >> 4),
             per_element_pair(b[2] & 15, b[3] & 15),
             per_element_pair(b[2] >> 4, b[3] >> 4))
+
+
+def unbias_pair(bits: int) -> int:
+    """The bf16x2 bits csrc/int4_b1.cuh `Unbiased::tile` makes of a Packed
+    word (bf16 128 + n in each half): each half less 136 in f32, rounded to
+    bf16 (`__hsub2`: the difference of two bf16 rounded once)."""
+    signed = [h - 0x10000 if h & 0x8000 else h
+              for h in (bits & 0xFFFF, bits >> 16)]
+    halves = torch.tensor(signed, dtype=torch.int16).view(
+        torch.bfloat16).float()
+    out = (halves - 136.0).to(torch.bfloat16).view(torch.int16).tolist()
+    return (out[0] & 0xFFFF) | ((out[1] & 0xFFFF) << 16)
+
+
+def unbiased_fragment(w, j: int, lane: int) -> tuple:
+    """The A fragment (a0..a3) that lane `lane` builds for tile j from a
+    step's packed bytes w [16, 128] uint8 in P3 v1: Packed's
+    (int4_matmul.py `fragment_map`), each word less bf16x2 (136, 136)."""
+    return tuple(unbias_pair(a) for a in fragment_map(w, j, lane))
 
 
 # ---------------- kernels ----------------
@@ -270,9 +293,10 @@ def _launch_int4(fn, x, q4, scale, aux, blk, group, x_dtype, scaled,
 
 
 def _launch_fold(fn, x, q4, scale, blk, group, plan=None):
-    """v2 or v5 (by `fn`) as one launch of K6's B = 1 kernel, at the shapes
-    K6's gate takes and with K6's plan; `plan` overrides it (the card tests
-    hold every plan to the same result)."""
+    """v1, v2, v3 or v5 (by `fn`) as one launch of K6's B = 1 kernel, at the
+    shapes K6's gate takes and with K6's plan; `plan` overrides it (the card
+    tests hold every plan to the same result). v3's scale is checked as the
+    others' and not read."""
     name = fn.__name__
     dev, dh, dout, nb = _check_operands(name, x, q4, scale, None,
                                         torch.bfloat16, 16)
@@ -299,9 +323,9 @@ def _launch_fold(fn, x, q4, scale, blk, group, plan=None):
 
 
 def v1_current_cuda(x, q4, scale, *, blk=None, group=4):
-    """Launch P3 v1."""
-    return _launch_int4(v1_current_cuda, x, q4, scale, None, blk, group,
-                        torch.bfloat16, True, 8)
+    """Launch P3 v1: K6's B = 1 kernel, each pair unbiased by a bf16x2
+    subtract."""
+    return _launch_fold(v1_current_cuda, x, q4, scale, blk, group)
 
 
 def v2_biasfold_cuda(x, q4, scale, *, blk=None, group=4):
@@ -310,9 +334,9 @@ def v2_biasfold_cuda(x, q4, scale, *, blk=None, group=4):
 
 
 def v3_floor_cuda(x, q4, scale, *, blk=None, group=4):
-    """Launch P3 v3 (scale is checked, not read)."""
-    return _launch_int4(v3_floor_cuda, x, q4, scale, None, blk, group,
-                        torch.bfloat16, False, 8)
+    """Launch P3 v3: K6's B = 1 kernel without scales (scale is checked,
+    not read)."""
+    return _launch_fold(v3_floor_cuda, x, q4, scale, blk, group)
 
 
 def v4_int8dot_cuda(xq, xs, q4, scale, *, blk=None, group=4):

@@ -2,12 +2,13 @@
 
 Each variant is a copy of this package (and of chip_smoke.py) under
 build/probe_int4_k6/<variant>/ with one edit to kernels/csrc/int4_b1.cuh
-(`PATCHES`), the B = 1 kernel template that K6 and the int4 probe's P3 v5
-and v2 share, built there by its own `_build` and run in a process of its
-own, in the order given:
+(`PATCHES`), the B = 1 kernel template that K6 and the int4 probe's P3 v5,
+v2, v1 and v3 share (so each edit moves all five), built there by its own
+`_build` and run in a process of its own, in the order given:
   alternative  sub128 (the 128 of the bf16 magic taken off per pair by a
                bf16x2 subtract, the fold then p - 8 sum x, against the
-               shipped p - 136 sum x), depth2 and depth3 (each warp's next
+               shipped p - 136 sum x; v1 then subtracts 8, v3 folds 0),
+               depth2 and depth3 (each warp's next
                1 or 2 steps loaded before the step is summed, not after),
                depth4 (3 ahead, with the cap of 128 registers lifted: 8
                warps an SM, not 16), l2_128 (plain 16-byte loads, without
@@ -24,17 +25,21 @@ own, in the order given:
                wait for its scales), loads_only_nosync; the outputs are
                wrong and only timed;
   faults       fault_fold (warp 1's fold drops the -8 sum x part of its
-               bias correction for scale block 1), fault_pair (lane 0's k
-               slots paired with x of the next packed row), in the shared
-               code: chip_smoke.py `--only int4_kernel` (K6) and `--only
-               int4_probe` (P3 v2 and v5) must each fail; their errors are
-               shown.
+               bias correction for scale block 1: v5, v2, K6), fault_pair
+               (lane 0's k slots paired with x of the next packed row:
+               every conversion), fault_unbias (lane 0's subtract takes 135,
+               not 136: v1 alone), in the shared code: chip_smoke.py
+               `--only int4_probe` (P3) must fail for each, and `--only
+               int4_kernel` (K6) for the two that reach K6's conversion
+               (`FAULT_PHASES`); their errors are shown, then each fold
+               variant's error over its plain version's max at the probe's
+               shape, and which of them the fault pushes past K6_TOL.
 `base` is the source as it is. Times are K6 ms by CUDA-graph replay at the
 five 7B decode shapes (B = 1, weights rotated past the L2) and their sum
-over one decode token's 197 calls, then P3 v5 and v2 at the int4 probe's
-shape ([1, 3584] @ int4 [3584, 18944], bytes 0-255), with the variant's
-ptxas registers and its errors over the plain versions' max. Needs the
-card and nvcc, and a checkout (chip_smoke.py at its root).
+over one decode token's 197 calls, then P3 v5, v2, v1 and v3 at the int4
+probe's shape ([1, 3584] @ int4 [3584, 18944], bytes 0-255), with the
+variant's ptxas registers and its errors over the plain versions' max.
+Needs the card and nvcc, and a checkout (chip_smoke.py at its root).
 
 Usage: python -m flash_vstream_tpu_torch.scripts.probe_int4_k6
            [--variants base,sub128,...,base]
@@ -67,8 +72,8 @@ _XOR = """      uint32_t h = b0 ^ b1;
       p_lo[0] += __uint_as_float(h & 0x007FFFFFu);
 """
 _B = "      const uint32_t b0 = on ? now.x.x : 0u, b1 = on ? now.x.y : 0u;\n"
-_K = """    const float k_lo = bias * __shfl_sync(0xffffffffu, t, 0);
-    const float k_hi = bias * __shfl_sync(0xffffffffu, t, 4);
+_K = """      k_lo = bias * __shfl_sync(0xffffffffu, t, 0);
+      k_hi = bias * __shfl_sync(0xffffffffu, t, 4);
 """
 _DEPTH = "constexpr int kDepth = 1;"
 # every rank writes its own partial: no cluster barrier, no DSMEM
@@ -112,6 +117,9 @@ _BARRIERS = ("""  asm volatile("barrier.cluster.wait.aligned;\\n" ::: "memory");
   cluster.sync();   // no rank leaves while rank 0 still reads its sum
 }
 """)
+# P3 v1's subtrahend, bf16x2 (136, 136)
+_UNBIAS = ("    const __nv_bfloat162 k = __floats2bfloat162_rn(136.f, "
+           "136.f);\n")
 # P3 v2's pair of f32 nibbles rounded into bf16x2 (F2FP)
 _PAIR = """\
     const __nv_bfloat162 v = __floats2bfloat162_rn(static_cast<float>(n0),
@@ -119,7 +127,7 @@ _PAIR = """\
     return *reinterpret_cast<const uint32_t*>(&v);
 """
 # the fold does not wait for the scales' copies
-_NOWAIT = ('    asm volatile("cp.async.wait_all;\\n" ::: "memory");\n', "")
+_NOWAIT = ('      asm volatile("cp.async.wait_all;\\n" ::: "memory");\n', "")
 _CAP = ("__launch_bounds__(kMaxWarps * 32, 2)\n    int4_fold_kernel",
         "__launch_bounds__(kMaxWarps * 32)\n    int4_fold_kernel")
 
@@ -130,7 +138,10 @@ PATCHES = {
                 "    asm(\"sub.rn.bf16x2 %0, %0, %1;\" : \"+r\"(r) : "
                 "\"r\"(0x43004300u));\n    return r;\n"),
                ("static constexpr float kBias = 136.f;",
-                "static constexpr float kBias = 8.f;")],
+                "static constexpr float kBias = 8.f;"),
+               (_UNBIAS, _UNBIAS.replace("136.f, 136.f", "8.f, 8.f")),
+               ("static constexpr float kBias = 128.f;",
+                "static constexpr float kBias = 0.f;")],
     "depth2": [(_DEPTH, "constexpr int kDepth = 2;")],
     "depth3": [(_DEPTH, "constexpr int kDepth = 3;")],
     "depth4": [(_DEPTH, "constexpr int kDepth = 4;"), _CAP],
@@ -153,7 +164,16 @@ PATCHES = {
         b1 = __funnelshift_r(b1, next_b0, 16);
       }
 """)],
+    "fault_unbias": [(_UNBIAS, _UNBIAS.replace(
+        "136.f, 136.f", "(threadIdx.x & 31) == 0 ? 135.f : 136.f, 136.f"))],
 }
+# the chip_smoke.py phases each planted fault must fail: fault_unbias is in
+# v1's conversion alone, which K6 does not run
+FAULT_PHASES = {"fault_fold": ("int4_kernel", "int4_probe"),
+                "fault_pair": ("int4_kernel", "int4_probe"),
+                "fault_unbias": ("int4_probe",)}
+# the int4 probe's variants on the template (chip_smoke.py P3_FOLD)
+FOLD_VARIANTS = ("v1-current", "v2-biasfold", "v3-floor", "v5-u8mask")
 
 # run in the variant's directory: K6 timed at the five 7B shapes, one line
 _TIMING = r"""
@@ -189,8 +209,10 @@ q = [torch.randint(0, 256, (1792, 18944), generator=g, device=dev,
 s = [torch.rand(28, 18944, generator=g, device=dev) * 2e-3 + 5e-4
      for _ in range(3)]
 x = torch.randn(1, 3584, generator=g, device=dev).to(torch.bfloat16)
-want = iv.v2_biasfold_reference(x, q[0], s[0], torch.float32)
-for kern in (iv.v5_u8mask_cuda, iv.v2_biasfold_cuda):
+for kern in (iv.v5_u8mask_cuda, iv.v2_biasfold_cuda, iv.v1_current_cuda,
+             iv.v3_floor_cuda):
+    ref = getattr(iv, kern.__name__[:-5] + "_reference")
+    want = ref(x, q[0], s[0], out_dtype=torch.float32)
     e = ((kern(x, q[0], s[0]).float() - want).abs().max()
          / want.abs().max()).item()
     ms = cs._ms(lambda i: kern(x, q[i % 3], s[i % 3]), 20)
@@ -198,11 +220,36 @@ for kern in (iv.v5_u8mask_cuda, iv.v2_biasfold_cuda):
 log = _build.library_path().with_suffix(".log")
 regs = cs._ptxas_counts(log, cs._k6_instance)
 regs.update((k, v) for k, v in cs._ptxas_counts(log, cs._int4_instance).items()
-            if k in ("v5 G4", "v2 G4"))
+            if k in ("v5 G4", "v2 G4", "v1 G4", "v3 G4"))
 print("ms " + " ".join(out[:5]) + f" per_token={total:.4f}; err/max at "
       f"gate/up {err:.3e}; P3 " + " ".join(out[5:]) + "; registers "
       + " ".join(f"{k}={v[0]} spills={v[1]}/{v[2]}"
                  for k, v in sorted(regs.items())), flush=True)
+"""
+
+
+# run in a fault's directory: each fold variant's error over its plain
+# version's max at the int4 probe's shape (group 4), one line
+_ERRORS = r"""
+import torch, chip_smoke as cs
+from flash_vstream_tpu_torch.kernels import int4_variants as iv
+dev = torch.device("cuda")
+g = torch.Generator(device=dev).manual_seed(3)
+q = torch.randint(0, 256, (1792, 18944), generator=g, device=dev,
+                  dtype=torch.uint8)
+s = torch.rand(28, 18944, generator=g, device=dev) * 2e-3 + 5e-4
+x = torch.randn(1, 3584, generator=g, device=dev).to(torch.bfloat16)
+res, past = [], []
+for name in cs.P3_FOLD:
+    stem = name.replace("-", "_")
+    want = getattr(iv, stem + "_reference")(x, q, s, out_dtype=torch.float32)
+    got = getattr(iv, stem + "_cuda")(x, q, s).float()
+    e = ((got - want).abs().max() / want.abs().max()).item()
+    res.append(f"{name}={e:.2e}")
+    if not e <= cs.K6_TOL:
+        past.append(name)
+print("err/max " + " ".join(res) + "; past K6_TOL: " + " ".join(past),
+      flush=True)
 """
 
 
@@ -264,13 +311,14 @@ def make_variant(name: str, work: Path = WORK) -> Path:
     return d
 
 
-def run_variant(name: str) -> bool:
-    """Build and run one variant; print its line. False when a fault was
-    not caught (by either phase) or a timing run failed."""
+def run_variant(name: str) -> tuple:
+    """Build and run one variant; print its lines. Returns (ok, the fold
+    variants a fault pushed past K6_TOL, as names); ok is False when a
+    fault was not caught by a phase of `FAULT_PHASES` or a run failed."""
     d = make_variant(name)
     if name.startswith("fault_"):
         caught = []
-        for phase in ("int4_kernel", "int4_probe"):
+        for phase in FAULT_PHASES[name]:
             res = subprocess.run([sys.executable, "chip_smoke.py", "--only",
                                   phase], cwd=d, capture_output=True,
                                  text=True)
@@ -280,7 +328,16 @@ def run_variant(name: str) -> bool:
                   + (err[-1] if err else f"not caught (rc {res.returncode})"),
                   flush=True)
             caught.append(res.returncode != 0 and bool(err))
-        return all(caught)
+        res = subprocess.run([sys.executable, "-c", _ERRORS], cwd=d,
+                             capture_output=True, text=True)
+        line = (res.stdout.strip().splitlines() or [""])[-1]
+        ran = res.returncode == 0 and "past K6_TOL:" in line
+        print(f"probe_int4_k6 {name}: " + (
+            line if ran
+            else f"failed (rc {res.returncode}): {res.stderr[-2000:]}"),
+            flush=True)
+        past = set(line.split("past K6_TOL:")[1].split()) if ran else set()
+        return all(caught) and ran, past
     res = subprocess.run([sys.executable, "-c", _TIMING], cwd=d,
                          capture_output=True, text=True)
     lines = res.stdout.strip().splitlines()
@@ -288,7 +345,7 @@ def run_variant(name: str) -> bool:
           + (lines[-1] if res.returncode == 0 and lines
              else f"failed (rc {res.returncode}): {res.stderr[-2000:]}"),
           flush=True)
-    return res.returncode == 0
+    return res.returncode == 0, set()
 
 
 def main(argv=None) -> int:
@@ -305,8 +362,18 @@ def main(argv=None) -> int:
                              text=True)
         print(res.stdout.strip() or f"sweep failed: {res.stderr[-2000:]}",
               flush=True)
-    ok = [run_variant(v) for v in opts.variants.split(",")]
-    return 0 if all(ok) else 1
+    runs = [(v, run_variant(v)) for v in opts.variants.split(",")]
+    ok = all(r[0] for _, r in runs)
+    past = {v: r[1] for v, r in runs if v in FAULT_PHASES}
+    if set(FAULT_PHASES) <= set(past):
+        # between them the faults must push every fold variant past K6_TOL
+        by = {v: [f for f in FAULT_PHASES if v in past[f]]
+              for v in FOLD_VARIANTS}
+        print("probe_int4_k6 faults: " + " ".join(
+            f"{v} by {','.join(fs) or 'none'}" for v, fs in by.items()),
+            flush=True)
+        ok &= all(by.values())
+    return 0 if ok else 1
 
 
 if __name__ == "__main__":

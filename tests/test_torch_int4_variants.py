@@ -259,12 +259,20 @@ def test_probe_main_and_main2_run_on_cpu(capsys):
     assert all("GB/s stored-weight" in ln for ln in lines if "ms/matvec" in ln)
 
 
-# --- v2 and v5 on K6's B = 1 kernel: conversions, schedule, load depth ----
+# --- v1, v2, v3 and v5 on K6's B = 1 kernel: conversions, schedule, load
+# depth ---------------------------------------------------------------------
 
-# the two conversions of csrc/int4_b1.cuh: (A fragment mirror, what the
-# fragment holds for a nibble n, the fold's bias constant)
-CONVERSIONS = {"PerElement": (iv.per_element_fragment, 0, 8.0),
-               "Packed": (im.fragment_map, 128, 136.0)}
+# the four conversions of csrc/int4_b1.cuh: (A fragment mirror, what the
+# fragment holds for a nibble n (offset + n), the fold's bias constant,
+# whether the fold scales, the variant's plain version in f32)
+CONVERSIONS = {
+    "PerElement": (iv.per_element_fragment, 0, 8.0, True,
+                   iv.v2_biasfold_reference),
+    "Packed": (im.fragment_map, 128, 136.0, True, iv.v2_biasfold_reference),
+    "Unbiased": (iv.unbiased_fragment, -8, 0.0, True,
+                 iv.v1_current_reference),
+    "Floor": (im.fragment_map, 128, 128.0, False, iv.v3_floor_reference),
+}
 
 
 def _bf16_bits_to_float(bits):
@@ -302,15 +310,42 @@ def test_per_element_conversion_gives_every_nibble_exactly(half):
     np.testing.assert_array_equal(lo * x - 8 * x, (n - 8) * x)
 
 
-@pytest.mark.parametrize("seed", [0, 1])
-def test_per_element_fragments_pair_every_nibble_with_its_own_x(seed):
-    """One warp step of v2's conversion, on bytes 0-255: the A fragments of
+def _bf16_bits(values):
+    return torch.tensor(np.asarray(values, np.float32)).to(
+        torch.bfloat16).view(torch.int16).numpy().view(np.uint16)
+
+
+@pytest.mark.parametrize("half", ["low", "high"])
+def test_unbiased_conversion_gives_every_nibble_exactly(half):
+    """v1's conversion, emulated bit for bit as the source does it, on all
+    256 bytes at each byte of a word: byte_perm and lop3 give bf16 128 + n
+    (Packed's magic), and that less 136, rounded to bf16, is n - 8 exactly
+    (the bits of bf16 n - 8, +0 for n = 8), in both halves of the pair."""
+    vals = np.arange(256)
+    other = (vals * 7) % 256
+    n = vals & 15 if half == "low" else vals >> 4
+    n2 = other & 15 if half == "low" else other >> 4
+    for pos in range(4):
+        got = []
+        for b, c in zip(vals, other):
+            v01 = im._byte_perm(int(b) << (8 * pos), int(c) << (8 * pos),
+                                im._sel(pos))
+            magic = im.magic_nibbles(v01 if half == "low" else v01 >> 4)
+            bits = iv.unbias_pair(magic)
+            got.append((bits & 0xFFFF, bits >> 16))
+        got = np.array(got)
+        np.testing.assert_array_equal(got[:, 0], _bf16_bits(n - 8))
+        np.testing.assert_array_equal(got[:, 1], _bf16_bits(n2 - 8))
+        np.testing.assert_array_equal(_bf16_bits_to_float(got[:, 0]), n - 8)
+
+
+def _check_fragments(conv, seed):
+    """One warp step of a conversion, on bytes 0-255: the A fragments of
     every lane and tile put into the m16n8k16 matrix by the PTX fragment
     layout, times B from x at each lane's k rows; lane (g, 0)'s c0 and c3
-    equal, exactly, column 16g + j's sums of n x over the step's 16 rows
-    for the low and the high nibbles (Packed's fragments, 128 + n, are
-    held the same way in test_torch_int4_matmul.py)."""
-    frag, offset, _ = CONVERSIONS["PerElement"]
+    equal, exactly, column 16g + j's sums of (offset + n) x over the step's
+    16 rows for the low and the high nibbles."""
+    frag, offset = CONVERSIONS[conv][:2]
     rng = np.random.default_rng(seed)
     w = rng.integers(0, 256, (16, 128), dtype=np.uint8)
     w[0, :16] = np.arange(0, 256, 16)      # every high nibble, every low 0
@@ -340,17 +375,31 @@ def test_per_element_fragments_pair_every_nibble_with_its_own_x(seed):
             assert C[g + 8, 1] == ((offset + col // 16) * xs[1]).sum()
 
 
-def _emulate_b1(x, q4, scale, plan, offset, bias):
+@pytest.mark.parametrize("seed", [0, 1])
+def test_per_element_fragments_pair_every_nibble_with_its_own_x(seed):
+    """v2's fragments (n) by `_check_fragments` (Packed's, 128 + n, are held
+    the same way in test_torch_int4_matmul.py)."""
+    _check_fragments("PerElement", seed)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_unbiased_fragments_pair_every_nibble_with_its_own_x(seed):
+    """v1's fragments (n - 8) by `_check_fragments`."""
+    _check_fragments("Unbiased", seed)
+
+
+def _emulate_b1(x, q4, scale, plan, offset, bias, scaled=True):
     """csrc/int4_b1.cuh `int4_fold_kernel` step by step in numpy (f32), for
     a conversion whose fragments hold offset + n and whose fold takes bias
     sum x off: each warp's steps in order, a step's two passes where it
     spans two scale blocks, the fold at each block change with the quad's
     x sums, then the warps summed in warp order and the ranks in rank
     order. The products are taken exactly (f64, then rounded once a
-    step)."""
+    step). Unscaled (Floor), dh's rows are one block and the fold, once
+    at the end of a warp's rows, adds (p_lo - k_lo) + (p_hi - k_hi)."""
     dh, dout = q4.shape
     nbh = scale.shape[0] // 2
-    bs = dh // nbh
+    bs = dh // nbh if scaled else dh
     xf = torch.from_numpy(x).to(torch.bfloat16).float().numpy()[0]
     lo_n = (q4 & 15).astype(np.float64) + offset
     hi_n = (q4 >> 4).astype(np.float64) + offset
@@ -370,6 +419,9 @@ def _emulate_b1(x, q4, scale, plan, offset, bias):
                     k = [np.float32(bias) * ((sx[h, 0] + sx[h, 1])
                                              + (sx[h, 2] + sx[h, 3]))
                          for h in range(2)]
+                    if not scaled:
+                        return (acc + ((p_lo - k[0]) + (p_hi - k[1]))
+                                ).astype(np.float32)
                     out = acc + (p_lo - k[0]) * scale[cur]
                     out = out + (p_hi - k[1]) * scale[nbh + cur]
                     return out.astype(np.float32)
@@ -407,17 +459,18 @@ def _emulate_b1(x, q4, scale, plan, offset, bias):
 def test_fold_schedule_emulation_matches_v2_reference(conv, din, dout, sms):
     """The B = 1 kernel's schedule (K6's plan, warps, steps, folds) with
     each conversion, emulated on the CPU on bytes 0-255 with scale blocks
-    of 128 packed rows (the probe's nb = din / 128), equals v2's plain
-    version in f32 within 1e-5 of the output's max: no row is missed or
-    counted twice, each block's bias and scales are its own, also where a
-    warp starts mid-block."""
-    _, offset, bias = CONVERSIONS[conv]
+    of 128 packed rows (the probe's nb = din / 128), equals its variant's
+    plain version in f32 (v2's function for Packed and PerElement, v1's for
+    Unbiased, v3's for Floor) within 1e-5 of the output's max: no row is
+    missed or counted twice, each block's bias and scales are its own, also
+    where a warp starts mid-block; Floor's one fold a warp loses nothing to
+    the f32 cancellation of 128 sum x over the warp's rows."""
+    _, offset, bias, scaled, ref = CONVERSIONS[conv]
     x, q, s = _inputs(din, dout, seed=din + dout)
     plan = im._plan(1, din // 2, din // 128, dout, sms)
-    got = _emulate_b1(x, q, s, plan, offset, bias)
-    want = iv.v2_biasfold_reference(torch.from_numpy(x), torch.from_numpy(q),
-                                    torch.from_numpy(s),
-                                    torch.float32).numpy()[0]
+    got = _emulate_b1(x, q, s, plan, offset, bias, scaled)
+    want = ref(torch.from_numpy(x), torch.from_numpy(q), torch.from_numpy(s),
+               out_dtype=torch.float32).numpy()[0]
     np.testing.assert_allclose(got, want, atol=1e-5 * np.abs(want).max())
 
 
@@ -485,6 +538,8 @@ def test_kernels_raise_instead_of_falling_back(cuda):
         iv.v1_current(x, q, s[:3])
     with pytest.raises(ValueError, match="bfloat16"):
         iv.v3_floor(x.float(), q, s)
+    with pytest.raises(ValueError, match="K6's gate"):
+        iv.v3_floor(x, q, s[:3])
     with pytest.raises(ValueError, match="contiguous"):
         iv.v5_u8mask(x, q.t().contiguous().t(), s)
     with pytest.raises(ValueError, match="int8"):
@@ -501,9 +556,10 @@ def test_kernels_raise_instead_of_falling_back(cuda):
                            group=16)
 
 
-# --- v2 and v5 on the card: one launch, the same bits, the plans ---------
+# --- v1, v2, v3 and v5 on the card: one launch, the same bits, the plans --
 
-FOLD = {"v2-biasfold": iv.v2_biasfold_cuda, "v5-u8mask": iv.v5_u8mask_cuda}
+FOLD = {"v1-current": iv.v1_current_cuda, "v2-biasfold": iv.v2_biasfold_cuda,
+        "v3-floor": iv.v3_floor_cuda, "v5-u8mask": iv.v5_u8mask_cuda}
 
 
 @pytest.mark.gpu
@@ -511,15 +567,19 @@ FOLD = {"v2-biasfold": iv.v2_biasfold_cuda, "v5-u8mask": iv.v5_u8mask_cuda}
 @pytest.mark.parametrize("name", sorted(FOLD))
 def test_fold_variants_same_bits_across_runs_and_plans(cuda, name, din,
                                                        dout):
-    """v2 and v5 give the same bits from run to run at K6's plan and at
-    others (one cluster, 8 warps; two ranks of 4 warps); v5 gives K6's own
-    bits at each plan (one template, one conversion); across plans the
+    """v1, v2, v3 and v5 give the same bits from run to run at K6's plan and
+    at others (one cluster, 8 warps; two ranks of 4 warps); v5 gives K6's
+    own bits at each plan (one template, one conversion); across plans the
     f32 sums differ only in order, so the bf16 outputs agree within one
-    bf16 step of the output (2^-7 of it) plus 1e-4 of its max."""
+    bf16 step of the output (2^-7 of it) plus 1e-4 of its max; v1, v5's
+    function with the unbias per element, agrees with v5 at each plan
+    within the same."""
     x, q, s = _card_inputs(din, dout, cuda, din)
     dh = din // 2
     kernel = FOLD[name]
-    want = iv.v2_biasfold_reference(x, q, s, torch.float32)
+    ref = (iv.v3_floor_reference if name == "v3-floor"
+           else iv.v2_biasfold_reference)
+    want = ref(x, q, s, out_dtype=torch.float32)
     scale = want.abs().max().item()
     outs = []
     for plan in (None, im.Int4Plan(1, 8, dh), im.Int4Plan(2, 4, dh // 2)):
@@ -531,6 +591,11 @@ def test_fold_variants_same_bits_across_runs_and_plans(cuda, name, din,
             k6 = im.int4_matmul_cuda(x, q, s, plan=plan or im._plan(
                 1, dh, s.shape[0], dout, im._sms(cuda.index)))
             assert torch.equal(got[0], k6), plan
+        if name == "v1-current":
+            v5 = iv._launch_fold(iv.v5_u8mask_cuda, x, q, s, None, 4,
+                                 plan).float()
+            assert ((got[0].float() - v5).abs() <= 2 ** -7 * v5.abs()
+                    + 1e-4 * scale).all(), plan
         outs.append(got[0].float())
     for o in outs[1:]:
         assert ((o - outs[0]).abs() <= 2 ** -7 * outs[0].abs()
@@ -555,16 +620,17 @@ def test_fold_variants_launch_one_kernel_a_call(cuda, name, group):
 
 @pytest.mark.gpu
 def test_fold_c_entries_refuse_what_they_do_not_take(cuda):
-    """The C entries of v2 and v5 refuse, before any launch, a depth other
-    than 1, 2 or 4, a plan that does not cover the rows or exceeds its
-    sizes, and a dout off the 128-column tiles; the wrappers refuse such a
-    dout with a ValueError."""
+    """The C entries of v1, v2, v3 and v5 refuse, before any launch, a depth
+    other than 1, 2 or 4, a plan that does not cover the rows or exceeds
+    its sizes, and a dout off the 128-column tiles; the wrappers refuse
+    such a dout (outside K6's gate) with a ValueError."""
     from flash_vstream_tpu_torch.kernels import _build
     lib = _build.library()
     x, q, s = _card_inputs(512, 384, cuda, 2)
     out = torch.empty(1, 384, device=cuda, dtype=torch.bfloat16)
     stream = torch.cuda.current_stream(cuda).cuda_stream
-    for fn in (lib.fvt_int4_v2_biasfold, lib.fvt_int4_v5_u8mask):
+    for fn in (lib.fvt_int4_v1_current, lib.fvt_int4_v2_biasfold,
+               lib.fvt_int4_v3_floor, lib.fvt_int4_v5_u8mask):
         def rc(dout=384, split=1, warps=8, rows=256, depth=1):
             return fn(x.data_ptr(), q.data_ptr(), s.data_ptr(),
                       out.data_ptr(), 256, dout, s.shape[0], split, warps,

@@ -71,12 +71,14 @@ Phases, one or more lines each; any failure raises and exits non-zero:
    beside their bound, torch's int4 or bf16 matmul and K6, with the SASS
    instruction counts of the built kernels; v1, v2, v3 and v5 (K6's B = 1
    kernel with the unbiased, per-element, unscaled and packed conversions)
-   first with their ptxas registers and spills and SASS counts (each fails
-   without HMMA or with a spill at group 4, v2 without I2FP, the others
-   with any I2F or I2FP, v1 without its bf16x2 subtract HADD2.BF16_V2, v3
-   with any LDGSTS), then bit-identical run to run and one device kernel a
-   call; the probe (scripts/probe_int4_variants.py) at its defaults
-   through main and main2, every variant's launches exact.
+   and v6 (its own B = 1 bf16 kernel, csrc/bf16_b1.cuh) first with their
+   ptxas registers and spills and SASS counts (each fails without HMMA or
+   with a spill at group 4, v2 without I2FP, the others with any I2F or
+   I2FP, v6 also with any F2FP, v1 without its bf16x2 subtract
+   HADD2.BF16_V2, v3 with any LDGSTS), then bit-identical run to run and
+   one device kernel a call; the probe (scripts/probe_int4_variants.py)
+   at its defaults through main and main2, every variant's launches
+   exact.
 
 `--profile DIR` also traces one training-slice step with torch.profiler and
 writes its kernel table there. The line before the last is one JSON object
@@ -1870,6 +1872,10 @@ P3_TOL = {"v7-unpackonly": 0.0}
 # the variants that run K6's B = 1 kernel (csrc/int4_b1.cuh): one launch a
 # call, the same bits run to run
 P3_FOLD = ("v1-current", "v2-biasfold", "v3-floor", "v5-u8mask")
+# the variants of one launch a call and the same bits run to run, by the
+# device kernel each runs: the fold variants and P4 (csrc/bf16_b1.cuh)
+P3_ONE_KERNEL = {**{v: "int4_fold_kernel" for v in P3_FOLD},
+                 "v6-bf16dot": "bf16_b1_kernel"}
 # the B = 1 kernel's conversion of each of them
 P3_CONVERSIONS = {"Packed": "v5", "PerElement": "v2", "Unbiased": "v1",
                   "Floor": "v3"}
@@ -1903,36 +1909,41 @@ def _int4_instance(name):
     """The P3/P4 kernel instance a SASS or ptxas function name matches, or
     None: v1, v2, v3 and v5 are the B = 1 kernel with the Unbiased,
     PerElement, Floor and Packed conversions at 1, 2 or 4 steps of loads in
-    flight (groups 4, 8, 16); K6's own instance is v5 G4's."""
+    flight (groups 4, 8, 16); K6's own instance is v5 G4's; v6 is the bf16
+    B = 1 kernel at the same steps."""
     fold = _fold_instance(name)
     if fold:
         return P3_CONVERSIONS[fold[0]] + f" G{4 * fold[1]}"
     m = re.search(r"(int4_variant_kernelILi(\d+)ELi(\d+)E"
-                  r"|bf16_matvec_kernelILi(\d+)E)", name)
+                  r"|bf16_b1_kernelILi(\d+)E)", name)
     if not m:
         return None
-    return f"v{m.group(2)} G{m.group(3)}" if m.group(2) else f"v6 G{m.group(4)}"
+    return (f"v{m.group(2)} G{m.group(3)}" if m.group(2)
+            else f"v6 G{4 * int(m.group(4))}")
 
 
 def check_fold_build(lib_path):
-    """P3 v5, v2, v1 and v3 as built, at each group: ptxas registers and
-    spills and SASS counts. Each fails without HMMA (the products on the
-    tensor cores); v5, v1 and v3 fail with any I2F or I2FP (their nibbles
-    convert in the packed domain), v2 without I2FP (each nibble converted
-    on its own); v1 fails without its bf16x2 subtract (nvcc 12.8 emits
+    """P3 v5, v2, v1 and v3 and P4 (v6) as built, at each group: ptxas
+    registers and spills and SASS counts. Each fails without HMMA (the
+    products on the tensor cores); v5, v1 and v3 fail with any I2F or I2FP
+    (their nibbles convert in the packed domain), v2 without I2FP (each
+    nibble converted on its own); v6 with any I2F, I2FP or F2FP (its
+    fragments are the loaded bf16 words, its output rounds by integer
+    operations); v1 fails without its bf16x2 subtract (nvcc 12.8 emits
     HADD2.BF16_V2 for `__hsub2`, 64 a step), v3 with any LDGSTS (it
     fetches no scales); a spill fails at group 4 and is only shown at 8
     and 16."""
     regs = _ptxas_counts(lib_path.with_suffix(".log"), _int4_instance)
     sass = _sass_counts(lib_path, _int4_instance, full=True)
-    for v in P3_CONVERSIONS.values():
+    for v in (*P3_CONVERSIONS.values(), "v6"):
+        kernel = "bf16_b1_kernel" if v == "v6" else "int4_fold_kernel"
         for group in (4, 8, 16):
             inst = f"{v} G{group}"
             if inst not in regs:
                 raise AssertionError(f"int4_probe ptxas: no {inst} in the "
                                      f"build log")
             r, st, ld = regs[inst]
-            line = (f"int4_probe ptxas {inst} (int4_fold_kernel): registers="
+            line = (f"int4_probe ptxas {inst} ({kernel}): registers="
                     f"{r} spill stores={st} B spill loads={ld} B")
             if isinstance(sass, str):
                 print(line + f"; SASS {sass}", flush=True)
@@ -1948,6 +1959,7 @@ def check_fold_build(lib_path):
                     + f" of {sum(c.values())} instructions", flush=True)
                 if (not n["HMMA"] or (v != "v2" and (n["I2F"] or n["I2FP"]))
                         or (v == "v2" and not n["I2FP"])
+                        or (v == "v6" and n["F2FP"])
                         or (v == "v1" and not n["HADD2.BF16_V2"])
                         or (v == "v3" and n["LDGSTS"])):
                     raise AssertionError(f"int4_probe SASS {inst}: {n}")
@@ -2036,9 +2048,10 @@ def check_int4_probe(dev, iters=50):
     copies past the 50 MB L2 (also at 8 and 16 packed rows per thread per
     step: more loads in flight), eagerly, its plain version, the bound,
     the library call and K6 on the same inputs, and its SASS instruction
-    counts; v1, v2, v3 and v5 (K6's B = 1 kernel) first as built
-    (`check_fold_build`), then the same bits run to run at every shape and
-    group and one device kernel a call (torch.profiler); then the probe
+    counts; v1, v2, v3 and v5 (K6's B = 1 kernel) and v6 (its bf16 B = 1
+    kernel, with its plan) first as built (`check_fold_build`), then the
+    same bits run to run at every shape and group and one device kernel a
+    call (torch.profiler); then the probe
     through `main([])` and `main2(['--which', 'v6,v7'])` at its defaults,
     each variant launched exactly 2 x iters x 16 times (the chain's eager
     warm-up and its graph capture). Returns (the seven rows, the probe
@@ -2093,7 +2106,7 @@ def check_int4_probe(dev, iters=50):
                         f"{name} x[1, {din}] dout {dout} blk {blk} group "
                         f"{group}: max err {err} is {rel:.3e} of max |plain| "
                         f"> {tol}")
-                if name in P3_FOLD and not torch.equal(
+                if name in P3_ONE_KERNEL and not torch.equal(
                         got, kern(*argsets[0], blk=blk, group=group)):
                     raise AssertionError(f"{name} x[1, {din}] dout {dout} "
                                          f"group {group}: two runs differ")
@@ -2134,14 +2147,19 @@ def check_int4_probe(dev, iters=50):
                 k6 = _ms(lambda i: int4_matmul_cuda(x, *weights[i % n]),
                          max(20, 2 * n))
             one = ""
-            if name in P3_FOLD:
+            if name in P3_ONE_KERNEL:
                 ran = _device_kernels(lambda: kern(*argsets[0], blk=blk))
                 if (sum(ran.values()) != 1
-                        or not any("int4_fold_kernel" in k for k in ran)):
+                        or not any(P3_ONE_KERNEL[name] in k for k in ran)):
                     raise AssertionError(f"{name}: device kernels of one "
                                          f"call {ran}, not one launch")
                 one = ("; 1 device kernel a call (torch.profiler), "
                        "bit-identical run to run")
+            if name == "v6-bf16dot":
+                one += "; plan (split, warps, rows) " + " ".join(
+                    f"G{grp} " + str(tuple(iv._p4_plan(
+                        din, dout, dev.index, iv.load_depth(grp))))
+                    for grp in iv.GROUPS)
             print(f"P3/P4 {name}: x[1, {din}] @ [{din}, {dout}] blk {blk} nb "
                   f"{din // 128} max_abs_err={shape_err:.3e} "
                   f"({shape_err / want_max:.2e} of max over groups "
@@ -2803,6 +2821,7 @@ def main() -> int:
     for variant, line in P3_LINES.items():       # P3 and P4
         name = variant.replace("-", "_")
         sources[name] = ("int4_b1.cuh" if variant in P3_FOLD
+                         else "bf16_b1.cuh" if variant == "v6-bf16dot"
                          else "int4_variants.cu", "")
         replaces[name] = f"scripts/probe_int4_variants.py:{line}"
         own[name] = "probe_int4_variants"

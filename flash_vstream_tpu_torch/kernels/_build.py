@@ -45,9 +45,11 @@ _SIGNATURES = {
     # q, k, v, o, 12 strides, B, H, S, D, q tiles, threads, variant,
     # shared bytes, scale, stream
     "fvt_frame_attention": [_P] * 4 + [_LL] * 12 + [_I] * 8 + [_F, _P],
-    # x, w, partial, out, din, dout, blk, splits, rows_per_split, group,
-    # stream
-    "fvt_bf16_v6_bf16dot": [_P] * 4 + [_I] * 6 + [_P],
+    # x, w, out, din, dout, the plan (split, warps, rows), steps of loads
+    # in flight, stream
+    "fvt_bf16_v6_bf16dot": [_P] * 3 + [_I] * 6 + [_P],
+    # split, warps, steps of loads in flight
+    "fvt_bf16_v6_clusters": [_I, _I, _I],
 }
 # x, q4, scale, aux, partial, out, dh, dout, nb, blk, splits,
 # rows_per_split, group, stream

@@ -36,6 +36,12 @@
 //   v3: no scales, no per-block folds (one fold at the end of each warp's
 //     rows) and 2.1 MB fewer bytes.
 //
+// P4 (v6) is a B = 1 kernel of its own on the same plan (bf16_b1.cuh):
+// mma.sync bf16 products of fragments paired from the loaded rows by
+// byte_perm, one launch a matvec through a cluster along the rows; grid
+// (dout / 64, split), its plan int4_variants.py `bf16_plan`, the group as
+// for v1-v3 and v5.
+//
 // v4 and v7 share one skeleton, a template over the variant: grid
 // (dout / blk, splits), block (blk / 8, 256 / (blk / 8)). A thread owns 8
 // output columns (one 8-byte load of a packed row) and walks groups of G
@@ -47,14 +53,12 @@
 // whole scale blocks, so a scale applies to a whole block's partial sum.
 // Each block sums its rows of threads in a fixed order and writes f32
 // partials [splits, dout]; a second kernel adds the splits in order and
-// rounds (no atomics, deterministic). P4 (v6) has a skeleton of the same
-// shape over bf16 rows (16-byte loads). What each isolates on this card:
+// rounds (no atomics, deterministic). What each isolates on this card:
 //   v7: a nibble converts int -> f32 per element (for sm_90a nvcc emits
 //     I2FP.F32.U32, on the FP32 pipe), and nothing else;
 //   v4: a 4 x 4 byte transpose (prmt) turns four packed rows of a column
 //     into one word of four int8 lanes for __dp4a against four int8 x;
-//     the int32 block dot is exact, the scales apply in f32;
-//   v6: 16-byte loads of bf16 rows, widened by a shift, f32 FMA.
+//     the int32 block dot is exact, the scales apply in f32.
 //
 // Their bound is device-memory bandwidth. At the probe's [1, 3584] @
 // [3584, 18944]: v1, v2, v4, v5 read 36.1 MB (10.8 us at 3.35 TB/s), v3
@@ -65,6 +69,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "bf16_b1.cuh"
 #include "int4_b1.cuh"
 
 namespace {
@@ -72,7 +77,7 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kCols = 8;       // output columns per thread
 
-enum Variant { kV4 = 4, kV6 = 6, kV7 = 7 };
+enum Variant { kV4 = 4, kV7 = 7 };
 
 __device__ __forceinline__ float bf16_round(float v) {
   return __bfloat162float(__float2bfloat16(v));
@@ -222,53 +227,6 @@ __global__ void __launch_bounds__(kThreads)
   write_partials(acc, red, partial, dout, blk);
 }
 
-// P4: x [1, din] bf16 @ w [din, dout] bf16; split y covers input rows
-// [y * rows_per_split, ...); G rows per thread per step.
-template <int G>
-__global__ void __launch_bounds__(kThreads)
-    bf16_matvec_kernel(const __nv_bfloat16* __restrict__ x,
-                       const __nv_bfloat16* __restrict__ w,
-                       float* __restrict__ partial, int din, int dout, int blk,
-                       int rows_per_split) {
-  extern __shared__ float4 smem[];
-  float* red = reinterpret_cast<float*>(smem);
-  float* xs = red + blockDim.y * blk;
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int nthreads = blockDim.x * blockDim.y;
-  const int tid = ty * blockDim.x + tx;
-  const int col0 = blockIdx.x * blk + tx * kCols;
-  const int r0 = blockIdx.y * rows_per_split;
-  const int r1 = min(r0 + rows_per_split, din);
-  for (int i = tid; i < r1 - r0; i += nthreads) {
-    xs[i] = __bfloat162float(x[r0 + i]);
-  }
-  __syncthreads();
-
-  float acc[kCols];
-#pragma unroll
-  for (int c = 0; c < kCols; ++c) acc[c] = 0.f;
-  for (int g = r0 + ty * G; g < r1; g += blockDim.y * G) {
-    uint4 v[G];
-#pragma unroll
-    for (int k = 0; k < G; ++k) {
-      v[k] = __ldg(reinterpret_cast<const uint4*>(
-          w + static_cast<long long>(g + k) * dout + col0));
-    }
-#pragma unroll
-    for (int k = 0; k < G; ++k) {
-      const float xk = xs[g - r0 + k];
-      const unsigned words[4] = {v[k].x, v[k].y, v[k].z, v[k].w};
-#pragma unroll
-      for (int h = 0; h < 4; ++h) {
-        acc[2 * h] = fmaf(xk, __uint_as_float(words[h] << 16), acc[2 * h]);
-        acc[2 * h + 1] =
-            fmaf(xk, __uint_as_float(words[h] & 0xFFFF0000u), acc[2 * h + 1]);
-      }
-    }
-  }
-  write_partials(acc, red, partial, dout, blk);
-}
-
 // out[i] = bf16 of the splits' partials summed in order; v4 multiplies by
 // xs (aux[0]) first, v7 rounds the sum to bf16 and multiplies by x[0]
 // (aux[0]), as its TPU body.
@@ -294,10 +252,8 @@ int finish(int v, const float* partial, int splits, int dout, const void* aux,
   auto* o = static_cast<__nv_bfloat16*>(out);
   if (v == kV4) {
     finish_kernel<kV4><<<grid, 256, 0, s>>>(partial, splits, dout, a, o);
-  } else if (v == kV7) {
-    finish_kernel<kV7><<<grid, 256, 0, s>>>(partial, splits, dout, a, o);
   } else {
-    finish_kernel<0><<<grid, 256, 0, s>>>(partial, splits, dout, a, o);
+    finish_kernel<kV7><<<grid, 256, 0, s>>>(partial, splits, dout, a, o);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -366,18 +322,23 @@ int launch_fold_depth(const void* x, const void* q4, const void* scale,
   }
 }
 
-template <int G>
-int launch_bf16(const void* x, const void* w, void* partial, void* out,
-                int din, int dout, int blk, int splits, int rows_per_split,
-                cudaStream_t s) {
-  const dim3 block = block_shape(blk);
-  const size_t smem = (block.y * blk + rows_per_split) * sizeof(float);
-  bf16_matvec_kernel<G><<<dim3(dout / blk, splits), block, smem, s>>>(
-      static_cast<const __nv_bfloat16*>(x),
-      static_cast<const __nv_bfloat16*>(w), static_cast<float*>(partial), din,
-      dout, blk, rows_per_split);
-  return finish(kV6, static_cast<const float*>(partial), splits, dout, nullptr,
-                out, s);
+// P4: the B = 1 bf16 kernel at 1, 2 or 4 steps of loads in flight.
+int launch_bf16_depth(const void* x, const void* w, void* out, int din,
+                      int dout, int split, int warps, int rows, int depth,
+                      cudaStream_t s) {
+  switch (depth) {
+    case 1:
+      return static_cast<int>(launch_bf16_b1<1>(x, w, out, din, dout, split,
+                                                warps, rows, s));
+    case 2:
+      return static_cast<int>(launch_bf16_b1<2>(x, w, out, din, dout, split,
+                                                warps, rows, s));
+    case 4:
+      return static_cast<int>(launch_bf16_b1<4>(x, w, out, din, dout, split,
+                                                warps, rows, s));
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
@@ -422,25 +383,30 @@ FVT_INT4_FOLD_ENTRY(fvt_int4_v1_current, Unbiased)
 FVT_INT4_FOLD_ENTRY(fvt_int4_v3_floor, Floor)
 #undef FVT_INT4_FOLD_ENTRY
 
-// P4 entry. x [1, din] bf16, w [din, dout] bf16 (16-byte aligned), partial
-// f32 scratch [splits, dout], out [1, dout] bf16; blk and group as above;
-// din and rows_per_split multiples of group.
-extern "C" int fvt_bf16_v6_bf16dot(const void* x, const void* w, void* partial,
-                                   void* out, int din, int dout, int blk,
-                                   int splits, int rows_per_split, int group,
-                                   void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (group) {
+// P4, one launch. x [1, din] bf16 (8-byte aligned), w [din, dout] bf16
+// (16-byte aligned), out [1, dout] bf16, all contiguous; the plan (split,
+// warps, rows) and the shape as launch_bf16_b1 (bf16_b1.cuh) takes them;
+// depth 1, 2 or 4 steps of loads in flight. A shape, plan or depth it does
+// not take returns cudaErrorInvalidValue before any launch; else the
+// launch's cudaError_t.
+extern "C" int fvt_bf16_v6_bf16dot(const void* x, const void* w, void* out,
+                                   int din, int dout, int split, int warps,
+                                   int rows, int depth, void* stream) {
+  return launch_bf16_depth(x, w, out, din, dout, split, warps, rows, depth,
+                           static_cast<cudaStream_t>(stream));
+}
+
+// P4's plan: the clusters of `split` blocks of `warps` warps the card holds
+// at once at `depth` steps of loads in flight, or minus a cudaError_t.
+extern "C" int fvt_bf16_v6_clusters(int split, int warps, int depth) {
+  switch (depth) {
+    case 1:
+      return bf16_b1_clusters<1>(split, warps);
+    case 2:
+      return bf16_b1_clusters<2>(split, warps);
     case 4:
-      return launch_bf16<4>(x, w, partial, out, din, dout, blk, splits,
-                            rows_per_split, s);
-    case 8:
-      return launch_bf16<8>(x, w, partial, out, din, dout, blk, splits,
-                            rows_per_split, s);
-    case 16:
-      return launch_bf16<16>(x, w, partial, out, din, dout, blk, splits,
-                             rows_per_split, s);
+      return bf16_b1_clusters<4>(split, warps);
     default:
-      return static_cast<int>(cudaErrorInvalidValue);
+      return -static_cast<int>(cudaErrorInvalidValue);
   }
 }

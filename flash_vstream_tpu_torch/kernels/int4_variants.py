@@ -40,7 +40,11 @@ loads 4 packed rows a step). A shape outside K6's gate raises ValueError.
 `per_element_pair` and `per_element_fragment` mirror the per-element
 conversion for the CPU tests, `unbias_pair` and `unbiased_fragment` the
 unbiased one, as int4_matmul.py's `magic_nibbles` and `fragment_map` mirror
-the packed one (Floor's fragments are Packed's). v4 and v7 run one
+the packed one (Floor's fragments are Packed's). v6 runs a B = 1 kernel
+of its own (csrc/bf16_b1.cuh) on the same one-launch cluster form: bf16
+fragments paired from the loaded rows by byte_perm, 64-column warp tiles
+(dout a multiple of 64, din of 16), its plan `bf16_plan`, `group` as for
+v1-v3 and v5; `bf16_fragment` mirrors its fragment map. v4 and v7 run one
 skeleton: `blk` columns per block, as the TPU grid's (dout / blk blocks),
 f32 partials over splits of the packed rows summed by a second launch.
 """
@@ -52,12 +56,19 @@ from typing import Optional
 import torch
 
 from . import _build
-from .int4_matmul import (WARP_COLS, _pick_block, _plan as _k6_plan, _sms,
-                          fragment_map, int4_matmul_supported)
+from .int4_matmul import (STEP_ROWS, WARP_COLS, WARPS_PER_SM, Int4Plan,
+                          _b1_plans, _byte_perm, _pick_block,
+                          _plan as _k6_plan, _sms, fragment_map,
+                          int4_matmul_supported)
 
 MAX_STAGE_BYTES = 32 * 1024    # x staged in shared memory per block
 _UNSCALED_UNIT = 64            # packed rows per split unit without scales
 GROUPS = (4, 8, 16)            # packed rows per thread per step
+# P4's B = 1 kernel (csrc/bf16_b1.cuh): 64 output columns a warp and a
+# block, 16 rows a step, 1, 2, 4 or 8 warps a block
+P4_WARP_COLS = 64
+P4_WARPS = (1, 2, 4, 8)
+_INVALID_VALUE = 1             # cudaErrorInvalidValue
 
 
 # ---------------- plain versions ----------------
@@ -187,6 +198,104 @@ def unbiased_fragment(w, j: int, lane: int) -> tuple:
     step's packed bytes w [16, 128] uint8 in P3 v1: Packed's
     (int4_matmul.py `fragment_map`), each word less bf16x2 (136, 136)."""
     return tuple(unbias_pair(a) for a in fragment_map(w, j, lane))
+
+
+# ---------- P4's fragment map and plan, mirrored for the CPU tests ----------
+
+def bf16_fragment(w, j: int, lane: int) -> tuple:
+    """The A fragment (a0..a3, 32-bit words of two bf16 each) that lane
+    `lane` builds for tile j from a step's weights w [16, 64] (the bf16 bits
+    as uint16: rows of the step, the warp's columns), as csrc/bf16_b1.cuh
+    does: the lane's four 16-byte words are rows 4t4..4t4+3 at columns
+    8g..8g+7; word j of a row holds columns 8g + 2j (low half) and
+    8g + 2j + 1; a0 pairs rows 0 and 1 of the low column (byte_perm
+    0x5410), a1 of the high one (0x7632), a2 and a3 the same of rows 2 and
+    3. A row g of the tile is column `bf16_fragment_cols(lane, j)[0]`, A
+    row g + 8 column [1]; the k slots are int4_matmul.py
+    `fragment_k_rows`."""
+    g, t4 = lane // 4, lane % 4
+    rows = [int.from_bytes(bytes(w[4 * t4 + r, 8 * g:8 * g + 8]
+                                 .astype("<u2").tobytes()), "little")
+            for r in range(4)]
+    word = lambda r: (rows[r] >> (32 * j)) & 0xFFFFFFFF  # noqa: E731
+    return (_byte_perm(word(0), word(1), 0x5410),
+            _byte_perm(word(0), word(1), 0x7632),
+            _byte_perm(word(2), word(3), 0x5410),
+            _byte_perm(word(2), word(3), 0x7632))
+
+
+def bf16_fragment_cols(lane: int, j: int) -> tuple:
+    """The warp's columns of A rows g and g + 8 in tile j: 8g + 2j and
+    8g + 2j + 1 (lane (g, 0)'s c0 and c2 sum them)."""
+    g = lane // 4
+    return 8 * g + 2 * j, 8 * g + 2 * j + 1
+
+
+def bf16_plan(din: int, dout: int, sms: int, clusters=None) -> Int4Plan:
+    """P4's launch: `split` ranks of one cluster along the rows (1..8),
+    `warps` warps a block (1, 2, 4 or 8), `rows` rows a rank (a multiple of
+    16). `clusters(split, warps)` is how many such clusters the card holds
+    at once; on the card it is CUDA's occupancy of the kernel's instance
+    (`cudaOccupancyMaxActiveClusters`), by default the arithmetic of its
+    cap of 128 registers,
+    WARPS_PER_SM // warps * sms // split.
+
+    The arithmetic. A warp streams 64 columns of 16 rows a step, 2 KB, the
+    bytes of a K6 step; K6 streams fastest at 16 warps an SM, 32 KB of
+    loads in flight. At the probe's [3584, 18944] there are 296 column
+    tiles and 224 steps a tile. One 4-warp block a tile (K6's rule at one
+    rank) is 1,184 warps, 56% of the 2,112 of 16 an SM on 132 SMs;
+    128-column warps (K6's 148 tiles) at 3 ranks x 4 warps are 1,776, 84%,
+    with twice the load registers; 64-column tiles in 7 ranks of one warp
+    are 2,072, 98%, and at 54 registers (group 4) the card holds more: one
+    rank of 8 warps is 2,368, 18 an SM. Every rank a tile adds a cluster
+    barrier and a DSMEM sum (about 1 us, K6's probe). The sweep on an H100
+    at group 4 (PERF.md, scripts/probe_bf16_b1.py --sweep) ran 1 x 8
+    fastest (0.0457-0.0458 ms), 2 x 4 at 0.0463-0.0466 (as many warps, two
+    ranks), 3 x 4 at 0.0474-0.0476 (3,552 warps), 1 x 4 at 0.0529-0.0534
+    and 7 x 1 at 0.0772-0.0775 (not resident: 139 clusters); at group 16
+    (108 registers) 3 x 2 fastest. So: of the plans whose whole grid is
+    resident at once
+    (tiles <= clusters(split, warps)) and whose warps have a step each at
+    least, those that reach WARPS_PER_SM warps an SM with the fewest
+    ranks, then the fewest warps, then the most warps a block; where none
+    reaches it, the most warps, then the most warps a block; where none is
+    resident, one cluster-free 4-warp block a tile in waves."""
+    tiles = dout // P4_WARP_COLS
+    if dout % P4_WARP_COLS or din % STEP_ROWS or not tiles or not din:
+        raise ValueError(f"bf16_plan takes din a multiple of {STEP_ROWS} and "
+                         f"dout of {P4_WARP_COLS}, got {din}, {dout}")
+    if clusters is None:
+        clusters = lambda split, warps: (  # noqa: E731
+            WARPS_PER_SM // warps * sms // split)
+    fits = [p for w in P4_WARPS for p in _b1_plans(din, tiles, w)
+            if p.split * p.warps * STEP_ROWS <= din
+            and tiles <= clusters(p.split, p.warps)]
+    full = [p for p in fits
+            if tiles * p.split * p.warps >= WARPS_PER_SM * sms]
+    if full:
+        return min(full, key=lambda p: (p.split, p.split * p.warps,
+                                        -p.warps))
+    if fits:
+        return max(fits, key=lambda p: (p.split * p.warps, p.warps))
+    return Int4Plan(1, 4, din)
+
+
+def _card_clusters(split: int, warps: int, depth: int = 1) -> int:
+    """The clusters of P4's kernel at `depth` steps of loads in flight that
+    the current card holds at once."""
+    n = _build.library().fvt_bf16_v6_clusters(split, warps, depth)
+    if n < 0:
+        _build.check(-n, "fvt_bf16_v6_clusters")
+    return n
+
+
+@functools.lru_cache(maxsize=None)
+def _p4_plan(din: int, dout: int, device_index: int, depth: int = 1
+             ) -> Int4Plan:
+    with torch.cuda.device(device_index):
+        return bf16_plan(din, dout, _sms(device_index), functools.partial(
+            _card_clusters, depth=depth))
 
 
 # ---------------- kernels ----------------
@@ -359,30 +468,41 @@ def v7_unpackonly_cuda(x, q4, scale, *, blk=None, group=4):
                         torch.bfloat16, False, 0)
 
 
-def v6_bf16dot_cuda(x, w, *, blk=None, group=4):
-    """Launch P4: x [1, din] bf16 @ w [din, dout] bf16, din a multiple of
-    group, w 16-byte aligned."""
-    dev = _on_card("v6_bf16dot_cuda", x, w)
+def v6_bf16dot_cuda(x, w, *, blk=None, group=4, plan=None):
+    """Launch P4: x [1, din] bf16 @ w [din, dout] bf16 as one launch of its
+    B = 1 kernel (csrc/bf16_b1.cuh), din a multiple of 16 (and of group),
+    dout of 64, w 16-byte and x 8-byte aligned; `blk` is checked as for the
+    others and not used; `plan` overrides `bf16_plan`'s (the card tests
+    hold every plan to the same result)."""
+    name = "v6_bf16dot_cuda"
+    dev = _on_card(name, x, w)
     if x.dim() != 2 or w.dim() != 2 or x.shape != (1, w.shape[0]):
-        raise ValueError(f"v6_bf16dot_cuda takes x [1, din] and w [din, "
-                         f"dout]; got {tuple(x.shape)}, {tuple(w.shape)}")
+        raise ValueError(f"{name} takes x [1, din] and w [din, dout]; got "
+                         f"{tuple(x.shape)}, {tuple(w.shape)}")
     if x.dtype != torch.bfloat16 or w.dtype != torch.bfloat16:
-        raise ValueError(f"v6_bf16dot_cuda takes bf16, got {x.dtype}, "
-                         f"{w.dtype}")
+        raise ValueError(f"{name} takes bf16, got {x.dtype}, {w.dtype}")
     din, dout = w.shape
-    if not (x.is_contiguous() and w.is_contiguous()) or w.data_ptr() % 16:
-        raise ValueError("v6_bf16dot_cuda: x and w must be contiguous, w "
-                         "16-byte aligned")
-    blk = _check_blk("v6_bf16dot_cuda", dout, blk)
-    _check_group("v6_bf16dot_cuda", group, din)
-    splits, rows = _plan(din, _UNSCALED_UNIT, 4, dout // blk, dev.index)
-    partial = torch.empty((splits, dout), dtype=torch.float32, device=dev)
+    if not (x.is_contiguous() and w.is_contiguous()) or w.data_ptr() % 16 \
+            or x.data_ptr() % 8:
+        raise ValueError(f"{name}: x and w must be contiguous, w 16-byte and "
+                         "x 8-byte aligned")
+    _check_blk(name, dout, blk)
+    _check_group(name, group, din)
+    if din % STEP_ROWS or dout % P4_WARP_COLS:
+        raise ValueError(f"{name}: din {din} must be a multiple of "
+                         f"{STEP_ROWS} and dout {dout} of the kernel's "
+                         f"{P4_WARP_COLS}-column warp tiles")
+    depth = load_depth(group)
+    if plan is None:
+        plan = _p4_plan(din, dout, dev.index, depth)
     out = torch.empty((1, dout), dtype=torch.bfloat16, device=dev)
     rc = _build.library().fvt_bf16_v6_bf16dot(
-        x.data_ptr(), w.data_ptr(), partial.data_ptr(), out.data_ptr(), din,
-        dout, blk, splits, rows, group,
+        x.data_ptr(), w.data_ptr(), out.data_ptr(), din, dout, *plan, depth,
         torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(rc, "v6_bf16dot_cuda")
+    if rc == _INVALID_VALUE:
+        raise ValueError(f"{name}: the kernel does not take din {din}, dout "
+                         f"{dout}, plan {tuple(plan)}, depth {depth}")
+    _build.check(rc, name)
     v6_bf16dot_cuda.launches += 1
     return out
 

@@ -290,19 +290,20 @@ for name, din, dout, calls in cs.K6_SHAPES:
 """
 
 
-def make_variant(name: str, work: Path = WORK) -> Path:
-    """A copy of the package and chip_smoke.py with the variant's edits,
-    at work / name."""
-    if name not in PATCHES:
-        raise SystemExit(f"unknown variant {name}; known: {sorted(PATCHES)}")
+def make_variant(name: str, work: Path = WORK, src: str = SRC,
+                 patches: dict = PATCHES) -> Path:
+    """A copy of the package and chip_smoke.py with the variant's edits
+    (`patches[name]`, to `src`), at work / name."""
+    if name not in patches:
+        raise SystemExit(f"unknown variant {name}; known: {sorted(patches)}")
     d = work / name
     shutil.rmtree(d, ignore_errors=True)
     shutil.copytree(PKG, d / PKG.name, ignore=shutil.ignore_patterns(
         "__pycache__"))
     shutil.copy(ROOT / "chip_smoke.py", d)
-    cu = d / PKG.name / SRC
+    cu = d / PKG.name / src
     text = cu.read_text()
-    for old, new in PATCHES[name]:
+    for old, new in patches[name]:
         if text.count(old) != 1:
             raise SystemExit(f"{name}: the text to patch occurs "
                              f"{text.count(old)} times: {old!r}")

@@ -646,3 +646,295 @@ def test_fold_c_entries_refuse_what_they_do_not_take(cuda):
     for kernel in FOLD.values():
         with pytest.raises(ValueError, match="multiple of the kernel"):
             kernel(xs, qs, ss, blk=64)
+
+
+# --- P4 (v6) on its B = 1 bf16 kernel: fragment map, plan, summation order,
+# and on the card ----------------------------------------------------------
+
+# chip_smoke.py's P3_SHAPES (din, dout), the shapes the card check runs P4 at
+P3_SHAPES = [(3584, 18944), (512, 384), (256, 384)]
+K6_TOL = 1e-2     # chip_smoke.py's limit: max |err| over max |plain|
+
+
+def _bf16_of(values):
+    """(bf16 bits as uint16, their f64 values) of f32 values."""
+    bits = torch.from_numpy(np.asarray(values, np.float32)).to(
+        torch.bfloat16).view(torch.int16).numpy().view(np.uint16)
+    return bits, _bf16_bits_to_float(bits).astype(np.float64)
+
+
+def _p4_step(w_bits, xs):
+    """One warp step of P4's kernel from its fragment mirror: every lane's
+    A fragments of every tile put into the m16n8k16 matrix by the PTX
+    fragment layout, B column 0 from lanes (0, t4)'s x rows (the other
+    columns zero). Returns (the 64 columns' sums, lane (g, 0)'s c0 and c2 of
+    each tile, in f64; how many times each (row, column) of the step
+    entered a product)."""
+    sums = np.zeros(64)
+    used = np.zeros((16, 64), int)
+    B = np.zeros((16, 8))
+    for t4 in range(4):
+        rows = im.fragment_k_rows(t4)
+        for slot, k in enumerate((2 * t4, 2 * t4 + 1, 2 * t4 + 8,
+                                  2 * t4 + 9)):
+            B[k, 0] = xs[rows[slot]]
+    for j in range(4):
+        A = np.zeros((16, 16))
+        for lane in range(32):
+            g, t4 = lane // 4, lane % 4
+            a = iv.bf16_fragment(w_bits, j, lane)
+            rows = im.fragment_k_rows(lane)
+            cols = iv.bf16_fragment_cols(lane, j)
+            for r, (arow, k0) in enumerate(((g, 2 * t4), (g + 8, 2 * t4),
+                                            (g, 2 * t4 + 8),
+                                            (g + 8, 2 * t4 + 8))):
+                A[arow, k0:k0 + 2] = _bf16_bits_to_float(
+                    [a[r] & 0xFFFF, a[r] >> 16])
+                for i in range(2):      # the two rows of the word
+                    used[rows[2 * (r // 2) + i], cols[r % 2]] += 1
+        C = A @ B
+        assert not C[:, 1:].any()       # B's other columns are zero
+        for g in range(8):
+            lo, hi = iv.bf16_fragment_cols(4 * g, j)
+            sums[lo], sums[hi] = C[g, 0], C[g + 8, 0]
+    return sums, used
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_p4_fragments_pair_every_element_with_its_own_x(seed):
+    """P4's fragment map (`bf16_fragment`, byte_perm 0x5410 / 0x7632 of a
+    lane's row words) on one step of integer weights and x (exact in bf16
+    and f64): every (row, column) of the step enters exactly one product,
+    and lane (g, 0)'s c0 and c2 of tile j equal, exactly, columns 8g + 2j
+    and 8g + 2j + 1's sums of w x over the step's 16 rows."""
+    rng = np.random.default_rng(seed)
+    w_bits, w = _bf16_of(rng.integers(-128, 128, (16, 64)))
+    _, xs = _bf16_of(rng.integers(-128, 128, 16))
+    sums, used = _p4_step(w_bits, xs)
+    assert (used == 1).all()
+    np.testing.assert_array_equal(sums, xs @ w)
+
+
+def test_p4_fragment_products_reproduce_v6_reference():
+    """Over all lanes, tiles and steps at a small odd shape (din 144: 9
+    steps; dout 192: 3 warp tiles), the fragment map's products reproduce
+    x @ w in f64 (to f64 rounding) and, rounded, v6_bf16dot_reference
+    within one bf16 step."""
+    din, dout = 144, 192
+    rng = np.random.default_rng(5)
+    w_bits, w = _bf16_of(rng.normal(size=(din, dout)))
+    _, x = _bf16_of(rng.normal(size=din))
+    got = np.zeros(dout)
+    for c0 in range(0, dout, iv.P4_WARP_COLS):
+        for r0 in range(0, din, 16):
+            got[c0:c0 + 64] += _p4_step(w_bits[r0:r0 + 16, c0:c0 + 64],
+                                        x[r0:r0 + 16])[0]
+    np.testing.assert_allclose(got, x @ w, rtol=1e-12, atol=1e-12)
+    want = iv.v6_bf16dot_reference(
+        torch.from_numpy(x[None].astype(np.float32)).to(torch.bfloat16),
+        torch.from_numpy(w.astype(np.float32)).to(torch.bfloat16))
+    _assert_one_step(torch.from_numpy(got[None]).to(torch.bfloat16)
+                     .float().numpy(), want.float().numpy())
+
+
+@pytest.mark.parametrize("sms", [132, 114, 8])
+@pytest.mark.parametrize("din,dout", P3_SHAPES + [(256, 256), (1024, 1536),
+                                                  (3584, 3584), (144, 192)])
+def test_p4_plan_covers_the_rows(din, dout, sms):
+    """`bf16_plan` at every P3 shape (and the card tests' shapes): its
+    ranks and warps cover din's rows exactly once in whole 16-row steps,
+    no rank is empty, at most 8 ranks a cluster and 8 warps a block, and
+    where the plan is one whose grid is resident the card's 16 warps an SM
+    hold it; the C entry's `covers` holds."""
+    plan = iv.bf16_plan(din, dout, sms)
+    tiles = dout // iv.P4_WARP_COLS
+    assert 1 <= plan.split <= im.MAX_CLUSTER and plan.warps in iv.P4_WARPS
+    assert plan.rows % 16 == 0 and plan.split * plan.rows >= din
+    assert (plan.split - 1) * plan.rows < din       # no empty rank
+    seen = np.zeros(din, int)
+    for rank in range(plan.split):
+        rank_rows = 0
+        for warp in range(plan.warps):
+            r = im.warp_rows(plan, din, rank, warp)
+            assert r.start % 16 == 0 and len(r) % 16 == 0
+            seen[r.start:r.stop] += 1
+            rank_rows += len(r)
+        assert rank_rows > 0
+    assert (seen == 1).all()
+    if plan != (1, 4, din):          # not the many-wave fallback
+        assert tiles * plan.split * plan.warps <= im.WARPS_PER_SM * sms
+        assert plan.split * plan.warps * 16 <= din
+
+
+# the clusters of P4's group-4 instance (54 registers) an H100 holds at
+# once, by split and warps (cudaOccupancyMaxActiveClusters, read by
+# scripts/probe_bf16_b1.py --sweep)
+H100_CLUSTERS = {(s, w): n for w, row in (
+    (1, (1056, 528, 327, 248, 193, 163, 139, 124)),
+    (2, (1056, 528, 327, 248, 193, 163, 139, 124)),
+    (4, (1056, 528, 327, 248, 193, 163, 139, 124)),
+    (8, (528, 264, 163, 124, 94, 79, 69, 62))) for s, n in enumerate(row, 1)}
+
+
+def test_p4_plan_at_the_probe_shape():
+    """At [3584, 18944] on 132 SMs (296 tiles): under the cap of 128
+    registers (16 warps an SM) no resident plan reaches 16 warps an SM, so
+    the most warps, clusters of 7 one-warp blocks (2,072 warps, 32 steps
+    each); with the H100's own counts at 54 registers, one rank of 8 warps
+    (2,368 warps, no cluster), the fastest of the sweep; where the card
+    holds fewer clusters than tiles the plan takes the next that is
+    resident (2 warps x 3 ranks) rather than a second wave."""
+    assert iv.bf16_plan(3584, 18944, 132) == (7, 1, 512)
+    assert iv.bf16_plan(3584, 18944, 132,
+                        lambda s, w: H100_CLUSTERS[s, w]) == (1, 8, 3584)
+    short = lambda split, warps: 290 if (split, warps) == (7, 1) else (  # noqa: E731
+        16 // warps * 132 // split)
+    assert iv.bf16_plan(3584, 18944, 132, short) == (3, 2, 1200)
+
+
+def _emulate_p4(x, w, plan):
+    """csrc/bf16_b1.cuh `bf16_b1_kernel` in numpy: each warp's steps in
+    order into f32 sums (a step's product exact, rounded once), the warps
+    summed in warp order and the ranks in rank order, in f32."""
+    din, dout = w.shape
+    ranks = []
+    for rank in range(plan.split):
+        warps = []
+        for warp in range(plan.warps):
+            acc = np.zeros(dout, np.float32)
+            r = im.warp_rows(plan, din, rank, warp)
+            for r0 in range(r.start, r.stop, 16):
+                acc = (acc + (x[r0:r0 + 16] @ w[r0:r0 + 16]).astype(
+                    np.float32)).astype(np.float32)
+            warps.append(acc)
+        v = np.zeros(dout, np.float32)
+        for acc in warps:
+            v = (v + acc).astype(np.float32)
+        ranks.append(v)
+    out = ranks[0]
+    for v in ranks[1:]:
+        out = (out + v).astype(np.float32)
+    return out
+
+
+@pytest.mark.parametrize("din,dout,sms", [(512, 384, 132), (256, 384, 132),
+                                          (3584, 192, 132), (1024, 1536, 8),
+                                          (3584, 3584, 132)])
+def test_p4_summation_emulation_matches_v6_reference(din, dout, sms):
+    """The kernel's summation order (steps, warps, ranks in f32) at P4's
+    plan, emulated on the CPU, meets x @ w within 1e-5 of the output's max
+    in f32, and v6_bf16dot_reference within K6_TOL once rounded to bf16."""
+    rng = np.random.default_rng(din + dout)
+    _, w = _bf16_of(rng.normal(size=(din, dout)))
+    _, x = _bf16_of(rng.normal(size=din))
+    plan = iv.bf16_plan(din, dout, sms)
+    got = _emulate_p4(x, w, plan)
+    exact = x @ w
+    scale = np.abs(exact).max()
+    assert np.abs(got - exact).max() <= 1e-5 * scale
+    want = iv.v6_bf16dot_reference(
+        torch.from_numpy(x[None].astype(np.float32)),
+        torch.from_numpy(w.astype(np.float32))).float().numpy()[0]
+    rounded = torch.from_numpy(got).to(torch.bfloat16).float().numpy()
+    assert np.abs(rounded - want).max() <= K6_TOL * np.abs(want).max()
+
+
+def _p4_inputs(din, dout, dev, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(1, din, generator=g, device=dev).to(torch.bfloat16)
+    w = torch.randn(din, dout, generator=g, device=dev).to(torch.bfloat16)
+    return x, w
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("group", iv.GROUPS)
+@pytest.mark.parametrize("din,dout", P3_SHAPES)
+def test_p4_matches_plain_at_p3_shapes(cuda, din, dout, group):
+    """P4 at each P3 shape and group within K6_TOL of its plain version,
+    its plan's grid resident on the card at once."""
+    x, w = _p4_inputs(din, dout, cuda, din + group)
+    got = iv.v6_bf16dot_cuda(x, w, group=group)
+    torch.cuda.synchronize()
+    want = iv.v6_bf16dot_reference(x, w).float()
+    assert got.shape == (1, dout) and torch.isfinite(got).all()
+    err = (got.float() - want).abs().max().item() / want.abs().max().item()
+    assert err <= K6_TOL, err
+    depth = iv.load_depth(group)
+    plan = iv._p4_plan(din, dout, cuda.index or 0, depth)
+    assert iv._card_clusters(plan.split, plan.warps, depth) >= dout // 64, \
+        plan
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("din,dout", [(3584, 18944), (512, 384)])
+def test_p4_same_bits_across_runs_and_plans(cuda, din, dout):
+    """P4 gives the same bits from run to run at its plan and at others
+    (one rank of 4 warps; 8 ranks of 8 warps; 2 of 2); across plans its f32
+    sums differ only in order, so the bf16 outputs agree within one bf16
+    step of the output (2^-7 of it) plus 1e-4 of its max."""
+    x, w = _p4_inputs(din, dout, cuda, din)
+    want = iv.v6_bf16dot_reference(x, w).float()
+    scale = want.abs().max().item()
+    tiles = dout // 64
+    plans = [None] + [im._b1_plans(din, tiles, warps)[split - 1]
+                      for split, warps in ((1, 4), (8, 8), (2, 2))]
+    outs = []
+    for plan in plans:
+        got = [iv.v6_bf16dot_cuda(x, w, plan=plan) for _ in range(3)]
+        torch.cuda.synchronize()
+        assert all(torch.equal(got[0], o) for o in got[1:]), plan
+        outs.append(got[0].float())
+    for o in outs[1:]:
+        assert ((o - outs[0]).abs() <= 2 ** -7 * outs[0].abs()
+                + 1e-4 * scale).all()
+    assert (outs[0] - want).abs().max().item() <= K6_TOL * scale
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("group", iv.GROUPS)
+def test_p4_launches_one_kernel_a_call(cuda, group):
+    """One call is one device kernel, P4's bf16_b1_kernel, by
+    torch.profiler: no scratch and no second pass."""
+    import chip_smoke as cs
+    x, w = _p4_inputs(3584, 18944, cuda, 1)
+    iv.v6_bf16dot_cuda(x, w, group=group)
+    ran = cs._device_kernels(lambda: iv.v6_bf16dot_cuda(x, w, group=group))
+    assert sum(ran.values()) == 1, ran
+    assert "bf16_b1_kernel" in next(iter(ran)), ran
+
+
+@pytest.mark.gpu
+def test_p4_refuses_what_it_does_not_take(cuda):
+    """P4's C entry refuses, before any launch, a depth other than 1, 2 or
+    4, a plan that does not cover the rows or exceeds its sizes, a din off
+    the 16-row steps, a dout off the 64-column tiles and a misaligned
+    operand; the wrapper raises ValueError on such a plan and such
+    operands, never falling back."""
+    from flash_vstream_tpu_torch.kernels import _build
+    lib = _build.library()
+    x, w = _p4_inputs(512, 384, cuda, 2)
+    out = torch.empty(1, 384, device=cuda, dtype=torch.bfloat16)
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+
+    def rc(din=512, dout=384, split=2, warps=4, rows=256, depth=1, dx=0,
+           dw=0):
+        return lib.fvt_bf16_v6_bf16dot(x.data_ptr() + dx, w.data_ptr() + dw,
+                                       out.data_ptr(), din, dout, split,
+                                       warps, rows, depth, stream)
+    assert rc() == 0
+    for bad in (dict(depth=3), dict(depth=8), dict(rows=240),
+                dict(split=3, rows=256), dict(warps=0), dict(warps=9),
+                dict(split=9, rows=64), dict(dout=352), dict(din=504,
+                                                             rows=252),
+                dict(dw=2), dict(dx=2)):
+        assert rc(**bad) != 0, bad
+    torch.cuda.synchronize()
+    with pytest.raises(ValueError, match="does not take"):
+        iv.v6_bf16dot_cuda(x, w, plan=im.Int4Plan(2, 4, 128))
+    with pytest.raises(ValueError, match="64-column"):
+        iv.v6_bf16dot_cuda(*_p4_inputs(512, 352, cuda, 3), blk=32)
+    buf = torch.empty(512 * 384 + 8, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="aligned"):
+        iv.v6_bf16dot_cuda(x, buf[1:1 + 512 * 384].view(512, 384))
+    with pytest.raises(ValueError, match="group"):
+        iv.v6_bf16dot_cuda(x, w, group=6)

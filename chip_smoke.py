@@ -54,9 +54,11 @@ Phases, one or more lines each; any failure raises and exits non-zero:
    full-width logits K6 vs the dequantize path; decode and prefill times;
    the --dry-run --load-4bit server as a subprocess;
 12. bank_gather: P1 (bulk-copy bank gather) bit-exact against its plain
-   version in bf16 and f32 at the DAM-gather probe's shape and odd shapes;
-   P1, K2, index_select and the one-hot matmul timed; the probe
-   (scripts/probe_bank_gather.py) at its defaults, P1/K2 launches exact;
+   version in bf16 and f32 at the DAM-gather probe's shape and odd shapes,
+   each grid one wave (no more blocks than the driver says the card holds
+   at once), its plan printed; P1, K2, index_select and the one-hot matmul
+   timed, and P1 at K 1; the probe (scripts/probe_bank_gather.py) at its
+   defaults, P1/K2 launches exact;
 13. vit_probe: P2 (frame-local attention) against its plain version at the
    ViT's 224 and 448 px frame shapes, head blocks 1 and 8 bit for bit,
    timed beside K1 and SDPA, with its ptxas registers and SASS counts; the
@@ -69,16 +71,16 @@ Phases, one or more lines each; any failure raises and exits non-zero:
    v6) against their plain versions at the int4 probe's default shape and
    small odd shapes at 4, 8 and 16 packed rows per thread per step, timed
    beside their bound, torch's int4 or bf16 matmul and K6, with the SASS
-   instruction counts of the built kernels; v1, v2, v3 and v5 (K6's B = 1
-   kernel with the unbiased, per-element, unscaled and packed conversions)
-   and v6 (its own B = 1 bf16 kernel, csrc/bf16_b1.cuh) first with their
-   ptxas registers and spills and SASS counts (each fails without HMMA or
-   with a spill at group 4, v2 without I2FP, the others with any I2F or
-   I2FP, v6 also with any F2FP, v1 without its bf16x2 subtract
-   HADD2.BF16_V2, v3 with any LDGSTS), then bit-identical run to run and
-   one device kernel a call; the probe (scripts/probe_int4_variants.py)
-   at its defaults through main and main2, every variant's launches
-   exact.
+   instruction counts of the built kernels; v1, v2, v3, v5 and v7 (K6's
+   B = 1 kernel with the unbiased, per-element, unscaled, packed and ones
+   conversions) and v6 (its own B = 1 bf16 kernel, csrc/bf16_b1.cuh) first
+   with their ptxas registers and spills and SASS counts (each fails
+   without HMMA or with a spill at group 4, v2 without I2FP, the others
+   with any I2F or I2FP, v6 also with any F2FP, v1 without its bf16x2
+   subtract HADD2.BF16_V2, v3 and v7 with any LDGSTS), then bit-identical
+   run to run and one device kernel a call; the probe
+   (scripts/probe_int4_variants.py) at its defaults through main and main2,
+   every variant's launches exact.
 
 `--profile DIR` also traces one training-slice step with torch.profiler and
 writes its kernel table there. The line before the last is one JSON object
@@ -647,8 +649,8 @@ def _fold_instance(name):
     """(conversion, steps of loads in flight) of the B = 1 kernel template
     (csrc/int4_b1.cuh `int4_fold_kernel<Conv, kSteps>`) that a SASS or
     ptxas function name is an instance of, or None."""
-    m = re.search(r"int4_fold_kernelI\w*?(Packed|PerElement|Unbiased|Floor)"
-                  r"ELi(\d+)E", name)
+    m = re.search(r"int4_fold_kernelI\w*?(Packed|PerElement|Unbiased|Floor"
+                  r"|Ones)ELi(\d+)E", name)
     return (m.group(1), int(m.group(2))) if m else None
 
 
@@ -1570,14 +1572,17 @@ P1_ODD = (((64, 7, 1320), [5, 63, 5, 0, 5]), ((64, 7, 1320), [17]),
 
 def check_bank_gather(dev):
     """P1 against its plain version, bit-exact, at the probe's shape (bank
-    [1024, 256, 1280], 30 indices) in bf16 and f32 and at the odd cases;
-    device times of the probe's four routes at that shape in bf16, 32 index
-    sets rotating so the reads come from device memory, not the 50 MB L2;
-    then the probe's entry point at its defaults, P1 and K2 launched
-    exactly as reckoned. Returns (P1's row, the probe run's launches)."""
+    [1024, 256, 1280], 30 indices) in bf16 and f32 and at the odd cases,
+    each case's grid one wave (no more blocks than the driver says the card
+    holds at once); its plan at the probe's shape; device times of the
+    probe's four routes at that shape in bf16, 32 index sets rotating so
+    the reads come from device memory, not the 50 MB L2, and P1 at K 1 (one
+    1,008-byte row: its fixed cost); then the probe's entry point at its
+    defaults, P1 and K2 launched exactly as reckoned. Returns (P1's row,
+    the probe run's launches)."""
     import torch
     from flash_vstream_tpu_torch.kernels.bank_gather import (
-        bank_gather_cuda, bank_gather_reference)
+        EVICT_FIRST, bank_gather_cuda, bank_gather_reference, card_plan)
     from flash_vstream_tpu_torch.kernels.gather_rows import gather_rows_cuda
     from flash_vstream_tpu_torch.scripts import probe_bank_gather as probe
 
@@ -1597,12 +1602,25 @@ def check_bank_gather(dev):
             if not torch.equal(got, bank_gather_reference(bank, idx)):
                 raise AssertionError(f"P1 {dtype} bank{tuple(bank.shape)} "
                                      f"idx {idx.tolist()}: not bit-exact")
+            plan, resident = card_plan(idx.shape[0], _nbytes(bank[0]),
+                                       dev.index)
+            if plan.blocks > resident:
+                raise AssertionError(f"P1 bank{tuple(bank.shape)}: {plan} "
+                                     f"exceeds one wave of {resident}")
         print(f"P1 {str(dtype)[6:]}: bit-exact against index_select at bank"
               f"[{T}, {P}, {D}] x 4 index sets of {K} and bank[64, 7, 1320] "
               f"idx [5, 63, 5, 0, 5] / [17], bank[50, 7, 72] idx [49, 0, 49]",
               flush=True)
         del cases
     bank = probe.make_bank(T, P, D, torch.bfloat16, dev, SEED)
+    plan, resident = card_plan(K, _nbytes(bank[0]), dev.index)
+    print(f"P1 plan: bank[{T}, {P}, {D}] bf16 idx[{K}]: {plan.groups} "
+          f"groups of {plan.rows_per_group} row(s) x {plan.splits} shares = "
+          f"{plan.blocks} blocks (resident {resident}: the driver's "
+          f"occupancy x SMs; one wave), shares of {plan.share} B "
+          f"({plan.extra} a group {plan.share + plan.unit} B), ring "
+          f"{plan.stages} x {plan.stage_bytes} B, evict_first {EVICT_FIRST}",
+          flush=True)
     lidx = [i.long() for i in idxs]
     ms = _ms(lambda i: bank_gather_cuda(bank, idxs[i % 32]), 64)
     eager = _eager_ms(lambda i: bank_gather_cuda(bank, idxs[i % 32]), 200)
@@ -1611,11 +1629,14 @@ def check_bank_gather(dev):
     lib = _ms(lambda i: bank.index_select(0, lidx[i % 32]), 64)
     onehot = _ms(lambda i: probe.gather_onehot(bank, idxs[i % 32]), 8)
     bound = _bound(0, 2 * _nbytes(bank[:K]) + _nbytes(idxs[0]))
+    small, one = probe.fixed_case(dev)
+    fixed = _ms(lambda i: bank_gather_cuda(small, one), 64)
     print(f"P1 bank_gather: bank[{T}, {P}, {D}] bf16 idx[{K}] (19.7 MB "
           f"out) kernel_ms={ms:.4f} eager_ms={eager:.4f} k2_ms={k2:.4f} "
           f"plain_ms={plain:.4f} (index_select, int32 idx) bound_ms="
           f"{bound[0]:.4f} ({bound[1]}) library_ms={lib:.4f} (index_select)"
-          f" onehot_ms={onehot:.4f}", flush=True)
+          f" onehot_ms={onehot:.4f}; K 1 ({_nbytes(small[0])} B row) "
+          f"kernel_ms={fixed:.4f}", flush=True)
     del bank
 
     # the probe through its entry point, at its defaults
@@ -1871,14 +1892,15 @@ P3_SHAPES = ((3584, 18944, 512), (512, 384, 128), (256, 384, 128))
 P3_TOL = {"v7-unpackonly": 0.0}
 # the variants that run K6's B = 1 kernel (csrc/int4_b1.cuh): one launch a
 # call, the same bits run to run
-P3_FOLD = ("v1-current", "v2-biasfold", "v3-floor", "v5-u8mask")
+P3_FOLD = ("v1-current", "v2-biasfold", "v3-floor", "v5-u8mask",
+           "v7-unpackonly")
 # the variants of one launch a call and the same bits run to run, by the
 # device kernel each runs: the fold variants and P4 (csrc/bf16_b1.cuh)
 P3_ONE_KERNEL = {**{v: "int4_fold_kernel" for v in P3_FOLD},
                  "v6-bf16dot": "bf16_b1_kernel"}
 # the B = 1 kernel's conversion of each of them
 P3_CONVERSIONS = {"Packed": "v5", "PerElement": "v2", "Unbiased": "v1",
-                  "Floor": "v3"}
+                  "Floor": "v3", "Ones": "v7"}
 P3_LINES = {"v1-current": 35, "v2-biasfold": 58, "v3-floor": 83,
             "v4-int8dot": 97, "v5-u8mask": 124, "v6-bf16dot": 266,
             "v7-unpackonly": 273}
@@ -1907,10 +1929,10 @@ def _p3_library(name, x, xq, xs, q, s):
 
 def _int4_instance(name):
     """The P3/P4 kernel instance a SASS or ptxas function name matches, or
-    None: v1, v2, v3 and v5 are the B = 1 kernel with the Unbiased,
-    PerElement, Floor and Packed conversions at 1, 2 or 4 steps of loads in
-    flight (groups 4, 8, 16); K6's own instance is v5 G4's; v6 is the bf16
-    B = 1 kernel at the same steps."""
+    None: v1, v2, v3, v5 and v7 are the B = 1 kernel with the Unbiased,
+    PerElement, Floor, Packed and Ones conversions at 1, 2 or 4 steps of
+    loads in flight (groups 4, 8, 16); K6's own instance is v5 G4's; v6 is
+    the bf16 B = 1 kernel at the same steps."""
     fold = _fold_instance(name)
     if fold:
         return P3_CONVERSIONS[fold[0]] + f" G{4 * fold[1]}"
@@ -1923,16 +1945,16 @@ def _int4_instance(name):
 
 
 def check_fold_build(lib_path):
-    """P3 v5, v2, v1 and v3 and P4 (v6) as built, at each group: ptxas
-    registers and spills and SASS counts. Each fails without HMMA (the
-    products on the tensor cores); v5, v1 and v3 fail with any I2F or I2FP
-    (their nibbles convert in the packed domain), v2 without I2FP (each
-    nibble converted on its own); v6 with any I2F, I2FP or F2FP (its
+    """P3 v5, v2, v1, v3 and v7 and P4 (v6) as built, at each group:
+    ptxas registers and spills and SASS counts. Each fails without HMMA
+    (the products on the tensor cores); v5, v1, v3 and v7 fail with any I2F
+    or I2FP (their nibbles convert in the packed domain), v2 without I2FP
+    (each nibble converted on its own); v6 with any I2F, I2FP or F2FP (its
     fragments are the loaded bf16 words, its output rounds by integer
     operations); v1 fails without its bf16x2 subtract (nvcc 12.8 emits
-    HADD2.BF16_V2 for `__hsub2`, 64 a step), v3 with any LDGSTS (it
-    fetches no scales); a spill fails at group 4 and is only shown at 8
-    and 16."""
+    HADD2.BF16_V2 for `__hsub2`, 64 a step), v3 and v7 with any LDGSTS
+    (they fetch no scales); a spill fails at group 4 and is only shown at
+    8 and 16."""
     regs = _ptxas_counts(lib_path.with_suffix(".log"), _int4_instance)
     sass = _sass_counts(lib_path, _int4_instance, full=True)
     for v in (*P3_CONVERSIONS.values(), "v6"):
@@ -1961,7 +1983,7 @@ def check_fold_build(lib_path):
                         or (v == "v2" and not n["I2FP"])
                         or (v == "v6" and n["F2FP"])
                         or (v == "v1" and not n["HADD2.BF16_V2"])
-                        or (v == "v3" and n["LDGSTS"])):
+                        or (v in ("v3", "v7") and n["LDGSTS"])):
                     raise AssertionError(f"int4_probe SASS {inst}: {n}")
             if group == 4 and (st or ld):
                 raise AssertionError(f"int4_probe ptxas {inst} spills")
@@ -2048,10 +2070,10 @@ def check_int4_probe(dev, iters=50):
     copies past the 50 MB L2 (also at 8 and 16 packed rows per thread per
     step: more loads in flight), eagerly, its plain version, the bound,
     the library call and K6 on the same inputs, and its SASS instruction
-    counts; v1, v2, v3 and v5 (K6's B = 1 kernel) and v6 (its bf16 B = 1
-    kernel, with its plan) first as built (`check_fold_build`), then the
-    same bits run to run at every shape and group and one device kernel a
-    call (torch.profiler); then the probe
+    counts; v1, v2, v3, v5 and v7 (K6's B = 1 kernel) and v6 (its bf16
+    B = 1 kernel, with its plan) first as built (`check_fold_build`), then
+    the same bits run to run at every shape and group and one device
+    kernel a call (torch.profiler); then the probe
     through `main([])` and `main2(['--which', 'v6,v7'])` at its defaults,
     each variant launched exactly 2 x iters x 16 times (the chain's eager
     warm-up and its graph capture). Returns (the seven rows, the probe

@@ -40,8 +40,13 @@ _SIGNATURES = {
     # x, q4, scale, partial, out, out_f32, B, dh, dout, nb, the plan
     # (split, warps, rows), stream
     "fvt_int4_matmul": [_P] * 5 + [_I] * 8 + [_P],
-    # bank, idx, out, n_idx, row_bytes, stream
-    "fvt_bank_gather": [_P, _P, _P, _I, _LL, _P],
+    # bank, idx, out, n_idx, row_bytes, the plan (groups, splits, rows per
+    # group, share, extra, unit), the ring (stage bytes, stages),
+    # evict_first, stream
+    "fvt_bank_gather": [_P, _P, _P, _I, _LL, _I, _I, _I, _LL, _I, _I, _I, _I,
+                        _I, _P],
+    # stage bytes, stages
+    "fvt_bank_gather_resident": [_I, _I],
     # q, k, v, o, 12 strides, B, H, S, D, q tiles, threads, variant,
     # shared bytes, scale, stream
     "fvt_frame_attention": [_P] * 4 + [_LL] * 12 + [_I] * 8 + [_F, _P],
@@ -53,11 +58,11 @@ _SIGNATURES = {
 }
 # x, q4, scale, aux, partial, out, dh, dout, nb, blk, splits,
 # rows_per_split, group, stream
-for _name in ("v4_int8dot", "v7_unpackonly"):
-    _SIGNATURES[f"fvt_int4_{_name}"] = [_P] * 6 + [_I] * 7 + [_P]
+_SIGNATURES["fvt_int4_v4_int8dot"] = [_P] * 6 + [_I] * 7 + [_P]
 # x, q4, scale, out, dh, dout, nb, the plan (split, warps, rows), steps of
 # loads in flight, stream
-for _name in ("v1_current", "v2_biasfold", "v3_floor", "v5_u8mask"):
+for _name in ("v1_current", "v2_biasfold", "v3_floor", "v5_u8mask",
+              "v7_unpackonly"):
     _SIGNATURES[f"fvt_int4_{_name}"] = [_P] * 4 + [_I] * 7 + [_P]
 
 _LIB = None          # the loaded library, once per process

@@ -3,10 +3,11 @@
 // the biased nibbles n (0..15) of scale block b. One kernel template,
 // `int4_fold_kernel<Conv, kSteps>`, over how a nibble becomes a bf16
 // (`Conv`) and the steps of each warp's loads in flight (`kSteps`). It is
-// K6's B = 1 kernel (int4_matmul.cu: Packed, kDepth) and four of the int4
+// K6's B = 1 kernel (int4_matmul.cu: Packed, kDepth) and five of the int4
 // probe's P3 variants (int4_variants.cu: kSteps 1, 2, 4 for the probe's
-// groups 4, 8, 16): v5 (Packed), v2 (PerElement), v1 (Unbiased) and v3
-// (Floor, x_lo . n_lo + x_hi . n_hi with no scales).
+// groups 4, 8, 16): v5 (Packed), v2 (PerElement), v1 (Unbiased), v3
+// (Floor, x_lo . n_lo + x_hi . n_hi with no scales) and v7 (Ones,
+// bf16(bf16(sum of n_lo + n_hi) x[0, 0]): no x rows, no scales).
 //
 // Layout (weights/quantize.QuantWeight4): byte row i of q4 holds input row i
 // in its low nibble and row i + dh in its high nibble; scale [nb, dout] f32
@@ -60,10 +61,18 @@
 //   Floor (P3 v3): Packed's fragments, no scales: the kernel fetches none,
 //     never changes block, and folds once at the end of each warp's rows,
 //     p - 128 sum x over all of them. Isolates what the scales and the
-//     per-block folds cost.
+//     per-block folds cost;
+//   Ones (P3 v7): Floor with B columns 0 and 1 the constant bf16 1.0,
+//     built in registers: the kernel reads no x rows and no scales, and
+//     folds once a warp, p - 128 x its rows. Every partial and every
+//     warp's or rank's sum is an integer under 2^24, exact in f32 (at most
+//     143 x the packed rows a half). Its epilogue (`kOnes`) stores
+//     bf16(bf16(v) x[0, 0]), x[0, 0] read by the writing lanes; the other
+//     conversions' store is untouched (`if constexpr`).
 //   All are exact for every nibble 0..15 (128..143 and -8..7 are bf16
 //   integers);
-// - fold: x is read per step (8 bytes a lane, lanes g < 2; L1/L2-resident)
+// - fold: x is read per step (8 bytes a lane, lanes g < 2; L1/L2-resident;
+//   Ones reads none)
 //   and each lane sums its own rows of x in f32. At a scale block's end the
 //   quad sums are reduced in a fixed order and lanes (g, 0) fold the
 //   block's partials into their columns' sums in shared memory, acc +=
@@ -163,6 +172,7 @@ struct Step {
 struct Packed {
   static constexpr float kBias = 136.f;   // 8, and the magic's 128
   static constexpr bool kScaled = true;
+  static constexpr bool kOnes = false;    // B holds x (Ones: 1.0)
 
   // bf16x2 of 128 + n for the low nibbles of bytes 0 and 2 of v
   static __device__ __forceinline__ uint32_t magic(uint32_t v) {
@@ -186,6 +196,7 @@ struct Packed {
 struct PerElement {
   static constexpr float kBias = 8.f;
   static constexpr bool kScaled = true;
+  static constexpr bool kOnes = false;
 
   // bf16x2 of (n0, n1), each nibble converted to f32 on its own
   static __device__ __forceinline__ uint32_t pair(uint32_t n0, uint32_t n1) {
@@ -209,6 +220,7 @@ struct PerElement {
 struct Unbiased {
   static constexpr float kBias = 0.f;
   static constexpr bool kScaled = true;
+  static constexpr bool kOnes = false;
 
   static __device__ __forceinline__ void tile(const Step& st, int j,
                                               uint32_t (&a)[4]) {
@@ -229,6 +241,17 @@ struct Floor : Packed {   // Packed's fragments
   static constexpr bool kScaled = false;
 };
 
+struct Ones : Floor {     // Packed's fragments times B = 1.0, no scales
+  static constexpr bool kOnes = true;
+
+  // the output of a column's sum v: bf16(bf16(v) x[0, 0]) once stored, v
+  // rounded to bf16 before the product as in the TPU body
+  static __device__ __forceinline__ float epilogue(
+      float v, const __nv_bfloat16* __restrict__ x) {
+    return __bfloat162float(__float2bfloat16(v)) * __bfloat162float(x[0]);
+  }
+};
+
 // grid (dout / 128, split), block 32 * warps, cluster (1, split, 1).
 // Rank r covers packed rows [r * rows_per_rank, min(dh, (r + 1) *
 // rows_per_rank)); its warps take consecutive runs of whole steps.
@@ -239,6 +262,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32, 2)
                      const float* __restrict__ scale, void* __restrict__ out,
                      int out_f32, int dh, int dout, int bs, int nbh,
                      int rows_per_rank, int rows_per_warp) {
+  static_assert(!Conv::kOnes || !Conv::kScaled, "Ones folds once a warp");
   __shared__ __align__(16) float ss[kMaxWarps][2][kWarpCols];
   __shared__ float red[kMaxWarps][kWarpCols];
   __shared__ float gathered[kMaxCluster][kWarpCols];   // rank 0's: the ranks'
@@ -261,6 +285,9 @@ __global__ void __launch_bounds__(kMaxWarps * 32, 2)
   const uint8_t* wp = q4 + static_cast<long long>(w_begin + 4 * t4) * dout +
                       col0 + 16 * g;
   const __nv_bfloat16* xp = x + (g & 1) * dh + w_begin + 4 * t4;
+  // Ones: B columns 0 and 1 (lanes g < 2) the constant bf16 1.0, built once
+  const uint2 ones = g < 2 ? make_uint2(0x3F803F80u, 0x3F803F80u)
+                           : make_uint2(0u, 0u);
   auto load = [&](Step& st, int s) {   // step s into registers
     if (s < steps) {
       const uint8_t* p = wp + static_cast<long long>(s) * kStepRows * dout;
@@ -268,8 +295,13 @@ __global__ void __launch_bounds__(kMaxWarps * 32, 2)
       for (int r = 0; r < 4; ++r) {
         st.w[r] = ld_weights(p + r * dout);
       }
-      st.x = g < 2 ? __ldg(reinterpret_cast<const uint2*>(xp + s * kStepRows))
+      if constexpr (Conv::kOnes) {
+        st.x = ones;
+      } else {
+        st.x = g < 2
+                   ? __ldg(reinterpret_cast<const uint2*>(xp + s * kStepRows))
                    : make_uint2(0u, 0u);
+      }
     }
   };
 
@@ -298,7 +330,8 @@ __global__ void __launch_bounds__(kMaxWarps * 32, 2)
   }
   float sx = 0.f;   // lanes g < 2: the sum of this lane's x in the block
   const float bias = Conv::kBias;
-  constexpr bool kSumX = Conv::kBias != 0.f;   // the fold takes bias sum x
+  // the fold takes bias sum x (Ones: bias x its rows, every x being 1)
+  constexpr bool kSumX = Conv::kBias != 0.f && !Conv::kOnes;
   // the scale block being summed, cur, and its first row, b_lo; no integer
   // division (nvcc would convert through float: I2F)
   int cur = 0, b_lo = 0;
@@ -312,6 +345,11 @@ __global__ void __launch_bounds__(kMaxWarps * 32, 2)
       k_lo = bias * __shfl_sync(0xffffffffu, t, 0);
       k_hi = bias * __shfl_sync(0xffffffffu, t, 4);
       sx = 0.f;
+    }
+    if constexpr (Conv::kOnes) {   // once, at the end of the warp's rows
+      // the rows as a float by the 2^23 magic (exact under 2^23): no I2F
+      k_lo = k_hi = bias * (__int_as_float(0x4B000000 | (steps * kStepRows)) -
+                            8388608.f);
     }
     if constexpr (Conv::kScaled) {
       asm volatile("cp.async.wait_all;\n" ::: "memory");
@@ -399,7 +437,15 @@ __global__ void __launch_bounds__(kMaxWarps * 32, 2)
     fold();
   }
 
-  // the warps' sums in warp order, then the ranks' in rank order
+  // the warps' sums in warp order, then the ranks' in rank order; a
+  // column's total through the conversion's epilogue (Ones) into out
+  auto epilogue = [&](float v) {
+    if constexpr (Conv::kOnes) {
+      return Conv::epilogue(v, x);
+    } else {
+      return v;
+    }
+  };
   __syncthreads();
   const int tid = threadIdx.x;
   float v = 0.f;
@@ -407,7 +453,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32, 2)
     for (int w = 0; w < warps; ++w) v += red[w][tid];
   }
   if (gridDim.y == 1) {
-    if (tid < kWarpCols) store(out, out_f32, col0 + tid, v);
+    if (tid < kWarpCols) store(out, out_f32, col0 + tid, epilogue(v));
     return;
   }
   // ranks r > 0 put their sums into rank 0's gathered[r] and leave; rank 0
@@ -428,7 +474,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32, 2)
     for (int r = 1; r < static_cast<int>(gridDim.y); ++r) {
       v += gathered[r][tid];
     }
-    store(out, out_f32, col0 + tid, v);
+    store(out, out_f32, col0 + tid, epilogue(v));
   }
 }
 
@@ -446,8 +492,9 @@ inline bool covers(int dh, int split, int rows, int unit) {
 // `_b1_plan`): `split` ranks of one cluster (1..8) of `warps` warps (4..8),
 // each rank `rows` packed rows (a multiple of 16). dout must be a multiple of
 // 128, nb even, dh a multiple of 16 and of nb / 2 with dh / (nb / 2) a
-// multiple of 8. A conversion without scales (Floor) takes the scale's shape
-// as the others and runs dh's rows as one block (bs = dh). A shape or plan
+// multiple of 8. A conversion without scales (Floor, Ones) takes the scale's
+// shape as the others and runs dh's rows as one block (bs = dh); Ones reads
+// x[0, 0] alone. A shape or plan
 // it does not take returns cudaErrorInvalidValue before any launch; else
 // the launch's cudaError_t.
 template <class Conv, int kSteps>

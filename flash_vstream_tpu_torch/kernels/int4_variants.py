@@ -30,23 +30,26 @@ tensor and the kernel for a CUDA one. `group` (4, 8 or 16; 4 by default)
 is the packed rows a thread loads before the arithmetic that uses them,
 which sets the loads in flight.
 
-v1, v2, v3 and v5 run K6's B = 1 kernel (csrc/int4_b1.cuh) with the
-Unbiased, PerElement, Floor and Packed conversions: one launch a matvec at
-the shapes K6's gate takes, a grid of K6's 128-column warp tiles (dout /
-128 of them, so dout must be a multiple of 128) and K6's plan of the packed
-rows (int4_matmul.py `_plan`); `blk` is checked as for the others and not
+v1, v2, v3, v5 and v7 run K6's B = 1 kernel (csrc/int4_b1.cuh) with the
+Unbiased, PerElement, Floor, Packed and Ones conversions: one launch a
+matvec at the shapes K6's gate takes, a grid of K6's 128-column warp tiles
+(dout / 128 of them, so dout must be a multiple of 128) and K6's plan of
+the packed rows (int4_matmul.py `_plan`); `blk` is checked as for the
+others and not
 used; `group` sets the steps of loads in flight (`load_depth`: a lane
 loads 4 packed rows a step). A shape outside K6's gate raises ValueError.
 `per_element_pair` and `per_element_fragment` mirror the per-element
 conversion for the CPU tests, `unbias_pair` and `unbiased_fragment` the
 unbiased one, as int4_matmul.py's `magic_nibbles` and `fragment_map` mirror
-the packed one (Floor's fragments are Packed's). v6 runs a B = 1 kernel
-of its own (csrc/bf16_b1.cuh) on the same one-launch cluster form: bf16
-fragments paired from the loaded rows by byte_perm, 64-column warp tiles
-(dout a multiple of 64, din of 16), its plan `bf16_plan`, `group` as for
-v1-v3 and v5; `bf16_fragment` mirrors its fragment map. v4 and v7 run one
-skeleton: `blk` columns per block, as the TPU grid's (dout / blk blocks),
-f32 partials over splits of the packed rows summed by a second launch.
+the packed one (Floor's and Ones's fragments are Packed's; Ones puts the
+constant 1.0 in B and rounds its output as v7's plain version does). v6
+runs a B = 1 kernel of its own (csrc/bf16_b1.cuh) on the same one-launch
+cluster form: bf16 fragments paired from the loaded rows by byte_perm,
+64-column warp tiles (dout a multiple of 64, din of 16), its plan
+`bf16_plan`, `group` as for v1-v3 and v5; `bf16_fragment` mirrors its
+fragment map. v4 runs the split-partials skeleton: `blk` columns per
+block, as the TPU grid's (dout / blk blocks), f32 partials over splits of
+the packed rows summed by a second launch.
 """
 from __future__ import annotations
 
@@ -62,7 +65,6 @@ from .int4_matmul import (STEP_ROWS, WARP_COLS, WARPS_PER_SM, Int4Plan,
                           int4_matmul_supported)
 
 MAX_STAGE_BYTES = 32 * 1024    # x staged in shared memory per block
-_UNSCALED_UNIT = 64            # packed rows per split unit without scales
 GROUPS = (4, 8, 16)            # packed rows per thread per step
 # P4's B = 1 kernel (csrc/bf16_b1.cuh): 64 output columns a warp and a
 # block, 16 rows a step, 1, 2, 4 or 8 warps a block
@@ -301,28 +303,25 @@ def _p4_plan(din: int, dout: int, device_index: int, depth: int = 1
 # ---------------- kernels ----------------
 
 def load_depth(group: int) -> int:
-    """The steps of loads in flight of v2 and v5 for the probe's `group`:
-    a lane of K6's B = 1 kernel loads 4 packed rows a 16-row step, so group
-    4 is one step (K6's own depth), 8 two and 16 four."""
+    """The steps of loads in flight of the B = 1 kernels for the probe's
+    `group`: a lane of K6's B = 1 kernel loads 4 packed rows a 16-row step,
+    so group 4 is one step (K6's own depth), 8 two and 16 four."""
     if group not in GROUPS:
         raise ValueError(f"group {group} must be one of {GROUPS}")
     return group // 4
 
 
 @functools.lru_cache(maxsize=None)
-def _plan(rows: int, unit: int, stage_per_row: int, blocks_x: int,
-          device_index: int) -> tuple:
-    """(splits, rows per split): whole units (a scale block, or 64 rows) per
-    split, enough splits for two blocks per SM, the staged x under
-    MAX_STAGE_BYTES."""
-    if unit * stage_per_row > MAX_STAGE_BYTES:
-        raise ValueError(f"a split of {unit} rows stages {unit * stage_per_row}"
-                         f" bytes of x, more than {MAX_STAGE_BYTES}")
+def _plan(rows: int, unit: int, blocks_x: int, device_index: int) -> tuple:
+    """v4's (splits, rows per split): whole scale blocks of `unit` packed
+    rows per split, enough splits for two blocks per SM, the staged int8 x
+    (2 bytes a packed row) under MAX_STAGE_BYTES."""
+    if 2 * unit > MAX_STAGE_BYTES:
+        raise ValueError(f"a split of {unit} rows stages {2 * unit} bytes of "
+                         f"x, more than {MAX_STAGE_BYTES}")
     units = -(-rows // unit)
     want = -(-2 * _sms(device_index) // blocks_x)
-    per = max(1, -(-units // want))
-    if stage_per_row:
-        per = min(per, MAX_STAGE_BYTES // (unit * stage_per_row))
+    per = min(max(1, -(-units // want)), MAX_STAGE_BYTES // (2 * unit))
     rows_per_split = per * unit
     return -(-rows // rows_per_split), rows_per_split
 
@@ -378,34 +377,11 @@ def _check_operands(name, x, q4, scale, aux, x_dtype, align):
     return dev, dh, dout, nb
 
 
-def _launch_int4(fn, x, q4, scale, aux, blk, group, x_dtype, scaled,
-                 stage_per_row):
-    name = fn.__name__
-    dev, dh, dout, nb = _check_operands(name, x, q4, scale, aux, x_dtype, 8)
-    if nb < 2 or nb % 2 or dh % (nb // 2) or (dh // (nb // 2)) % 4 or dh % 4:
-        raise ValueError(f"{name}: dh {dh} must split into nb/2 = {nb // 2} "
-                         f"scale blocks of a multiple of 4 rows")
-    blk = _check_blk(name, dout, blk)
-    unit = dh // (nb // 2) if scaled else _UNSCALED_UNIT
-    _check_group(name, group, dh, unit)
-    splits, rows = _plan(dh, unit, stage_per_row, dout // blk, dev.index)
-    partial = torch.empty((splits, dout), dtype=torch.float32, device=dev)
-    out = torch.empty((1, dout), dtype=torch.bfloat16, device=dev)
-    rc = getattr(_build.library(), f"fvt_int4_{name[:-5]}")(
-        x.data_ptr(), q4.data_ptr(), scale.data_ptr(),
-        aux.data_ptr() if aux is not None else None, partial.data_ptr(),
-        out.data_ptr(), dh, dout, nb, blk, splits, rows, group,
-        torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(rc, name)
-    fn.launches += 1
-    return out
-
-
 def _launch_fold(fn, x, q4, scale, blk, group, plan=None):
-    """v1, v2, v3 or v5 (by `fn`) as one launch of K6's B = 1 kernel, at the
-    shapes K6's gate takes and with K6's plan; `plan` overrides it (the card
-    tests hold every plan to the same result). v3's scale is checked as the
-    others' and not read."""
+    """v1, v2, v3, v5 or v7 (by `fn`) as one launch of K6's B = 1 kernel, at
+    the shapes K6's gate takes and with K6's plan; `plan` overrides it (the
+    card tests hold every plan to the same result). v3's and v7's scale is
+    checked as the others' and not read."""
     name = fn.__name__
     dev, dh, dout, nb = _check_operands(name, x, q4, scale, None,
                                         torch.bfloat16, 16)
@@ -449,12 +425,32 @@ def v3_floor_cuda(x, q4, scale, *, blk=None, group=4):
 
 
 def v4_int8dot_cuda(xq, xs, q4, scale, *, blk=None, group=4):
-    """Launch P3 v4: xq [1, din] int8, xs a bf16 scalar ([] or [1, 1])."""
+    """Launch P3 v4 on the split-partials skeleton: xq [1, din] int8, xs a
+    bf16 scalar ([] or [1, 1]); the int8 x rows of a split staged in shared
+    memory, f32 partials, a second launch."""
+    name = "v4_int8dot_cuda"
     if xs.numel() != 1 or xs.dtype != torch.bfloat16:
-        raise ValueError(f"v4_int8dot_cuda takes xs as one bf16 value, got "
+        raise ValueError(f"{name} takes xs as one bf16 value, got "
                          f"{xs.dtype} {tuple(xs.shape)}")
-    return _launch_int4(v4_int8dot_cuda, xq, q4, scale, xs.contiguous(), blk,
-                        group, torch.int8, True, 2)
+    xs = xs.contiguous()
+    dev, dh, dout, nb = _check_operands(name, xq, q4, scale, xs, torch.int8,
+                                        8)
+    if nb < 2 or nb % 2 or dh % (nb // 2) or (dh // (nb // 2)) % 4 or dh % 4:
+        raise ValueError(f"{name}: dh {dh} must split into nb/2 = {nb // 2} "
+                         f"scale blocks of a multiple of 4 rows")
+    blk = _check_blk(name, dout, blk)
+    unit = dh // (nb // 2)
+    _check_group(name, group, dh, unit)
+    splits, rows = _plan(dh, unit, dout // blk, dev.index)
+    partial = torch.empty((splits, dout), dtype=torch.float32, device=dev)
+    out = torch.empty((1, dout), dtype=torch.bfloat16, device=dev)
+    rc = _build.library().fvt_int4_v4_int8dot(
+        xq.data_ptr(), q4.data_ptr(), scale.data_ptr(), xs.data_ptr(),
+        partial.data_ptr(), out.data_ptr(), dh, dout, nb, blk, splits, rows,
+        group, torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(rc, name)
+    v4_int8dot_cuda.launches += 1
+    return out
 
 
 def v5_u8mask_cuda(x, q4, scale, *, blk=None, group=4):
@@ -463,9 +459,9 @@ def v5_u8mask_cuda(x, q4, scale, *, blk=None, group=4):
 
 
 def v7_unpackonly_cuda(x, q4, scale, *, blk=None, group=4):
-    """Launch P3 v7 (scale is checked, not read)."""
-    return _launch_int4(v7_unpackonly_cuda, x, q4, scale, x, blk, group,
-                        torch.bfloat16, False, 0)
+    """Launch P3 v7: K6's B = 1 kernel with B = 1.0, x[0, 0] applied in the
+    epilogue (scale is checked, not read)."""
+    return _launch_fold(v7_unpackonly_cuda, x, q4, scale, blk, group)
 
 
 def v6_bf16dot_cuda(x, w, *, blk=None, group=4, plan=None):

@@ -16,24 +16,57 @@ timed by CUDA-graph replay, best of 4 (scripts/timing.py). On the CPU
 (--device cpu, at small sizes) k2 and bulk take their kernels' plain
 versions.
 
+On the card, three readings of P1 alone, each a line:
+  --fixed   its fixed cost: K 1, one 1,008-byte row (bank [50, 7, 72]
+            bf16), P1, K2 and index_select by graph replay;
+  --sweep   P1 at the probe's shape with every ring of stage 8, 16 or 32 KB
+            and 2-6 stages that fits an SM, shares cut at 16, 32, 128 or
+            256 bytes, with and without the stores' L2 evict_first policy, in
+            one wave of the shipped plan (rows cut into shares): ms by
+            graph replay (32 index sets rotating past the L2), the resident
+            blocks the driver reports and the plan's shares, each bit-exact
+            against index_select; then the three fastest of those with the
+            whole output as one flat range of shares, and with rows cut
+            for twice the resident blocks (more than one wave);
+  --faults  planted faults in patched copies of csrc/bank_gather.cu
+            (`FAULTS`; a share cut 16 bytes short) under
+            build/probe_bank_gather/, each of which `chip_smoke.py --only
+            bank_gather` must fail; the error it read is printed.
+
 Usage: python -m flash_vstream_tpu_torch.scripts.probe_bank_gather
            [--t 1024] [--k 30] [--p 256] [--d 1280] [--iters 50]
-           [--dtype bfloat16] [--device cuda]
+           [--dtype bfloat16] [--device cuda] [--fixed] [--sweep] [--faults]
 """
 from __future__ import annotations
 
 import argparse
+import subprocess
+import sys
+from pathlib import Path
 from typing import Callable, Dict, List, Optional
 
 import torch
 import torch.nn.functional as F
 
 from ..core.device import resolve_device
-from ..kernels.bank_gather import bank_gather
-from ..kernels.gather_rows import gather_rows
+from ..kernels.bank_gather import (bank_gather, bank_gather_cuda,
+                                   bank_gather_reference)
+from ..kernels.gather_rows import gather_rows, gather_rows_cuda
 from .timing import graph_seconds
 
 TRIALS = 4
+# the sweep's rings: stage bytes x stages, each fitting 227 KB of an SM
+SWEEP_STAGE_BYTES = (8 * 1024, 16 * 1024, 32 * 1024)
+SWEEP_STAGES = (2, 3, 4, 5, 6)
+SWEEP_ALIGN = (16, 32, 128, 256)
+WORK = Path(__file__).resolve().parents[2] / "build" / "probe_bank_gather"
+SRC = "kernels/csrc/bank_gather.cu"
+# planted faults, (old, new) edits of csrc/bank_gather.cu
+FAULTS = {
+    "fault_share": [(
+        "  const long long len = share + (c < extra ? unit : 0);\n",
+        "  const long long len = share + (c < extra ? unit : 0) - 16;\n")],
+}
 
 
 def gather_xla(bank: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -78,6 +111,125 @@ def make_bank(t: int, p: int, d: int, dtype: torch.dtype,
     return torch.randn(t, p, d, generator=g, device=device).to(dtype)
 
 
+def fixed_case(device: torch.device):
+    """(bank, idx) of P1's fixed-cost reading: K 1, one row of 7 x 72 bf16
+    (1,008 bytes)."""
+    return (make_bank(50, 7, 72, torch.bfloat16, device),
+            torch.tensor([17], dtype=torch.int32, device=device))
+
+
+def _graph_ms(fn, device: torch.device, iters: int = 64) -> float:
+    """Device ms per call of `iters` calls fn(i) (each returning a tensor)
+    by graph replay, best of 3. Each output but the last is dropped at
+    once, so the calls write one buffer, as chip_smoke.py's `_ms` times
+    them."""
+    def loop() -> torch.Tensor:
+        for i in range(iters - 1):
+            fn(i)
+        return fn(iters - 1).reshape(-1)[0].float()
+    return graph_seconds(loop, device, 3) * 1e3 / iters
+
+
+def fixed_cost(device: torch.device) -> Dict[str, float]:
+    """P1, K2 and index_select at K 1 (1,008 bytes), ms a call."""
+    bank, idx = fixed_case(device)
+    lidx = idx.long()
+    res = {"p1": _graph_ms(lambda i: bank_gather_cuda(bank, idx), device),
+           "k2": _graph_ms(lambda i: gather_rows_cuda(bank, idx), device),
+           "index_select": _graph_ms(lambda i: bank.index_select(0, lidx),
+                                     device)}
+    print("fixed K 1 (1,008 B row): " + " ".join(
+        f"{k}={v:.4f}" for k, v in res.items()) + " ms", flush=True)
+    return res
+
+
+def sweep(bank: torch.Tensor, k: int) -> Dict[tuple, float]:
+    """P1 at every ring of the sweep that fits, at each share alignment,
+    with and without evict_first, over 32 index sets rotating past the L2:
+    {(stage bytes, stages, align, evict_first, plan kind): ms}, one line a
+    ring (align: ms without / with evict_first); then the three fastest
+    with the plan kinds "flat" (one flat range of shares) and "2x" (rows
+    cut for twice the resident blocks), one line each; then the fastest in
+    one wave and the default."""
+    # the plan's names here alone, so that the routes and --fixed also time
+    # a P1 without them (an earlier commit's, for a before-and-after reading)
+    from ..kernels.bank_gather import (ALIGN, EVICT_FIRST, STAGE_BYTES,
+                                       STAGES, bank_gather_plan, card_plan)
+    device = bank.device
+    g = torch.Generator(device=device).manual_seed(5)
+    idxs = [torch.randint(0, bank.shape[0], (k,), generator=g, device=device,
+                          dtype=torch.int64).to(torch.int32)
+            for _ in range(32)]
+    row = bank[0].numel() * bank.element_size()
+    want = bank_gather_reference(bank, idxs[0])
+    res = {}
+
+    def time(plan, evict, key):
+        if not torch.equal(bank_gather_cuda(bank, idxs[0], plan=plan,
+                                            evict_first=evict), want):
+            raise AssertionError(f"P1 with {plan}: not bit-exact")
+        res[key] = _graph_ms(lambda i: bank_gather_cuda(
+            bank, idxs[i % 32], plan=plan, evict_first=evict), device)
+        return res[key]
+
+    for stage_bytes in SWEEP_STAGE_BYTES:
+        for stages in SWEEP_STAGES:
+            if stage_bytes * stages > 227 * 1024:
+                continue
+            cells = []
+            for align in SWEEP_ALIGN:
+                plan, resident = card_plan(k, row, device.index, stage_bytes,
+                                           stages, align)
+                cells.append(f"a{align}=" + "/".join(
+                    f"{time(plan, ev, (stage_bytes, stages, align, ev, 'rows')):.4f}"
+                    for ev in (False, True)))
+            print(f"sweep stage {stage_bytes // 1024} KB x {stages} "
+                  f"(resident {resident}, {plan.blocks} blocks of "
+                  f"~{plan.share} B): " + " ".join(cells), flush=True)
+    for key in sorted(res, key=res.get)[:3]:
+        stage_bytes, stages, align, evict, _ = key
+        resident = card_plan(k, row, device.index, stage_bytes, stages)[1]
+        cells = [f"rows={res[key]:.4f}"]
+        for kind, plan in (
+                ("flat", bank_gather_plan(k, row, resident, stage_bytes,
+                                          stages, align, flat=True)),
+                ("2x", bank_gather_plan(k, row, 2 * resident, stage_bytes,
+                                        stages, align))):
+            ms = time(plan, evict, (stage_bytes, stages, align, evict, kind))
+            cells.append(f"{kind}={ms:.4f} ({plan.blocks} blocks)")
+        print(f"sweep plans, stage {stage_bytes // 1024} KB x {stages} align "
+              f"{align} evict_first={int(evict)}: " + " ".join(cells),
+              flush=True)
+    best = min((key for key in res if key[4] == "rows"), key=res.get)
+    default = (STAGE_BYTES, STAGES, ALIGN, EVICT_FIRST, "rows")
+    print(f"sweep fastest in one wave: stage {best[0] // 1024} KB x "
+          f"{best[1]} align {best[2]} evict_first={int(best[3])} "
+          f"{res[best]:.4f} ms; default ({STAGE_BYTES // 1024} KB x {STAGES} "
+          f"align {ALIGN} evict_first={int(EVICT_FIRST)}) "
+          f"{res[default]:.4f} ms", flush=True)
+    return res
+
+
+def run_faults() -> bool:
+    """Each planted fault in a patched copy of the package: `chip_smoke.py
+    --only bank_gather` must fail with an AssertionError; prints what it
+    read. True when every fault was caught."""
+    from .probe_int4_k6 import make_variant
+    caught = True
+    for name in FAULTS:
+        d = make_variant(name, WORK, SRC, FAULTS)
+        res = subprocess.run([sys.executable, "chip_smoke.py", "--only",
+                              "bank_gather"], cwd=d, capture_output=True,
+                             text=True)
+        err = [ln for ln in (res.stdout + res.stderr).splitlines()
+               if ln.startswith("AssertionError")]
+        print(f"probe_bank_gather {name} bank_gather: "
+              + (err[-1] if err else f"not caught (rc {res.returncode})"),
+              flush=True)
+        caught &= res.returncode != 0 and bool(err)
+    return caught
+
+
 def make_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--t", type=int, default=1024)
@@ -89,14 +241,24 @@ def make_parser() -> argparse.ArgumentParser:
                     choices=("bfloat16", "float32"))
     ap.add_argument("--device", type=str, default=None,
                     help="cuda (default) or cpu")
+    ap.add_argument("--fixed", action="store_true",
+                    help="also P1's fixed cost at K 1 (card only)")
+    ap.add_argument("--sweep", action="store_true",
+                    help="also P1 at every ring (card only)")
+    ap.add_argument("--faults", action="store_true",
+                    help="also the planted faults (card only)")
     return ap
 
 
 def main(argv: Optional[List[str]] = None) -> Dict[str, float]:
-    """Runs the routes, prints one line each; returns {mode: seconds per
-    gather}."""
+    """Runs the routes, prints one line each, then the card readings asked
+    for; returns {mode: seconds per gather}. Raises if a planted fault was
+    not caught."""
     args = make_parser().parse_args(argv)
     device = resolve_device(args.device)
+    if device.type != "cuda" and (args.fixed or args.sweep or args.faults):
+        raise ValueError("--fixed, --sweep and --faults time or patch the "
+                         "CUDA kernel: they need the card")
     T, K = args.t, args.k
     dtype = getattr(torch, args.dtype)
     bank = make_bank(T, args.p, args.d, dtype, device)
@@ -108,6 +270,12 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, float]:
         results[mode] = dt
         print(f"{mode:10s} {dt * 1e3:7.3f} ms   {nbytes / dt / 1e9:7.1f} GB/s "
               f"gathered ({nbytes / 1e6:.1f} MB)", flush=True)
+    if args.fixed:
+        fixed_cost(device)
+    if args.sweep:
+        sweep(bank, K)
+    if args.faults and not run_faults():
+        raise AssertionError("a planted fault in P1 was not caught")
     return results
 
 

@@ -3,11 +3,12 @@
 Each variant is a copy of this package (and of chip_smoke.py) under
 build/probe_int4_k6/<variant>/ with one edit to kernels/csrc/int4_b1.cuh
 (`PATCHES`), the B = 1 kernel template that K6 and the int4 probe's P3 v5,
-v2, v1 and v3 share (so each edit moves all five), built there by its own
+v2, v1, v3 and v7 share (so each edit moves all six), built there by its own
 `_build` and run in a process of its own, in the order given:
   alternative  sub128 (the 128 of the bf16 magic taken off per pair by a
                bf16x2 subtract, the fold then p - 8 sum x, against the
-               shipped p - 136 sum x; v1 then subtracts 8, v3 folds 0),
+               shipped p - 136 sum x; v1 then subtracts 8, v3 and v7
+               fold 0),
                depth2 and depth3 (each warp's next
                1 or 2 steps loaded before the step is summed, not after),
                depth4 (3 ahead, with the cap of 128 registers lifted: 8
@@ -27,16 +28,19 @@ v2, v1 and v3 share (so each edit moves all five), built there by its own
   faults       fault_fold (warp 1's fold drops the -8 sum x part of its
                bias correction for scale block 1: v5, v2, K6), fault_pair
                (lane 0's k slots paired with x of the next packed row:
-               every conversion), fault_unbias (lane 0's subtract takes 135,
-               not 136: v1 alone), in the shared code: chip_smoke.py
+               every conversion that reads x), fault_unbias (lane 0's
+               subtract takes 135, not 136: v1 alone), fault_round (v7's
+               epilogue without its inner bf16 round: v7 alone), in the
+               shared code: chip_smoke.py
                `--only int4_probe` (P3) must fail for each, and `--only
                int4_kernel` (K6) for the two that reach K6's conversion
                (`FAULT_PHASES`); their errors are shown, then each fold
                variant's error over its plain version's max at the probe's
-               shape, and which of them the fault pushes past K6_TOL.
+               shape, and which of them the fault pushes past its limit
+               (K6_TOL; v7's is 0, exact).
 `base` is the source as it is. Times are K6 ms by CUDA-graph replay at the
 five 7B decode shapes (B = 1, weights rotated past the L2) and their sum
-over one decode token's 197 calls, then P3 v5, v2, v1 and v3 at the int4
+over one decode token's 197 calls, then P3 v5, v2, v1, v3 and v7 at the int4
 probe's shape ([1, 3584] @ int4 [3584, 18944], bytes 0-255), with the
 variant's ptxas registers and its errors over the plain versions' max.
 Needs the card and nvcc, and a checkout (chip_smoke.py at its root).
@@ -100,7 +104,7 @@ _BARRIERS = ("""  asm volatile("barrier.cluster.wait.aligned;\\n" ::: "memory");
     for (int r = 1; r < static_cast<int>(gridDim.y); ++r) {
       v += gathered[r][tid];
     }
-    store(out, out_f32, col0 + tid, v);
+    store(out, out_f32, col0 + tid, epilogue(v));
   }
 }
 """, """\
@@ -112,7 +116,7 @@ _BARRIERS = ("""  asm volatile("barrier.cluster.wait.aligned;\\n" ::: "memory");
     for (int r = 0; r < static_cast<int>(gridDim.y); ++r) {
       w += cluster.map_shared_rank(&gathered[0][0], r)[tid];
     }
-    store(out, out_f32, col0 + tid, w);
+    store(out, out_f32, col0 + tid, epilogue(w));
   }
   cluster.sync();   // no rank leaves while rank 0 still reads its sum
 }
@@ -166,14 +170,19 @@ PATCHES = {
 """)],
     "fault_unbias": [(_UNBIAS, _UNBIAS.replace(
         "136.f, 136.f", "(threadIdx.x & 31) == 0 ? 135.f : 136.f, 136.f"))],
+    "fault_round": [("    return __bfloat162float(__float2bfloat16(v)) * "
+                     "__bfloat162float(x[0]);\n",
+                     "    return v * __bfloat162float(x[0]);\n")],
 }
-# the chip_smoke.py phases each planted fault must fail: fault_unbias is in
-# v1's conversion alone, which K6 does not run
+# the chip_smoke.py phases each planted fault must fail: fault_unbias and
+# fault_round are in v1's and v7's conversions alone, which K6 does not run
 FAULT_PHASES = {"fault_fold": ("int4_kernel", "int4_probe"),
                 "fault_pair": ("int4_kernel", "int4_probe"),
-                "fault_unbias": ("int4_probe",)}
+                "fault_unbias": ("int4_probe",),
+                "fault_round": ("int4_probe",)}
 # the int4 probe's variants on the template (chip_smoke.py P3_FOLD)
-FOLD_VARIANTS = ("v1-current", "v2-biasfold", "v3-floor", "v5-u8mask")
+FOLD_VARIANTS = ("v1-current", "v2-biasfold", "v3-floor", "v5-u8mask",
+                 "v7-unpackonly")
 
 # run in the variant's directory: K6 timed at the five 7B shapes, one line
 _TIMING = r"""
@@ -210,9 +219,11 @@ s = [torch.rand(28, 18944, generator=g, device=dev) * 2e-3 + 5e-4
      for _ in range(3)]
 x = torch.randn(1, 3584, generator=g, device=dev).to(torch.bfloat16)
 for kern in (iv.v5_u8mask_cuda, iv.v2_biasfold_cuda, iv.v1_current_cuda,
-             iv.v3_floor_cuda):
+             iv.v3_floor_cuda, iv.v7_unpackonly_cuda):
     ref = getattr(iv, kern.__name__[:-5] + "_reference")
-    want = ref(x, q[0], s[0], out_dtype=torch.float32)
+    # v7 against its bf16 output (exact); the others against f32 sums
+    want = (ref(x, q[0], s[0]).float() if kern is iv.v7_unpackonly_cuda
+            else ref(x, q[0], s[0], out_dtype=torch.float32))
     e = ((kern(x, q[0], s[0]).float() - want).abs().max()
          / want.abs().max()).item()
     ms = cs._ms(lambda i: kern(x, q[i % 3], s[i % 3]), 20)
@@ -220,7 +231,7 @@ for kern in (iv.v5_u8mask_cuda, iv.v2_biasfold_cuda, iv.v1_current_cuda,
 log = _build.library_path().with_suffix(".log")
 regs = cs._ptxas_counts(log, cs._k6_instance)
 regs.update((k, v) for k, v in cs._ptxas_counts(log, cs._int4_instance).items()
-            if k in ("v5 G4", "v2 G4", "v1 G4", "v3 G4"))
+            if k in ("v5 G4", "v2 G4", "v1 G4", "v3 G4", "v7 G4"))
 print("ms " + " ".join(out[:5]) + f" per_token={total:.4f}; err/max at "
       f"gate/up {err:.3e}; P3 " + " ".join(out[5:]) + "; registers "
       + " ".join(f"{k}={v[0]} spills={v[1]}/{v[2]}"
@@ -229,7 +240,9 @@ print("ms " + " ".join(out[:5]) + f" per_token={total:.4f}; err/max at "
 
 
 # run in a fault's directory: each fold variant's error over its plain
-# version's max at the int4 probe's shape (group 4), one line
+# version's max at the int4 probe's shape (group 4), and those past their
+# limit (chip_smoke's P3_TOL, else K6_TOL; exact variants against their
+# bf16 output), one line
 _ERRORS = r"""
 import torch, chip_smoke as cs
 from flash_vstream_tpu_torch.kernels import int4_variants as iv
@@ -242,13 +255,16 @@ x = torch.randn(1, 3584, generator=g, device=dev).to(torch.bfloat16)
 res, past = [], []
 for name in cs.P3_FOLD:
     stem = name.replace("-", "_")
-    want = getattr(iv, stem + "_reference")(x, q, s, out_dtype=torch.float32)
+    ref = getattr(iv, stem + "_reference")
+    tol = cs.P3_TOL.get(name, cs.K6_TOL)
+    want = (ref(x, q, s).float() if name in cs.P3_TOL
+            else ref(x, q, s, out_dtype=torch.float32))
     got = getattr(iv, stem + "_cuda")(x, q, s).float()
     e = ((got - want).abs().max() / want.abs().max()).item()
     res.append(f"{name}={e:.2e}")
-    if not e <= cs.K6_TOL:
+    if not e <= tol:
         past.append(name)
-print("err/max " + " ".join(res) + "; past K6_TOL: " + " ".join(past),
+print("err/max " + " ".join(res) + "; past the limit: " + " ".join(past),
       flush=True)
 """
 
@@ -314,7 +330,7 @@ def make_variant(name: str, work: Path = WORK, src: str = SRC,
 
 def run_variant(name: str) -> tuple:
     """Build and run one variant; print its lines. Returns (ok, the fold
-    variants a fault pushed past K6_TOL, as names); ok is False when a
+    variants a fault pushed past their limit, as names); ok is False when a
     fault was not caught by a phase of `FAULT_PHASES` or a run failed."""
     d = make_variant(name)
     if name.startswith("fault_"):
@@ -332,12 +348,12 @@ def run_variant(name: str) -> tuple:
         res = subprocess.run([sys.executable, "-c", _ERRORS], cwd=d,
                              capture_output=True, text=True)
         line = (res.stdout.strip().splitlines() or [""])[-1]
-        ran = res.returncode == 0 and "past K6_TOL:" in line
+        ran = res.returncode == 0 and "past the limit:" in line
         print(f"probe_int4_k6 {name}: " + (
             line if ran
             else f"failed (rc {res.returncode}): {res.stderr[-2000:]}"),
             flush=True)
-        past = set(line.split("past K6_TOL:")[1].split()) if ran else set()
+        past = set(line.split("past the limit:")[1].split()) if ran else set()
         return all(caught) and ran, past
     res = subprocess.run([sys.executable, "-c", _TIMING], cwd=d,
                          capture_output=True, text=True)
@@ -367,7 +383,8 @@ def main(argv=None) -> int:
     ok = all(r[0] for _, r in runs)
     past = {v: r[1] for v, r in runs if v in FAULT_PHASES}
     if set(FAULT_PHASES) <= set(past):
-        # between them the faults must push every fold variant past K6_TOL
+        # between them the faults must push every fold variant past its
+        # limit
         by = {v: [f for f in FAULT_PHASES if v in past[f]]
               for v in FOLD_VARIANTS}
         print("probe_int4_k6 faults: " + " ".join(

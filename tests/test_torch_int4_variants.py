@@ -339,18 +339,21 @@ def test_unbiased_conversion_gives_every_nibble_exactly(half):
         np.testing.assert_array_equal(_bf16_bits_to_float(got[:, 0]), n - 8)
 
 
-def _check_fragments(conv, seed):
+def _check_fragments(conv, seed, ones=False):
     """One warp step of a conversion, on bytes 0-255: the A fragments of
     every lane and tile put into the m16n8k16 matrix by the PTX fragment
-    layout, times B from x at each lane's k rows; lane (g, 0)'s c0 and c3
-    equal, exactly, column 16g + j's sums of (offset + n) x over the step's
-    16 rows for the low and the high nibbles."""
+    layout, times B from x at each lane's k rows (`ones`: B = 1.0, as
+    P3 v7's Ones conversion builds it); lane (g, 0)'s c0 and c3 equal,
+    exactly, column 16g + j's sums of (offset + n) x over the step's 16
+    rows for the low and the high nibbles."""
     frag, offset = CONVERSIONS[conv][:2]
     rng = np.random.default_rng(seed)
     w = rng.integers(0, 256, (16, 128), dtype=np.uint8)
     w[0, :16] = np.arange(0, 256, 16)      # every high nibble, every low 0
     w[1, :16] = np.arange(16)               # every low nibble
     xs = rng.integers(-1000, 1000, (2, 16)).astype(np.float64)
+    if ones:
+        xs = np.ones_like(xs)
     B = np.zeros((16, 8))
     for lane in range(8):
         g, t4 = lane // 4, lane % 4
@@ -474,6 +477,76 @@ def test_fold_schedule_emulation_matches_v2_reference(conv, din, dout, sms):
     np.testing.assert_allclose(got, want, atol=1e-5 * np.abs(want).max())
 
 
+# --- v7 on K6's B = 1 kernel (the Ones conversion): Floor's fragments, B =
+# 1.0, one fold of 128 x the rows a warp, the epilogue -----------------------
+
+def _ones_epilogue(v, x00):
+    """csrc/int4_b1.cuh `Ones::epilogue` then the bf16 store: bf16(bf16(v)
+    x[0, 0]) of a column's f32 sum v, as bf16."""
+    x00 = torch.tensor(x00).to(torch.bfloat16).float()
+    return (torch.from_numpy(np.asarray(v, np.float32)).to(torch.bfloat16)
+            .float() * x00).to(torch.bfloat16)
+
+
+def _emulate_v7(x, q4, scale, plan):
+    """P3 v7 on the B = 1 kernel in numpy: the schedule of `_emulate_b1`
+    with Floor's fragments (128 + n), every x 1.0 and one unscaled fold a
+    warp of 128 x its rows, then the epilogue with x[0, 0]."""
+    sums = _emulate_b1(np.ones_like(x), q4, scale, plan, 128, 128.0,
+                       scaled=False)
+    return sums, _ones_epilogue(sums, x[0, 0])
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_ones_fragments_sum_every_nibble_once(seed):
+    """v7's fragments (Floor's, 128 + n) against B = 1.0 by
+    `_check_fragments`: each column's step sums of 128 + n, exactly."""
+    _check_fragments("Floor", seed, ones=True)
+
+
+@pytest.mark.parametrize("din,dout,sms", [
+    (512, 128, 132), (768, 256, 132), (3584, 128, 132), (3584, 256, 8),
+    (1024, 384, 16)])
+def test_ones_schedule_emulation_matches_v7_reference(din, dout, sms):
+    """v7's arithmetic on the template, emulated on the CPU on bytes 0-255
+    with K6's plan: every warp's and rank's f32 sum is the exact integer
+    column sum of n_lo + n_hi (the fold's 128 x rows cancels exactly), and
+    the epilogue gives v7's plain version bit for bit."""
+    x, q, s = _inputs(din, dout, seed=din + dout)
+    plan = im._plan(1, din // 2, din // 128, dout, sms)
+    sums, got = _emulate_v7(x, q, s, plan)
+    exact = ((q & 15).astype(np.int64) + (q >> 4)).sum(0)
+    np.testing.assert_array_equal(sums, exact.astype(np.float32))
+    want = iv.v7_unpackonly_reference(torch.from_numpy(x), torch.from_numpy(q),
+                                      torch.from_numpy(s))
+    assert torch.equal(got[None], want)
+
+
+@pytest.mark.parametrize("din,dout,blk", CASES)
+def test_ones_emulation_matches_pallas_interpret(jprobe, din, dout, blk):
+    """v7's arithmetic on the template against the JAX `k_v7_unpackonly`
+    in interpret mode on the same bytes and x: equal bit for bit."""
+    _, want, _, _ = _run_both(jprobe, "v7-unpackonly", din, dout, blk)
+    x, q, s = _inputs(din, dout)
+    plan = im._plan(1, din // 2, din // 128, dout, 132)
+    got = _emulate_v7(x, q, s, plan)[1].float().numpy()
+    np.testing.assert_array_equal(got[None], want)
+
+
+def test_ones_epilogue_rounds_the_sum_before_the_product():
+    """At the probe's shape the epilogue's inner bf16 round changes the
+    output: bf16(v x00) differs from bf16(bf16(v) x00) in many columns, so
+    chip_smoke's exact limit on v7 catches an epilogue without it."""
+    rng = np.random.default_rng(7)
+    q = rng.integers(0, 256, (1792, 18944), dtype=np.uint8)
+    v = ((q & 15).astype(np.int64) + (q >> 4)).sum(0).astype(np.float32)
+    x00 = np.float32(rng.normal())
+    rounded = _ones_epilogue(v, x00)
+    x00b = torch.tensor(x00).to(torch.bfloat16).float()
+    once = (torch.from_numpy(v) * x00b).to(torch.bfloat16)
+    assert (rounded != once).sum().item() > 1000
+
+
 def test_load_depth_maps_groups_to_steps_in_flight():
     """group packed rows a lane loads before the products that use them =
     4 a step x the steps of loads in flight: 4 -> 1 (K6's own), 8 -> 2,
@@ -556,9 +629,11 @@ def test_kernels_raise_instead_of_falling_back(cuda):
                            group=16)
 
 
-# --- v1, v2, v3 and v5 on the card: one launch, the same bits, the plans --
+# --- v1, v2, v3, v5 and v7 on the card: one launch, the same bits, the
+# plans -----------------------------------------------------------------
 
 FOLD = {"v1-current": iv.v1_current_cuda, "v2-biasfold": iv.v2_biasfold_cuda,
+        "v7-unpackonly": iv.v7_unpackonly_cuda,
         "v3-floor": iv.v3_floor_cuda, "v5-u8mask": iv.v5_u8mask_cuda}
 
 
@@ -567,19 +642,23 @@ FOLD = {"v1-current": iv.v1_current_cuda, "v2-biasfold": iv.v2_biasfold_cuda,
 @pytest.mark.parametrize("name", sorted(FOLD))
 def test_fold_variants_same_bits_across_runs_and_plans(cuda, name, din,
                                                        dout):
-    """v1, v2, v3 and v5 give the same bits from run to run at K6's plan and
-    at others (one cluster, 8 warps; two ranks of 4 warps); v5 gives K6's
-    own bits at each plan (one template, one conversion); across plans the
-    f32 sums differ only in order, so the bf16 outputs agree within one
-    bf16 step of the output (2^-7 of it) plus 1e-4 of its max; v1, v5's
-    function with the unbias per element, agrees with v5 at each plan
-    within the same."""
+    """v1, v2, v3, v5 and v7 give the same bits from run to run at K6's
+    plan and at others (one cluster, 8 warps; two ranks of 4 warps); v5
+    gives K6's own bits at each plan (one template, one conversion); v7,
+    whose sums are exact integers, its plain version's bits at each plan;
+    across plans the f32 sums differ only in order, so the bf16 outputs
+    agree within one bf16 step of the output (2^-7 of it) plus 1e-4 of its
+    max; v1, v5's function with the unbias per element, agrees with v5 at
+    each plan within the same."""
     x, q, s = _card_inputs(din, dout, cuda, din)
     dh = din // 2
     kernel = FOLD[name]
-    ref = (iv.v3_floor_reference if name == "v3-floor"
-           else iv.v2_biasfold_reference)
-    want = ref(x, q, s, out_dtype=torch.float32)
+    if name == "v7-unpackonly":
+        want = iv.v7_unpackonly_reference(x, q, s).float()
+    else:
+        ref = (iv.v3_floor_reference if name == "v3-floor"
+               else iv.v2_biasfold_reference)
+        want = ref(x, q, s, out_dtype=torch.float32)
     scale = want.abs().max().item()
     outs = []
     for plan in (None, im.Int4Plan(1, 8, dh), im.Int4Plan(2, 4, dh // 2)):
@@ -596,6 +675,8 @@ def test_fold_variants_same_bits_across_runs_and_plans(cuda, name, din,
                                  plan).float()
             assert ((got[0].float() - v5).abs() <= 2 ** -7 * v5.abs()
                     + 1e-4 * scale).all(), plan
+        if name == "v7-unpackonly":
+            assert torch.equal(got[0].float(), want), plan
         outs.append(got[0].float())
     for o in outs[1:]:
         assert ((o - outs[0]).abs() <= 2 ** -7 * outs[0].abs()
@@ -620,17 +701,18 @@ def test_fold_variants_launch_one_kernel_a_call(cuda, name, group):
 
 @pytest.mark.gpu
 def test_fold_c_entries_refuse_what_they_do_not_take(cuda):
-    """The C entries of v1, v2, v3 and v5 refuse, before any launch, a depth
-    other than 1, 2 or 4, a plan that does not cover the rows or exceeds
-    its sizes, and a dout off the 128-column tiles; the wrappers refuse
-    such a dout (outside K6's gate) with a ValueError."""
+    """The C entries of v1, v2, v3, v5 and v7 refuse, before any launch, a
+    depth other than 1, 2 or 4, a plan that does not cover the rows or
+    exceeds its sizes, and a dout off the 128-column tiles; the wrappers
+    refuse such a dout (outside K6's gate) with a ValueError."""
     from flash_vstream_tpu_torch.kernels import _build
     lib = _build.library()
     x, q, s = _card_inputs(512, 384, cuda, 2)
     out = torch.empty(1, 384, device=cuda, dtype=torch.bfloat16)
     stream = torch.cuda.current_stream(cuda).cuda_stream
     for fn in (lib.fvt_int4_v1_current, lib.fvt_int4_v2_biasfold,
-               lib.fvt_int4_v3_floor, lib.fvt_int4_v5_u8mask):
+               lib.fvt_int4_v3_floor, lib.fvt_int4_v5_u8mask,
+               lib.fvt_int4_v7_unpackonly):
         def rc(dout=384, split=1, warps=8, rows=256, depth=1):
             return fn(x.data_ptr(), q.data_ptr(), s.data_ptr(),
                       out.data_ptr(), 256, dout, s.shape[0], split, warps,

@@ -55,8 +55,9 @@ Phases, one or more lines each; any failure raises and exits non-zero:
    the --dry-run --load-4bit server as a subprocess;
 12. bank_gather: P1 (bulk-copy bank gather) bit-exact against its plain
    version in bf16 and f32 at the DAM-gather probe's shape and odd shapes,
-   each grid one wave (no more blocks than the driver says the card holds
-   at once), its plan printed; P1, K2, index_select and the one-hot matmul
+   each launched grid (as the C entry reports it) the plan's and one wave
+   (no more blocks than the driver says the card holds at once), its plan
+   printed; P1, K2, index_select and the one-hot matmul
    timed, and P1 at K 1; the probe (scripts/probe_bank_gather.py) at its
    defaults, P1/K2 launches exact;
 13. vit_probe: P2 (frame-local attention) against its plain version at the
@@ -1573,8 +1574,9 @@ P1_ODD = (((64, 7, 1320), [5, 63, 5, 0, 5]), ((64, 7, 1320), [17]),
 def check_bank_gather(dev):
     """P1 against its plain version, bit-exact, at the probe's shape (bank
     [1024, 256, 1280], 30 indices) in bf16 and f32 and at the odd cases,
-    each case's grid one wave (no more blocks than the driver says the card
-    holds at once); its plan at the probe's shape; device times of the
+    the grid each call launched (as its C entry reports it) that of the
+    wrapper's plan and one wave: no more blocks than the driver says the
+    card holds at once; its plan at the probe's shape; device times of the
     probe's four routes at that shape in bf16, 32 index sets rotating so
     the reads come from device memory, not the 50 MB L2, and P1 at K 1 (one
     1,008-byte row: its fixed cost); then the probe's entry point at its
@@ -1582,7 +1584,7 @@ def check_bank_gather(dev):
     the probe run's launches)."""
     import torch
     from flash_vstream_tpu_torch.kernels.bank_gather import (
-        EVICT_FIRST, bank_gather_cuda, bank_gather_reference, card_plan)
+        bank_gather_cuda, bank_gather_reference, card_plan, card_ring)
     from flash_vstream_tpu_torch.kernels.gather_rows import gather_rows_cuda
     from flash_vstream_tpu_torch.scripts import probe_bank_gather as probe
 
@@ -1602,25 +1604,26 @@ def check_bank_gather(dev):
             if not torch.equal(got, bank_gather_reference(bank, idx)):
                 raise AssertionError(f"P1 {dtype} bank{tuple(bank.shape)} "
                                      f"idx {idx.tolist()}: not bit-exact")
-            plan, resident = card_plan(idx.shape[0], _nbytes(bank[0]),
-                                       dev.index)
-            if plan.blocks > resident:
-                raise AssertionError(f"P1 bank{tuple(bank.shape)}: {plan} "
-                                     f"exceeds one wave of {resident}")
+            plan = card_plan(idx.shape[0], _nbytes(bank[0]), dev.index)
+            resident = card_ring(dev.index)[0]
+            grid = bank_gather_cuda.grid
+            if grid != (plan.splits, plan.rows) or math.prod(grid) > resident:
+                raise AssertionError(f"P1 bank{tuple(bank.shape)} K "
+                                     f"{idx.shape[0]}: launched grid {grid}, "
+                                     f"planned {plan}, resident {resident}")
         print(f"P1 {str(dtype)[6:]}: bit-exact against index_select at bank"
               f"[{T}, {P}, {D}] x 4 index sets of {K} and bank[64, 7, 1320] "
               f"idx [5, 63, 5, 0, 5] / [17], bank[50, 7, 72] idx [49, 0, 49]",
               flush=True)
         del cases
     bank = probe.make_bank(T, P, D, torch.bfloat16, dev, SEED)
-    plan, resident = card_plan(K, _nbytes(bank[0]), dev.index)
-    print(f"P1 plan: bank[{T}, {P}, {D}] bf16 idx[{K}]: {plan.groups} "
-          f"groups of {plan.rows_per_group} row(s) x {plan.splits} shares = "
-          f"{plan.blocks} blocks (resident {resident}: the driver's "
-          f"occupancy x SMs; one wave), shares of {plan.share} B "
-          f"({plan.extra} a group {plan.share + plan.unit} B), ring "
-          f"{plan.stages} x {plan.stage_bytes} B, evict_first {EVICT_FIRST}",
-          flush=True)
+    resident, stage_bytes, stages = card_ring(dev.index)
+    plan = card_plan(K, _nbytes(bank[0]), dev.index)
+    print(f"P1 plan: bank[{T}, {P}, {D}] bf16 idx[{K}]: grid {plan.splits} "
+          f"shares x {plan.rows} rows = {plan.blocks} blocks (resident "
+          f"{resident}: the driver's occupancy x SMs; one wave), shares of "
+          f"{plan.share} B ({plan.extra} a row of {plan.share + plan.unit} "
+          f"B), ring {stages} x {stage_bytes} B", flush=True)
     lidx = [i.long() for i in idxs]
     ms = _ms(lambda i: bank_gather_cuda(bank, idxs[i % 32]), 64)
     eager = _eager_ms(lambda i: bank_gather_cuda(bank, idxs[i % 32]), 200)

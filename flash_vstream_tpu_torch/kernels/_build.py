@@ -40,13 +40,11 @@ _SIGNATURES = {
     # x, q4, scale, partial, out, out_f32, B, dh, dout, nb, the plan
     # (split, warps, rows), stream
     "fvt_int4_matmul": [_P] * 5 + [_I] * 8 + [_P],
-    # bank, idx, out, n_idx, row_bytes, the plan (groups, splits, rows per
-    # group, share, extra, unit), the ring (stage bytes, stages),
-    # evict_first, stream
-    "fvt_bank_gather": [_P, _P, _P, _I, _LL, _I, _I, _I, _LL, _I, _I, _I, _I,
-                        _I, _P],
-    # stage bytes, stages
-    "fvt_bank_gather_resident": [_I, _I],
+    # bank, idx, out, n_idx, row_bytes, the plan (splits, rows, share,
+    # extra, unit), the grid launched (int[2]), stream
+    "fvt_bank_gather": [_P, _P, _P, _I, _LL, _I, _I, _LL, _I, _I, _P, _P],
+    # the ring (int[2]: stage bytes, stages)
+    "fvt_bank_gather_resident": [_P],
     # q, k, v, o, 12 strides, B, H, S, D, q tiles, threads, variant,
     # shared bytes, scale, stream
     "fvt_frame_attention": [_P] * 4 + [_LL] * 12 + [_I] * 8 + [_F, _P],

@@ -6,109 +6,81 @@ Replaces the Pallas TPU kernel `gather_kernel`
 grid with one DMA per bank row. It computes what K2 (kernels/gather_rows.py)
 computes, by the TPU kernel's route: the rows stream through shared memory
 by `cp.async.bulk` loads and stores (csrc/bank_gather.cu), where K2 copies
-through the threads' registers. The kernel runs one wave of equal byte
-shares: `bank_gather_plan` cuts each row (or, where the rows outnumber the
-blocks the card holds at once, the whole flat output) into contiguous
-shares for at most that many blocks, and `block_copies` lists the bulk
-copies a block cuts its share into, as the kernel does (the CPU tests hold
-both). The probe (`flash_vstream_tpu_torch.scripts.probe_bank_gather`)
-times the two routes side by side and sweeps the ring's stage size and
-depth. Dispatch is by device: a CPU tensor takes `bank_gather_reference`
-(`index_select`), a CUDA tensor launches the kernel (`bank_gather_cuda`),
-which raises on what it does not take.
+through the threads' registers. The kernel's grid is one wave:
+`bank_gather_plan` cuts each row into equal shares for at most the blocks
+the card holds at once, and `block_copies` lists the bulk copies a block
+makes, as the kernel does (the CPU tests hold both). The probe
+(`flash_vstream_tpu_torch.scripts.probe_bank_gather`) times the two routes
+side by side and sweeps the kernel's ring. Dispatch is by device: a CPU
+tensor takes `bank_gather_reference` (`index_select`), a CUDA tensor
+launches the kernel (`bank_gather_cuda`), which raises on what it does not
+take.
 """
 from __future__ import annotations
 
+import ctypes
 import functools
 import math
-from typing import List, NamedTuple, Optional, Tuple
+from typing import List, NamedTuple, Tuple
 
 import torch
 
 from . import _build
 
 UNIT = 16                 # bytes: the bulk copy's size and address unit
-# the ring of shared-memory stages a block streams through and the stores'
-# L2 evict_first policy: the fastest one-wave plan of the probe's sweep on
-# an H100 (PERF.md; scripts/probe_bank_gather.py --sweep)
-STAGE_BYTES = 8 * 1024
-STAGES = 2
-EVICT_FIRST = True
-# the shares' granularity: the largest power of two up to ALIGN bytes that
-# divides the rows (16 at least), so shares and copies start on it; a cut
-# inside a 32-byte DRAM sector shares it between two blocks' stores, and
-# 128 (an L2 line) ran fastest in the sweep
+# the shares' unit: the largest power of two up to ALIGN bytes that
+# divides the rows. A cut inside a 32-byte DRAM sector, two blocks storing
+# into it, cost about 3 us at the probe's shape on an H100 (PERF.md, PR 15)
 ALIGN = 128
 
 
 class BankGatherPlan(NamedTuple):
-    """P1's grid: `groups` groups of `rows_per_group` output rows, grid y,
-    each cut into `splits` shares, grid x: share c takes share + unit bytes
-    of its group for c < extra, else share, from c * share + unit *
-    min(c, extra); each through a ring of `stages` stages of
-    `stage_bytes`."""
-    groups: int
+    """P1's grid (splits, rows): block (c, y) copies share c of rows y,
+    y + rows, ...; share c of a row takes share + unit bytes for c <
+    extra, else share, from c * share + unit * min(c, extra)."""
     splits: int
-    rows_per_group: int
+    rows: int
     share: int
     extra: int
     unit: int
-    stage_bytes: int
-    stages: int
 
     @property
     def blocks(self) -> int:
-        return self.groups * self.splits
+        return self.splits * self.rows
 
 
 def bank_gather_plan(n_idx: int, row_bytes: int, resident: int,
-                     stage_bytes: int = STAGE_BYTES, stages: int = STAGES,
-                     align: int = ALIGN, flat: bool = False) -> BankGatherPlan:
-    """One wave of equal shares, for `resident` blocks (those the card holds
-    at once). Units of the largest power of two up to `align` that divides
-    row_bytes (16 at least). Where the rows fit the wave (n_idx <=
-    resident, unless `flat`), each row is a group cut into resident //
-    n_idx shares, so no share straddles a row; else the whole output is one
-    group cut among the resident blocks. No more shares than a group has
-    stages' worth of bytes (a block of less adds no bytes in flight, only
-    a block to start), nor than it has units. Shares differ by at most a
-    unit and no block waits for a second wave."""
+                     stage_bytes: int) -> BankGatherPlan:
+    """One wave for `resident` blocks (those the card holds at once): each
+    row cut into resident // n_idx shares (at least 1) of units of
+    gcd(row_bytes, ALIGN) bytes, no more than the row has stages of
+    `stage_bytes` (a block of less adds no bytes in flight, only a block
+    to start) or units; where the rows outnumber the blocks, each of
+    `resident` blocks takes whole rows."""
     if n_idx < 1 or row_bytes < UNIT or row_bytes % UNIT or resident < 1:
         raise ValueError(f"bank_gather_plan takes K >= 1, rows a multiple of "
                          f"{UNIT} bytes and resident >= 1; got {n_idx}, "
                          f"{row_bytes}, {resident}")
-    unit = math.gcd(row_bytes, max(align, UNIT))
-    if n_idx <= resident and not flat:
-        groups, rows, splits = n_idx, 1, resident // n_idx
-    else:
-        groups, rows, splits = 1, n_idx, resident
-    units = rows * row_bytes // unit
-    splits = min(splits, -(-rows * row_bytes // stage_bytes), units)
-    return BankGatherPlan(groups, splits, rows, unit * (units // splits),
-                          units % splits, unit, stage_bytes, stages)
+    unit = math.gcd(row_bytes, ALIGN)
+    units = row_bytes // unit
+    splits = max(1, min(resident // n_idx, -(-row_bytes // stage_bytes),
+                        units))
+    return BankGatherPlan(splits, min(n_idx, resident),
+                          unit * (units // splits), units % splits, unit)
 
 
-def block_copies(plan: BankGatherPlan, row_bytes: int,
-                 block: int) -> List[Tuple[int, int, int]]:
-    """The bulk loads (output row, offset into the row, bytes) block
-    `block` (share block % splits of group block // splits) issues, chunk
-    by chunk, as csrc/bank_gather.cu cuts its share: chunks of a stage,
-    each loaded by one copy per row it touches (each chunk then stored as
-    one copy)."""
-    group, c = divmod(block, plan.splits)
+def block_copies(plan: BankGatherPlan, n_idx: int, row_bytes: int,
+                 stage_bytes: int, block: int) -> List[Tuple[int, int, int]]:
+    """The bulk copies (output row, offset into the row, bytes) block
+    `block` (share block % splits of rows block // splits, + plan.rows,
+    ...) makes, in order, as csrc/bank_gather.cu cuts its share: pieces of
+    at most a stage, each loaded and stored by one copy."""
+    y, c = divmod(block, plan.splits)
     begin = c * plan.share + plan.unit * min(c, plan.extra)
     length = plan.share + (plan.unit if c < plan.extra else 0)
-    copies = []
-    for lo in range(0, length, plan.stage_bytes):
-        n = min(plan.stage_bytes, length - lo)
-        row, off = divmod(begin + lo, row_bytes)
-        row += group * plan.rows_per_group
-        while n > 0:
-            m = min(n, row_bytes - off)
-            copies.append((row, off, m))
-            n -= m
-            row, off = row + 1, 0
-    return copies
+    return [(row, begin + lo, min(stage_bytes, length - lo))
+            for row in range(y, n_idx, plan.rows)
+            for lo in range(0, length, stage_bytes)]
 
 
 def bank_gather_reference(bank: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -117,38 +89,34 @@ def bank_gather_reference(bank: torch.Tensor, idx: torch.Tensor) -> torch.Tensor
 
 
 @functools.lru_cache(maxsize=None)
-def _resident(device_index: int, stage_bytes: int, stages: int) -> int:
-    """The blocks of P1's kernel with this ring that the card holds at once,
-    asked of the driver (its occupancy times the SMs), once per device and
-    ring."""
+def card_ring(device_index: int) -> Tuple[int, int, int]:
+    """(the blocks of P1's kernel the card holds at once, asked of the
+    driver: its occupancy times the SMs; the kernel's stage bytes; its
+    stages), once per device."""
+    ring = (ctypes.c_int * 2)()
     with torch.cuda.device(device_index):
-        n = _build.library().fvt_bank_gather_resident(stage_bytes, stages)
+        n = _build.library().fvt_bank_gather_resident(ring)
     if n < 0:
         _build.check(-n, "fvt_bank_gather_resident")
     if n == 0:
-        raise ValueError(f"P1's kernel does not fit an SM with {stages} "
-                         f"stages of {stage_bytes} bytes")
-    return n
+        raise ValueError(f"P1's kernel does not fit an SM with {ring[1]} "
+                         f"stages of {ring[0]} bytes")
+    return n, ring[0], ring[1]
 
 
-def card_plan(n_idx: int, row_bytes: int, device_index: int,
-              stage_bytes: int = STAGE_BYTES, stages: int = STAGES,
-              align: int = ALIGN) -> Tuple[BankGatherPlan, int]:
-    """(the plan the wrapper launches on this card, the resident blocks)."""
-    resident = _resident(device_index, stage_bytes, stages)
-    return (bank_gather_plan(n_idx, row_bytes, resident, stage_bytes, stages,
-                             align), resident)
+def card_plan(n_idx: int, row_bytes: int,
+              device_index: int) -> BankGatherPlan:
+    """The plan the wrapper launches on this card."""
+    resident, stage_bytes, _ = card_ring(device_index)
+    return bank_gather_plan(n_idx, row_bytes, resident, stage_bytes)
 
 
-def bank_gather_cuda(bank: torch.Tensor, idx: torch.Tensor, *,
-                     plan: Optional[BankGatherPlan] = None,
-                     evict_first: bool = EVICT_FIRST) -> torch.Tensor:
+def bank_gather_cuda(bank: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """Launch P1. bank: contiguous [T, P, D] bf16 or f32 on the card, 16-byte
     aligned, rows a multiple of 16 bytes (the bulk copy's unit); idx:
     contiguous int32 [K] on the same card, in range (callers clamp, as in
-    JAX). Repeated indices are fine. `plan` overrides `card_plan`'s (its
-    ring: `stage_bytes` a multiple of 16, `stages` 2..8) and `evict_first`
-    sets the stores' L2 policy: the probe sweeps both."""
+    JAX). Repeated indices are fine. The grid the kernel launched is kept
+    as `bank_gather_cuda.grid` (x, y)."""
     if not bank.is_cuda:
         raise ValueError(f"bank_gather_cuda takes a CUDA bank, got one on "
                          f"{bank.device}")
@@ -172,19 +140,21 @@ def bank_gather_cuda(bank: torch.Tensor, idx: torch.Tensor, *,
                       device=bank.device)
     if out.numel() == 0:
         return out
-    if plan is None:
-        plan = card_plan(idx.shape[0], row_bytes, bank.device.index)[0]
+    plan = card_plan(idx.shape[0], row_bytes, bank.device.index)
+    grid = (ctypes.c_int * 2)()
     rc = _build.library().fvt_bank_gather(
         bank.data_ptr(), idx.data_ptr(), out.data_ptr(), idx.shape[0],
-        row_bytes, plan.groups, plan.splits, plan.rows_per_group, plan.share,
-        plan.extra, plan.unit, plan.stage_bytes, plan.stages,
-        int(evict_first), torch.cuda.current_stream(bank.device).cuda_stream)
+        row_bytes, plan.splits, plan.rows, plan.share, plan.extra, plan.unit,
+        grid,
+        torch.cuda.current_stream(bank.device).cuda_stream)
     _build.check(rc, "bank_gather_cuda")
     bank_gather_cuda.launches += 1
+    bank_gather_cuda.grid = (grid[0], grid[1])
     return out
 
 
 bank_gather_cuda.launches = 0
+bank_gather_cuda.grid = None
 
 
 def bank_gather(bank: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

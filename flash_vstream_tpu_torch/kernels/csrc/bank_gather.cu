@@ -6,48 +6,40 @@
 // scalar-prefetch grid over the K indices whose every step DMAs one [P, D]
 // bank row HBM -> VMEM -> out. K2 (gather_rows.cu) ports the same function
 // as a vector copy through the threads' registers; this kernel takes the
-// route the TPU kernel takes, asynchronous bulk copies through shared
-// memory, so that the DAM-gather probe can time both Hopper routes side by
-// side.
+// route the TPU kernel takes, one asynchronous bulk copy per piece of a row,
+// so that the DAM-gather probe can time both Hopper routes side by side.
 //
-// Design: one wave of equal byte shares. The grid holds at most the blocks
-// the card holds at once (the driver's occupancy of this kernel at its
-// shared memory, times the SMs, read by the wrapper:
-// `fvt_bank_gather_resident`), so no block waits for a second wave. The
-// output is cut into groups of rows, grid y, each into equal shares, grid
-// x: share c takes `share` bytes of its group from c * share + unit *
-// min(c, extra), `unit` more for c < extra, so shares differ by at most a
-// unit: 128 bytes (an L2 line) where the rows allow it, since a 16-byte
-// cut splits DRAM sectors between two blocks' stores. Where the K rows fit
-// the wave a group is one row, cut into resident / K shares, so no share
-// straddles a row; else the group is the whole output, one flat range, cut
-// among the resident blocks; no share is cut below a stage where the group
-// allows. The wrapper's plan (kernels/bank_gather.py `bank_gather_plan`)
-// mirrors this for the tests, and the probe (scripts/probe_bank_gather.py
-// --sweep) times the alternatives.
+// Design: one wave. The grid (splits, rows) never holds more blocks than
+// the card holds at once (the driver's occupancy of this kernel times the
+// SMs: `fvt_bank_gather_resident`), so no block waits for a second wave.
+// Each row is cut into `splits` equal shares of `unit` bytes, grid x:
+// share c takes `share` bytes from c * share + unit * min(c, extra), a
+// unit more for c < extra, so shares differ by at most a unit: 128 bytes
+// (an L2 line) where the rows allow, since a cut inside a 32-byte DRAM
+// sector, two blocks storing into it, cost about 3 us at the probe's shape
+// (PERF.md, PR 15). Block (c, y) copies share c of rows y, y + rows, ...:
+// one row where the K rows fit the wave (splits = resident / K), several
+// where K exceeds it (splits 1). The
+// wrapper's plan (kernels/bank_gather.py `bank_gather_plan`) computes the
+// grid and shares, and mirrors the copies for the tests.
 //
-// A block streams its share in chunks of `stage_bytes` through `stages`
-// shared-memory stages, one warp a stage, each warp's lane 0 a pipeline of
-// its own (chunks s, s + stages, ... of the share):
-//   - `cp.async.bulk` global -> shared, one copy per bank row the chunk
-//     touches (a copy never straddles a row; each warp reads a row's index
-//     once, a group of one row's before it sets up its barrier),
-//     signals the stage's mbarrier with the bytes it delivered
-//     (expect_tx / complete_tx);
-//   - once that barrier's phase flips, one `cp.async.bulk` shared -> global
-//     writes the chunk out (the output rows are contiguous), committed as a
-//     bulk group (optionally with an L2 evict_first policy: `evict_first`);
-//   - the stage is loaded again only after `cp.async.bulk.wait_group.read`
-//     says that store has read it.
-// So `stages` chunks are in flight per block, and no chunk's store waits
-// behind another's load. The copy moves bytes only: bf16 and f32 banks
-// share it. Stage size and depth are arguments, so the probe sweeps them on
-// one build; the wrapper's defaults are the sweep's fastest.
+// One thread of each block streams its share of each row through a ring of
+// kStages shared-memory stages of at most kStageBytes each:
+//   - `cp.async.bulk` global -> shared signals the stage's mbarrier with the
+//     bytes it delivered (expect_tx / complete_tx);
+//   - once that barrier's phase flips, `cp.async.bulk` shared -> global
+//     writes the stage out, committed as a bulk group;
+//   - a stage is loaded again only after `cp.async.bulk.wait_group.read`
+//     says the store that read it has finished reading.
+// So kStages - 1 loads and up to two stores are in flight per block. The
+// copy moves bytes only: bf16 and f32 banks share it. The ring and the
+// stores' L2 policy are constants here; the probe
+// (scripts/probe_bank_gather.py --sweep) times patched copies of them.
 //
 // Limits: the bulk copy takes 16-byte aligned addresses and sizes in
 // multiples of 16 (the wrapper raises otherwise); an mbarrier phase counts
-// at most 2^20 - 1 transaction bytes, above the largest stage; dynamic
-// shared memory above 48 KB needs cudaFuncSetAttribute.
+// at most 2^20 - 1 transaction bytes, far above the 16 KB stage; the 64 KB
+// of dynamic shared memory needs cudaFuncSetAttribute above 48 KB.
 //
 // What bounds it on this card: device-memory bandwidth. The probe gathers
 // 30 rows of 256 x 1280 bf16 (19.7 MB read, 19.7 MB written): 11.7 us at
@@ -57,7 +49,13 @@
 
 namespace {
 
-constexpr int kMaxStages = 8;
+constexpr int kStages = 4;
+constexpr int kStageBytes = 16 * 1024;
+constexpr int kSmemBytes = kStages * kStageBytes;
+// the stores' lines marked first to leave the L2 (createpolicy
+// evict_first): 0.0124 ms against 0.0128 without, at the probe's shape on
+// an H100 (scripts/probe_bank_gather.py --sweep; PERF.md, PR 15)
+constexpr bool kEvictFirst = true;
 constexpr int kMaxDevices = 16;
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -100,12 +98,9 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src,
       : "memory");
 }
 
-// One store of a stage, committed as a bulk group; with `hint` its lines
-// carry `policy` into the L2 (evict_first: the first to leave).
 __device__ __forceinline__ void bulk_store(void* dst, const void* src,
-                                           uint32_t bytes, uint64_t policy,
-                                           bool hint) {
-  if (hint) {
+                                           uint32_t bytes, uint64_t policy) {
+  if constexpr (kEvictFirst) {
     asm volatile(
         "cp.async.bulk.global.shared::cta.bulk_group.L2::cache_hint [%0], "
         "[%1], %2, %3;\n" ::"l"(dst),
@@ -121,164 +116,150 @@ __device__ __forceinline__ void bulk_store(void* dst, const void* src,
   asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
 }
 
-// Wait until this thread's committed stores have read their source.
+// Wait until all but the newest N committed stores have read their source.
+template <int N>
 __device__ __forceinline__ void bulk_wait_read() {
-  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
 }
 
-// Block (c, g): share c of group g. Warp s streams the share's chunks s,
-// s + stages, ... of stage_bytes each through stage s: its lane 0 loads a
-// chunk (one bulk copy per row it touches), waits for the stage's mbarrier,
-// stores the chunk as one bulk copy (the output rows are contiguous), and
-// waits for that store to have read the stage before loading the next.
-__global__ void __launch_bounds__(kMaxStages * 32)
+__global__ void __launch_bounds__(32)
     bank_gather_kernel(const uint8_t* __restrict__ bank,
                        const int* __restrict__ idx, uint8_t* __restrict__ out,
-                       long long row_bytes, int rows_per_group,
-                       long long share, int extra, int unit, int stage_bytes,
-                       int stages, int evict_first) {
+                       int n_idx, long long row_bytes, long long share,
+                       int extra, int unit) {
   extern __shared__ __align__(128) uint8_t stage[];
-  __shared__ __align__(8) uint64_t bar[kMaxStages];
-  if (threadIdx.x % 32 != 0) return;
-  const int s = threadIdx.x / 32;
+  __shared__ __align__(8) uint64_t bar[kStages];
+  if (threadIdx.x != 0) return;
+  // the first row's index, asked for before the barriers are set up so
+  // that its latency overlaps theirs
+  int bank_row = __ldg(idx + blockIdx.y);
 
-  // the share: its first byte in its group, its bytes, the group's row
   const long long c = blockIdx.x;
   const long long begin =
       c * share + unit * min(c, static_cast<long long>(extra));
   const long long len = share + (c < extra ? unit : 0);
-  const long long row0 = static_cast<long long>(blockIdx.y) * rows_per_group;
-  uint8_t* buf = stage + static_cast<long long>(s) * stage_bytes;
-  // a group of one row: its bank row, asked for before the barrier is set
-  // up so that its latency overlaps it
-  const int bank_row0 = rows_per_group == 1 ? __ldg(idx + row0) : 0;
+  const int pieces = static_cast<int>((len + kStageBytes - 1) / kStageBytes);
 
-  mbar_init(&bar[s]);
+  for (int s = 0; s < kStages; ++s) mbar_init(&bar[s]);
   asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
   uint64_t policy = 0;
-  if (evict_first) {
+  if constexpr (kEvictFirst) {
     asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n"
                  : "=l"(policy));
   }
 
-  const long long step = static_cast<long long>(stages) * stage_bytes;
-  uint32_t parity = 0;   // of the stage's use count
-  for (long long lo = static_cast<long long>(s) * stage_bytes; lo < len;
-       lo += step) {
-    const uint32_t n =
-        static_cast<uint32_t>(min(static_cast<long long>(stage_bytes),
-                                  len - lo));
-    // the stage is free once this warp's last store has read it
-    if (lo >= step) bulk_wait_read();
-    mbar_expect_tx(&bar[s], n);
-    // the chunk's bytes of the group, one load per row it touches (a
-    // group of one row: the share lies inside it)
-    long long off = begin + lo, row = row0;
-    if (rows_per_group > 1) {
-      row += off / row_bytes;
-      off %= row_bytes;
+  auto piece_bytes = [&](int i) {
+    return static_cast<uint32_t>(
+        min(static_cast<long long>(kStageBytes),
+            len - static_cast<long long>(i) * kStageBytes));
+  };
+  // piece t of the block (t0 of them before this row) goes through stage
+  // t % kStages, that stage's use t / kStages
+  int t0 = 0;
+  for (int row = blockIdx.y; row < n_idx; row += gridDim.y, t0 += pieces) {
+    const uint8_t* src =
+        bank + static_cast<long long>(bank_row) * row_bytes + begin;
+    // the next row's index, in flight while this row streams
+    if (row + gridDim.y < n_idx) bank_row = __ldg(idx + row + gridDim.y);
+    uint8_t* dst = out + static_cast<long long>(row) * row_bytes + begin;
+    auto load = [&](int i) {
+      const int s = (t0 + i) % kStages;
+      const uint32_t n = piece_bytes(i);
+      mbar_expect_tx(&bar[s], n);
+      bulk_load(stage + s * kStageBytes,
+                src + static_cast<long long>(i) * kStageBytes, n, &bar[s]);
+    };
+    for (int i = 0; i < min(pieces, kStages); ++i) load(i);
+    for (int i = 0; i < pieces; ++i) {
+      const int s = (t0 + i) % kStages;
+      mbar_wait(&bar[s], ((t0 + i) / kStages) & 1);
+      bulk_store(dst + static_cast<long long>(i) * kStageBytes,
+                 stage + s * kStageBytes, piece_bytes(i), policy);
+      // refill the stage the previous store read, once it has read it (the
+      // store just issued may still be reading its own stage)
+      const int next = i - 1 + kStages;
+      if (i >= 1 && next < pieces) {
+        bulk_wait_read<1>();
+        load(next);
+      }
     }
-    for (uint32_t done = 0; done < n; ++row, off = 0) {
-      const uint32_t m = static_cast<uint32_t>(
-          min(static_cast<long long>(n - done), row_bytes - off));
-      const int b = rows_per_group == 1 ? bank_row0 : __ldg(idx + row);
-      bulk_load(buf + done, bank + static_cast<long long>(b) * row_bytes + off,
-                m, &bar[s]);
-      done += m;
-    }
-    mbar_wait(&bar[s], parity);
-    parity ^= 1;
-    bulk_store(out + row0 * row_bytes + begin + lo, buf, n, policy,
-               evict_first);
+    // the next row's first loads take stages the last stores may still read
+    bulk_wait_read<0>();
   }
-  // the stores must finish reading before the block's shared memory goes
+  // the stores must finish before the block's shared memory goes
   asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
-// The dynamic shared memory each device's kernel has been opened to.
-int g_smem[kMaxDevices] = {};
+// Whether each device's kernel has been opened to kSmemBytes of dynamic
+// shared memory.
+bool g_open[kMaxDevices] = {};
 
-// Open the kernel to `smem` bytes of dynamic shared memory on the current
-// device, once for each larger size.
-cudaError_t open_smem(int smem) {
+cudaError_t open_smem() {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
-  if (smem > g_smem[dev]) {
+  if (!g_open[dev]) {
     err = cudaFuncSetAttribute(bank_gather_kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               smem);
+                               kSmemBytes);
     if (err != cudaSuccess) return err;
-    g_smem[dev] = smem;
+    g_open[dev] = true;
   }
   return cudaSuccess;
 }
 
-bool valid_ring(int stage_bytes, int stages) {
-  return stages >= 2 && stages <= kMaxStages && stage_bytes >= 16 &&
-         stage_bytes % 16 == 0 &&
-         static_cast<long long>(stage_bytes) * stages <= 227 * 1024;
-}
-
 }  // namespace
 
-// The blocks of P1's kernel the current card holds at once with a ring of
-// `stages` stages of `stage_bytes` (the driver's occupancy times the SMs),
-// or minus a cudaError_t.
-extern "C" int fvt_bank_gather_resident(int stage_bytes, int stages) {
-  if (!valid_ring(stage_bytes, stages)) {
-    return -static_cast<int>(cudaErrorInvalidValue);
-  }
-  const int smem = stage_bytes * stages;
+// The blocks of P1's kernel the current card holds at once (the driver's
+// occupancy times the SMs), or minus a cudaError_t; ring[0] and ring[1]
+// get the stage bytes and the stages.
+extern "C" int fvt_bank_gather_resident(int* ring) {
+  ring[0] = kStageBytes;
+  ring[1] = kStages;
   int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t err = open_smem(smem);
+  cudaError_t err = open_smem();
   if (err == cudaSuccess) err = cudaGetDevice(&dev);
   if (err == cudaSuccess) {
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   }
   if (err == cudaSuccess) {
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, bank_gather_kernel, 32 * stages, smem);
+        &per_sm, bank_gather_kernel, 32, kSmemBytes);
   }
   return err == cudaSuccess ? per_sm * sms : -static_cast<int>(err);
 }
 
 // bank [T, row_bytes] and out [n_idx, row_bytes], both 16-byte aligned with
 // row_bytes a multiple of 16; idx [n_idx] int32, in range. The plan
-// (kernels/bank_gather.py `bank_gather_plan`): `groups` groups of
-// `rows_per_group` rows (groups x rows_per_group = n_idx; at most 65,535
-// groups), each cut into `splits` shares, share c taking share + unit bytes
-// for c < extra and share for the others, from c * share + unit * min(c,
-// extra) into its group (unit a multiple of 16 dividing row_bytes and
-// share), covering the group exactly. A ring of `stages` (2..8) stages of
-// `stage_bytes` (a multiple of 16, all under 227 KB); `evict_first` marks
-// the stores first to leave the L2. A plan or ring it does not take returns
-// cudaErrorInvalidValue before any launch; else the launch's cudaError_t.
+// (kernels/bank_gather.py `bank_gather_plan`): a grid of (splits, rows)
+// blocks, rows <= n_idx and <= 65535; share c of a row takes share + unit
+// bytes for c < extra and share for the others (unit a multiple of 16
+// dividing row_bytes and share), covering the row exactly. grid[0] and grid[1] get the grid launched. A
+// plan it does not take returns cudaErrorInvalidValue before any launch;
+// else the launch's cudaError_t.
 extern "C" int fvt_bank_gather(const void* bank, const void* idx, void* out,
-                               int n_idx, long long row_bytes, int groups,
-                               int splits, int rows_per_group, long long share,
-                               int extra, int unit, int stage_bytes,
-                               int stages, int evict_first, void* stream) {
-  if (!valid_ring(stage_bytes, stages) || n_idx < 1 || unit < 16 ||
-      unit % 16 || row_bytes < unit || row_bytes % unit || groups < 1 ||
-      groups > 65535 || rows_per_group < 1 ||
-      static_cast<long long>(groups) * rows_per_group != n_idx ||
-      splits < 1 || share < unit || share % unit || extra < 0 ||
+                               int n_idx, long long row_bytes, int splits,
+                               int rows, long long share, int extra,
+                               int unit, int* grid, void* stream) {
+  if (n_idx < 1 || unit < 16 || unit % 16 || row_bytes < unit ||
+      row_bytes % unit || splits < 1 || rows < 1 || rows > n_idx ||
+      rows > 65535 || share < unit || share % unit || extra < 0 ||
       extra >= splits ||
       static_cast<long long>(splits) * share +
               static_cast<long long>(unit) * extra !=
-          static_cast<long long>(rows_per_group) * row_bytes) {
+          row_bytes) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int smem = stage_bytes * stages;
-  cudaError_t err = open_smem(smem);
+  cudaError_t err = open_smem();
   if (err != cudaSuccess) return static_cast<int>(err);
-  bank_gather_kernel<<<dim3(splits, groups), 32 * stages, smem,
+  const dim3 blocks(static_cast<unsigned>(splits), static_cast<unsigned>(rows));
+  bank_gather_kernel<<<blocks, 32, kSmemBytes,
                        static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(bank), static_cast<const int*>(idx),
-      static_cast<uint8_t*>(out), row_bytes, rows_per_group, share, extra,
-      unit, stage_bytes, stages, evict_first);
+      static_cast<uint8_t*>(out), n_idx, row_bytes, share, extra, unit);
+  grid[0] = static_cast<int>(blocks.x);
+  grid[1] = static_cast<int>(blocks.y);
   return static_cast<int>(cudaGetLastError());
 }

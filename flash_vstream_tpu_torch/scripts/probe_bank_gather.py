@@ -18,20 +18,21 @@ versions.
 
 On the card, three readings of P1 alone, each a line:
   --fixed   its fixed cost: K 1, one 1,008-byte row (bank [50, 7, 72]
-            bf16), P1, K2 and index_select by graph replay;
-  --sweep   P1 at the probe's shape with every ring of stage 8, 16 or 32 KB
-            and 2-6 stages that fits an SM, shares cut at 16, 32, 128 or
-            256 bytes, with and without the stores' L2 evict_first policy, in
-            one wave of the shipped plan (rows cut into shares): ms by
-            graph replay (32 index sets rotating past the L2), the resident
-            blocks the driver reports and the plan's shares, each bit-exact
-            against index_select; then the three fastest of those with the
-            whole output as one flat range of shares, and with rows cut
-            for twice the resident blocks (more than one wave);
+            bf16), P1, K2 and index_select by graph replay; then P1 at the
+            probe's shape (`p1_ms`: 32 index sets rotating past the L2);
+  --sweep   P1 at the probe's shape in patched copies of
+            csrc/bank_gather.cu (`SWEEP`) under build/probe_bank_gather/,
+            each built by its own `_build` (BUILDS at a time) and run in
+            a process of its own, the source as it is first and last:
+            every ring of stage 8, 16 or 32 KB and 2, 3, 4 or 6 stages,
+            and the shipped ring without the stores' L2 evict_first
+            policy; per copy the resident blocks the driver reports, the
+            plan's grid and shares and ms by graph replay (32 index sets
+            rotating past the L2), each bit-exact against index_select;
   --faults  planted faults in patched copies of csrc/bank_gather.cu
-            (`FAULTS`; a share cut 16 bytes short) under
-            build/probe_bank_gather/, each of which `chip_smoke.py --only
-            bank_gather` must fail; the error it read is printed.
+            (`FAULTS`; a share cut 16 bytes short), each of which
+            `chip_smoke.py --only bank_gather` must fail; the error it read
+            is printed.
 
 Usage: python -m flash_vstream_tpu_torch.scripts.probe_bank_gather
            [--t 1024] [--k 30] [--p 256] [--d 1280] [--iters 50]
@@ -55,18 +56,43 @@ from ..kernels.gather_rows import gather_rows, gather_rows_cuda
 from .timing import graph_seconds
 
 TRIALS = 4
-# the sweep's rings: stage bytes x stages, each fitting 227 KB of an SM
-SWEEP_STAGE_BYTES = (8 * 1024, 16 * 1024, 32 * 1024)
-SWEEP_STAGES = (2, 3, 4, 5, 6)
-SWEEP_ALIGN = (16, 32, 128, 256)
 WORK = Path(__file__).resolve().parents[2] / "build" / "probe_bank_gather"
 SRC = "kernels/csrc/bank_gather.cu"
+BUILDS = 4                # sweep copies built at once
+_STAGES = "constexpr int kStages = 4;\n"
+_STAGE_BYTES = "constexpr int kStageBytes = 16 * 1024;\n"
+_EVICT = "constexpr bool kEvictFirst = true;\n"
+# the sweep's copies, (old, new) edits of csrc/bank_gather.cu: "base" the
+# source as it is (16 KB x 4, evict_first stores), ring_<KB>k_x<stages>
+# another ring, no_evict_first the stores without the L2 policy
+SWEEP = {"base": []}
+SWEEP.update({
+    f"ring_{kb}k_x{n}": [
+        (_STAGE_BYTES, f"constexpr int kStageBytes = {kb} * 1024;\n"),
+        (_STAGES, f"constexpr int kStages = {n};\n")]
+    for kb in (8, 16, 32) for n in (2, 3, 4, 6) if (kb, n) != (16, 4)})
+SWEEP["no_evict_first"] = [(_EVICT, "constexpr bool kEvictFirst = false;\n")]
 # planted faults, (old, new) edits of csrc/bank_gather.cu
 FAULTS = {
     "fault_share": [(
         "  const long long len = share + (c < extra ? unit : 0);\n",
         "  const long long len = share + (c < extra ? unit : 0) - 16;\n")],
 }
+# run in a sweep copy's directory with t, k, p, d: its line
+_SWEEP_POINT = r"""
+import sys, torch
+from flash_vstream_tpu_torch.kernels.bank_gather import card_plan, card_ring
+from flash_vstream_tpu_torch.scripts import probe_bank_gather as probe
+t, k, p, d = map(int, sys.argv[1:5])
+dev = torch.device("cuda", 0)
+bank = probe.make_bank(t, p, d, torch.bfloat16, dev)
+ms = probe.p1_ms(bank, k)
+resident, stage_bytes, stages = card_ring(0)
+plan = card_plan(k, p * d * 2, 0)
+print(f"stage {stage_bytes // 1024} KB x {stages}: resident {resident}, "
+      f"grid {plan.splits} x {plan.rows}, shares of ~{plan.share} B, "
+      f"bit-exact, {ms:.4f} ms")
+"""
 
 
 def gather_xla(bank: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -130,83 +156,74 @@ def _graph_ms(fn, device: torch.device, iters: int = 64) -> float:
     return graph_seconds(loop, device, 3) * 1e3 / iters
 
 
-def fixed_cost(device: torch.device) -> Dict[str, float]:
-    """P1, K2 and index_select at K 1 (1,008 bytes), ms a call."""
-    bank, idx = fixed_case(device)
+def fixed_cost(bank: torch.Tensor, k: int) -> Dict[str, float]:
+    """P1, K2 and index_select at K 1 (1,008 bytes), ms a call, and P1 at
+    `bank` and k rows (`p1_ms`)."""
+    small, idx = fixed_case(bank.device)
     lidx = idx.long()
-    res = {"p1": _graph_ms(lambda i: bank_gather_cuda(bank, idx), device),
-           "k2": _graph_ms(lambda i: gather_rows_cuda(bank, idx), device),
-           "index_select": _graph_ms(lambda i: bank.index_select(0, lidx),
-                                     device)}
+    res = {"p1": _graph_ms(lambda i: bank_gather_cuda(small, idx),
+                           bank.device),
+           "k2": _graph_ms(lambda i: gather_rows_cuda(small, idx),
+                           bank.device),
+           "index_select": _graph_ms(lambda i: small.index_select(0, lidx),
+                                     bank.device)}
+    res["p1_k"] = p1_ms(bank, k)
     print("fixed K 1 (1,008 B row): " + " ".join(
-        f"{k}={v:.4f}" for k, v in res.items()) + " ms", flush=True)
+        f"{n}={res[n]:.4f}" for n in ("p1", "k2", "index_select"))
+        + f" ms; P1 at K {k} of bank{tuple(bank.shape)}: {res['p1_k']:.4f} "
+        f"ms", flush=True)
     return res
 
 
-def sweep(bank: torch.Tensor, k: int) -> Dict[tuple, float]:
-    """P1 at every ring of the sweep that fits, at each share alignment,
-    with and without evict_first, over 32 index sets rotating past the L2:
-    {(stage bytes, stages, align, evict_first, plan kind): ms}, one line a
-    ring (align: ms without / with evict_first); then the three fastest
-    with the plan kinds "flat" (one flat range of shares) and "2x" (rows
-    cut for twice the resident blocks), one line each; then the fastest in
-    one wave and the default."""
-    # the plan's names here alone, so that the routes and --fixed also time
-    # a P1 without them (an earlier commit's, for a before-and-after reading)
-    from ..kernels.bank_gather import (ALIGN, EVICT_FIRST, STAGE_BYTES,
-                                       STAGES, bank_gather_plan, card_plan)
+def p1_ms(bank: torch.Tensor, k: int) -> float:
+    """P1's ms a call of k rows by graph replay, over 32 index sets rotating
+    past the L2, after a check that it is bit-exact against
+    index_select."""
     device = bank.device
     g = torch.Generator(device=device).manual_seed(5)
     idxs = [torch.randint(0, bank.shape[0], (k,), generator=g, device=device,
                           dtype=torch.int64).to(torch.int32)
             for _ in range(32)]
-    row = bank[0].numel() * bank.element_size()
-    want = bank_gather_reference(bank, idxs[0])
+    if not torch.equal(bank_gather_cuda(bank, idxs[0]),
+                       bank_gather_reference(bank, idxs[0])):
+        raise AssertionError("P1: not bit-exact")
+    return _graph_ms(lambda i: bank_gather_cuda(bank, idxs[i % 32]), device)
+
+
+def sweep(t: int, k: int, p: int, d: int) -> Dict[str, float]:
+    """P1 in each copy of `SWEEP` at bank [t, p, d] bf16 and k rows, base
+    first and last, one line each, then the fastest: {copy: ms} (base's the
+    better of its two)."""
+    from .probe_int4_k6 import make_variant
+    names = list(SWEEP)
+    dirs = {n: make_variant(n, WORK, SRC, SWEEP) for n in names}
+    running = []
+    for n in [*names, None]:
+        # at most BUILDS copies build at once, each with an nvcc a source
+        while running and (n is None or len(running) == BUILDS):
+            name, b = running.pop(0)
+            if b.wait() != 0:
+                raise RuntimeError(f"sweep {name}: build failed: "
+                                   f"{b.stderr.read()[-2000:]}")
+        if n is not None:
+            running.append((n, subprocess.Popen(
+                [sys.executable, "-c", "from flash_vstream_tpu_torch.kernels "
+                 "import _build; _build.build()"], cwd=dirs[n],
+                stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
+                text=True)))
     res = {}
-
-    def time(plan, evict, key):
-        if not torch.equal(bank_gather_cuda(bank, idxs[0], plan=plan,
-                                            evict_first=evict), want):
-            raise AssertionError(f"P1 with {plan}: not bit-exact")
-        res[key] = _graph_ms(lambda i: bank_gather_cuda(
-            bank, idxs[i % 32], plan=plan, evict_first=evict), device)
-        return res[key]
-
-    for stage_bytes in SWEEP_STAGE_BYTES:
-        for stages in SWEEP_STAGES:
-            if stage_bytes * stages > 227 * 1024:
-                continue
-            cells = []
-            for align in SWEEP_ALIGN:
-                plan, resident = card_plan(k, row, device.index, stage_bytes,
-                                           stages, align)
-                cells.append(f"a{align}=" + "/".join(
-                    f"{time(plan, ev, (stage_bytes, stages, align, ev, 'rows')):.4f}"
-                    for ev in (False, True)))
-            print(f"sweep stage {stage_bytes // 1024} KB x {stages} "
-                  f"(resident {resident}, {plan.blocks} blocks of "
-                  f"~{plan.share} B): " + " ".join(cells), flush=True)
-    for key in sorted(res, key=res.get)[:3]:
-        stage_bytes, stages, align, evict, _ = key
-        resident = card_plan(k, row, device.index, stage_bytes, stages)[1]
-        cells = [f"rows={res[key]:.4f}"]
-        for kind, plan in (
-                ("flat", bank_gather_plan(k, row, resident, stage_bytes,
-                                          stages, align, flat=True)),
-                ("2x", bank_gather_plan(k, row, 2 * resident, stage_bytes,
-                                        stages, align))):
-            ms = time(plan, evict, (stage_bytes, stages, align, evict, kind))
-            cells.append(f"{kind}={ms:.4f} ({plan.blocks} blocks)")
-        print(f"sweep plans, stage {stage_bytes // 1024} KB x {stages} align "
-              f"{align} evict_first={int(evict)}: " + " ".join(cells),
-              flush=True)
-    best = min((key for key in res if key[4] == "rows"), key=res.get)
-    default = (STAGE_BYTES, STAGES, ALIGN, EVICT_FIRST, "rows")
-    print(f"sweep fastest in one wave: stage {best[0] // 1024} KB x "
-          f"{best[1]} align {best[2]} evict_first={int(best[3])} "
-          f"{res[best]:.4f} ms; default ({STAGE_BYTES // 1024} KB x {STAGES} "
-          f"align {ALIGN} evict_first={int(EVICT_FIRST)}) "
-          f"{res[default]:.4f} ms", flush=True)
+    for n in [*names, "base"]:
+        run = subprocess.run([sys.executable, "-c", _SWEEP_POINT, *map(
+            str, (t, k, p, d))], cwd=dirs[n], capture_output=True, text=True)
+        if run.returncode != 0:
+            raise RuntimeError(f"sweep {n}: {run.stderr[-2000:]}")
+        line = run.stdout.strip().splitlines()[-1]
+        ms = float(line.split()[-2])
+        res[n] = min(ms, res.get(n, ms))
+        print(f"sweep {n}: {line}", flush=True)
+    best = min(res, key=res.get)
+    print(f"sweep fastest: {best} {res[best]:.4f} ms; base {res['base']:.4f} "
+          f"ms", flush=True)
     return res
 
 
@@ -271,9 +288,9 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, float]:
         print(f"{mode:10s} {dt * 1e3:7.3f} ms   {nbytes / dt / 1e9:7.1f} GB/s "
               f"gathered ({nbytes / 1e6:.1f} MB)", flush=True)
     if args.fixed:
-        fixed_cost(device)
+        fixed_cost(bank, K)
     if args.sweep:
-        sweep(bank, K)
+        sweep(T, K, args.p, args.d)
     if args.faults and not run_faults():
         raise AssertionError("a planted fault in P1 was not caught")
     return results

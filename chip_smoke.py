@@ -29,6 +29,13 @@ Phases, one or more lines each; any failure raises and exits non-zero:
 5. slice: the full-width Qwen2-VL-7B streaming session with random weights:
    21 clips ingested (one warm-up), memory saturated, 3 greedy answers,
    with the launch counts of both kernels during ingest and answering;
+   serve_http: the port's HTTP server over the slice's weights, two
+   streams (the second a clone) fed .npy frames, greedy, SSE, preemptible
+   (decode chunks of 8, prefill chunks of 512), speculative (k 4) and
+   sampled answers over HTTP, each held to the greedy ids or to itself,
+   `_sample` card vs CPU, a clone's memory against a solo session's, a
+   save/load round trip; seconds and ms/token per answer, the prefill
+   one-shot and in chunks, speculation's acceptance, the K1/K2 launches;
 6. backward: K4/K5's ptxas registers and SASS counts first; K3 (forward +
    lse), K4 (dq) and K5 (dk/dv) against their plain versions at the
    training shape, two small edge cases and the tile cases, K4/K5 equal bit
@@ -1276,6 +1283,274 @@ def run_slice(dev):
           f"max |logit| {logits.abs().max().item():.3f}; peak memory "
           f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB", flush=True)
     return k1_ingest + k1_answer, k2_ingest + k2_answer, params
+
+
+SERVE_Q = "What is happening in the video?"
+
+
+def _http(base, path, body=None, content_type="application/json"):
+    """One request to the port's HTTP server: (status, JSON reply, seconds).
+    A status other than 200 or 201 raises."""
+    import urllib.error
+    import urllib.request
+    if isinstance(body, dict):
+        body = json.dumps(body).encode()
+    req = urllib.request.Request(base + path, data=body,
+                                 method="GET" if body is None else "POST")
+    if body is not None:
+        req.add_header("Content-Type", content_type)
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=600) as resp:
+            code, out = resp.status, resp.read()
+    except urllib.error.HTTPError as e:
+        code, out = e.code, e.read()
+    dt = time.perf_counter() - t0
+    if code not in (200, 201):
+        raise AssertionError(f"serve_http: {path} answered {code}: {out[:300]}")
+    if out.startswith(b"data: "):
+        return code, out, dt
+    return code, json.loads(out), dt
+
+
+def _sse_deltas(raw: bytes):
+    """The text deltas of an SSE answer; it must end in data: [DONE]."""
+    events = [line[len(b"data: "):] for line in raw.split(b"\n\n")
+              if line.startswith(b"data: ")]
+    if not events or events[-1] != b"[DONE]":
+        raise AssertionError("serve_http: the SSE answer did not end in "
+                             "data: [DONE]")
+    return [json.loads(e)["delta"] for e in events[:-1]]
+
+
+def _npy(frames):
+    import io
+    import numpy as np
+    buf = io.BytesIO()
+    np.save(buf, np.stack(frames))
+    return buf.getvalue()
+
+
+def run_serve_http(dev, params, work):
+    """The port's HTTP server (serve/http_server.py) in a thread on an
+    ephemeral port over the slice's full-width bf16 weights (Qwen2-VL-7B,
+    224 px, clip 8, bank 1,024, max_len 4,096), its chunk sizes those of
+    `--preempt 8 --prefill-chunk 512`. Two streams, the second a clone of
+    the first: each gets 4 clips of .npy frames and a flushed partial clip
+    of 3, different frames on each. Over HTTP, with the ids of each answer
+    read from the session's `answer_tokens`: a greedy answer of 32 tokens
+    (its ids those of `answer_tokens` called directly on the same snapshot;
+    the SSE deltas, joined, its text up to the whitespace the plain answer
+    strips), a preemptible one (decode chunks of 8, the prompt of about
+    2,460 tokens prefilled in chunks of 512: the first chunk launches K1,
+    the rest take the q_offset > 0 path) and a speculative one (k 4), each
+    the greedy ids; a sampled one (temperature 0.8, top_k 50, top_p 0.9,
+    seed 0) twice, the same ids; `_sample` on the card and on the CPU on the
+    same logits and noise, the same ids. Stream B's snapshot against a solo
+    session fed the same frames (the same positions, features within bf16
+    rounding) and against stream A's (different features). Stream A saved,
+    loaded into a fresh clone and answered: the greedy ids. Every failed
+    check is printed, then the phase raises. Then the prompt's prefill
+    alone, one-shot and in chunks of 512, timed in turn. Returns the K1
+    and K2 launches of the path (the prefill timing's not counted)."""
+    import threading
+    import numpy as np
+    import torch
+    from flash_vstream_tpu_torch.core.config import VStreamQwenConfig
+    from flash_vstream_tpu_torch.kernels.flash_attention import (
+        flash_attention_cuda)
+    from flash_vstream_tpu_torch.kernels.gather_rows import gather_rows_cuda
+    from flash_vstream_tpu_torch.models.vstream_qwen import VStreamQwen
+    from flash_vstream_tpu_torch.preprocess.qwen_processor import (
+        make_byte_qwen_tokenizer)
+    from flash_vstream_tpu_torch.runtime.generation import (
+        GenerationConfig, _sample)
+    from flash_vstream_tpu_torch.runtime.streaming import QwenStreamSession
+    from flash_vstream_tpu_torch.serve.http_server import serve_http
+
+    cfg = VStreamQwenConfig()
+    model = VStreamQwen(cfg, params)
+    tok = make_byte_qwen_tokenizer()
+
+    def new_session():
+        return QwenStreamSession(model, tok, frame_hw=(224, 224), clip_size=8,
+                                 bank_size=1024, max_len=4096)
+
+    rng = np.random.default_rng(SEED + 2)
+    clips = {s: [_frames(rng, 8, (224, 224)) for _ in range(4)]
+             + [_frames(rng, 3, (224, 224))] for s in ("a", "b")}
+    failed = []
+
+    def check(ok, what):
+        print(f"serve_http: {'ok  ' if ok else 'FAIL'} {what}", flush=True)
+        if not ok:
+            failed.append(what)
+
+    httpd = serve_http(new_session, port=0, preempt_chunk=8,
+                       prefill_chunk=512)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    flash_attention_cuda.launches = 0
+    gather_rows_cuda.launches = 0
+    try:
+        t0 = time.perf_counter()
+        for sid in ("a", "b"):
+            _http(base, "/v1/streams", {"id": sid})
+            for i, clip in enumerate(clips[sid]):
+                flush = "?flush=1" if i == len(clips[sid]) - 1 else ""
+                _http(base, f"/v1/streams/{sid}/frames{flush}", _npy(clip),
+                      "application/octet-stream")
+        torch.cuda.synchronize(dev)
+        ingest_s = time.perf_counter() - t0
+        sa = httpd.registry.get("a").session
+        sb = httpd.registry.get("b").session
+        check(sb is not sa and sb.model is sa.model
+              and sb.generator is sa.generator,
+              "stream b is a clone of stream a's session (one model, one "
+              "Generator)")
+        check(sa.n_frames == sb.n_frames == 4 * 4 + 2,
+              f"frame pairs a={sa.n_frames} b={sb.n_frames} (18 each)")
+
+        ids = []                           # each HTTP answer's token ids
+        tokens = sa.answer_tokens
+
+        def recorded(*a, **k):
+            out = tokens(*a, **k)
+            ids.append(list(out))
+            return out
+        sa.answer_tokens = recorded
+        q = {"question": SERVE_Q, "max_new_tokens": 32}
+        url = "/v1/streams/a/answer"
+        eos = (tok.eos_token_id,)
+        _, greedy, greedy_s = _http(base, url, q)
+        greedy_ids = ids[-1]
+        n = {"greedy": len(greedy_ids), "sse": len(greedy_ids)}
+        h = sa._prompt_host(SERVE_Q, sa.n_frames)
+        direct = tokens(*sa._published, SERVE_Q,
+                        GenerationConfig(max_new_tokens=32, eos_token_ids=eos))
+        check(greedy_ids == direct and len(direct) >= 1,
+              f"greedy over HTTP = answer_tokens on the snapshot "
+              f"({len(direct)} tokens, S={h['S']})")
+        _, raw, sse_s = _http(base, url, dict(q, stream=True))
+        deltas = _sse_deltas(raw)
+        check("".join(deltas).strip() == greedy["answer"],
+              f"SSE: {len(deltas)} deltas join into the answer "
+              f"{greedy['answer'][:24]!r}")
+        _, _, preempt_s = _http(base, url, dict(q, preemptible_chunk=1))
+        n["preemptible"] = len(ids[-1])
+        check(ids[-1] == greedy_ids,
+              "preemptible (decode chunks of 8, prefill chunks of 512) = "
+              "greedy ids" + ("" if ids[-1] == greedy_ids else
+                              f": {ids[-1]} vs {greedy_ids}"))
+        _, _, spec_s = _http(base, url, dict(q, speculative_k=4))
+        spec = dict(sa.generator.last_spec)
+        n["speculative"] = len(ids[-1])
+        check(ids[-1] == greedy_ids, "speculative (k 4) = greedy ids" + (
+            "" if ids[-1] == greedy_ids else f": {ids[-1]} vs {greedy_ids}"))
+        sample = dict(q, temperature=0.8, top_k=50, top_p=0.9)
+        _, _, sample_s = _http(base, url, sample)
+        n["sampled"] = len(ids[-1])
+        _http(base, url, sample)
+        check(ids[-1] == ids[-2] and len(ids[-1]) >= 1,
+              "sampled (0.8, top_k 50, top_p 0.9, seed 0) twice: same ids")
+        del sa.answer_tokens
+        g = torch.Generator().manual_seed(SEED)
+        logits = torch.randn(4, cfg.llm.vocab_size, generator=g) * 3
+        logits[:, :60] = logits[:, :1]               # ties at the top
+        noise = -torch.log(-torch.log(torch.rand(logits.shape, generator=g)))
+        for kw in (dict(temperature=0.8, top_k=50, top_p=0.9),
+                   dict(temperature=1.3), dict(temperature=0.6, top_k=5)):
+            gen = GenerationConfig(**kw)
+            cpu = _sample(logits, gen, noise)
+            card = _sample(logits.to(dev), gen, noise.to(dev)).cpu()
+            check(torch.equal(cpu, card),
+                  f"_sample card = CPU at {kw}: {card.tolist()}")
+
+        solo = new_session()
+        for clip in clips["b"]:
+            solo.ingest_frames(clip)
+        sb_snap = [x.float() for x in sb._published[0]]
+        solo_snap = [x.float() for x in solo._published[0]]
+        sa_snap = [x.float() for x in sa._published[0]]
+        feat = max((x - y).abs().max().item()
+                   for x, y in zip(sb_snap[2:], solo_snap[2:]))
+        apart = (sb_snap[2] - sa_snap[2]).abs().max().item()
+        check(all(torch.equal(x, y) for x, y in zip(sb_snap[:2],
+                                                     solo_snap[:2]))
+              and feat <= 5e-2 and apart > 0.5,
+              f"stream b = a solo session on its frames (positions equal, "
+              f"features {feat:.3e} apart), and not stream a (features "
+              f"{apart:.3f} apart)")
+        del solo
+
+        os.makedirs(work, exist_ok=True)
+        path = os.path.join(work, "stream_a.pt")
+        t0 = time.perf_counter()
+        sa.save_session(path)
+        save_s = time.perf_counter() - t0
+        size = os.path.getsize(path)
+        resumed = sa.clone_fresh()
+        t0 = time.perf_counter()
+        resumed.load_session(path)
+        load_s = time.perf_counter() - t0
+        os.remove(path)
+        again = resumed.answer_tokens(
+            *resumed._published, SERVE_Q,
+            GenerationConfig(max_new_tokens=32, eos_token_ids=eos))
+        check(again == greedy_ids and resumed.n_frames == sa.n_frames,
+              f"save ({size / 2**30:.3f} GiB, {save_s:.2f} s) and load "
+              f"({load_s:.2f} s) into a clone: greedy ids")
+        del resumed
+        k1, k2 = flash_attention_cuda.launches, gather_rows_cuda.launches
+        # the prompt's prefill alone, one-shot (K1) and in chunks of 512
+        # (the first through K1, the rest on the q_offset > 0 path), in turn
+        embeds, pos, _, seg = sa._prompt_inputs(sa._published[0], h)
+        gen_ = sa.generator
+        prefill_ms = {"one-shot": [], "chunks of 512": []}
+        for mode in ("one-shot", "chunks of 512", "chunks of 512",
+                     "one-shot"):
+            cache = gen_.new_cache(1, gen_._active_len(h["S"], 32))
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            if mode == "one-shot":
+                gen_.prefill(embeds, pos, cache, seg, h["last_real"])
+            else:
+                gen_._prefill_chunked(embeds, pos, cache, seg, h["last_real"],
+                                      512)
+            torch.cuda.synchronize(dev)
+            prefill_ms[mode].append((time.perf_counter() - t0) * 1e3)
+        del cache
+        torch.cuda.synchronize(dev)
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=60)
+    print(f"serve_http: 2 streams x 35 frames (4 clips + a partial clip) "
+          f"ingested over HTTP in {ingest_s:.2f} s; S={h['S']}", flush=True)
+    for name, sec in (("greedy", greedy_s), ("sse", sse_s),
+                      ("preemptible", preempt_s), ("speculative", spec_s),
+                      ("sampled", sample_s)):
+        print(f"serve_http: {name} answer {sec:.3f} s over HTTP, "
+              f"{1e3 * sec / n[name]:.1f} ms/token ({n[name]} tokens)",
+              flush=True)
+    print(f"serve_http: prefill S={h['S']} in turn: " + ", ".join(
+        f"{k} {' '.join(f'{v:.1f}' for v in ms)} ms"
+        for k, ms in prefill_ms.items()), flush=True)
+    rate = spec["accepted"] / max(spec["drafted"], 1)
+    print(f"serve_http: speculation k 4: {spec['rounds']} verify rounds, "
+          f"{spec['accepted']} of {spec['drafted']} drafted tokens accepted "
+          f"(acceptance {rate:.3f}), "
+          f"{n['speculative'] / max(spec['rounds'], 1):.2f} "
+          f"tokens a forward (random weights)", flush=True)
+    print(f"serve_http: launches K1={k1} K2={k2}", flush=True)
+    if not (k1 > 0 and k2 > 0):
+        raise AssertionError("serve_http: a kernel of the path was never "
+                             "launched")
+    if failed:
+        raise AssertionError(f"serve_http: {len(failed)} checks failed: "
+                             f"{failed}")
+    return k1, k2
 
 
 def _tree_to(tree, device, dtype=None):
@@ -2713,7 +2988,7 @@ def profile_train_step(dev, params, data, work, out_dir, step_s, cfg=None):
 
 
 PHASES = ("kernels", "int4_kernel", "reference", "int4_reference", "slice",
-          "backward", "function", "train_reference", "dry_run_train",
+          "serve_http", "backward", "function", "train_reference", "dry_run_train",
           "train_slice",
           "production", "serve4", "bank_gather", "vit_probe", "int4_probe")
 
@@ -2722,8 +2997,8 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--only", default=",".join(PHASES),
                         help="comma-separated phases to run (default all; "
-                             "the training phases and serve4 need "
-                             "'slice')")
+                             "serve_http, the training phases and serve4 "
+                             "need 'slice')")
     parser.add_argument("--profile", default=None, metavar="DIR",
                         help="also profile one training-slice step into DIR")
     opts = parser.parse_args()
@@ -2801,6 +3076,11 @@ def main() -> int:
         paths["slice"] = dict(flash_attention_fwd=k1, gather_rows=k2)
         work = os.path.join(root, "build", "chip_smoke_train")
         try:
+            if "serve_http" in only:
+                k1, k2 = run_serve_http(dev, params, work)
+                paths["serve_http"] = dict(flash_attention_fwd=k1,
+                                           gather_rows=k2)
+                _release(dev)
             if "train_slice" in only:
                 total, data, step_s = run_train_slice(dev, params, work)
                 paths["train_slice"] = dict(

@@ -13,8 +13,9 @@ attended, causal masking, GQA with kv head = q head // (Hq // Hkv), and zeros
 for a row that sees no key.
 
 Dispatch:
-- `q_offset != 0` (single-token decode against a cache) takes the plain
-  version on any device, as in JAX, where decode never reached Pallas;
+- `q_offset != 0` (new tokens against a cache prefix: a decode step, a
+  speculative verify, a later prefill chunk) takes the plain version on
+  any device, as in JAX, where decode never reached Pallas;
 - with grad enabled and any of q/k/v requiring grad, `FlashAttentionFunction`
   (the `custom_vjp` of :480-500): on a CUDA tensor its forward is K3 and its
   backward K4 + K5; on a CPU tensor the same Function runs the plain versions

@@ -260,8 +260,12 @@ def init_dense(generator: torch.Generator, din: int, dout: int, *,
 
 
 def cache_attention(q, kc, vc, *, q_offset, q_segment_ids, kv_segment_ids):
-    """Decode-step attention over a bf16 cache prefix (the plain path on
-    every device, as in JAX)."""
+    """Attention of new tokens over a bf16 cache prefix. At q_offset > 0 (a
+    decode step, a speculative verify, a later prefill chunk) it is the
+    plain path on every device, as in JAX (kernels/flash_attention.py:526).
+    At q_offset 0 (the first chunk of a chunked prefill) a card launches K1:
+    JAX takes XLA there only because its offset is traced, and the math
+    (causal over the chunk, segments from the cache) is the same."""
     return flash_attention(q, kc, vc, causal=True, q_offset=q_offset,
                            q_segment_ids=q_segment_ids,
                            kv_segment_ids=kv_segment_ids)
@@ -281,13 +285,18 @@ def mha(
     kv_cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     cache_len: int = 0,
     cache_segments: Optional[torch.Tensor] = None,   # [B, Smax]
+    decode_multi: bool = False,
 ) -> torch.Tensor:
     """Multi-head attention with optional GQA, RoPE and a per-layer cache.
 
     With a cache ((k, v) views [B, Hkv, Smax, D] of one layer, written in
-    place at cache_len): S > 1 is a prefill (fresh k/v through the fused
-    kernel, cache assumed to start at 0); S == 1 is a decode step (one query
-    against the cache prefix, plain attention)."""
+    place at cache_len): S > 1 without `decode_multi` is a prefill (fresh
+    k/v through the fused kernel, the cache starting at 0). Otherwise the S
+    new tokens (S >= 1) attend to the cache prefix they were just written
+    into: the JAX `mha_decode` (layers.py:381-440) on the stacked cache,
+    with the queries in segment 0, the keys in the cache's segments (-1
+    never attended) and q_offset = cache_len. That is a decode step (S 1),
+    a speculative verify (k + 1 tokens) or a prefill chunk."""
     B, S, _ = x.shape
     q = dense(x, params["wq"]["w"], params["wq"].get("b"))
     k = dense(x, params["wk"]["w"], params["wk"].get("b"))
@@ -303,7 +312,7 @@ def mha(
         kc, vc = kv_cache
         kc[:, :, cache_len:cache_len + S] = k.to(kc.dtype)
         vc[:, :, cache_len:cache_len + S] = v.to(vc.dtype)
-        if S > 1:
+        if S > 1 and not decode_multi:
             out = flash_attention(q, k, v, causal=True,
                                   q_segment_ids=q_segment_ids,
                                   kv_segment_ids=kv_segment_ids)
@@ -316,7 +325,7 @@ def mha(
             out = cache_attention(
                 q, kc[:, :, :n], vc[:, :, :n], q_offset=cache_len,
                 q_segment_ids=q_seg,
-                kv_segment_ids=(cache_segments[:, :n]
+                kv_segment_ids=(cache_segments[:, :n].contiguous()
                                 if cache_segments is not None else None))
     else:
         out = flash_attention(q, k, v, causal=causal,

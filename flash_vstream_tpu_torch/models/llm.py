@@ -3,7 +3,8 @@
 Port of flash_vstream_tpu/models/llm.py:38-83, 110-286, 296-421: random
 init with the JAX tree; `decoder_forward` for a cache prefill (S > 1 tokens,
 causal and segmented attention through K1, k/v written into the cache), a
-single-token decode step against the cache, and the no-cache training path
+decode step of one or more tokens against the cache (`decode_multi`: a
+speculative verify or a prefill chunk), and the no-cache training path
 with gradient checkpointing (`remat`, `remat_group`); `lm_head`,
 `embed_tokens`, `cross_entropy_loss` and `cross_entropy_loss_chunked`.
 Layers run in a Python loop over the stacked [L, ...] parameters. The
@@ -99,12 +100,15 @@ def decoder_forward(
     cache: Optional[KVCache] = None,
     remat: bool = False,
     remat_group: int = 1,
+    decode_multi: bool = False,
 ) -> torch.Tensor:
     """Run the decoder stack and return the final hidden states [B, S, D].
 
-    With a cache: S > 1 prefills it from position 0 (it must be empty);
-    S == 1 is a decode step at `cache.length`. The cache is written in place
-    and advanced by S.
+    With a cache: S > 1 without `decode_multi` prefills it from position 0
+    (it must be empty); S == 1, or any S with `decode_multi`, appends the S
+    tokens at `cache.length` and attends them to the whole prefix (a decode
+    step, a speculative verify, a prefill chunk: JAX llm.py:124-125,
+    179-228). The cache is written in place and advanced by S.
 
     Without a cache (training), `remat` checkpoints every layer: its
     activations are recomputed in the backward pass instead of kept. With
@@ -116,10 +120,11 @@ def decoder_forward(
     x = input_embeds
     B, S, _ = x.shape
     if cache is not None:
-        if S > 1 and cache.length:
-            raise NotImplementedError(
-                "prefill into a non-empty cache (chunked prefill, "
-                "speculation) is not ported yet: ROADMAP A6")
+        if S > 1 and cache.length and not decode_multi:
+            raise ValueError(
+                f"a prefill starts at an empty cache (length "
+                f"{cache.length}); pass decode_multi=True to append S > 1 "
+                f"tokens to a prefix")
         cache_len = cache.length
         cache.write_segments(
             segment_ids if segment_ids is not None
@@ -131,7 +136,8 @@ def decoder_forward(
         kw = {}
         if cache is not None:
             kw = dict(kv_cache=(cache.k[i], cache.v[i]), cache_len=cache_len,
-                      cache_segments=cache.segments)
+                      cache_segments=cache.segments,
+                      decode_multi=decode_multi)
         x = x + mha(lp["attn"], h, num_heads=cfg.num_heads,
                     num_kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim,
                     rope=(cos, sin), causal=True, q_segment_ids=segment_ids,
@@ -253,9 +259,11 @@ class Qwen2Decoder(ParamTree):
 
     def forward(self, input_embeds: torch.Tensor, positions: torch.Tensor, *,
                 segment_ids: Optional[torch.Tensor] = None,
-                cache: Optional[KVCache] = None) -> torch.Tensor:
+                cache: Optional[KVCache] = None,
+                decode_multi: bool = False) -> torch.Tensor:
         return decoder_forward(self.tree(), self.cfg, input_embeds, positions,
-                               segment_ids=segment_ids, cache=cache)
+                               segment_ids=segment_ids, cache=cache,
+                               decode_multi=decode_multi)
 
     def logits(self, hidden: torch.Tensor) -> torch.Tensor:
         """`lm_head` (the name is taken by the parameter of that name)."""

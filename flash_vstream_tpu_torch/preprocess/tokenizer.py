@@ -1,7 +1,9 @@
-"""The byte-level tokenizer stub of the weightless runs.
+"""The byte-level tokenizer stub of the weightless runs, and the keyword
+stopping criterion of stepwise decode.
 
-A copy of `ByteTokenizer` (flash_vstream_tpu/preprocess/tokenizer.py:43),
-so the port imports nothing of the JAX package. Real deployments load an HF
+Copies of `ByteTokenizer` and `KeywordsStoppingCriteria`
+(flash_vstream_tpu/preprocess/tokenizer.py:43, 106-135), so the port
+imports nothing of the JAX package. Real deployments load an HF
 tokenizer from local files, which waits for checkpoints (ROADMAP A10).
 """
 from __future__ import annotations
@@ -64,3 +66,32 @@ class ByteTokenizer:
         if buf:
             out.append(buf.decode("utf-8", errors="replace"))
         return "".join(out)
+
+
+class KeywordsStoppingCriteria:
+    """Stop generation when any keyword appears in the decoded suffix
+    (the reference's mm_utils.py:75-106)."""
+
+    def __init__(self, keywords: Sequence[str], tokenizer, prompt_len: int = 0):
+        self.keywords = list(keywords)
+        self.tokenizer = tokenizer
+        self.prompt_len = prompt_len
+
+    def should_stop(self, output_ids: Sequence[int]) -> bool:
+        text = self.tokenizer.decode(output_ids[self.prompt_len:],
+                                     skip_special_tokens=True)
+        return any(k in text for k in self.keywords)
+
+    def single_token_ids(self) -> tuple:
+        """The keywords that encode to exactly one token, as token ids. The
+        greedy loop checks token ids, not text, so these fold into its EOS
+        set ('</s>', '<|im_end|>': decode stops at the keyword)."""
+        ids = []
+        for k in self.keywords:
+            if hasattr(self.tokenizer, "special_id"):      # ByteTokenizer
+                toks = self.tokenizer.encode(k, add_bos=False)
+            else:
+                toks = self.tokenizer.encode(k, add_special_tokens=False)
+            if len(toks) == 1:
+                ids.append(int(toks[0]))
+        return tuple(ids)

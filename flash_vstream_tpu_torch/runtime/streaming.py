@@ -10,25 +10,33 @@ for one stream on one device:
   K2). Each ingest publishes a (snapshot, frame-pair count) pair; the
   snapshot's tensors are fresh, so a later ingest never changes them.
 - answer: PatchMerger over the snapshot, AM-RoPE positions, the ChatML
-  splice, a Qwen2 prefill into the KV cache (K1) and greedy decode.
+  splice, a Qwen2 prefill into the KV cache (K1) and the decode that the
+  GenerationConfig asks for (runtime/generation.py: greedy, sampled,
+  preemptible or speculative); `answer_stream` yields the text as it
+  decodes.
+- `clone_fresh` gives a new stream over the same model and Generator;
+  `save_session` / `load_session` keep a stream's memory across processes.
 
 PyTorch runs eagerly, so the JAX version's jit caches and prompt-shape
 buckets for compilation have no counterpart here; the memory-length buckets
 of the prompt (`bucket_up`) are kept, because they decide the prompt. The
-model may be quantized (int8 or int4 decoder, int8 ViT blocks). Not
-ported yet: sampling, speculation and preemptible answers (ROADMAP A6),
-streamed text, session save/load and clones (ROADMAP A7), multi-stream and
-disaggregated serving (ROADMAP A15, A16).
+model may be quantized (int8 or int4 decoder, int8 ViT blocks). A saved
+session is a `torch.save` file, where JAX writes an orbax checkpoint
+(orbax imports jax). Not ported yet: multi-stream and disaggregated
+serving (ROADMAP A15, A16).
 """
 from __future__ import annotations
 
+import copy
+import os
 import time
-from typing import Optional, Sequence
+from typing import Iterator, List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from ..models.flash_memory import (
+    FlashState,
     am_rope_visual_positions,
     flash_stream_update,
     init_flash_state,
@@ -37,8 +45,40 @@ from ..models.vstream_qwen import VStreamQwen
 from ..ops.pooling import qwen_temporal_pool
 from ..preprocess.image import qwen_device_preprocess, qwen_resize_u8, smart_resize
 from ..preprocess.qwen_processor import build_video_prompt
-from .generation import TODO_A6, GenerationConfig, Generator, trim_stop_strings
+from .generation import GenerationConfig, Generator, trim_stop_strings
 from .metrics import MetricMeter, Timer
+
+
+def _stream_text(generator, tokenizer, embeds, positions, gen,
+                 decode_start, segment_ids, last_real,
+                 stop_strings) -> Iterator[str]:
+    """Text deltas of a stepwise decode (JAX streaming.py:127-155): the
+    whole output is decoded again at every token, so a character made of
+    several tokens or bytes is emitted once, whole, and a trailing U+FFFD
+    (an incomplete UTF-8 sequence) is held back. Ends at the first stop
+    string, which is cut."""
+    toks: List[int] = []
+    emitted = ""
+    for t in generator.generate_stream(
+            embeds, positions, gen, decode_pos_start=decode_start,
+            segment_ids=segment_ids, last_real_idx=last_real):
+        toks.append(t)
+        if t in gen.eos_token_ids:
+            break
+        text = tokenizer.decode(toks, skip_special_tokens=True)
+        trimmed = trim_stop_strings(text, stop_strings)
+        if trimmed != text.strip():       # a stop string appeared
+            if len(trimmed) > len(emitted):
+                yield trimmed[len(emitted):]
+            return
+        safe = text[:-1] if text.endswith("\ufffd") else text
+        if len(safe) > len(emitted):
+            yield safe[len(emitted):]
+            emitted = safe
+    text = trim_stop_strings(
+        tokenizer.decode(toks, skip_special_tokens=True), stop_strings)
+    if len(text) > len(emitted):
+        yield text[len(emitted):]
 
 
 def bucket_candidates(cap: int):
@@ -235,13 +275,16 @@ class QwenStreamSession:
                 raise RuntimeError("no frames ingested yet")
             return self.answer_snapshot(snapshot, n_frames, question, gen)
 
+    def _default_gen(self) -> GenerationConfig:
+        return GenerationConfig(
+            max_new_tokens=128, eos_token_ids=(self.tokenizer.eos_token_id,))
+
     def answer_snapshot(self, snapshot, n_frames: int, question: str,
                         gen: Optional[GenerationConfig] = None) -> str:
-        """Answer against an explicit (snapshot, count) pair; greedy only."""
-        gen = gen or GenerationConfig(
-            max_new_tokens=128, eos_token_ids=(self.tokenizer.eos_token_id,))
-        if not gen.greedy_only:
-            raise NotImplementedError(TODO_A6)
+        """Answer against an explicit (snapshot, count) pair without
+        touching the session's state, so callers holding different
+        snapshots may answer at once."""
+        gen = gen or self._default_gen()
         toks = self.answer_tokens(snapshot, n_frames, question, gen)
         self.metrics.update("answer_tokens", len(toks))
         text = self.tokenizer.decode(toks, skip_special_tokens=True)
@@ -251,9 +294,79 @@ class QwenStreamSession:
 
     def answer_tokens(self, snapshot, n_frames: int, question: str,
                       gen: GenerationConfig) -> list:
-        """The greedy answer's token ids (up to and including EOS)."""
+        """The answer's token ids (up to and including EOS), decoded as
+        `gen` asks. Speculation drafts from the prompt's text: the ids
+        before the memory and the real question ids after it (JAX
+        streaming.py:825-828)."""
         h = self._prompt_host(question, n_frames)
         embeds, positions, decode_start, seg = self._prompt_inputs(snapshot, h)
+        ctx = (np.concatenate([h["pre"], h["post_p"][:h["q_real"]]])
+               if gen.speculative_k > 0 else None)
         return self.generator.generate(
             embeds, positions, gen, decode_pos_start=decode_start,
-            segment_ids=seg, last_real_idx=h["last_real"])
+            segment_ids=seg, last_real_idx=h["last_real"], context_ids=ctx)
+
+    def answer_stream(self, question: str,
+                      gen: Optional[GenerationConfig] = None
+                      ) -> Iterator[str]:
+        """The answer against the latest snapshot as text deltas, yielded
+        as the tokens decode (stepwise; preemption and speculation do not
+        apply)."""
+        snapshot, n_frames = self._published
+        if snapshot is None:
+            raise RuntimeError("no frames ingested yet")
+        gen = gen or self._default_gen()
+        h = self._prompt_host(question, n_frames)
+        embeds, positions, decode_start, seg = self._prompt_inputs(snapshot, h)
+        yield from _stream_text(
+            self.generator, self.tokenizer, embeds, positions, gen,
+            decode_start, seg, h["last_real"],
+            tuple(gen.stop_strings) or ("<|im_end|>",))
+
+    def clone_fresh(self) -> "QwenStreamSession":
+        """A new, independent stream over this session's model, Generator
+        and tokenizer, with fresh memory, counters and metrics. `reset`
+        allocates new state tensors, so the banks the two streams write in
+        place are never shared."""
+        c = copy.copy(self)
+        c.metrics = MetricMeter()
+        c.reset()
+        return c
+
+    def save_session(self, path: str) -> str:
+        """Write this stream's memory (the state's fields, the published
+        snapshot, its frame-pair count and the ingest step) to `path` with
+        `torch.save`; returns the absolute path."""
+        snap, count = self._published
+        payload = {
+            "state": {k: getattr(self.state, k) for k in FlashState._fields},
+            "snapshot": None if snap is None else list(snap),
+            "count": int(count), "step": int(self._step)}
+        path = os.path.abspath(path)
+        torch.save(payload, path)
+        return path
+
+    def load_session(self, path: str) -> None:
+        """Resume the stream `save_session` wrote (read with
+        weights_only=True). A state field whose shape or dtype differs from
+        this session's raises, naming the field: the config or the bank
+        size is not the one saved."""
+        payload = torch.load(os.path.abspath(path), map_location=self.device,
+                             weights_only=True)
+        fields = payload["state"]
+        for name in FlashState._fields:
+            want, got = getattr(self.state, name), fields[name]
+            if isinstance(want, torch.Tensor) and (
+                    not isinstance(got, torch.Tensor)
+                    or got.shape != want.shape or got.dtype != want.dtype):
+                desc = (f"{tuple(got.shape)} {got.dtype}"
+                        if isinstance(got, torch.Tensor) else type(got))
+                raise ValueError(
+                    f"restored session state field {name!r} is {desc}, this "
+                    f"session expects {tuple(want.shape)} {want.dtype}: the "
+                    f"config or the bank size differs")
+        self.state = FlashState(**fields)
+        snap = payload["snapshot"]
+        self._published = (None if snap is None else tuple(snap),
+                           int(payload["count"]))
+        self._step = int(payload["step"])

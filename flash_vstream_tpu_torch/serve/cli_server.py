@@ -12,7 +12,12 @@ and the summary dict is the JAX server's.
 `--load-4bit` serves from a block-scaled int4 decoder base: every decode
 matvec runs the CUDA kernel K6 (kernels/int4_matmul.py). `--load-8bit`
 serves an int8 decoder and `--int8-vit` int8 ViT blocks; `--w8a8-prefill`
-runs their prefill-scale matmuls as int8 x int8 products. Without a
+runs their prefill-scale matmuls as int8 x int8 products.
+`--stream-output` prints each answer as it decodes; `--preempt N` decodes
+answers in chunks of N steps (and `--prefill-chunk M` prefills in chunks of
+M tokens) with a host sync between chunks; `--resume-session` loads a
+stream's memory before streaming and `--save-session` writes it after.
+Without a
 checkpoint loader in the port (ROADMAP A10), the server builds its model
 only with --dry-run (the tiny config, random weights from a torch generator
 seeded 0, the byte tokenizer, 56 px frames); `run_server(args, session=...)`
@@ -41,12 +46,7 @@ from ..utils.logging import build_logger
 _NOT_PORTED = (
     ("model_path", "--model-path (the checkpoint loader)", "A10"),
     ("kv_int8", "--kv-int8", "A10"),
-    ("stream_output", "--stream-output", "A6/A7"),
-    ("preempt", "--preempt", "A6/A7"),
-    ("prefill_chunk", "--prefill-chunk", "A6/A7"),
     ("threaded_ingest", "--threaded-ingest", "A15"),
-    ("save_session", "--save-session", "A7"),
-    ("resume_session", "--resume-session", "A7"),
     ("ingest_devices", "--ingest-devices", "A16"),
     ("decode_devices", "--decode-devices", "A16"),
 )
@@ -150,9 +150,30 @@ def run_server(args, session=None) -> dict:
     if session is None:
         session = build_session(args)
     gen = GenerationConfig(max_new_tokens=args.max_new_tokens,
-                           eos_token_ids=(session.tokenizer.eos_token_id,))
+                           eos_token_ids=(session.tokenizer.eos_token_id,),
+                           preemptible_chunk=args.preempt,
+                           prefill_chunk=args.prefill_chunk)
     if args.prewarm:
         prewarm_session(session, args, gen, logger)
+    # after the prewarm, which resets the stream (the JAX server loads
+    # first, and its prewarm then drops what it loaded)
+    if args.resume_session:
+        session.load_session(args.resume_session)
+        logger.info(f"resumed session memory from {args.resume_session} "
+                    f"({session.n_frames} frame pairs already ingested)")
+
+    def do_answer(q: str) -> str:
+        """The whole answer, or with --stream-output each piece printed as
+        it decodes."""
+        if not args.stream_output:
+            return session.answer(q, gen)
+        print(f"Q: {q}\nA: ", end="", flush=True)
+        pieces = []
+        for piece in session.answer_stream(q, gen):
+            print(piece, end="", flush=True)
+            pieces.append(piece)
+        print(flush=True)
+        return "".join(pieces)
 
     if args.video_file:
         src = load_video(args.video_file, fps=args.fps,
@@ -201,7 +222,7 @@ def run_server(args, session=None) -> dict:
             q_idx += 1
             next_q_time += args.question_interval
             with Timer(metrics, "conv_latency"):
-                ans = session.answer(q, gen)
+                ans = do_answer(q)
             logger.info(f"[t={elapsed:.1f}s frames={i}] Q: {q}")
             logger.info(f"A: {ans}")
             answers.append({"t": elapsed, "frames": i, "question": q,
@@ -211,12 +232,15 @@ def run_server(args, session=None) -> dict:
     if questions:                     # a final question after the stream
         q = questions[q_idx % len(questions)]
         with Timer(metrics, "conv_latency"):
-            ans = session.answer(q, gen)
+            ans = do_answer(q)
         answers.append({"t": time.perf_counter() - start, "frames": i,
                         "question": q, "answer": ans})
 
     summary = {"frames_ingested": i, "answers": answers,
                "metrics": metrics.as_dict()}
+    if args.save_session:
+        session.save_session(args.save_session)
+        logger.info(f"saved session memory to {args.save_session}")
     logger.info("metrics:\n" + metrics.summary())
     if args.output_file:
         with open(args.output_file, "w") as f:
@@ -252,9 +276,10 @@ def make_parser():
     p.add_argument("--output-file", type=str, default=None)
     p.add_argument("--sync-every-clip", action="store_true")
     p.add_argument("--save-session", type=str, default=None,
-                   help="not ported yet (ROADMAP A7)")
+                   help="write the stream's memory here at the end "
+                        "(resumable with --resume-session)")
     p.add_argument("--resume-session", type=str, default=None,
-                   help="not ported yet (ROADMAP A7)")
+                   help="load a saved stream's memory before streaming")
     p.add_argument("--prewarm", action="store_true",
                    help="answer once in every memory bucket before "
                         "streaming")
@@ -273,11 +298,15 @@ def make_parser():
     p.add_argument("--kv-int8", action="store_true",
                    help="not ported yet (ROADMAP A10)")
     p.add_argument("--stream-output", action="store_true",
-                   help="not ported yet (ROADMAP A6/A7)")
+                   help="print each answer's text as it decodes (stepwise; "
+                        "--preempt does not apply)")
     p.add_argument("--prefill-chunk", type=int, default=0,
-                   help="not ported yet (ROADMAP A6/A7)")
+                   help="with --preempt: prefill the prompt in sequence "
+                        "chunks of this many tokens, a host sync after "
+                        "each. 0 = one prefill")
     p.add_argument("--preempt", type=int, default=0,
-                   help="not ported yet (ROADMAP A6/A7)")
+                   help="decode answers in chunks of this many steps with "
+                        "a host sync between chunks (0 = one loop)")
     p.add_argument("--ingest-devices", type=int, default=0,
                    help="not ported yet (ROADMAP A16)")
     p.add_argument("--decode-devices", type=int, default=0,

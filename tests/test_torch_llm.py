@@ -152,13 +152,3 @@ def test_visual_token_count(t, h, w):
     from flash_vstream_tpu.core.config import VStreamQwenConfig
     cfg = VStreamQwenConfig()
     assert visual_token_count(cfg, t, h, w) == jax_count(cfg, t, h, w)
-
-
-def test_unported_generation_settings_raise(setup):
-    _, _, model, embeds, pos, _, _, _ = setup
-    tg = tgen.Generator(model, max_len=128)
-    for gen in (tgen.GenerationConfig(temperature=0.7),
-                tgen.GenerationConfig(speculative_k=4),
-                tgen.GenerationConfig(preemptible_chunk=8)):
-        with pytest.raises(NotImplementedError, match="A6"):
-            tg.generate(torch.from_numpy(embeds), torch.from_numpy(pos), gen)

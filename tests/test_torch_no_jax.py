@@ -1,6 +1,8 @@
 """The port runs without JAX and without the JAX package: a tiny ingest +
 answer, a tiny LoRA training step, an answer over an int4 decoder (prefill
-and a decode step), the --load-4bit dry-run server, the plain versions of
+and a decode step), the --load-4bit dry-run server, the HTTP server
+(frames, a preemptible speculative answer, a sampled SSE answer), a
+session's clone, save/load and streamed answer, the plain versions of
 P1 and P2, the ViT and gather probes (the ViT probe with --int8, so
 w8a8), the int4 probe's variants (P3, P4) and its `main` and `main2` on
 the CPU in a fresh interpreter leave
@@ -61,6 +63,33 @@ summary = main(["--dry-run", "--device", "cpu", "--load-4bit",
                 "--question", "Q?", "--question_interval", "1000",
                 "--max-new-tokens", "2"])
 assert summary["frames_ingested"] == 4 and len(summary["answers"]) == 1
+from flash_vstream_tpu_torch.serve import http_server
+import io, json, threading, urllib.request
+httpd = http_server.make_server(["--dry-run", "--device", "cpu", "--port",
+                                 "0", "--max-new-tokens", "3", "--preempt",
+                                 "2"])
+threading.Thread(target=httpd.serve_forever, daemon=True).start()
+base = f"http://127.0.0.1:{httpd.server_address[1]}"
+def post(path, data, ctype="application/json"):
+    r = urllib.request.Request(base + path, data=data, method="POST")
+    r.add_header("Content-Type", ctype)
+    with urllib.request.urlopen(r, timeout=60) as resp:
+        return resp.read()
+post("/v1/streams", json.dumps({"id": "a"}).encode())
+buf = io.BytesIO()
+np.save(buf, rng.integers(0, 256, (3, 56, 56, 3), dtype=np.uint8))
+post("/v1/streams/a/frames?flush=1", buf.getvalue(), "application/octet-stream")
+ans = json.loads(post("/v1/streams/a/answer", json.dumps(
+    {"question": "Q?", "preemptible_chunk": 1, "speculative_k": 2}).encode()))
+sse = post("/v1/streams/a/answer", json.dumps(
+    {"question": "Q?", "stream": True, "temperature": 0.7}).encode())
+assert isinstance(ans["answer"], str) and sse.endswith(b"data: [DONE]\\n\\n")
+httpd.shutdown(); httpd.server_close()
+clone = sess.clone_fresh()
+with tempfile.TemporaryDirectory() as d:
+    clone.load_session(sess.save_session(d + "/s.pt"))
+assert clone.n_frames == sess.n_frames
+assert isinstance("".join(clone.answer_stream("what?")), str)
 from flash_vstream_tpu_torch.kernels.bank_gather import bank_gather
 from flash_vstream_tpu_torch.kernels.frame_attention import frame_attention
 from flash_vstream_tpu_torch.scripts import probe_bank_gather, probe_vit_variants

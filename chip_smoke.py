@@ -12,9 +12,10 @@ Phases, one or more lines each; any failure raises and exits non-zero:
 3. kernels: K1 (flash attention) and K2 (row gather) against their plain
    PyTorch versions at the slice's own shapes, with times; K1 first shows
    its ptxas registers and SASS counts, is held row by row at the ViT's
-   224 and 448 px shapes, the prefill, a masked row and the tile cases,
-   equal bit for bit at every rows per block, and timed at each beside
-   SDPA and its bound;
+   224 and 448 px shapes, the prefill, a masked row, the varlen ViT of a
+   448 x 448 and a 392 x 504 image (and two grids padded with -1) and the
+   tile cases, equal bit for bit at every rows per block, and timed at
+   each beside SDPA and its bound;
    int4_kernel: K6 (int4 decode matvec) against its plain version at the
    7B decoder's shapes (B 1; 8 and 32 for the MLP), with times, the bound
    and torch's own int4 matmul beside it, its plan (cluster, warps, rows),
@@ -36,6 +37,16 @@ Phases, one or more lines each; any failure raises and exits non-zero:
    `_sample` card vs CPU, a clone's memory against a solo session's, a
    save/load round trip; seconds and ms/token per answer, the prefill
    one-shot and in chunks, speculation's acceptance, the K1/K2 launches;
+   offline: offline QA over the slice's weights: QwenPipeline answers a
+   question over 240 frames of 448 px (S about 11.6k; encode, prefill and
+   decode timed, the peak memory), its one-shot prefill held to a prefill
+   in chunks of 2,048 (first-token logits, greedy ids) and to itself with
+   one seed, two images (448 x 448, 392 x 504) through the varlen ViT; the
+   weights written as a sharded safetensors checkpoint and loaded back
+   bit-equal (write and load timed); the eval worker on the loaded weights
+   (an MCQ sample and a consistency pair, each pred the in-memory
+   pipeline's) and `eval_any_dataset --dry-run --num-chunks 2` with two
+   card workers; K1's launches checked against the reckoned count;
 6. backward: K4/K5's ptxas registers and SASS counts first; K3 (forward +
    lse), K4 (dq) and K5 (dk/dv) against their plain versions at the
    training shape, two small edge cases and the tile cases, K4/K5 equal bit
@@ -403,15 +414,18 @@ def tile_case(dev, g, name):
 def check_kernels(dev):
     """K1 and K2 against their plain versions at the slice's shapes. K1:
     its ptxas and SASS counts first; the ViT's frame attention at 224 and
-    448 px (strided views), the answer prefill, a masked row and the tile
-    cases (`TILE_CASES`), each held by `check_fwd` and equal bit for bit at
-    every rows per block; the timed shapes beside SDPA and the bound."""
+    448 px (strided views), the answer prefill, a masked row, the varlen
+    ViT of a 448 x 448 and a 392 x 504 image and of two grids padded with
+    -1, and the tile cases (`TILE_CASES`), each held by `check_fwd` and
+    equal bit for bit at every rows per block; the timed shapes beside SDPA
+    and the bound."""
     import torch
     from flash_vstream_tpu_torch.kernels import flash_attention as fa
     from flash_vstream_tpu_torch.kernels.flash_attention import (
         flash_attention_cuda, flash_attention_reference)
     from flash_vstream_tpu_torch.kernels.gather_rows import (
         gather_rows_cuda, gather_rows_reference)
+    from flash_vstream_tpu_torch.models.qwen2_vit import prepare_vit_inputs
 
     check_k1_build()
     g = torch.Generator(device=dev).manual_seed(SEED)
@@ -445,8 +459,21 @@ def check_kernels(dev):
                         randn(2, 4, 100, 64)),
                        dict(q_segment_ids=q_seg, kv_segment_ids=kv_seg)),
     }
+    # the varlen ViT of a still image (one segment of h*w tokens, mha's
+    # [1, S, H, D] -> [1, H, S, D] views): 448 x 448 px and 392 x 504 px,
+    # then two grids padded with -1 to a length that is no multiple of 64
+    for name, grids, pad in (("vit_image_448", [(1, 32, 32)], 1024),
+                             ("vit_image_392x504", [(1, 28, 36)], 1008),
+                             ("vit_varlen_padded", [(1, 28, 36), (1, 4, 6)],
+                              1100)):
+        _, ids = prepare_vit_inputs(grids, pad)
+        ids = torch.as_tensor(ids, device=dev)[None].contiguous()
+        cases[name] = ((heads(1, pad, 16, 80), heads(1, pad, 16, 80),
+                        heads(1, pad, 16, 80)),
+                       dict(q_segment_ids=ids, kv_segment_ids=ids))
     cases.update({name: tile_case(dev, g, name) for name in fa.TILE_CASES})
-    timed = ("vit_full", "vit_small", "vit_448", "prefill")
+    timed = ("vit_full", "vit_small", "vit_448", "prefill", "vit_image_448",
+             "vit_image_392x504")
     k1_err, k1_times = 0.0, {}
     for name, (args, kw) in cases.items():
         out = flash_attention_cuda(*args, **kw)
@@ -466,7 +493,7 @@ def check_kernels(dev):
                 f"plan {plan.blocks} blocks of {plan.rows_per_block} rows")
         if name in timed:
             q, k, v = args
-            iters = 20 if name in ("prefill", "vit_448") else 50
+            iters = 50 if name in ("vit_full", "vit_small") else 20
             ms = _ms(lambda i: flash_attention_cuda(*args, **kw), iters)
             plain = _ms(lambda i: flash_attention_reference(*args, **kw), 5)
             lib = _ms(lambda i: _sdpa(q, k, v, kw.get("causal", False)),
@@ -1551,6 +1578,369 @@ def run_serve_http(dev, params, work):
         raise AssertionError(f"serve_http: {len(failed)} checks failed: "
                              f"{failed}")
     return k1, k2
+
+
+OFFLINE_FRAMES = 240        # frames of the offline video question
+OFFLINE_SIDE = 448          # their side in px: a (120, 32, 32) grid
+OFFLINE_CHUNK = 2048        # the chunked prefill's sequence chunk
+OFFLINE_Q = "What happens in the video, scene by scene?"
+OFFLINE_SHARD = 5 * 10 ** 9  # the checkpoint's largest shard, bytes
+# First-token logits of the one-shot prefill (K1 over the whole prompt)
+# against the prefill in chunks of 2,048 (K1 on the first chunk, the plain
+# cache path's f32 scores on the rest), max |diff| over max |logit|: both
+# run the bf16 weights and round bf16 activations in different places, as
+# check_reference's card vs CPU prefill does, under the same limit.
+OFFLINE_LOGIT_TOL = 5e-2
+
+
+def _offline_frames(rng, n, side, n_scenes=8):
+    """n uint8 frames of side x side px in n_scenes scenes, each scene a
+    random texture plus fresh noise on every frame, so that k-means has
+    clusters to find and no two frames are equal."""
+    import numpy as np
+    out = []
+    for i in range(n_scenes):
+        scene = rng.integers(0, 256, size=(side, side, 3), dtype=np.int16)
+        for _ in range(n // n_scenes + (i < n % n_scenes)):
+            noise = rng.integers(-24, 25, size=scene.shape, dtype=np.int16)
+            out.append(np.clip(scene + noise, 0, 255).astype(np.uint8))
+    return out
+
+
+def _leaf_pairs(a, b, path=""):
+    """(path, leaf of a, leaf of b) over two trees with the same keys."""
+    if sorted(a) != sorted(b):
+        raise AssertionError(f"offline: {path or 'the tree'} has keys "
+                             f"{sorted(a)}, the loaded one {sorted(b)}")
+    for k in sorted(a):
+        if isinstance(a[k], dict):
+            yield from _leaf_pairs(a[k], b[k], f"{path}{k}/")
+        else:
+            yield path + k, a[k], b[k]
+
+
+def _npy_video(root, name, frames):
+    """A frame directory of one `.npy` file per frame."""
+    import numpy as np
+    d = os.path.join(root, name)
+    os.makedirs(d, exist_ok=True)
+    for i, f in enumerate(frames):
+        np.save(os.path.join(d, f"frame_{i:06d}.npy"), f)
+
+
+def _answers(path):
+    with open(path) as f:
+        return [json.loads(line) for line in f if line.strip()]
+
+
+def run_offline(dev, params, work, card, root):
+    """Offline QA at full width on the slice's weights (Qwen2-VL-7B, random
+    bf16), through QwenPipeline, the checkpoint loaders and the eval
+    harness. 1. A question over 240 frames of 448 px (grid (120, 32, 32):
+    7,680 DAM + 3,840 CSM tokens, S about 11.6k): the encode, the one-shot
+    prefill and the decode timed, the peak memory; its first-token logits
+    against the prefill in chunks of 2,048 and its greedy ids against the
+    chunked answer's, and `answer_tokens` twice with one seed, all equal.
+    2. `answer_image_tokens` on a 448 x 448 and a 392 x 504 image. 3. The
+    weights exported, written by the port's safetensors writer in shards
+    of at most 5 GB under build/offline_ckpt with a Qwen2-VL-7B
+    config.json, read back to the same config and loaded onto the card
+    bit-equal, write and load timed; the directory is deleted. 4. The eval
+    worker (`run_inference`) on the loaded weights over `.npy` frame
+    directories: an MCQ sample and a consistency pair, every id answered,
+    each pred the in-memory pipeline's answer, then `calc_mcq_result`.
+    5. `eval_any_dataset --dry-run --num-chunks 2` as a subprocess with no
+    --device: two card workers, both exit 0, every id in their answers.
+    Returns K1's launches in 1-4, checked against the count reckoned from
+    the calls (2 x 32 ViT + 28 prefill a video answer, 32 + 28 an image
+    answer, 28 a prefill alone; a chunked prefill launches K1 on its first
+    chunk only)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from flash_vstream_tpu_torch.core.config import VStreamQwenConfig
+    from flash_vstream_tpu_torch.eval import inference_mcq_vqa as worker
+    from flash_vstream_tpu_torch.eval.scoring import calc_mcq_result
+    from flash_vstream_tpu_torch.kernels.flash_attention import (
+        flash_attention_cuda)
+    from flash_vstream_tpu_torch.models.vstream_qwen import (
+        image_token_count, visual_token_count)
+    from flash_vstream_tpu_torch.preprocess.image import smart_resize
+    from flash_vstream_tpu_torch.preprocess.qwen_processor import (
+        _video_pad_id, build_video_prompt, make_byte_qwen_tokenizer)
+    from flash_vstream_tpu_torch.runtime.generation import GenerationConfig
+    from flash_vstream_tpu_torch.runtime.pipeline import QwenPipeline
+    from flash_vstream_tpu_torch.weights.convert import (
+        load_qwen_checkpoint, qwen_config_from_hf)
+    from flash_vstream_tpu_torch.weights.export import (
+        export_llama, export_qwen_vit, hf_qwen_config, save_hf_checkpoint)
+
+    cfg = VStreamQwenConfig()
+    tok = make_byte_qwen_tokenizer()
+    pipe = QwenPipeline(params, cfg, tok, max_len=16384,
+                        max_pixels=4 * 224 * 224)
+    g = pipe.generator
+    gen = GenerationConfig(max_new_tokens=32,
+                           eos_token_ids=(tok.eos_token_id,))
+    # K1 launches of each call kind: a video's ViT runs both resolution
+    # streams through every layer, an image's its one segment
+    per_call = {"video": 2 * cfg.vit.num_layers, "image": cfg.vit.num_layers,
+                "prefill": cfg.llm.num_layers}
+    calls = dict.fromkeys(per_call, 0)
+    tag = f"offline [{card}]:"
+    options = "\nA. a street\nB. a kitchen\nC. a forest\nD. a beach"
+
+    def sync():
+        torch.cuda.synchronize(dev)
+
+    rng = np.random.default_rng(SEED)
+    frames = _offline_frames(rng, OFFLINE_FRAMES, OFFLINE_SIDE)
+    _release(dev)
+    flash_attention_cuda.launches = 0
+
+    # 1. the video question
+    sync()
+    t0 = time.perf_counter()
+    embeds, pos, start = pipe.video_inputs(frames, OFFLINE_Q, seed=SEED)
+    sync()
+    encode_s = time.perf_counter() - t0
+    calls["video"] += 1
+    peak_encode = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    grid = (OFFLINE_FRAMES // 2, OFFLINE_SIDE // 14, OFFLINE_SIDE // 14)
+    dam, csm = visual_token_count(cfg, *grid)
+    ids, (v0, n_vis) = build_video_prompt(cfg, tok, OFFLINE_Q, grid=grid)
+    S = embeds.shape[1]
+    n_pads = int((ids == _video_pad_id(tok, cfg)).sum())
+    if not (n_vis == n_pads == dam + csm and S == len(ids) and tuple(pos.shape) == (3, 1, S)
+            and bool(torch.isfinite(embeds).all())):
+        raise AssertionError(f"offline: visual tokens {dam} + {csm}, "
+                             f"{n_pads} pads in the prompt, S {S}")
+    cache = g.new_cache(1, g._active_len(S, gen.max_new_tokens))
+    sync()
+    t0 = time.perf_counter()
+    logits = g.prefill(embeds, pos, cache)
+    sync()
+    prefill_s = time.perf_counter() - t0
+    del cache
+    cache = g.new_cache(1, g._active_len(S, gen.max_new_tokens))
+    t0 = time.perf_counter()
+    logits_c = g._prefill_chunked(embeds, pos, cache, None, None,
+                                  OFFLINE_CHUNK)
+    sync()
+    chunked_s = time.perf_counter() - t0
+    del cache
+    calls["prefill"] += 2
+    scale = logits.float().abs().max().item()
+    lerr = (logits_c.float() - logits.float()).abs().max().item()
+    if not (torch.isfinite(logits).all() and torch.isfinite(logits_c).all()
+            and lerr <= OFFLINE_LOGIT_TOL * scale):
+        raise AssertionError(f"offline: first-token logits one-shot vs "
+                             f"chunks of {OFFLINE_CHUNK} differ by {lerr:.3e}"
+                             f" (max |logit| {scale:.3e}, limit "
+                             f"{OFFLINE_LOGIT_TOL:.0e} of it)")
+    t0 = time.perf_counter()
+    ids_a = g.generate(embeds, pos, gen, decode_pos_start=start)
+    sync()
+    decode_s = time.perf_counter() - t0 - prefill_s
+    ids_c = g.generate(embeds, pos, dataclasses.replace(
+        gen, preemptible_chunk=8, prefill_chunk=OFFLINE_CHUNK),
+        decode_pos_start=start)
+    calls["prefill"] += 2
+    del embeds, pos
+    ids_1 = pipe.answer_tokens(frames, OFFLINE_Q, gen, seed=SEED)
+    ids_2 = pipe.answer_tokens(frames, OFFLINE_Q, gen, seed=SEED)
+    calls["video"] += 2
+    calls["prefill"] += 2
+    sync()
+    peak_video = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    if not (ids_c == ids_a and ids_1 == ids_2 == ids_a and 1 <= len(ids_a)
+            and all(0 <= t < cfg.llm.vocab_size for t in ids_a)):
+        raise AssertionError(f"offline: greedy ids one-shot {ids_a}, in "
+                             f"prefill chunks {ids_c}, answer_tokens "
+                             f"{ids_1} / {ids_2}")
+    print(f"{tag} video {OFFLINE_FRAMES} frames {OFFLINE_SIDE}x"
+          f"{OFFLINE_SIDE} grid {grid}: {dam} DAM + {csm} CSM visual tokens "
+          f"= the prompt's {n_pads} pads, S={S}; encode_s={encode_s:.3f} "
+          f"prefill_s={prefill_s:.3f} (one-shot, K1) "
+          f"prefill_chunked_s={chunked_s:.3f} (chunks of {OFFLINE_CHUNK}) "
+          f"decode_s={decode_s:.3f} for {len(ids_a)} tokens "
+          f"({decode_s / len(ids_a) * 1e3:.1f} ms/token); peak memory "
+          f"{peak_encode:.2f} GiB after the encode, {peak_video:.2f} GiB "
+          f"over the answers", flush=True)
+    print(f"{tag} first-token logits one-shot vs chunks of {OFFLINE_CHUNK}: "
+          f"max diff {lerr:.3e} of max |logit| {scale:.3e} (limit "
+          f"{OFFLINE_LOGIT_TOL:.0e} of it); greedy ids one-shot = chunked "
+          f"prefill (decode chunks of 8) = answer_tokens twice with seed "
+          f"{SEED}: {len(ids_a)} tokens, text "
+          f"{tok.decode(ids_a, skip_special_tokens=True)[:32]!r}", flush=True)
+
+    # 2. two images
+    for name, hw in (("448x448", (448, 448)), ("392x504", (392, 504))):
+        image = rng.integers(0, 256, size=(*hw, 3), dtype=np.uint8)
+        gh, gw = (x // 14 for x in smart_resize(*hw, factor=56,
+                                                max_pixels=pipe.max_pixels))
+        sync()
+        t0 = time.perf_counter()
+        ids_i = pipe.answer_image_tokens(image, "What is shown?", gen)
+        sync()
+        calls["image"] += 1
+        calls["prefill"] += 1
+        if not (1 <= len(ids_i) and all(0 <= t < cfg.llm.vocab_size
+                                        for t in ids_i)):
+            raise AssertionError(f"offline: image {name} ids {ids_i}")
+        print(f"{tag} image {name} grid {gh}x{gw} ({gh * gw} ViT tokens in "
+              f"one segment, {image_token_count(gh, gw)} visual tokens): "
+              f"{len(ids_i)} ids in {time.perf_counter() - t0:.3f} s",
+              flush=True)
+
+    # 3. the checkpoint round trip
+    ckpt = os.path.join(root, "build", "offline_ckpt")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    try:
+        sd = export_llama(params["llm"], cfg.llm)
+        sd.update(export_qwen_vit(params["vit"], cfg.vit))
+        total = sum(t.numel() * t.element_size() for t in sd.values())
+        sync()
+        t0 = time.perf_counter()
+        names = save_hf_checkpoint(ckpt, sd, config=hf_qwen_config(cfg),
+                                   max_shard_bytes=OFFLINE_SHARD)
+        write_s = time.perf_counter() - t0
+        del sd
+        sizes = [os.path.getsize(os.path.join(ckpt, n)) for n in names]
+        lcfg = qwen_config_from_hf(ckpt)
+        if lcfg != cfg or max(sizes) > OFFLINE_SHARD + 2 ** 20:
+            raise AssertionError(f"offline: config.json reads back as "
+                                 f"{lcfg}; shards {sizes}")
+        t0 = time.perf_counter()
+        loaded = load_qwen_checkpoint(ckpt, lcfg, dtype=torch.bfloat16,
+                                      device=dev)
+        sync()
+        load_s = time.perf_counter() - t0
+        n_leaves = 0
+        for path, a, b in _leaf_pairs(params, loaded):
+            n_leaves += 1
+            if a.dtype != b.dtype or not torch.equal(a, b):
+                raise AssertionError(f"offline: loaded leaf {path} differs")
+        print(f"{tag} checkpoint {total / 1e9:.2f} GB in {len(names)} shards "
+              f"(largest {max(sizes) / 1e9:.2f} GB): write_s={write_s:.2f} "
+              f"({total / 1e9 / write_s:.2f} GB/s) load_s={load_s:.2f} "
+              f"({total / 1e9 / load_s:.2f} GB/s, read back from the page "
+              f"cache); config.json = VStreamQwenConfig(); {n_leaves} leaves "
+              f"bit-equal", flush=True)
+        shutil.rmtree(ckpt, ignore_errors=True)
+
+        # 4. the eval worker on the loaded weights
+        data = os.path.join(work, "offline_eval")
+        shutil.rmtree(data, ignore_errors=True)       # no answers to resume
+        _npy_video(os.path.join(data, "frames"), "v0", frames)
+        _npy_video(os.path.join(data, "frames"), "v1",
+                   _offline_frames(rng, OFFLINE_FRAMES, OFFLINE_SIDE))
+        del frames
+        qa = {"mcq": [{"id": "mcq", "video_id": "v0", "answer": 1,
+                       "question": "Where is the video taken?" + options}],
+              "pair": [{"id": "pair", "video_id": "v1", "answer": 2,
+                        "question1": "Where does it happen?" + options,
+                        "question2": "What is the place?" + options}]}
+        lpipe = QwenPipeline(loaded, lcfg, tok, max_pixels=pipe.max_pixels)
+        t0 = time.perf_counter()
+        for name, samples in qa.items():
+            with open(os.path.join(data, f"{name}.json"), "w") as f:
+                json.dump(samples, f)
+            args = worker.make_parser().parse_args([
+                "--dataset", "mvbench", "--video-dir",
+                os.path.join(data, "frames"), "--data-file",
+                os.path.join(data, f"{name}.json"), "--output-dir",
+                os.path.join(data, name), "--max-frames",
+                str(OFFLINE_FRAMES), "--max-new-tokens", "32"])
+            recs = _answers(worker.run_inference(args, pipeline=lpipe))
+            if [r["id"] for r in recs] != [s["id"] for s in samples]:
+                raise AssertionError(f"offline: the worker's answers file "
+                                     f"holds ids {[r['id'] for r in recs]}"
+                                     f" (a failed sample is printed above)")
+            for rec in recs:
+                paths = worker.sample_frame_paths(
+                    os.path.join(data, "frames", rec["video_id"]), None,
+                    OFFLINE_FRAMES)
+                video = worker.load_frames(paths)
+                keys = (("pred", "question"),) if "pred" in rec else (
+                    ("pred1", "question1"), ("pred2", "question2"))
+                for pk, qk in keys:
+                    q, _ = worker.build_question(rec, "mvbench",
+                                                 q_base=rec[qk])
+                    want = pipe.answer(video, q + "\nBest option: (", gen)
+                    calls["video"] += 2
+                    calls["prefill"] += 2
+                    if rec[pk] != want:
+                        raise AssertionError(
+                            f"offline: worker {rec['id']} {pk} {rec[pk]!r}, "
+                            f"in-memory pipeline {want!r}")
+        worker_s = time.perf_counter() - t0
+        acc = calc_mcq_result(os.path.join(data, "mcq"), 1,
+                              os.path.join(data, "mcq.json"),
+                              dataset_name="mvbench")["acc"]
+        print(f"{tag} eval worker on the loaded weights: MCQ sample + "
+              f"consistency pair over {OFFLINE_FRAMES} .npy frames, every "
+              f"id answered, 3 preds = the in-memory pipeline's; "
+              f"calc_mcq_result acc {acc}; {worker_s:.1f} s with the "
+              f"in-memory answers", flush=True)
+        del loaded, lpipe
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    k1 = flash_attention_cuda.launches
+    want_k1 = sum(per_call[k] * n for k, n in calls.items())
+    if k1 != want_k1:
+        raise AssertionError(f"offline: K1 launched {k1} times, reckoned "
+                             f"{want_k1} from {calls}")
+
+    # K1 at the answer prefill's own shape, timed (not counted above)
+    q = torch.randn(1, cfg.llm.num_heads, S, cfg.llm.head_dim, device=dev,
+                    dtype=torch.bfloat16)
+    k, v = (torch.randn(1, cfg.llm.num_kv_heads, S, cfg.llm.head_dim,
+                        device=dev, dtype=torch.bfloat16) for _ in range(2))
+    ms = _ms(lambda i: flash_attention_cuda(q, k, v, causal=True), 5)
+    lib = _ms(lambda i: _sdpa(q, k, v, True), 5)
+    bound = _bound(_visible_pairs(q, k, True, None, None) * 4 * q.shape[-1],
+                   _nbytes(q, k, v, q))
+    print(f"{tag} K1 at the offline prefill q{tuple(q.shape)} "
+          f"k{tuple(k.shape)} causal: kernel_ms={ms:.4f} bound_ms="
+          f"{bound[0]:.4f} ({bound[1]}) library_ms={lib:.4f} "
+          f"(scaled_dot_product_attention)", flush=True)
+    del q, k, v
+
+    # 5. the launcher, its workers on the card
+    launch = os.path.join(work, "offline_launch")
+    shutil.rmtree(launch, ignore_errors=True)
+    for i in range(2):
+        _npy_video(os.path.join(launch, "mvbench", "frames"), f"vid{i}",
+                   [rng.integers(0, 256, (56, 56, 3), dtype=np.uint8)
+                    for _ in range(4)])
+    with open(os.path.join(launch, "mvbench", "test_qa.json"), "w") as f:
+        json.dump([{"id": str(i), "video_id": f"vid{i % 2}", "answer": 0,
+                    "question": f"Q{i}?" + options} for i in range(4)], f)
+    out = os.path.join(launch, "out")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "flash_vstream_tpu_torch.eval.eval_any_dataset",
+         "--dry-run", "--num-chunks", "2", "--dataset", "mvbench",
+         "--data-root", launch, "--output-dir", out, "--max-frames", "4"],
+        cwd=root, capture_output=True, text=True, timeout=600)
+    launch_s = time.perf_counter() - t0
+    held = {i: sorted(r["id"] for r in _answers(
+        os.path.join(out, f"2_{i}.json"))) for i in range(2)
+        if os.path.exists(os.path.join(out, f"2_{i}.json"))}
+    if (proc.returncode != 0 or "worker exited with" in proc.stdout
+            or held != {0: ["0", "2"], 1: ["1", "3"]}):
+        raise AssertionError(f"offline: eval_any_dataset exited "
+                             f"{proc.returncode}, answers {held}:\n"
+                             f"{proc.stdout[-2000:]}\n{proc.stderr[-2000:]}")
+    print(f"{tag} eval_any_dataset --dry-run --num-chunks 2: two card "
+          f"workers exit 0, answers 2_0 {held[0]} 2_1 {held[1]}, "
+          f"{launch_s:.1f} s", flush=True)
+    print(f"{tag} launches K1={k1} = {per_call['video']} x {calls['video']} "
+          f"video encodes + {per_call['image']} x {calls['image']} image "
+          f"encodes + {per_call['prefill']} x {calls['prefill']} prefills",
+          flush=True)
+    return k1
 
 
 def _tree_to(tree, device, dtype=None):
@@ -2988,7 +3378,7 @@ def profile_train_step(dev, params, data, work, out_dir, step_s, cfg=None):
 
 
 PHASES = ("kernels", "int4_kernel", "reference", "int4_reference", "slice",
-          "serve_http", "backward", "function", "train_reference", "dry_run_train",
+          "serve_http", "offline", "backward", "function", "train_reference", "dry_run_train",
           "train_slice",
           "production", "serve4", "bank_gather", "vit_probe", "int4_probe")
 
@@ -2997,8 +3387,8 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--only", default=",".join(PHASES),
                         help="comma-separated phases to run (default all; "
-                             "serve_http, the training phases and serve4 "
-                             "need 'slice')")
+                             "serve_http, offline, the training phases and "
+                             "serve4 need 'slice')")
     parser.add_argument("--profile", default=None, metavar="DIR",
                         help="also profile one training-slice step into DIR")
     opts = parser.parse_args()
@@ -3080,6 +3470,10 @@ def main() -> int:
                 k1, k2 = run_serve_http(dev, params, work)
                 paths["serve_http"] = dict(flash_attention_fwd=k1,
                                            gather_rows=k2)
+                _release(dev)
+            if "offline" in only:
+                paths["offline"] = dict(flash_attention_fwd=run_offline(
+                    dev, params, work, smi, root))
                 _release(dev)
             if "train_slice" in only:
                 total, data, step_s = run_train_slice(dev, params, work)

@@ -2,13 +2,16 @@
 retrieved spatial memory, and AM-RoPE visual positions, in the streaming form
 and the offline form of training.
 
-Port of flash_vstream_tpu/models/flash_memory.py:47-70, 127-265, 271-293,
+Port of flash_vstream_tpu/models/flash_memory.py:47-70, 127-265, 271-346,
 351-539. `flash_stream_update` folds one clip into a ring-buffered frame
 bank, re-clusters [old clusters | new frames] into K CSM clusters with
 ordered weighted k-means, and retrieves t_dam full-resolution DAM frames,
 gathered out of the bank by the row-gather kernel K2. `flash_consolidate`
-compresses a whole video at once (training), and `cat_spa_tem` lays out the
-[DAM | CSM] token stream for the PatchMerger.
+compresses a whole video at once (offline QA, training), and `cat_spa_tem`
+lays out the [DAM | CSM] token stream for the PatchMerger.
+`mm_rope_positions` (with `qwen_rope_positions`, its one-video case) lays
+out the 3D rope positions of a prompt with any sequence of image and video
+blocks, on the host.
 
 Differences from the JAX version, all of interface:
 - the banks are updated in place (`index_copy_`), where JAX donates and
@@ -322,3 +325,40 @@ def am_rope_visual_positions(
     spa_ids = mm_index(spa_positions, *spa_grid_hw)
     tem_ids = mm_index(tem_positions, *tem_grid_hw) + spa_ids.shape[1]
     return torch.cat([spa_ids, tem_ids], dim=1)
+
+
+def qwen_rope_positions(input_ids: np.ndarray, visual_span: Tuple[int, int],
+                        visual_positions) -> Tuple[np.ndarray, int]:
+    """`mm_rope_positions` for one video block at visual_span = (start,
+    n_visual) with its AM-RoPE positions [3, n_visual]."""
+    start, _ = visual_span
+    return mm_rope_positions(input_ids, [(start, visual_positions)])
+
+
+def mm_rope_positions(input_ids: np.ndarray, spans: list
+                      ) -> Tuple[np.ndarray, int]:
+    """3D rope positions [3, S] int64 of a prompt with ordered,
+    non-overlapping visual blocks spans = [(start, positions [3, n])]
+    (AM-RoPE positions for a video, `mm_grid_index` for an image), and
+    rope_delta = max + 1 - S. Text counts on from the running index; a
+    block is offset by it; the text after a block resumes at max(block) + 1
+    past that offset (get_rope_index's rule, for any interleaving)."""
+    S = len(input_ids)
+    pos = np.zeros((3, S), np.int64)
+    cur = 0       # next sequence slot to fill
+    st_idx = 0    # next 1D position value for text
+    for start, vp in spans:
+        vp = np.asarray(vp.cpu() if isinstance(vp, torch.Tensor) else vp)
+        n = vp.shape[1]
+        text_len = start - cur
+        if text_len < 0:
+            raise ValueError("spans must be ordered and non-overlapping")
+        pos[:, cur:start] = st_idx + np.arange(text_len)
+        st_idx += text_len
+        pos[:, start:start + n] = vp + st_idx
+        if n:
+            st_idx += int(vp.max()) + 1
+        cur = start + n
+    pos[:, cur:] = st_idx + np.arange(S - cur)
+    rope_delta = int(pos.max()) + 1 - S if S else 0
+    return pos, rope_delta

@@ -1,11 +1,16 @@
 """Qwen2-VL vision transformer (Flash-VStream-Qwen generation).
 
-Port of flash_vstream_tpu/models/qwen2_vit.py:38-107, 153-285: the
+Port of flash_vstream_tpu/models/qwen2_vit.py:38-285: the varlen encoder
+(`qwen_vit_blocks`: concatenated grids in one sequence, attention within
+each segment id, -1 padding never attended, through K1), the
 frame-batched dual-resolution encoder (`qwen_vit_blocks_frames`), its
-frame-chunked form (`qwen_vit_encode_frames_chunked`) and the PatchMerger. Attention in Qwen2-VL is block-diagonal per temporal frame, so
-each resolution stream runs as a batch of small full-attention problems
-[frames, heads, tokens, head_dim] through the fused kernel K1, while the
-projections and MLP run once over the concatenated token stream.
+frame-chunked form (`qwen_vit_encode_frames_chunked`) and the PatchMerger.
+Attention in Qwen2-VL is block-diagonal per temporal frame, so for one
+video each resolution stream runs as a batch of small full-attention
+problems [frames, heads, tokens, head_dim] through K1, while the
+projections and MLP run once over the concatenated token stream. JAX
+takes its Pallas kernel only from S 512 (kernels/flash_attention.py:538);
+on the card every call here launches K1.
 """
 from __future__ import annotations
 
@@ -28,6 +33,7 @@ from .layers import (
     init_dense,
     layer_norm,
     layer_slice,
+    mha,
     vision_rope_angles,
 )
 
@@ -90,6 +96,48 @@ def grid_segments(grid_thw: Sequence[Tuple[int, int, int]]) -> np.ndarray:
             out.append(np.full(h * w, seg, np.int32))
             seg += 1
     return np.concatenate(out)
+
+
+def prepare_vit_inputs(grid_thw: Sequence[Tuple[int, int, int]],
+                       pad_to: int) -> Tuple[np.ndarray, np.ndarray]:
+    """Positions [pad_to, 2] and segment ids [pad_to] of concatenated grids,
+    padded to a bucket size (padding: position 0, segment id -1)."""
+    pos = grid_positions(grid_thw)
+    seg = grid_segments(grid_thw)
+    S = pos.shape[0]
+    if S > pad_to:
+        raise ValueError(f"{S} tokens exceed bucket {pad_to}")
+    pos = np.pad(pos, ((0, pad_to - S), (0, 0)))
+    seg = np.pad(seg, (0, pad_to - S), constant_values=-1)
+    return pos, seg
+
+
+def qwen_vit_blocks(
+    params: dict,
+    cfg: VitConfig,
+    patches: torch.Tensor,       # [S, pd] (padded)
+    positions,                   # [S, 2] (h, w), array or tensor
+    segment_ids,                 # [S]; -1 padding
+) -> torch.Tensor:
+    """The varlen encoder: patch embed, 2D rotary, then the blocks with
+    attention inside each segment (`mha`, non-causal, K1 on the card).
+    Returns [S, D] in the patches' dtype (the dense layers compute in the
+    activations' dtype, as in JAX)."""
+    dev = patches.device
+    positions = torch.as_tensor(positions, device=dev)
+    seg = torch.as_tensor(segment_ids, dtype=torch.int32,
+                          device=dev)[None].contiguous()
+    x = dense(patches, params["patch_embed"]["w"])[None]     # [1, S, D]
+    rope = vision_rope_angles(positions[:, 0], positions[:, 1], cfg.head_dim)
+    for i in range(cfg.num_layers):
+        lp = layer_slice(params["layers"], i)
+        h = layer_norm(x, lp["ln1"]["scale"], lp["ln1"]["bias"], 1e-6)
+        x = x + mha(lp["attn"], h, num_heads=cfg.num_heads,
+                    num_kv_heads=cfg.num_heads, head_dim=cfg.head_dim,
+                    rope=rope, q_segment_ids=seg, kv_segment_ids=seg)
+        h = layer_norm(x, lp["ln2"]["scale"], lp["ln2"]["bias"], 1e-6)
+        x = x + gelu_mlp(lp["mlp"], h, cfg.hidden_act)
+    return x[0]
 
 
 @functools.lru_cache(maxsize=16)

@@ -1,18 +1,19 @@
 """Flash-VStream-Qwen composition: Qwen2-VL ViT + Flash memory + Qwen2
 decoder.
 
-Port of flash_vstream_tpu/models/vstream_qwen.py:33-66, 88-172, 209-321: the
-parameter init, the visual token count of a (t, h, w) grid, the offline
-video encode of training (`encode_video`: dual-resolution ViT, Flash memory
-consolidation, PatchMerger), the splice of its embeddings into the prompt
-and the 3D rope positions around it, and `qwen_forward_train`.
-`VStreamQwen` holds both halves as modules whose `state_dict()` keys are the
-JAX tree's key paths.
+Port of flash_vstream_tpu/models/vstream_qwen.py:33-321: the parameter
+init, the token counts and 3D rope index of video and image grids, the
+offline video encode (`encode_video`: dual-resolution ViT, Flash memory
+consolidation, PatchMerger), the still-image encode (`encode_image`: the
+varlen ViT over the full patch grid, no Flash memory), the splice of their
+embeddings into the prompt and the 3D rope positions around it, and
+`qwen_forward_train`. `VStreamQwen` holds both halves as modules whose
+`state_dict()` keys are the JAX tree's key paths.
 
 The ViT and the consolidation run without a graph: nothing before the
 PatchMerger is trained (LoRA adapts the merger and the decoder), so
 gradients equal JAX's, where nothing before the merger is differentiated
-either. Still images (`encode_image`) need the varlen ViT (ROADMAP A3).
+either.
 """
 from __future__ import annotations
 
@@ -29,8 +30,11 @@ from .flash_memory import am_rope_visual_positions, cat_spa_tem, flash_consolida
 from .llm import Qwen2Decoder, decoder_forward, embed_tokens, init_llm_params, lm_head
 from .qwen2_vit import (
     QwenVisionTransformer,
+    grid_positions,
+    grid_segments,
     init_qwen_vit_params,
     patch_merger,
+    qwen_vit_blocks,
     qwen_vit_blocks_frames,
     qwen_vit_encode_frames_chunked,
 )
@@ -75,6 +79,30 @@ def visual_token_count(cfg: VStreamQwenConfig, t: int, h: int, w: int
     dt, dh, dw = dam_grid(cfg, t, h, w)
     ct, ch, cw = csm_grid(cfg, t, h, w)
     return dt * dh * dw // 4, ct * ch * cw // 4
+
+
+def image_token_count(h: int, w: int) -> int:
+    """LLM tokens of one still image: its full patch grid merged 2x2
+    (images bypass Flash memory)."""
+    return h * w // 4
+
+
+def mm_grid_index(t: int, h: int, w: int) -> np.ndarray:
+    """Standard Qwen2-VL 3D rope index over an LLM-space grid: (t, h//2,
+    w//2) enumerated row-major. Returns [3, t*h*w//4] int64."""
+    gh, gw = h // 2, w // 2
+    t_idx = np.repeat(np.arange(t), gh * gw)
+    h_idx = np.tile(np.repeat(np.arange(gh), gw), t)
+    w_idx = np.tile(np.arange(gw), t * gh)
+    return np.stack([t_idx, h_idx, w_idx]).astype(np.int64)
+
+
+def _vit_input(patches: torch.Tensor, wdtype) -> torch.Tensor:
+    """Patches as the ViT takes them: bf16 patches stay bf16 (the ViT then
+    computes in bf16 whatever its weights' dtype, as JAX's `dense` does);
+    others take the weights' dtype (HF casts pixel values to the visual
+    dtype, and the card's kernels take bf16 only)."""
+    return patches if patches.dtype == torch.bfloat16 else patches.to(wdtype)
 
 
 # ---------------------------------------------------------------------------
@@ -126,7 +154,8 @@ def encode_video(
             pool_in, grid, cfg.vit.patch_size, cfg.vit.temporal_patch_size,
             cfg.vit.in_channels)
         if norm_fn is None:
-            patches, small = patches.to(wdtype), small.to(wdtype)
+            patches = _vit_input(patches, wdtype)
+            small = _vit_input(small, wdtype)
         chunk = min(vit_chunk, t) if vit_chunk else 0
         while chunk > 1 and t % chunk:   # largest divisor of t <= vit_chunk
             chunk -= 1
@@ -158,10 +187,31 @@ def encode_video(
 
 
 def encode_image(params: dict, cfg: VStreamQwenConfig, patches: torch.Tensor,
-                 grid_hw: Tuple[int, int], patch_norm=None):
-    """Still-image encode: needs the varlen ViT (`qwen_vit_blocks`)."""
-    raise NotImplementedError(
-        "still-image encode needs the varlen ViT, not ported yet: ROADMAP A3")
+                 grid_hw: Tuple[int, int], patch_norm=None
+                 ) -> QwenVisualOutput:
+    """Still-image encode: the varlen ViT over the (1, h, w) grid as one
+    segment, then the PatchMerger; no Flash memory (nothing temporal to
+    consolidate) and the standard mm rope index. patches [h*w, pd] (the
+    single frame duplicated over the temporal patch), uint8 with
+    `patch_norm` = (scale_pd, shift_pd), normalized in f32 to bf16."""
+    h, w = grid_hw
+    vit = params["vit"]
+    wdtype = getattr(vit["patch_embed"]["w"], "dtype", torch.bfloat16)
+    with torch.no_grad():
+        if patch_norm is not None:
+            scale, shift = (torch.as_tensor(np.asarray(v), dtype=torch.float32,
+                                            device=patches.device)
+                            for v in patch_norm)
+            patches = (patches.float() * scale + shift).to(torch.bfloat16)
+        else:
+            patches = _vit_input(patches, wdtype)
+        hidden = qwen_vit_blocks(vit, cfg.vit, patches,
+                                 grid_positions([(1, h, w)]),
+                                 grid_segments([(1, h, w)]))
+    embeds = patch_merger(vit, hidden)                      # [h*w//4, llm]
+    pos = torch.as_tensor(mm_grid_index(1, h, w), dtype=torch.int32,
+                          device=embeds.device)
+    return QwenVisualOutput(embeds, pos)
 
 
 # ---------------------------------------------------------------------------

@@ -2,7 +2,7 @@
 
 The host half is a copy of flash_vstream_tpu/preprocess/image.py's
 `_to_float_chw`, `_resize_bilinear`, `to_uint8_hwc`, `qwen_resize_u8`,
-`smart_resize`, `qwen_patchify`, `qwen_patchify_u8`, `qwen_patch_norm` and
+`frame_hw`, `smart_resize`, `qwen_patchify`, `qwen_patchify_u8`, `qwen_patch_norm` and
 `qwen_preprocess` (numpy arithmetic, so the two packages agree bit for
 bit); PIL loads only where a frame needs resizing. The device half is the
 port of `qwen_device_preprocess` (:223).
@@ -64,6 +64,14 @@ def qwen_resize_u8(frames: Sequence[np.ndarray], hw,
     if pad_to_even and len(out) % 2:
         out.append(out[-1])
     return np.stack(out)
+
+
+def frame_hw(frame: np.ndarray) -> Tuple[int, int]:
+    """(H, W) of a frame in any supported layout (HWC, or CHW)."""
+    f = np.asarray(frame)
+    if f.ndim == 3 and f.shape[0] in (1, 3) and f.shape[-1] not in (1, 3):
+        return f.shape[1], f.shape[2]
+    return f.shape[0], f.shape[1]
 
 
 def smart_resize(height: int, width: int, factor: int = 56,

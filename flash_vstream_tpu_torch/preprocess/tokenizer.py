@@ -1,10 +1,11 @@
-"""The byte-level tokenizer stub of the weightless runs, and the keyword
-stopping criterion of stepwise decode.
+"""The byte-level tokenizer stub of the weightless runs, the HF tokenizer
+of a checkpoint directory, and the keyword stopping criterion of stepwise
+decode.
 
-Copies of `ByteTokenizer` and `KeywordsStoppingCriteria`
-(flash_vstream_tpu/preprocess/tokenizer.py:43, 106-135), so the port
-imports nothing of the JAX package. Real deployments load an HF
-tokenizer from local files, which waits for checkpoints (ROADMAP A10).
+Copies of `ByteTokenizer`, `load_tokenizer` and `KeywordsStoppingCriteria`
+(flash_vstream_tpu/preprocess/tokenizer.py:43, 100-135), so the port
+imports nothing of the JAX package. `load_tokenizer` imports `transformers`
+only when called.
 """
 from __future__ import annotations
 
@@ -66,6 +67,20 @@ class ByteTokenizer:
         if buf:
             out.append(buf.decode("utf-8", errors="replace"))
         return "".join(out)
+
+
+def load_tokenizer(path: str):
+    """The HF tokenizer saved in a local directory (no network). Needs
+    `transformers`, imported here and only here."""
+    try:
+        from transformers import AutoTokenizer
+    except ImportError as e:
+        raise ImportError(
+            f"load_tokenizer({path!r}) needs the `transformers` package, "
+            f"which is not installed; build the pipeline with a tokenizer "
+            f"object instead (e.g. preprocess.qwen_processor."
+            f"make_byte_qwen_tokenizer)") from e
+    return AutoTokenizer.from_pretrained(path, local_files_only=True)
 
 
 class KeywordsStoppingCriteria:

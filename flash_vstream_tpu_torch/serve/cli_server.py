@@ -17,13 +17,17 @@ runs their prefill-scale matmuls as int8 x int8 products.
 answers in chunks of N steps (and `--prefill-chunk M` prefills in chunks of
 M tokens) with a host sync between chunks; `--resume-session` loads a
 stream's memory before streaming and `--save-session` writes it after.
-Without a
-checkpoint loader in the port (ROADMAP A10), the server builds its model
-only with --dry-run (the tiny config, random weights from a torch generator
-seeded 0, the byte tokenizer, 56 px frames); `run_server(args, session=...)`
-serves a session built by the caller instead, such as a full-width model
-from random weights. Flags of features the port does not have yet raise
-NotImplementedError naming their ROADMAP item.
+The server's model comes from `--model-path DIR`, an HF Qwen2-VL
+checkpoint directory (the weights in bf16, the config from its
+config.json, `--flash-memory-dict` over its Flash memory, the HF
+tokenizer, which needs `transformers`, and frames of `--frame-size`), or
+with --dry-run from the tiny config (random weights from a torch generator
+seeded 0, the byte tokenizer, 56 px frames); `run_server(args,
+session=...)` serves a session built by the caller instead. Flags of
+features the port does not have yet raise NotImplementedError naming their
+ROADMAP item.
+
+    python -m flash_vstream_tpu_torch.serve.cli_server --model-path DIR
 """
 from __future__ import annotations
 
@@ -33,9 +37,7 @@ import time
 from typing import List
 
 import numpy as np
-import torch
 
-from ..core.device import dry_run_dtype, resolve_device
 from ..preprocess.video import SyntheticSource, load_video
 from ..runtime.generation import GenerationConfig
 from ..runtime.metrics import MetricMeter, Timer
@@ -44,7 +46,6 @@ from ..utils.logging import build_logger
 
 # flag (argparse attribute), its spelling, the ROADMAP item that ports it
 _NOT_PORTED = (
-    ("model_path", "--model-path (the checkpoint loader)", "A10"),
     ("kv_int8", "--kv-int8", "A10"),
     ("threaded_ingest", "--threaded-ingest", "A15"),
     ("ingest_devices", "--ingest-devices", "A16"),
@@ -83,29 +84,19 @@ def _apply_quantization(params: dict, args) -> dict:
 
 
 def build_session(args):
-    """The --dry-run session: the tiny Qwen config, random weights from a
-    torch generator seeded 0 on --device (f32 on the CPU, as the JAX dry
-    run; bf16 on the card, the kernels' type), quantized as the flags ask,
-    the byte tokenizer, 56 px frames."""
+    """The server's session over `load_qwen_model`'s model on --device
+    (--dry-run or --model-path), quantized as the flags ask."""
     _check_ported(args)
-    if not args.dry_run:
-        raise NotImplementedError(
-            "serving a checkpoint needs the checkpoint loader, not ported "
-            "yet: ROADMAP A10. Pass --dry-run, or a prebuilt session to "
-            "run_server")
-    from ..core.config import tiny_qwen_config
-    from ..models.vstream_qwen import VStreamQwen, init_qwen_params
-    from ..preprocess.qwen_processor import make_byte_qwen_tokenizer
+    from ..models.vstream_qwen import VStreamQwen
+    from ..runtime.pipeline import load_qwen_model
     from ..runtime.streaming import QwenStreamSession
-    device = resolve_device(args.device)
-    cfg = tiny_qwen_config()
-    params = init_qwen_params(
-        cfg, torch.Generator(device=device).manual_seed(0), device,
-        dtype=dry_run_dtype(device))
+    cfg, params, tokenizer = load_qwen_model(
+        args.model_path, args.device, dry_run=args.dry_run,
+        flash_memory_dict=args.flash_memory_dict)
     params = _apply_quantization(params, args)
-    return QwenStreamSession(VStreamQwen(cfg, params),
-                             make_byte_qwen_tokenizer(), frame_hw=(56, 56),
-                             clip_size=args.clip_size,
+    side = _frame_side(args)
+    return QwenStreamSession(VStreamQwen(cfg, params), tokenizer,
+                             frame_hw=(side, side), clip_size=args.clip_size,
                              bank_size=args.video_max_frames)
 
 

@@ -34,6 +34,7 @@ server's (--preempt, --prefill-chunk).
 
     python -m flash_vstream_tpu_torch.serve.http_server --dry-run --device cpu
     python -m flash_vstream_tpu_torch.serve.http_server --dry-run --port 8080
+    python -m flash_vstream_tpu_torch.serve.http_server --model-path DIR
 
 (every flag of the CLI server's parser, plus --host, --port, --max-streams;
 with no --device the server runs on the card and raises without one).

@@ -213,7 +213,6 @@ def test_frame_directory_source(tmp_path):
 
 @pytest.mark.parametrize("flag,item", [
     (["--model-family", "llava"], "A13"),
-    (["--model-path", "/nonexistent"], "A10"),
     (["--kv-int8"], "A10"),
     (["--threaded-ingest"], "A15"),
     (["--ingest-devices", "1"], "A16"),
@@ -284,11 +283,45 @@ def test_save_then_resume_continues_the_stream(tmp_path):
     assert second["answers"][-1]["answer"] == sess.answer("Q?", gen)
 
 
-def test_no_checkpoint_loader_yet():
-    with pytest.raises(NotImplementedError, match="A10"):
+def test_model_path_serves_the_checkpoint(tmp_path):
+    """--model-path DIR on a checkpoint the port wrote (with an HF
+    tokenizer beside it): the server loads its weights in bf16 and its
+    config, and answers as a session built on the same parameters, fed the
+    same frames, does. Neither flag raises ValueError."""
+    from torch_ckpt import write_tiny_checkpoint
+    from flash_vstream_tpu_torch.models.vstream_qwen import VStreamQwen
+    from flash_vstream_tpu_torch.preprocess.video import SyntheticSource
+    from flash_vstream_tpu_torch.runtime.streaming import QwenStreamSession
+    ckpt = str(tmp_path / "ckpt")
+    cfg, params = write_tiny_checkpoint(ckpt)
+    argv = ["--model-path", ckpt, "--device", "cpu", "--frame-size", "56",
+            "--synthetic-frames", "4", "--clip-size", "2", "--play_speed",
+            "0", "--question", "Q?", "--question_interval", "1000",
+            "--max-new-tokens", "4"]
+    summary = tcli.main(argv)
+    assert summary["frames_ingested"] == 4 and len(summary["answers"]) == 1
+    served = tcli.build_session(tcli.make_parser().parse_args(argv))
+    want = VStreamQwen(cfg, {"vit": _cast(params["vit"]),
+                             "llm": _cast(params["llm"])})
+    for (name, got), (_, ref) in zip(served.model.state_dict().items(),
+                                     want.state_dict().items()):
+        assert got.dtype == torch.bfloat16 and torch.equal(got, ref), name
+    assert served.cfg.llm.vocab_size == 151680 and served.grid_hw == (8, 8)
+    sess = QwenStreamSession(want, served.tokenizer, frame_hw=(56, 56),
+                             clip_size=2, bank_size=1200)
+    src = SyntheticSource(4, 56, 56, fps=1.0)
+    for i in (0, 2):
+        sess.ingest_frames([src[i], src[i + 1]])
+    gen = tcli.GenerationConfig(max_new_tokens=4,
+                                eos_token_ids=(sess.tokenizer.eos_token_id,))
+    assert summary["answers"][0]["answer"] == sess.answer("Q?", gen)
+    with pytest.raises(ValueError, match="--model-path"):
         tcli.main(["--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="A10"):
-        tcli.main(["--device", "cpu", "--load-8bit", "--w8a8-prefill"])
+
+
+def _cast(tree):
+    return {k: _cast(v) if isinstance(v, dict) else v.to(torch.bfloat16)
+            for k, v in tree.items()}
 
 
 def test_w8a8_flag_sets_the_switch():

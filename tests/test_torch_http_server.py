@@ -262,6 +262,40 @@ def test_http_main_runs_on_the_card_by_default():
         ths.make_server(["--dry-run", "--port", "0"])
 
 
+def test_http_model_path_serves_the_checkpoint(tmp_path):
+    """The HTTP server with --model-path DIR (a checkpoint the port wrote,
+    an HF tokenizer beside it) builds its sessions through build_session:
+    an answer over .npy frames is that of a session built on the same
+    parameters."""
+    from torch_ckpt import write_tiny_checkpoint
+    ckpt = str(tmp_path / "ckpt")
+    write_tiny_checkpoint(ckpt)
+    argv = ["--model-path", ckpt, "--device", "cpu", "--port", "0",
+            "--frame-size", "56", "--clip-size", "2", "--max-new-tokens", "4"]
+    httpd = ths.make_server(argv)
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    try:
+        assert _req(f"{base}/v1/streams", "POST", {"id": "m"})[0] == 201
+        frames = _frames(4, 56, 56, seed=3)
+        code, _ = _req(f"{base}/v1/streams/m/frames", "POST", _npy(frames),
+                       content_type="application/octet-stream")
+        assert code == 200
+        code, out = _req(f"{base}/v1/streams/m/answer", "POST",
+                         {"question": "Q?", "max_new_tokens": 4})
+        assert code == 200
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+    solo = build_session(ths.make_parser().parse_args(argv))
+    assert solo.tokenizer.eos_token_id == 151645
+    solo.ingest_frames(list(frames[:2]))
+    solo.ingest_frames(list(frames[2:]))
+    gen = GenerationConfig(max_new_tokens=4,
+                           eos_token_ids=(solo.tokenizer.eos_token_id,))
+    assert out["answer"] == solo.answer("Q?", gen)
+
+
 def test_http_concurrent_frame_posts(server):
     """16 client threads post frames to one stream at once (a short switch
     interval): no frame is lost and every whole clip is ingested once."""

@@ -1,4 +1,9 @@
-"""The port runs without JAX and without the JAX package: a tiny ingest +
+"""The port runs without JAX and without the JAX package: first the
+offline path without `safetensors`, `transformers` or PIL (a tiny
+checkpoint written and loaded by the port's own safetensors code, a video
+and an image answered through QwenPipeline, the eval worker over `.npy`
+frames; none of the three is in sys.modules afterwards, as on the card's
+machine, which has none of them), then a tiny ingest +
 answer, a tiny LoRA training step, an answer over an int4 decoder (prefill
 and a decode step), the --load-4bit dry-run server, the HTTP server
 (frames, a preemptible speculative answer, a sampled SSE answer), a
@@ -30,6 +35,43 @@ from flash_vstream_tpu_torch.runtime.streaming import QwenStreamSession
 from flash_vstream_tpu_torch.train.finetune_flash import make_parser, run_training
 torch.set_num_threads(1)
 cfg = tiny_qwen_config()
+import json, os
+from flash_vstream_tpu_torch.eval import inference_mcq_vqa as worker
+from flash_vstream_tpu_torch.runtime.pipeline import QwenPipeline
+from flash_vstream_tpu_torch.weights.convert import load_qwen_checkpoint, qwen_config_from_hf
+from flash_vstream_tpu_torch.weights.export import (
+    export_llama, export_qwen_vit, hf_qwen_config, save_hf_checkpoint)
+params = init_qwen_params(cfg, torch.Generator().manual_seed(0), "cpu")
+rng = np.random.default_rng(0)
+frames = [rng.integers(0, 256, (112, 112, 3), dtype=np.uint8) for _ in range(12)]
+with tempfile.TemporaryDirectory() as d:
+    sd = export_llama(params["llm"], cfg.llm)
+    sd.update(export_qwen_vit(params["vit"], cfg.vit))
+    assert len(save_hf_checkpoint(d + "/ckpt", sd, config=hf_qwen_config(cfg),
+                                  max_shard_bytes=300000)) > 1
+    lcfg = qwen_config_from_hf(d + "/ckpt")
+    loaded = load_qwen_checkpoint(d + "/ckpt", lcfg, device="cpu")
+    assert torch.equal(loaded["vit"]["layers"]["attn"]["wk"]["w"],
+                       params["vit"]["layers"]["attn"]["wk"]["w"])
+    pipe = QwenPipeline(loaded, lcfg, make_byte_qwen_tokenizer(), max_len=1024)
+    gen = GenerationConfig(max_new_tokens=3)
+    assert isinstance(pipe.answer(frames, "what?", gen=gen), str)
+    assert 1 <= len(pipe.answer_image_tokens(frames[0], "what?", gen)) <= 3
+    os.makedirs(d + "/frames/v0")
+    for i, f in enumerate(frames[:4]):
+        np.save(d + f"/frames/v0/frame_{i:06d}.npy", f)
+    with open(d + "/qa.json", "w") as f:
+        json.dump([{"id": "0", "video_id": "v0", "question": "Q?",
+                    "answer": 0}], f)
+    out = worker.run_inference(worker.make_parser().parse_args([
+        "--dataset", "mvbench", "--video-dir", d + "/frames", "--data-file",
+        d + "/qa.json", "--output-dir", d + "/out", "--max-frames", "4",
+        "--max-new-tokens", "3", "--device", "cpu"]), pipeline=pipe)
+    with open(out) as f:
+        assert [json.loads(line)["id"] for line in f] == ["0"]
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("safetensors", "transformers", "PIL"))
+assert not bad, bad
 model = VStreamQwen(cfg, init_qwen_params(cfg, torch.Generator().manual_seed(0), "cpu"))
 sess = QwenStreamSession(model, make_byte_qwen_tokenizer(), frame_hw=(56, 56),
                          clip_size=2, bank_size=8, max_len=512)

@@ -450,7 +450,7 @@ def test_entry_points_default_to_the_card(tmp_path, tiny):
 
 def test_unported_paths_raise(tmp_path, tiny):
     import dataclasses
-    cfg, _, tparams = tiny
+    cfg, _, _ = tiny
     parse = lambda *a: tft.make_parser().parse_args(
         ["--device", "cpu", "--output-dir", str(tmp_path), *a])
     with pytest.raises(NotImplementedError, match="A10"):
@@ -461,8 +461,6 @@ def test_unported_paths_raise(tmp_path, tiny):
         tft.run_training(parse("--dry-run", "--int8-base"))
     with pytest.raises(NotImplementedError, match="A3"):
         tft.build_synthetic_dataset(str(tmp_path / "d"), n_images=1)
-    with pytest.raises(NotImplementedError, match="A3"):
-        tvq.encode_image(tparams, cfg, None, (4, 4))
     x = torch.zeros(6, 4, 8)
     fm = dataclasses.replace(cfg.flash_memory, temporal_method="sample")
     with pytest.raises(NotImplementedError, match="A14"):

@@ -66,6 +66,18 @@ Phases, one or more lines each; any failure raises and exits non-zero:
 10. production: one step at 448 px, 240 frames, max_len 14,000, its peak
    memory; then K4, K5 and SDPA's backward timed at the step's own
    attention shape and segment ids (read from its first backward call);
+   finetune_ckpt: `run_training --model-path` on the offline phase's 7B
+   checkpoint, 2 steps each over the bf16, int8 and int4 (QLoRA) bases at
+   the train slice's shape: finite losses, adapters moved, the base
+   bit-identical, K3 = 2 x K4 and K6 never under autograd; the bf16 run's
+   --export-merged file read back and equal bit for bit to merge_lora on
+   the card; one int4 step at the production shape, its peak memory below
+   the bf16 step's;
+   serve_kv8: the streaming session over an int8 KV cache at full width,
+   saturated: greedy answers against the bf16 cache's (31 of 32 tokens),
+   preemptible and speculative answers equal to greedy, the decoder's
+   ms/token and cache bytes over both caches, and --load-4bit --kv-int8
+   with K6 at 197 launches a decode step;
 11. serve4: the CLI server over the slice's weights quantized to a 4-bit
    decoder (--load-4bit): 168 frames paced at 8 fps, 3 answers, K6 in every
    decode matvec, K1/K2/K6 launched exactly as reckoned and no error logged;
@@ -1607,6 +1619,24 @@ def _offline_frames(rng, n, side, n_scenes=8):
     return out
 
 
+def _write_checkpoint(params, cfg, ckpt, dev):
+    """The slice's weights as an HF checkpoint with its config.json, in
+    shards of at most OFFLINE_SHARD bytes (the offline phase writes it,
+    finetune_ckpt trains from it). Returns (shard names, tensor bytes,
+    seconds of the write alone)."""
+    import torch
+    from flash_vstream_tpu_torch.weights.export import (
+        export_llama, export_qwen_vit, hf_qwen_config, save_hf_checkpoint)
+    sd = export_llama(params["llm"], cfg.llm)
+    sd.update(export_qwen_vit(params["vit"], cfg.vit))
+    total = sum(t.numel() * t.element_size() for t in sd.values())
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    names = save_hf_checkpoint(ckpt, sd, config=hf_qwen_config(cfg),
+                               max_shard_bytes=OFFLINE_SHARD)
+    return names, total, time.perf_counter() - t0
+
+
 def _leaf_pairs(a, b, path=""):
     """(path, leaf of a, leaf of b) over two trees with the same keys."""
     if sorted(a) != sorted(b):
@@ -1633,7 +1663,7 @@ def _answers(path):
         return [json.loads(line) for line in f if line.strip()]
 
 
-def run_offline(dev, params, work, card, root):
+def run_offline(dev, params, work, card, root, keep_ckpt=False):
     """Offline QA at full width on the slice's weights (Qwen2-VL-7B, random
     bf16), through QwenPipeline, the checkpoint loaders and the eval
     harness. 1. A question over 240 frames of 448 px (grid (120, 32, 32):
@@ -1654,7 +1684,8 @@ def run_offline(dev, params, work, card, root):
     Returns K1's launches in 1-4, checked against the count reckoned from
     the calls (2 x 32 ViT + 28 prefill a video answer, 32 + 28 an image
     answer, 28 a prefill alone; a chunked prefill launches K1 on its first
-    chunk only)."""
+    chunk only). With `keep_ckpt` the checkpoint directory stays for
+    finetune_ckpt, which deletes it."""
     import dataclasses
     import numpy as np
     import torch
@@ -1672,8 +1703,6 @@ def run_offline(dev, params, work, card, root):
     from flash_vstream_tpu_torch.runtime.pipeline import QwenPipeline
     from flash_vstream_tpu_torch.weights.convert import (
         load_qwen_checkpoint, qwen_config_from_hf)
-    from flash_vstream_tpu_torch.weights.export import (
-        export_llama, export_qwen_vit, hf_qwen_config, save_hf_checkpoint)
 
     cfg = VStreamQwenConfig()
     tok = make_byte_qwen_tokenizer()
@@ -1797,15 +1826,7 @@ def run_offline(dev, params, work, card, root):
     ckpt = os.path.join(root, "build", "offline_ckpt")
     shutil.rmtree(ckpt, ignore_errors=True)
     try:
-        sd = export_llama(params["llm"], cfg.llm)
-        sd.update(export_qwen_vit(params["vit"], cfg.vit))
-        total = sum(t.numel() * t.element_size() for t in sd.values())
-        sync()
-        t0 = time.perf_counter()
-        names = save_hf_checkpoint(ckpt, sd, config=hf_qwen_config(cfg),
-                                   max_shard_bytes=OFFLINE_SHARD)
-        write_s = time.perf_counter() - t0
-        del sd
+        names, total, write_s = _write_checkpoint(params, cfg, ckpt, dev)
         sizes = [os.path.getsize(os.path.join(ckpt, n)) for n in names]
         lcfg = qwen_config_from_hf(ckpt)
         if lcfg != cfg or max(sizes) > OFFLINE_SHARD + 2 ** 20:
@@ -1827,7 +1848,8 @@ def run_offline(dev, params, work, card, root):
               f"({total / 1e9 / load_s:.2f} GB/s, read back from the page "
               f"cache); config.json = VStreamQwenConfig(); {n_leaves} leaves "
               f"bit-equal", flush=True)
-        shutil.rmtree(ckpt, ignore_errors=True)
+        if not keep_ckpt:
+            shutil.rmtree(ckpt, ignore_errors=True)
 
         # 4. the eval worker on the loaded weights
         data = os.path.join(work, "offline_eval")
@@ -1884,7 +1906,10 @@ def run_offline(dev, params, work, card, root):
               f"calc_mcq_result acc {acc}; {worker_s:.1f} s with the "
               f"in-memory answers", flush=True)
         del loaded, lpipe
-    finally:
+    except BaseException:
+        shutil.rmtree(ckpt, ignore_errors=True)
+        raise
+    if not keep_ckpt:
         shutil.rmtree(ckpt, ignore_errors=True)
     k1 = flash_attention_cuda.launches
     want_k1 = sum(per_call[k] * n for k, n in calls.items())
@@ -2931,14 +2956,6 @@ def _release(dev):
     torch.cuda.reset_peak_memory_stats(dev)
 
 
-def _checksums(params):
-    """Per-tensor (bit-pattern sum, version counter) of the base."""
-    import torch
-    from flash_vstream_tpu_torch.train.lora import tree_leaves_with_path
-    return {p: (int(x.view(torch.int16).sum(dtype=torch.int64)), x._version)
-            for p, x in tree_leaves_with_path(params)}
-
-
 def run_train_slice(dev, params, work, cfg=None):
     """`run_training` on the full-width model: 224 px, 240 frames, max_len
     4096, grad_accum 2, 3 optimizer steps; per step its loss, seconds,
@@ -2959,7 +2976,7 @@ def run_train_slice(dev, params, work, cfg=None):
     n_lora = sum(x.numel() for ab in lora.values() for x in ab.values())
     lora0 = {p: {k: x.clone() for k, x in ab.items()}
              for p, ab in lora.items()}
-    base0 = _checksums(params)
+    base0 = _leaf_sums(params)
     steps, prev = [], {}
 
     def moved(tree):
@@ -2998,12 +3015,29 @@ def run_train_slice(dev, params, work, cfg=None):
     if steps[0][2] != 0 or steps[-1][2] == 0:
         raise AssertionError("train slice: adapters moved at step 1 (lr 0) "
                              "or never moved")
-    if _checksums(params) != base0:
+    if _leaf_sums(params) != base0:
         raise AssertionError("train slice: the base parameters changed")
     if not (total["K1"] and total["K3"] and total["K4"] and total["K5"]
             and total["K3"] == 2 * total["K4"] == 2 * total["K5"]):
         raise AssertionError(f"train slice: launches {total}")
     return total, data, steps[-1][0]["step_time_s"]
+
+
+# the production step's peak memory (GiB) with only its own base resident
+# and its K3/K4/K5 launches, by base: written by run_production_step
+# ("bf16") and finetune_ckpt ("int4")
+PRODUCTION_PEAK = {}
+PRODUCTION_LAUNCHES = {}
+
+
+def _step_peak(dev, resident, base):
+    """A training run's peak memory in GiB as if only its base were
+    resident: the allocator's peak since the last reset, less what was
+    resident when the run started (the base and anything an earlier phase
+    keeps), plus the base's own bytes."""
+    import torch
+    return (torch.cuda.max_memory_allocated(dev) - resident
+            + _tree_nbytes(base)) / 2**30
 
 
 def run_production_step(dev, params, work, cfg=None):
@@ -3018,6 +3052,7 @@ def run_production_step(dev, params, work, cfg=None):
 
     data = _synthetic_videos(os.path.join(work, "data448"), 1, 448)
     _release(dev)
+    _reset_launches()
     recs, seen = [], {}
     bwd = fa.flash_attention_bwd_cuda
 
@@ -3029,6 +3064,7 @@ def run_production_step(dev, params, work, cfg=None):
         return bwd(q, k, v, o, do, lse, **kw)
 
     fa.flash_attention_bwd_cuda = observed
+    resident = torch.cuda.memory_allocated(dev)
     try:
         res = run_training(_train_args(dev, os.path.join(work, "run448"),
                                        data, 14000, 1, 1),
@@ -3037,11 +3073,17 @@ def run_production_step(dev, params, work, cfg=None):
     finally:
         fa.flash_attention_bwd_cuda = bwd
     peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    PRODUCTION_PEAK["bf16"] = _step_peak(dev, resident, params)
+    PRODUCTION_LAUNCHES["bf16"] = k = _launches()
     loss = res["losses"][0]
     print(f"production step: 448 px, 240 frames, max_len 14000, 1 step: "
           f"loss={loss:.5f} seconds={recs[0]['step_time_s']:.3f} "
           f"tokens_per_s={recs[0]['tokens_per_s']:.1f}; peak memory "
-          f"{peak:.2f} GiB", flush=True)
+          f"{peak:.2f} GiB ({PRODUCTION_PEAK['bf16']:.2f} GiB with the bf16 "
+          f"base alone resident); launches K3={k['K3']} K4={k['K4']} "
+          f"K5={k['K5']} (remat groups of 4: each layer's forward runs "
+          f"again in its group's recompute, and three of a group's four "
+          f"once more in their own)", flush=True)
     if not math.isfinite(loss):
         raise AssertionError(f"production step: loss {loss}")
     del res
@@ -3285,10 +3327,11 @@ def run_serve4(dev, params, work):
     return k6, k["K1"], k2
 
 
-def _time_decoder(llm, dev, S=2989, steps=32):
+def _time_decoder(llm, dev, S=2989, steps=32, cache_dtype=None):
     """(prefill ms, decode ms/token, profiled device-busy ms/token, kernel
-    launches/token, K6 device ms/token) of a decoder on a synthetic prompt
-    of S random embeddings (1-D positions, no padding): host clock around
+    launches/token, K6 device ms/token, KV cache bytes) of a decoder on a
+    synthetic prompt of S random embeddings (1-D positions, no padding),
+    over a bf16 cache or `cache_dtype`'s: host clock around
     synchronized work, after one warm-up prefill and 4 decode steps; then
     torch.profiler over 8 more steps for the device's busy time (kernels
     and copies; one stream, so they do not overlap)."""
@@ -3299,7 +3342,8 @@ def _time_decoder(llm, dev, S=2989, steps=32):
     embeds = (torch.randn(1, S, llm.cfg.hidden_size, generator=g, device=dev)
               * 0.02).to(torch.bfloat16)
     pos = torch.arange(S, device=dev)[None].expand(3, 1, S)
-    gen = Generator(llm, max_len=S + steps + 16)
+    gen = Generator(llm, max_len=S + steps + 16,
+                    cache_dtype=cache_dtype or torch.bfloat16)
     tok = torch.tensor([1], device=dev)
     for warm in (True, False):
         cache = gen.new_cache(1, S + steps + 16)
@@ -3330,7 +3374,8 @@ def _time_decoder(llm, dev, S=2989, steps=32):
     launches = sum(e.count for e in dev_rows) // 8
     k6 = sum(e.self_device_time_total for e in dev_rows
              if "int4" in e.key) / 1e3 / 8
-    return prefill_ms, decode_ms, busy, launches, k6
+    cache_bytes = _nbytes(cache.k, cache.v, cache.k_scale, cache.v_scale)
+    return prefill_ms, decode_ms, busy, launches, k6, cache_bytes
 
 
 def profile_train_step(dev, params, data, work, out_dir, step_s, cfg=None):
@@ -3377,18 +3422,433 @@ def profile_train_step(dev, params, data, work, out_dir, step_s, cfg=None):
               f"{e.count:6d}x {e.key[:80]}", flush=True)
 
 
+def _leaf_sums(tree):
+    """Per-tensor (byte sum, version counter) of a tree whose leaves are
+    tensors or quantized tuples of tensors. The bytes are summed in
+    pieces of 2**27 (a sum into int64 widens its input: 1 GiB at a time,
+    not 8 x a 7B leaf)."""
+    import torch
+    from flash_vstream_tpu_torch.train.checkpoint import flatten_tree
+    out = {}
+    for p, x in flatten_tree(tree).items():
+        b = x.contiguous().view(-1).view(torch.uint8)
+        out[p] = (sum(int(c.sum(dtype=torch.int64))
+                      for c in b.split(1 << 27)), x._version)
+    return out
+
+
+def _check_export(path, base, lora, alpha, rank):
+    """The `--export-merged` file read back through the port's reader and
+    held bit for bit to `merge_lora` of `base` and `lora` on the card, one
+    adapted leaf merged at a time; the names are the base's, an adapted
+    quantized leaf's fields replaced by its one merged tensor. Returns
+    (tensors, adapted leaves)."""
+    import torch
+    from flash_vstream_tpu_torch.train.checkpoint import flatten_tree
+    from flash_vstream_tpu_torch.train.lora import merge_lora
+    from flash_vstream_tpu_torch.weights.safetensors_io import load_file
+    got = load_file(path)
+    flat = flatten_tree(base)
+    adapted = {p.replace("/", "."): p for p in lora}
+    want_names = {n for n in flat
+                  if not any(n.startswith(a + ".") for a in adapted)}
+    want_names |= set(adapted)
+    if set(got) != want_names:
+        raise AssertionError(f"finetune_ckpt: the export's names differ "
+                             f"from merge_lora's: "
+                             f"{sorted(set(got) ^ want_names)[:6]}")
+    for name in want_names - set(adapted):
+        if got[name].dtype != flat[name].dtype or not torch.equal(
+                got[name].to(flat[name].device), flat[name]):
+            raise AssertionError(f"finetune_ckpt: exported {name} is not "
+                                 f"the base's")
+    for name, p in adapted.items():
+        with torch.no_grad():
+            merged = merge_lora(base, {p: lora[p]}, alpha=alpha, rank=rank)
+        for k in p.split("/"):
+            merged = merged[k]
+        if got[name].dtype != merged.dtype or not torch.equal(
+                got[name].to(merged.device), merged):
+            raise AssertionError(f"finetune_ckpt: exported {name} is not "
+                                 f"merge_lora's")
+        del merged
+    return len(got), len(adapted)
+
+
+
+
+# finetune_ckpt's bases: name, run_training flags (--int8-base alone is
+# int4: --base-bits defaults to 4, as in JAX)
+FT_BASES = (("bf16", ()), ("int8", ("--int8-base", "--base-bits", "8")),
+            ("int4", ("--int8-base", "--base-bits", "4")))
+
+
+def run_finetune_ckpt(dev, params, work, root, ckpt):
+    """Fine-tuning from a checkpoint directory at full width, through
+    `run_training` with `make_parser` flags. 1. Three runs with
+    --model-path (the slice's weights as the offline phase's checkpoint,
+    `ckpt`, written here when it is not there) of 2 optimizer steps at the
+    train slice's shape (224 px, 240 frames, max_len 4,096, grad_accum 1),
+    over the bf16 (with --export-merged), the --int8-base --base-bits 8
+    and the --int8-base (int4) base. Each run needs finite losses, its
+    adapters unchanged by step 1 (lr 0) and moved by step 2 (b moves; a,
+    whose gradient is 0 while b is 0, not yet), its base bit-identical to
+    the slice's weights quantized as the flags say, K3 = 2 x K4 = 2 x K5
+    and K6 never launched (a quantized `dense` under autograd
+    dequantizes). The bf16 run's export (16.6 GB) is read back through the
+    port's reader and held to `merge_lora` of the run's base and adapters
+    on the card, bit for bit. (A QLoRA export is f32 where merged, about
+    28 GB at 7B: with the checkpoint it would pass the 45 GiB a card run
+    may write; the CPU tests hold it to JAX's.) 2. One int4 step at the
+    production shape (448 px, 240 frames, max_len 14,000) with its peak
+    memory with only its base resident, beside the bf16 step's (the
+    production phase's, or run here). The tokenizer is the byte tokenizer
+    handed in: the card's machine has no `transformers` for the
+    checkpoint's. Returns the launches of the three runs summed."""
+    import torch
+    from flash_vstream_tpu_torch.core.config import VStreamQwenConfig
+    from flash_vstream_tpu_torch.kernels.int4_matmul import int4_matmul_cuda
+    from flash_vstream_tpu_torch.preprocess.qwen_processor import (
+        make_byte_qwen_tokenizer)
+    from flash_vstream_tpu_torch.train.finetune_flash import (make_parser,
+                                                              run_training)
+    from flash_vstream_tpu_torch.train.lora import (QWEN_TARGETS,
+                                                    init_lora_params)
+    from flash_vstream_tpu_torch.weights.quantize import (quantize_params,
+                                                          quantize_params4)
+
+    cfg = VStreamQwenConfig()
+    tok = make_byte_qwen_tokenizer()
+    if not os.path.exists(os.path.join(ckpt, "config.json")):
+        _, total, write_s = _write_checkpoint(params, cfg, ckpt, dev)
+        print(f"finetune_ckpt: checkpoint of {total / 1e9:.2f} GB written in "
+              f"{write_s:.1f} s", flush=True)
+    data = _synthetic_videos(os.path.join(work, "data224"), 2, 224)
+    quant = {"bf16": lambda t: t, "int8": quantize_params,
+             "int4": quantize_params4}
+    totals = dict.fromkeys(("K1", "K3", "K4", "K5", "K6"), 0)
+    for name, flags in FT_BASES:
+        with torch.no_grad():
+            want_sums = _leaf_sums(quant[name](params))
+        _release(dev)
+        _reset_launches()
+        out = os.path.join(work, f"ft_{name}")
+        argv = ["--model-path", ckpt, "--device", str(dev), "--output-dir",
+                out, "--data-path", data, "--video-dir",
+                os.path.dirname(data), "--max-steps", "2", "--grad-accum",
+                "1", "--max-frames", "240", "--max-len", "4096",
+                "--save-steps", "1000", *flags]
+        if name == "bf16":
+            argv.append("--export-merged")
+        args = make_parser().parse_args(argv)
+        # run_training's own init (a torch generator seeded 1 on the card,
+        # the leaves' logical shapes): the adapters before step 1
+        lora0 = init_lora_params(torch.Generator(device=dev).manual_seed(1),
+                                 params, rank=args.lora_rank,
+                                 targets=QWEN_TARGETS)
+        seen = {}
+
+        def on_step(step, trainer, rec):
+            seen[step] = (rec, _leaf_sums(trainer.frozen),
+                          sum(int(not torch.equal(x, lora0[p][k]))
+                              for p, ab in trainer.params.items()
+                              for k, x in ab.items()))
+            seen["trainer"] = trainer
+
+        t0 = time.perf_counter()
+        res = run_training(args, tokenizer=tok, on_step=on_step)
+        wall = time.perf_counter() - t0
+        k = _launches()
+        k["K6"] = int4_matmul_cuda.launches
+        for key in totals:
+            totals[key] += k[key]
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        losses = res["losses"]
+        n_leaves = 2 * len(res["lora"])
+        base = seen["trainer"].frozen
+        base_gib = _tree_nbytes(base) / 2**30
+        print(f"finetune_ckpt: --model-path {name} base ({base_gib:.2f} GiB)"
+              f": 2 steps of 224 px, 240 frames, max_len 4096 in "
+              f"{wall:.1f} s with the load; losses "
+              + " ".join(f"{x:.5f}" for x in losses)
+              + f"; step seconds " + " ".join(
+                  f"{seen[i][0]['step_time_s']:.3f}" for i in (0, 1))
+              + f"; adapters moved {seen[0][2]}/{n_leaves} after step 1, "
+              f"{seen[1][2]}/{n_leaves} after step 2; peak {peak:.2f} GiB; "
+              f"launches K1={k['K1']} K3={k['K3']} K4={k['K4']} "
+              f"K5={k['K5']} K6={k['K6']}", flush=True)
+        if len(losses) != 2 or not all(map(math.isfinite, losses)):
+            raise AssertionError(f"finetune_ckpt {name}: losses {losses}")
+        if seen[0][2] != 0 or seen[1][2] == 0:
+            raise AssertionError(f"finetune_ckpt {name}: adapters moved "
+                                 f"{seen[0][2]} at step 1 (lr 0), "
+                                 f"{seen[1][2]} of {n_leaves} at step 2")
+        if not (seen[0][1] == seen[1][1] and {
+                p: v[0] for p, v in seen[1][1].items()} == {
+                p: v[0] for p, v in want_sums.items()}):
+            raise AssertionError(f"finetune_ckpt {name}: the base is not "
+                                 f"the slice's weights quantized as asked, "
+                                 f"or it changed")
+        if not (k["K1"] and k["K3"] and k["K3"] == 2 * k["K4"] == 2 * k["K5"]
+                and k["K6"] == 0):
+            raise AssertionError(f"finetune_ckpt {name}: launches {k}")
+        if name == "bf16":
+            path = res["merged_path"]
+            size = os.path.getsize(path)
+            t0 = time.perf_counter()
+            n_tensors, n_merged = _check_export(
+                path, base, seen["trainer"].params, args.lora_alpha,
+                args.lora_rank)
+            print(f"finetune_ckpt: --export-merged (bf16 base): "
+                  f"{size / 1e9:.2f} GB written in {res['export_s']:.1f} s "
+                  f"({size / 1e9 / res['export_s']:.2f} GB/s), {n_tensors} "
+                  f"tensors under the base's names ({n_merged} adapted "
+                  f"leaves merged), read back by the port's reader and "
+                  f"equal bit for bit to merge_lora on the card "
+                  f"({time.perf_counter() - t0:.1f} s)", flush=True)
+            os.remove(path)
+        del res, seen, base
+        shutil.rmtree(out, ignore_errors=True)
+    shutil.rmtree(ckpt, ignore_errors=True)
+
+    # 2. the int4 step at the production shape, beside the bf16 step's
+    if "bf16" not in PRODUCTION_PEAK:
+        run_production_step(dev, params, work)
+    data448 = _synthetic_videos(os.path.join(work, "data448"), 1, 448)
+    with torch.no_grad():
+        q4 = quantize_params4(params)
+    _release(dev)
+    _reset_launches()
+    resident = torch.cuda.memory_allocated(dev)
+    recs = []
+    args = _train_args(dev, os.path.join(work, "run448q"), data448, 14000,
+                       1, 1)
+    args.int8_base = True                  # --int8-base (int4): q4 as is
+    res = run_training(args, cfg=cfg, params=q4,
+                       on_step=lambda s, t, r: recs.append(r))
+    PRODUCTION_PEAK["int4"] = _step_peak(dev, resident, q4)
+    PRODUCTION_LAUNCHES["int4"] = k = _launches()
+    k6 = int4_matmul_cuda.launches
+    loss = res["losses"][0]
+    print(f"finetune_ckpt: production step 448 px, 240 frames, max_len "
+          f"14000, int4 base ({_tree_nbytes(q4) / 2**30:.2f} GiB): loss="
+          f"{loss:.5f} seconds={recs[0]['step_time_s']:.3f} tokens_per_s="
+          f"{recs[0]['tokens_per_s']:.1f}; peak with its base alone resident "
+          f"{PRODUCTION_PEAK['int4']:.2f} GiB against the bf16 LoRA step's "
+          f"{PRODUCTION_PEAK['bf16']:.2f} GiB (this run); launches K3="
+          f"{k['K3']} K4={k['K4']} K5={k['K5']} K6={k6} (the bf16 step's "
+          f"K3/K4/K5: {PRODUCTION_LAUNCHES['bf16']['K3']}/"
+          f"{PRODUCTION_LAUNCHES['bf16']['K4']}/"
+          f"{PRODUCTION_LAUNCHES['bf16']['K5']})", flush=True)
+    same = all(k[x] == PRODUCTION_LAUNCHES["bf16"][x]
+               for x in ("K3", "K4", "K5"))
+    if (not math.isfinite(loss) or k6 or not same
+            or not k["K4"] == k["K5"] == cfg.llm.num_layers):
+        raise AssertionError(f"finetune_ckpt production: loss {loss}, "
+                             f"launches {k} K6={k6}, the bf16 step's "
+                             f"{PRODUCTION_LAUNCHES['bf16']}")
+    if PRODUCTION_PEAK["int4"] >= PRODUCTION_PEAK["bf16"]:
+        raise AssertionError("finetune_ckpt: the int4 production step's "
+                             "peak is not below the bf16 step's")
+    del res, q4
+    _release(dev)
+    return totals
+
+
+# serve_kv8: of the 32 steps of a bf16-cache answer, the int8 cache picks the
+# same token in at least this many given the same prefix (the JAX test's
+# n - 1 of n, tests/test_generation.py:75-86)
+KV8_AGREE = 31
+
+
+def run_serve_kv8(dev, params, work):
+    """The int8 KV cache at full width on the slice's weights. A streaming
+    session (224 px, clip 8, bank 1,024) with kv_cache_dtype=torch.int8
+    ingests 21 clips (memory saturated) and answers two questions of 32
+    greedy tokens; each is held to the same snapshot's answer over a bf16
+    cache: given that answer's prefix, the int8 cache picks its token in at
+    least 31 of 32 steps (teacher-forced: on random weights, whose logits
+    are near-uniform, one flip of a free-running answer changes every
+    later step, so the free-running count is printed beside it); its
+    preemptible (decode chunks of 8) and speculative (k 4) answers equal
+    its greedy ids. In prefill chunks of 512 the prompt attends to its own
+    int8 keys (the one-shot prefill to its fresh ones, as in JAX): that
+    answer's agreement is printed. The decoder alone is timed over both caches in turn
+    (bf16, int8, int8, bf16) with their bytes. Then the CLI server's own
+    quantization flags, --load-4bit --kv-int8 (`_apply_quantization`, the
+    session as `build_session` makes it), answer on the same snapshot: K6
+    launched 197 times a decode step and once a prefill. K1 (the ViT, the
+    one-shot prefills) and K2 (one a clip) are checked as reckoned; a
+    chunked prefill over an int8 cache launches no K1 (its first chunk
+    takes the int8 plain path, as in JAX). Returns (K1, K2, K6)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from flash_vstream_tpu_torch.core.config import VStreamQwenConfig
+    from flash_vstream_tpu_torch.kernels.int4_matmul import int4_matmul_cuda
+    from flash_vstream_tpu_torch.models.vstream_qwen import VStreamQwen
+    from flash_vstream_tpu_torch.preprocess.qwen_processor import (
+        make_byte_qwen_tokenizer)
+    from flash_vstream_tpu_torch.runtime.generation import GenerationConfig
+    from flash_vstream_tpu_torch.runtime.streaming import QwenStreamSession
+    from flash_vstream_tpu_torch.serve.cli_server import (
+        _apply_quantization, make_parser)
+
+    cfg = VStreamQwenConfig()
+    tok = make_byte_qwen_tokenizer()
+    model = VStreamQwen(cfg, params)
+    kw = dict(frame_hw=(224, 224), clip_size=8, bank_size=1024, max_len=4096)
+    sess = QwenStreamSession(model, tok, kv_cache_dtype=torch.int8, **kw)
+    ref = QwenStreamSession(model, tok, **kw)          # bf16 cache
+    _release(dev)
+    _reset_launches()
+    rng = np.random.default_rng(SEED + 8)
+    t0 = time.perf_counter()
+    for _ in range(N_CLIPS + 1):
+        sess.ingest_frames(_frames(rng, 8, (224, 224)))
+    sess.block_until_ingested()
+    ingest_s = time.perf_counter() - t0
+    snap, n = sess._published
+    fm = cfg.flash_memory
+    if int(sess.state.tem_valid.sum()) != fm.csm_grid_len:
+        raise AssertionError("serve_kv8: memory not saturated")
+    gen = GenerationConfig(max_new_tokens=32, eos_token_ids=())
+    prefills = 0
+
+    def timed(s, q, g):
+        torch.cuda.synchronize(dev)
+        t = time.perf_counter()
+        ids = s.answer_tokens(snap, n, q, g)
+        torch.cuda.synchronize(dev)
+        return ids, time.perf_counter() - t
+
+    def forced(q, ids):
+        """The int8 cache's greedy pick at each step given the bf16
+        answer's prefix (teacher-forced), counted where it is that
+        answer's token."""
+        h = sess._prompt_host(q, n)
+        embeds, pos, start, seg = sess._prompt_inputs(snap, h)
+        g = sess.generator
+        cache = g.new_cache(1, g._active_len(h["S"], 32))
+        picks = [int(g.prefill(embeds, pos, cache, seg,
+                               h["last_real"]).argmax())]
+        for i, t in enumerate(ids[:-1]):
+            picks.append(int(g.step(torch.tensor([t], device=dev),
+                                    int(start) + i, cache).argmax()))
+        return sum(a == b for a, b in zip(picks, ids))
+
+    for q in QUESTIONS[:2]:
+        S = sess._prompt_host(q, n)["S"]
+        ids8, s8 = timed(sess, q, gen)
+        ids16, s16 = timed(ref, q, gen)
+        pre, spre = timed(sess, q, dataclasses.replace(gen,
+                                                       preemptible_chunk=8))
+        spec, sspec = timed(sess, q, dataclasses.replace(gen,
+                                                         speculative_k=4))
+        acc = sess.generator.last_spec
+        chunked, schunk = timed(sess, q, dataclasses.replace(
+            gen, preemptible_chunk=8, prefill_chunk=512))
+        tf = forced(q, ids16)
+        prefills += 5                      # the chunked prefill: no K1
+        agree = sum(a == b for a, b in zip(ids8, ids16))
+        print(f"serve_kv8: S={S} 32 greedy tokens over the int8 cache "
+              f"{s8:.3f} s, over bf16 {s16:.3f} s; equal {agree}/32 free-"
+              f"running, {tf}/32 teacher-forced on the bf16 answer; int8 "
+              f"preemptible (decode chunks of 8) {spre:.3f} s, speculative "
+              f"(k 4) {sspec:.3f} s ({acc['accepted']}/{acc['drafted']} "
+              f"drafts accepted), both equal to greedy: {pre == ids8} "
+              f"{spec == ids8}; in prefill chunks of 512 (the prompt's own "
+              f"keys int8) {schunk:.3f} s, "
+              f"{sum(a == b for a, b in zip(chunked, ids8))}/32 equal to "
+              f"greedy", flush=True)
+        if len(ids8) != 32 or tf < KV8_AGREE or pre != ids8 or spec != ids8:
+            raise AssertionError(f"serve_kv8: int8 {ids8}, bf16 {ids16} "
+                                 f"({tf}/32 teacher-forced), preemptible "
+                                 f"{pre}, speculative {spec}")
+    k = _launches()
+    from flash_vstream_tpu_torch.kernels.gather_rows import gather_rows_cuda
+    k2 = gather_rows_cuda.launches
+    clips = N_CLIPS + 1
+    want = {"K1": 2 * cfg.vit.num_layers * clips
+            + cfg.llm.num_layers * prefills, "K2": clips}
+    print(f"serve_kv8: {clips} clips ingested in {ingest_s:.2f} s (CSM "
+          f"{fm.csm_grid_len}/{fm.csm_grid_len}); launches K1={k['K1']} "
+          f"(2 x {cfg.vit.num_layers} x {clips} clips + "
+          f"{cfg.llm.num_layers} x {prefills} one-shot prefills = "
+          f"{want['K1']}), K2={k2}", flush=True)
+    if {"K1": k["K1"], "K2": k2} != want:
+        raise AssertionError(f"serve_kv8: launches K1={k['K1']} K2={k2}, "
+                             f"reckoned {want}")
+
+    # the decoder alone over both caches, in turn (a chunked prefill and
+    # the teacher-forced prefill run K1 on no chunk / every layer: counted
+    # above with the one-shot ones)
+    times = {"bf16": [], "int8": []}
+    for name in ("bf16", "int8", "int8", "bf16"):
+        times[name].append(_time_decoder(
+            model.llm, dev, cache_dtype=torch.int8 if name == "int8"
+            else None))
+    for name, (a, b) in times.items():
+        print(f"serve_kv8: {name} cache at S=2989 (bf16, int8, int8, bf16 "
+              f"in turn): cache {a[5] / 2**20:.1f} MiB, prefill {a[0]:.1f} "
+              f"{b[0]:.1f} ms, decode {a[1]:.2f} {b[1]:.2f} ms/token, device"
+              f" busy {a[2]:.2f} {b[2]:.2f} ms/token, idle share "
+              f"{1 - a[2] / a[1]:.3f} {1 - b[2] / b[1]:.3f}, {a[3]} device "
+              f"events per token", flush=True)
+    ratio = times["int8"][0][5] / times["bf16"][0][5]
+    D = cfg.llm.head_dim                   # int8 k, v and two f32 scales
+    print(f"serve_kv8: int8 cache bytes / bf16 = {ratio:.4f} "
+          f"((2 + 8 / {D}) / 4 = {(2 + 8 / D) / 4:.4f})", flush=True)
+    if abs(ratio - (2 + 8 / D) / 4) > 1e-3:
+        raise AssertionError(f"serve_kv8: cache bytes ratio {ratio}")
+
+    # --load-4bit --kv-int8: the CLI server's flags on the same weights
+    args = make_parser().parse_args(["--device", str(dev), "--load-4bit",
+                                     "--kv-int8", "--frame-size", "224",
+                                     "--clip-size", "8"])
+    qparams = _apply_quantization({"vit": params["vit"],
+                                   "llm": params["llm"]}, args)
+    qsess = QwenStreamSession(VStreamQwen(cfg, qparams), tok,
+                              kv_cache_dtype=(torch.int8 if args.kv_int8
+                                              else None), **kw)
+    _reset_launches()
+    n_tok = 0
+    t0 = time.perf_counter()
+    for q in QUESTIONS[:2]:
+        n_tok += len(qsess.answer_tokens(snap, n, q, gen))
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    k6 = int4_matmul_cuda.launches
+    steps = n_tok - 2
+    per = 7 * cfg.llm.num_layers + 1       # 7 projections a layer, lm_head
+    q_time = _time_decoder(qsess.model.llm, dev, cache_dtype=torch.int8)
+    print(f"serve_kv8: --load-4bit --kv-int8: 2 answers, {n_tok} tokens in "
+          f"{wall:.3f} s; K6={k6} ({per} x {steps} decode steps + 2 "
+          f"prefills = {per * steps + 2}); decoder alone at S=2989 over the "
+          f"int8 cache: prefill {q_time[0]:.1f} ms, decode {q_time[1]:.2f} "
+          f"ms/token, device busy {q_time[2]:.2f}, K6 {q_time[4]:.2f} "
+          f"ms/token", flush=True)
+    if k6 != per * steps + 2 or n_tok != 64:
+        raise AssertionError(f"serve_kv8: K6 launched {k6}, {n_tok} tokens")
+    del qsess, qparams, sess, ref, model
+    _release(dev)
+    return k["K1"], k2, k6
+
+
 PHASES = ("kernels", "int4_kernel", "reference", "int4_reference", "slice",
           "serve_http", "offline", "backward", "function", "train_reference", "dry_run_train",
           "train_slice",
-          "production", "serve4", "bank_gather", "vit_probe", "int4_probe")
+          "production", "finetune_ckpt", "serve_kv8", "serve4", "bank_gather",
+          "vit_probe", "int4_probe")
 
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--only", default=",".join(PHASES),
                         help="comma-separated phases to run (default all; "
-                             "serve_http, offline, the training phases and "
-                             "serve4 need 'slice')")
+                             "serve_http, offline, the training phases, "
+                             "finetune_ckpt, serve_kv8 and serve4 need "
+                             "'slice')")
     parser.add_argument("--profile", default=None, metavar="DIR",
                         help="also profile one training-slice step into DIR")
     opts = parser.parse_args()
@@ -3471,9 +3931,11 @@ def main() -> int:
                 paths["serve_http"] = dict(flash_attention_fwd=k1,
                                            gather_rows=k2)
                 _release(dev)
+            ckpt = os.path.join(root, "build", "offline_ckpt")
             if "offline" in only:
                 paths["offline"] = dict(flash_attention_fwd=run_offline(
-                    dev, params, work, smi, root))
+                    dev, params, work, smi, root,
+                    keep_ckpt="finetune_ckpt" in only))
                 _release(dev)
             if "train_slice" in only:
                 total, data, step_s = run_train_slice(dev, params, work)
@@ -3488,6 +3950,19 @@ def main() -> int:
                                        step_s)
             if "production" in only:
                 run_production_step(dev, params, work)
+            if "finetune_ckpt" in only:
+                k = run_finetune_ckpt(dev, params, work, root, ckpt)
+                paths["finetune_ckpt"] = dict(
+                    flash_attention_fwd=k["K1"],
+                    flash_attention_fwd_lse=k["K3"],
+                    flash_attention_bwd_dq=k["K4"],
+                    flash_attention_bwd_dkv=k["K5"], int4_matmul=k["K6"])
+                _release(dev)
+            if "serve_kv8" in only:
+                k1, k2, k6 = run_serve_kv8(dev, params, work)
+                paths["serve_kv8"] = dict(flash_attention_fwd=k1,
+                                          gather_rows=k2, int4_matmul=k6)
+                _release(dev)
             if "serve4" in only:
                 _release(dev)
                 k6, k1, k2 = run_serve4(dev, params, work)
@@ -3495,6 +3970,7 @@ def main() -> int:
                                        gather_rows=k2)
         finally:
             shutil.rmtree(work, ignore_errors=True)
+            shutil.rmtree(ckpt, ignore_errors=True)
     sources = {
         "flash_attention_fwd": ("flash_attention.cu", ":90"),
         "gather_rows": ("gather_rows.cu", ""),

@@ -11,8 +11,10 @@ the two packages agree on the CPU.
 Weights are bf16/f32 tensors, int8 `QuantWeight`s (weight-only, or w8a8 at
 prefill rows once `weights/quantize.enable_w8a8_prefill` is on), packed int4
 `QuantWeight4`s (weights/quantize.py) or merge-free LoRA views
-(train/lora.py's `LoRAWeight`). The int8 KV cache raises
-NotImplementedError (ROADMAP A10).
+(train/lora.py's `LoRAWeight`). Under autograd a quantized weight is a
+frozen base (QLoRA): `dense` then takes `_QuantDense`, whose backward
+dequantizes again instead of keeping the dequantized copy. The KV cache is
+bf16/f32, or int8 with per-position f32 scales (`quantize_kv`).
 """
 from __future__ import annotations
 
@@ -23,7 +25,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from ..kernels.flash_attention import flash_attention
+from ..kernels.flash_attention import DEFAULT_MASK_VALUE, flash_attention
 from ..kernels.int4_matmul import int4_matmul_cuda, int4_matmul_supported
 from ..weights.quantize import dequantize_weight4
 
@@ -101,6 +103,40 @@ def _w8a8_dot(x: torch.Tensor, q: torch.Tensor,
     return (out.float() * xs * scale).to(x.dtype)
 
 
+def _quant_matmul(x: torch.Tensor, w) -> torch.Tensor:
+    """x @ a quantized weight off the K6 and w8a8 routes: int8 values cast
+    to x's dtype with the per-channel scale on the output, or the int4
+    weight dequantized to x's dtype (JAX layers.py:95-116)."""
+    if hasattr(w, "q"):
+        out = torch.matmul(x, w.q.to(x.dtype))
+        return out * w.scale.to(out.dtype)
+    return torch.matmul(x, dequantize_weight4(w, x.dtype))
+
+
+class _QuantDense(torch.autograd.Function):
+    """x @ a frozen quantized weight under autograd (QLoRA): the gradient
+    goes to x alone, and the backward dequantizes the weight again. Autograd
+    of `_quant_matmul` would save the dequantized [din, dout] copy for the
+    backward (0.47 GB a 7B layer in bf16, about 13 GB over 28 layers), where
+    JAX lets XLA recompute it. Nothing is saved with `save_for_backward`:
+    the quantized fields are frozen parameters, held on ctx by reference.
+    Never routed to K6, which has no backward."""
+
+    @staticmethod
+    def forward(ctx, x, kind, *fields):
+        ctx.kind, ctx.fields = kind, fields
+        return _quant_matmul(x, kind(*fields))
+
+    @staticmethod
+    def backward(ctx, g):
+        w = ctx.kind(*ctx.fields)
+        if hasattr(w, "q"):          # d/dx of (x @ q) * scale
+            gx = torch.matmul(g * w.scale.to(g.dtype), w.q.to(g.dtype).mT)
+        else:
+            gx = torch.matmul(g, dequantize_weight4(w, g.dtype).mT)
+        return (gx, None, *(None for _ in ctx.fields))
+
+
 def dense(x: torch.Tensor, w, b: Optional[torch.Tensor] = None) -> torch.Tensor:
     """x @ w in x's dtype (the weight is cast to it, as in JAX), then the bias
     in the output's dtype. A LoRA view (w, a, b) computes x @ w + (x @ a) @ b
@@ -113,17 +149,21 @@ def dense(x: torch.Tensor, w, b: Optional[torch.Tensor] = None) -> torch.Tensor:
     card, at a shape the K6 gate takes (a decode matvec: at most 32 rows),
     launches K6; everywhere else (prefill rows, the CPU) it dequantizes to
     x's dtype and multiplies, the JAX package's own path (layers.py:95-116),
-    so on the CPU the port matches JAX op for op."""
+    so on the CPU the port matches JAX op for op. When x requires a
+    gradient, either quantized kind takes `_QuantDense` (the same
+    arithmetic; a backward that keeps no dequantized copy)."""
     if hasattr(w, "a"):                  # train/lora.LoRAWeight
         out = dense(x, w.w)
         lora = torch.matmul(torch.matmul(x, w.a.to(x.dtype)), w.b.to(x.dtype))
         out = out + lora.to(out.dtype)
+    elif (hasattr(w, "q") or hasattr(w, "q4")) and torch.is_grad_enabled() \
+            and x.requires_grad:
+        out = _QuantDense.apply(x, type(w), *w)
     elif hasattr(w, "q"):                # weights/quantize.QuantWeight
         if W8A8_PREFILL and x.dim() >= 2 and x.shape[-2] >= _W8A8_MIN_ROWS:
             out = _w8a8_dot(x, w.q, w.scale)
         else:
-            out = torch.matmul(x, w.q.to(x.dtype))
-            out = out * w.scale.to(out.dtype)
+            out = _quant_matmul(x, w)
     elif hasattr(w, "q4"):               # weights/quantize.QuantWeight4
         rows = math.prod(x.shape[:-1])
         if (x.is_cuda and w.q4.dim() == 2
@@ -133,7 +173,7 @@ def dense(x: torch.Tensor, w, b: Optional[torch.Tensor] = None) -> torch.Tensor:
                                    w.scale, out_dtype=x.dtype)
             out = out.reshape(*x.shape[:-1], w.q4.shape[-1])
         else:
-            out = torch.matmul(x, dequantize_weight4(w, x.dtype))
+            out = _quant_matmul(x, w)
     elif isinstance(w, torch.Tensor):
         out = torch.matmul(x, w.to(x.dtype))
     else:
@@ -218,28 +258,60 @@ class KVCache:
     segment ids into these buffers and advances `length`).
 
     k, v: [L, B, Hkv, Smax, D]; length: filled prefix (host int);
-    segments: [B, Smax] int32, -1 = padding or not yet written."""
+    segments: [B, Smax] int32, -1 = padding or not yet written. An int8
+    cache (dtype=torch.int8) holds k/v quantized per (position, head) by
+    `quantize_kv`, with their f32 scales in k_scale / v_scale [L, B, Hkv,
+    Smax, 1] (two buffers): (2 + 8 / D) / 4 of a bf16 cache's bytes, about
+    half (JAX layers.py:202-246)."""
     k: torch.Tensor
     v: torch.Tensor
     length: int
     segments: torch.Tensor
+    k_scale: Optional[torch.Tensor] = None
+    v_scale: Optional[torch.Tensor] = None
 
     @classmethod
     def create(cls, num_layers: int, batch: int, num_kv_heads: int,
                max_len: int, head_dim: int, dtype=torch.bfloat16,
                device=None) -> "KVCache":
-        if dtype == torch.int8:
-            raise NotImplementedError("the int8 KV cache is not ported yet: "
-                                      "ROADMAP A10")
         shape = (num_layers, batch, num_kv_heads, max_len, head_dim)
+        ks = vs = None
+        if dtype == torch.int8:
+            ks = torch.zeros(shape[:-1] + (1,), dtype=torch.float32,
+                             device=device)
+            vs = torch.zeros(shape[:-1] + (1,), dtype=torch.float32,
+                             device=device)
         return cls(torch.zeros(shape, dtype=dtype, device=device),
                    torch.zeros(shape, dtype=dtype, device=device), 0,
                    torch.full((batch, max_len), -1, dtype=torch.int32,
-                              device=device))
+                              device=device), ks, vs)
+
+    @property
+    def quantized(self) -> bool:
+        return self.k_scale is not None
+
+    def layer(self, i: int) -> tuple:
+        """Layer i's (k, v) views, and (k_scale, v_scale) of an int8 cache."""
+        if self.quantized:
+            return (self.k[i], self.v[i], self.k_scale[i], self.v_scale[i])
+        return (self.k[i], self.v[i])
 
     def write_segments(self, seg: torch.Tensor) -> None:
         """Segment ids of the S tokens being appended at `length`."""
         self.segments[:, self.length:self.length + seg.shape[1]] = seg
+
+
+def quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric int8 over the head_dim axis: x [..., D] -> (int8 [..., D],
+    f32 scale [..., 1]); amax / 127 floored at 1e-12, rounded half to even
+    and clipped to [-127, 127] (JAX layers.py:248-255)."""
+    xf = x.float()
+    amax = xf.abs().amax(dim=-1, keepdim=True)
+    # divided by a tensor: CUDA turns a division by a Python scalar into a
+    # product with its reciprocal, one ulp off the division JAX does
+    scale = torch.clamp_min(amax / amax.new_full((), 127.0), 1e-12)
+    q = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
+    return q, scale
 
 
 # ---------------------------------------------------------------------------
@@ -259,16 +331,47 @@ def init_dense(generator: torch.Generator, din: int, dout: int, *,
     return p
 
 
-def cache_attention(q, kc, vc, *, q_offset, q_segment_ids, kv_segment_ids):
-    """Attention of new tokens over a bf16 cache prefix. At q_offset > 0 (a
-    decode step, a speculative verify, a later prefill chunk) it is the
-    plain path on every device, as in JAX (kernels/flash_attention.py:526).
-    At q_offset 0 (the first chunk of a chunked prefill) a card launches K1:
-    JAX takes XLA there only because its offset is traced, and the math
-    (causal over the chunk, segments from the cache) is the same."""
-    return flash_attention(q, kc, vc, causal=True, q_offset=q_offset,
-                           q_segment_ids=q_segment_ids,
-                           kv_segment_ids=kv_segment_ids)
+def cache_attention(q, kc, vc, ks=None, vs=None, *, q_offset, q_segment_ids,
+                    kv_segment_ids):
+    """Attention of new tokens over a cache prefix. A bf16/f32 cache at
+    q_offset > 0 (a decode step, a speculative verify, a later prefill
+    chunk) takes the plain path on every device, as in JAX
+    (kernels/flash_attention.py:526). At q_offset 0 (the first chunk of a
+    chunked prefill) a card launches K1: JAX takes XLA there only because
+    its offset is traced, and the math (causal over the chunk, segments
+    from the cache) is the same.
+
+    An int8 cache (its scales ks, vs [B, Hkv, Skv, 1]) is JAX's XLA branch
+    (layers.py:271-309) in plain torch on every device: scores from the
+    int8 keys in f32, times the key scales and 1/sqrt(D); masked scores at
+    DEFAULT_MASK_VALUE, softmax, rows that see no key written as 0; p times
+    the value scales, cast to q's dtype, then the product with the int8
+    values in f32."""
+    if ks is None:
+        return flash_attention(q, kc, vc, causal=True, q_offset=q_offset,
+                               q_segment_ids=q_segment_ids,
+                               kv_segment_ids=kv_segment_ids)
+    B, Hq, Sq, D = q.shape
+    Hkv, Skv = kc.shape[1], kc.shape[2]
+    g = Hq // Hkv
+    qg = q.reshape(B, Hkv, g, Sq, D)
+    # the int8 values are exact in bf16 and f32, so widening them to f32
+    # is JAX's cast to q's dtype with an f32 product
+    s = torch.matmul(qg.float(), kc.float()[:, :, None].mT)  # [B,Hkv,g,Sq,Skv]
+    s = s * ks[..., 0][:, :, None, None, :] * (1.0 / (D ** 0.5))
+    qi = torch.arange(Sq, device=q.device)[:, None] + q_offset
+    ki = torch.arange(Skv, device=q.device)[None, :]
+    mask = (qi >= ki)[None, None, None]
+    if kv_segment_ids is not None:
+        seg = ((q_segment_ids[:, :, None] == kv_segment_ids[:, None, :])
+               & (kv_segment_ids[:, None, :] >= 0))
+        mask = mask & seg[:, None, None]
+    s = torch.where(mask, s, DEFAULT_MASK_VALUE)
+    p = torch.softmax(s, dim=-1)
+    p = torch.where(mask.any(dim=-1, keepdim=True), p, 0.0)
+    pv = (p * vs[..., 0][:, :, None, None, :]).to(q.dtype)
+    out = torch.matmul(pv.float(), vc.float()[:, :, None])
+    return out.reshape(B, Hq, Sq, D).to(q.dtype)
 
 
 def mha(
@@ -282,7 +385,7 @@ def mha(
     causal: bool = False,
     q_segment_ids: Optional[torch.Tensor] = None,
     kv_segment_ids: Optional[torch.Tensor] = None,
-    kv_cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    kv_cache: Optional[tuple] = None,    # (k, v[, k_scale, v_scale])
     cache_len: int = 0,
     cache_segments: Optional[torch.Tensor] = None,   # [B, Smax]
     decode_multi: bool = False,
@@ -290,8 +393,10 @@ def mha(
     """Multi-head attention with optional GQA, RoPE and a per-layer cache.
 
     With a cache ((k, v) views [B, Hkv, Smax, D] of one layer, written in
-    place at cache_len): S > 1 without `decode_multi` is a prefill (fresh
-    k/v through the fused kernel, the cache starting at 0). Otherwise the S
+    place at cache_len; an int8 cache adds its (k_scale, v_scale) views and
+    takes k/v through `quantize_kv`): S > 1 without `decode_multi` is a
+    prefill (fresh, unquantized k/v through the fused kernel, the cache
+    starting at 0; only the cached copy is int8). Otherwise the S
     new tokens (S >= 1) attend to the cache prefix they were just written
     into: the JAX `mha_decode` (layers.py:381-440) on the stacked cache,
     with the queries in segment 0, the keys in the cache's segments (-1
@@ -309,9 +414,19 @@ def mha(
         k = apply_rope(k, *rope)
 
     if kv_cache is not None:
-        kc, vc = kv_cache
-        kc[:, :, cache_len:cache_len + S] = k.to(kc.dtype)
-        vc[:, :, cache_len:cache_len + S] = v.to(vc.dtype)
+        kc, vc = kv_cache[:2]
+        ks = vs = None
+        if len(kv_cache) == 4:           # int8: quantized k/v and scales
+            ks, vs = kv_cache[2:]
+            kq, ksn = quantize_kv(k)
+            vq, vsn = quantize_kv(v)
+            kc[:, :, cache_len:cache_len + S] = kq
+            vc[:, :, cache_len:cache_len + S] = vq
+            ks[:, :, cache_len:cache_len + S] = ksn
+            vs[:, :, cache_len:cache_len + S] = vsn
+        else:
+            kc[:, :, cache_len:cache_len + S] = k.to(kc.dtype)
+            vc[:, :, cache_len:cache_len + S] = v.to(vc.dtype)
         if S > 1 and not decode_multi:
             out = flash_attention(q, k, v, causal=True,
                                   q_segment_ids=q_segment_ids,
@@ -323,7 +438,9 @@ def mha(
             q_seg = (torch.zeros((B, S), dtype=torch.int32, device=x.device)
                      if cache_segments is not None else None)
             out = cache_attention(
-                q, kc[:, :, :n], vc[:, :, :n], q_offset=cache_len,
+                q, kc[:, :, :n], vc[:, :, :n],
+                None if ks is None else ks[:, :, :n],
+                None if vs is None else vs[:, :, :n], q_offset=cache_len,
                 q_segment_ids=q_seg,
                 kv_segment_ids=(cache_segments[:, :n].contiguous()
                                 if cache_segments is not None else None))

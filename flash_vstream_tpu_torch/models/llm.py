@@ -6,7 +6,8 @@ causal and segmented attention through K1, k/v written into the cache), a
 decode step of one or more tokens against the cache (`decode_multi`: a
 speculative verify or a prefill chunk), and the no-cache training path
 with gradient checkpointing (`remat`, `remat_group`); `lm_head`,
-`embed_tokens`, `cross_entropy_loss` and `cross_entropy_loss_chunked`.
+`embed_tokens`, `cross_entropy_loss` and `cross_entropy_loss_chunked`
+(vocab-tiled for quantized heads).
 Layers run in a Python loop over the stacked [L, ...] parameters. The
 projections and the lm_head may be quantized (weights/quantize.py): `dense`
 dispatches, and a decode step over an int4 base runs K6 in each of them.
@@ -21,6 +22,7 @@ from torch.utils.checkpoint import checkpoint
 from ..core.config import LLMConfig
 from ..core.device import resolve_device
 
+from ..weights.quantize import dequantize_weight4
 from .layers import (
     KVCache,
     ParamTree,
@@ -108,7 +110,8 @@ def decoder_forward(
     (it must be empty); S == 1, or any S with `decode_multi`, appends the S
     tokens at `cache.length` and attends them to the whole prefix (a decode
     step, a speculative verify, a prefill chunk: JAX llm.py:124-125,
-    179-228). The cache is written in place and advanced by S.
+    179-260). The cache is written in place and advanced by S; an int8
+    cache carries its scales through every layer.
 
     Without a cache (training), `remat` checkpoints every layer: its
     activations are recomputed in the backward pass instead of kept. With
@@ -135,7 +138,7 @@ def decoder_forward(
         h = rms_norm(x, lp["attn_norm"], cfg.rms_norm_eps)
         kw = {}
         if cache is not None:
-            kw = dict(kv_cache=(cache.k[i], cache.v[i]), cache_len=cache_len,
+            kw = dict(kv_cache=cache.layer(i), cache_len=cache_len,
                       cache_segments=cache.segments,
                       decode_multi=decode_multi)
         x = x + mha(lp["attn"], h, num_heads=cfg.num_heads,
@@ -209,6 +212,50 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
     return nll.sum() / torch.clamp_min(valid.sum(), 1)
 
 
+def _largest_divisor_le(n: int, cap: int) -> int:
+    c = min(cap, n)
+    while n % c:
+        c -= 1
+    return c
+
+
+def _tile_logits(params: dict, hh: torch.Tensor, t: int, vt: int
+                 ) -> torch.Tensor:
+    """f32 logits [..., vt] of vocab tile t: hidden @ the head's columns
+    [t*vt, (t+1)*vt), in hidden's dtype. An int8 head casts only that
+    [D, vt] slice of its values and scales the product by the slice's
+    scales; an int4 head dequantizes only that slice (its scales are per
+    input block, so a column slice is whole); a tied head takes embed rows
+    (JAX llm.py:356-381)."""
+    from ..weights.quantize import QuantWeight4
+    w = params.get("lm_head")
+    cols = slice(t * vt, (t + 1) * vt)
+    if w is None:
+        wt = params["embed"][cols].T
+    elif hasattr(w, "q"):
+        lg = torch.matmul(hh, w.q[:, cols].to(hh.dtype)).float()
+        return lg * w.scale[0, cols].float()
+    elif hasattr(w, "q4"):
+        wt = dequantize_weight4(QuantWeight4(w.q4[:, cols], w.scale[:, cols]),
+                                hh.dtype)
+    else:
+        wt = w[:, cols]
+    return torch.matmul(hh, wt.to(hh.dtype)).float()
+
+
+def _tile_step(params, hh, safe, m, s, lab, t: int, vt: int):
+    """One vocab tile of the online log-sum-exp: the running max m, the sum
+    s of exp(logit - m) and the label logit of the tokens whose label falls
+    in this tile (an in-tile gather)."""
+    lg = _tile_logits(params, hh, t, vt)
+    nm = torch.maximum(m, lg.amax(dim=-1))
+    s = s * torch.exp(m - nm) + torch.exp(lg - nm[..., None]).sum(dim=-1)
+    local = safe - t * vt
+    inside = (local >= 0) & (local < vt)
+    got = lg.gather(-1, local.clamp(0, vt - 1)[..., None].long())[..., 0]
+    return nm, s, torch.where(inside, got, lab)
+
+
 def cross_entropy_loss_chunked(params: dict, cfg: LLMConfig,
                                hidden: torch.Tensor,   # [B, S, D]
                                labels: torch.Tensor,   # [B, S]
@@ -219,16 +266,22 @@ def cross_entropy_loss_chunked(params: dict, cfg: LLMConfig,
     the [S, vocab] logits: the shifted sequence runs in chunks of `chunk`
     tokens, each through lm_head + CE inside one checkpoint, so only one
     [chunk, vocab] f32 block is live at a time, forward and backward (the
-    backward recomputes each chunk's logits). The JAX `vocab_tile` path for
-    quantized heads (training over a quantized base) is not ported."""
-    if vocab_tile or not isinstance(params.get("lm_head", params["embed"]),
-                                    torch.Tensor):
-        raise NotImplementedError(
-            "the vocab-tiled chunked loss of quantized heads is not ported "
-            "yet: ROADMAP A10, A12 (QLoRA)")
+    backward recomputes each chunk's logits).
+
+    vocab_tile > 0 also tiles the vocabulary with an online log-sum-exp
+    (JAX llm.py:296-409): per tile only a [chunk, tile] logits block and,
+    for a quantized head, a [D, tile] dequantized slice exist, so an int8
+    or int4 head never materializes its bf16 copy; each tile is its own
+    checkpoint. A quantized head tiles by 8,192 unless told otherwise; the
+    tile is the largest divisor of the vocabulary at most that size."""
     B, S, D = hidden.shape
     h = hidden[:, :-1]
     lab = labels[:, 1:]
+    w = params.get("lm_head")
+    if vocab_tile == 0 and w is not None and (hasattr(w, "q")
+                                              or hasattr(w, "q4")):
+        vocab_tile = 8192
+    vt = _largest_divisor_le(cfg.vocab_size, vocab_tile) if vocab_tile else 0
 
     def one(hh, ll):
         logits = lm_head(params, cfg, hh)
@@ -238,12 +291,23 @@ def cross_entropy_loss_chunked(params: dict, cfg: LLMConfig,
         nll = -logp.gather(-1, safe[..., None].long())[..., 0]
         return torch.where(valid, nll, 0.0).sum()
 
+    def one_tiled(hh, ll):
+        valid = ll != ignore_index
+        safe = torch.where(valid, ll, 0)
+        m = torch.full(ll.shape, float("-inf"), device=hh.device)
+        s = torch.zeros(ll.shape, device=hh.device)
+        got = torch.zeros(ll.shape, device=hh.device)
+        for t in range(cfg.vocab_size // vt):
+            m, s, got = _checkpoint(_tile_step, params, hh, safe, m, s, got,
+                                    t, vt)
+        nll = m + torch.log(s) - got
+        return torch.where(valid, nll, 0.0).sum()
+
+    body = one_tiled if vt else one
     total = hidden.new_zeros((), dtype=torch.float32)
     for c0 in range(0, S - 1, chunk):
-        total = total + checkpoint(one, h[:, c0:c0 + chunk],
-                                   lab[:, c0:c0 + chunk],
-                                   use_reentrant=False,
-                                   preserve_rng_state=False)
+        total = total + _checkpoint(body, h[:, c0:c0 + chunk],
+                                    lab[:, c0:c0 + chunk])
     count = (lab != ignore_index).sum()
     return total / torch.clamp_min(count, 1)
 

@@ -2,9 +2,9 @@
 speculative decode.
 
 Port of flash_vstream_tpu/runtime/generation.py: `GenerationConfig`,
-`trim_stop_strings`, `_sample` and a `Generator` that prefills a bf16 KV
-cache and decodes. The JAX decode loops are compiled while-loops; here they
-are host loops that emit the same tokens:
+`trim_stop_strings`, `_sample` and a `Generator` that prefills a KV cache
+(bf16, f32 or int8: `cache_dtype`) and decodes. The JAX decode loops are
+compiled while-loops; here they are host loops that emit the same tokens:
 
 - greedy (`generate`): one step a token with an EOS exit; single-token stop
   keywords fold into the EOS set;

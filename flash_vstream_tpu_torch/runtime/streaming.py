@@ -20,9 +20,10 @@ for one stream on one device:
 PyTorch runs eagerly, so the JAX version's jit caches and prompt-shape
 buckets for compilation have no counterpart here; the memory-length buckets
 of the prompt (`bucket_up`) are kept, because they decide the prompt. The
-model may be quantized (int8 or int4 decoder, int8 ViT blocks). A saved
-session is a `torch.save` file, where JAX writes an orbax checkpoint
-(orbax imports jax). Not ported yet: multi-stream and disaggregated
+model may be quantized (int8 or int4 decoder, int8 ViT blocks), and the
+answers' KV cache int8 (`kv_cache_dtype=torch.int8`). A saved session is a
+`torch.save` file, where JAX writes an orbax checkpoint (orbax imports
+jax); it holds no cache. Not ported yet: multi-stream and disaggregated
 serving (ROADMAP A15, A16).
 """
 from __future__ import annotations
@@ -102,11 +103,10 @@ class QwenStreamSession:
                  clip_size: int = 2, bank_size: int = 1024,
                  max_len: int = 16384, max_pixels: int = 4 * 224 * 224,
                  kv_cache_dtype=None, placement=None):
-        """`model` may carry quantized weights (weights/quantize.py). An
-        int8 KV cache and a disaggregated placement are not ported."""
-        if kv_cache_dtype is not None:
-            raise NotImplementedError("the int8 KV cache is not ported yet: "
-                                      "ROADMAP A10")
+        """`model` may carry quantized weights (weights/quantize.py);
+        `kv_cache_dtype` is the answers' cache (default bf16; torch.int8
+        quantizes k/v per position). A disaggregated placement is not
+        ported."""
         if placement is not None:
             raise NotImplementedError("disaggregated serving is not ported "
                                       "yet: ROADMAP A16")
@@ -119,7 +119,8 @@ class QwenStreamSession:
         self.clip_size = clip_size
         self.metrics = MetricMeter()
         self.device = model.llm.device
-        self.generator = Generator(model.llm, max_len=max_len)
+        self.generator = Generator(model.llm, max_len=max_len,
+                                   cache_dtype=kv_cache_dtype or torch.bfloat16)
         self.resize_hw = smart_resize(*frame_hw, factor=56,
                                       max_pixels=max_pixels)
         gh, gw = self.resize_hw[0] // 14, self.resize_hw[1] // 14

@@ -12,7 +12,8 @@ and the summary dict is the JAX server's.
 `--load-4bit` serves from a block-scaled int4 decoder base: every decode
 matvec runs the CUDA kernel K6 (kernels/int4_matmul.py). `--load-8bit`
 serves an int8 decoder and `--int8-vit` int8 ViT blocks; `--w8a8-prefill`
-runs their prefill-scale matmuls as int8 x int8 products.
+runs their prefill-scale matmuls as int8 x int8 products. `--kv-int8`
+keeps the answers' KV cache in int8 with per-position scales.
 `--stream-output` prints each answer as it decodes; `--preempt N` decodes
 answers in chunks of N steps (and `--prefill-chunk M` prefills in chunks of
 M tokens) with a host sync between chunks; `--resume-session` loads a
@@ -37,6 +38,7 @@ import time
 from typing import List
 
 import numpy as np
+import torch
 
 from ..preprocess.video import SyntheticSource, load_video
 from ..runtime.generation import GenerationConfig
@@ -46,7 +48,6 @@ from ..utils.logging import build_logger
 
 # flag (argparse attribute), its spelling, the ROADMAP item that ports it
 _NOT_PORTED = (
-    ("kv_int8", "--kv-int8", "A10"),
     ("threaded_ingest", "--threaded-ingest", "A15"),
     ("ingest_devices", "--ingest-devices", "A16"),
     ("decode_devices", "--decode-devices", "A16"),
@@ -97,7 +98,9 @@ def build_session(args):
     side = _frame_side(args)
     return QwenStreamSession(VStreamQwen(cfg, params), tokenizer,
                              frame_hw=(side, side), clip_size=args.clip_size,
-                             bank_size=args.video_max_frames)
+                             bank_size=args.video_max_frames,
+                             kv_cache_dtype=(torch.int8 if args.kv_int8
+                                             else None))
 
 
 def _frame_side(args) -> int:
@@ -287,7 +290,8 @@ def make_parser():
                         "matmuls also quantize the activations per token "
                         "and run int8 x int8")
     p.add_argument("--kv-int8", action="store_true",
-                   help="not ported yet (ROADMAP A10)")
+                   help="int8 KV cache with per-position scales (half the "
+                        "bf16 cache's bytes)")
     p.add_argument("--stream-output", action="store_true",
                    help="print each answer's text as it decodes (stepwise; "
                         "--preempt does not apply)")

@@ -3,16 +3,19 @@
 Port of flash_vstream_tpu/train/checkpoint.py with `torch.save` in place of
 orbax, in the same layout: `<output_dir>/checkpoint-<step>/` directories
 holding {params, opt_state}, the newest `keep` kept. `export_safetensors`
-raises: the port has no safetensors writer yet (ROADMAP A10).
+writes a parameter tree as one `.safetensors` file through the port's own
+writer (weights/safetensors_io.py), where JAX takes `safetensors.numpy`.
 """
 from __future__ import annotations
 
 import os
 import re
 import shutil
-from typing import Any, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
+
+from ..weights.safetensors_io import save_file
 
 _STATE = "state.pt"
 
@@ -58,12 +61,43 @@ def restore_checkpoint(output_dir: str, map_location=None
     if latest is None:
         return None
     step, path = latest
-    payload = torch.load(os.path.join(path, _STATE), map_location=map_location,
-                         weights_only=True)
+    from ..weights.quantize import QuantWeight, QuantWeight4
+    # a quantized base's leaves are NamedTuples of tensors
+    with torch.serialization.safe_globals([QuantWeight, QuantWeight4]):
+        payload = torch.load(os.path.join(path, _STATE),
+                             map_location=map_location, weights_only=True)
     return step, payload
 
 
-def export_safetensors(path: str, params: Any, prefix: str = ""):
-    raise NotImplementedError(
-        "merged-weight export needs a safetensors writer, not ported yet: "
-        "ROADMAP A10")
+def flatten_tree(params: Any, prefix: str = "") -> Dict[str, torch.Tensor]:
+    """A parameter tree as {name: tensor}: dict keys, NamedTuple fields (a
+    quantized leaf's `.q`/`.q4` and `.scale`) and list indices joined with
+    '.', each name prefixed by `prefix`, as JAX's export visitor spells
+    them (checkpoint.py:66-87)."""
+    flat: Dict[str, torch.Tensor] = {}
+
+    def visit(p, x):
+        if isinstance(x, dict):
+            for k, v in x.items():
+                visit(f"{p}.{k}" if p else k, v)
+        elif hasattr(x, "_fields"):      # NamedTuple, before tuple
+            for k in x._fields:
+                visit(f"{p}.{k}", getattr(x, k))
+        elif isinstance(x, (list, tuple)):
+            for i, v in enumerate(x):
+                visit(f"{p}.{i}", v)
+        else:
+            flat[prefix + p] = torch.as_tensor(x).detach()
+
+    visit("", params)
+    return flat
+
+
+def export_safetensors(path: str, params: Any, prefix: str = ""
+                       ) -> Dict[str, torch.Tensor]:
+    """Write `flatten_tree(params, prefix)` to one `.safetensors` file at
+    `path`; returns the flat {name: tensor}."""
+    flat = flatten_tree(params, prefix)
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    save_file(flat, path)
+    return flat

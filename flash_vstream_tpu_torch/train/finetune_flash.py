@@ -2,26 +2,38 @@
 
 Port of flash_vstream_tpu/train/finetune_flash.py (the rebuild of
 Flash-VStream-Qwen/finetune_flash.py) for one device: ChatML supervision with
-the video block expanded to the Flash memory's token count, LoRA over the
-decoder's projections and the merger, per-sample micro-batches with gradient
-accumulation, (resolution, frame-count) buckets, checkpoint auto-resume.
+the video block expanded to the Flash memory's token count (a still image's
+block to its merged patch grid), LoRA over the decoder's projections and
+the merger, per-sample micro-batches with gradient accumulation,
+(resolution, frame-count) buckets (frame rung 0: images), checkpoint
+auto-resume and the merged-weight export.
 
 One sample's loss: frames -> `qwen_preprocess` -> the chunked ViT and Flash
-memory consolidation (no graph) -> PatchMerger (LoRA) -> splice into the
-prompt's embeddings with the AM-RoPE positions -> the decoder under
-checkpointing (LoRA views; attention through FlashAttentionFunction, K3/K4/K5
-on the card) -> cross entropy, chunked over the sequence when
-max_len * vocab > 2**26. The adapters are f32 masters cast to bf16 inside
-the loss, as in JAX.
+memory consolidation (no graph; an image: the varlen ViT, no Flash memory)
+-> PatchMerger (LoRA) -> splice into the prompt's embeddings with the
+AM-RoPE positions -> the decoder under checkpointing (LoRA views; attention
+through FlashAttentionFunction, K3/K4/K5 on the card) -> cross entropy,
+chunked over the sequence when max_len * vocab > 2**26 (and over the
+vocabulary for a quantized head). The adapters are f32 masters cast to bf16
+inside the loss, as in JAX.
 
     python -m flash_vstream_tpu_torch.train.finetune_flash --dry-run \\
         --device cpu --output-dir /tmp/ft
+    python -m flash_vstream_tpu_torch.train.finetune_flash --model-path DIR \\
+        --data-path train.json --video-dir frames --output-dir /tmp/ft \\
+        [--int8-base [--base-bits 4|8]] [--export-merged]
 
-`--dry-run` trains `tiny_qwen_config()` on synthetic frame directories. A
-caller may hand `run_training` its own config, base parameters and adapters
-(chip_smoke.py runs the full-width model that way); without them a real run
-needs the checkpoint loader (ROADMAP A10). Image items, --pp/--sp and
---int8-base raise (ROADMAP A3, A16, A10/A12).
+`--dry-run` trains `tiny_qwen_config()` on synthetic frame directories;
+`--model-path DIR` an HF Qwen2-VL checkpoint directory (bf16 weights, the
+config from its config.json as the port's servers take it, where JAX
+hard-codes the 7B config, and its HF tokenizer, which needs
+`transformers`). A caller may hand `run_training` its own config, base
+parameters, adapters and tokenizer (chip_smoke.py does). `--int8-base`
+freezes the base quantized (QLoRA): packed int4 under the default
+`--base-bits 4`, weight-only int8 under 8; the optimizer holds the adapters
+only. `--export-merged` writes <output-dir>/model_merged.safetensors, the
+base with the adapters merged (a quantized leaf dequantized first).
+--pp/--sp raise (ROADMAP A16).
 
 The k-means draws of Flash memory consolidation come from `kmeans_draws(step,
 micro, sample, n)`, by default a torch generator seeded from those indices;
@@ -48,11 +60,9 @@ logger = logging.getLogger("finetune_flash")
 def build_synthetic_dataset(path: str, n_items: int = 8, n_frames=6,
                             side: int = 56, n_images: int = 0):
     """JPEG frame directories of random frames and a ChatML train.json.
-    n_frames: one length, or a per-item list. Returns (data_path,
+    n_frames: one length, or a per-item list; n_images appends still-image
+    items (JPEGs beside the frame directories). Returns (data_path,
     video_dir)."""
-    if n_images:
-        raise NotImplementedError(
-            "image items need the varlen ViT, not ported yet: ROADMAP A3")
     os.makedirs(os.path.join(path, "frames"), exist_ok=True)
     from PIL import Image
     rng = np.random.default_rng(0)
@@ -74,6 +84,17 @@ def build_synthetic_dataset(path: str, n_items: int = 8, n_frames=6,
                 {"from": "gpt", "value": f"It shows scene {i}."},
             ],
         })
+    for i in range(n_images):
+        name = f"img{i}.jpg"
+        Image.fromarray(rng.integers(0, 255, (side, side, 3), dtype=np.uint8)
+                        ).save(os.path.join(path, "frames", name))
+        items.append({
+            "id": n_items + i, "image": name,
+            "conversations": [
+                {"from": "human", "value": f"<image>\nDescribe image {i}."},
+                {"from": "gpt", "value": f"It shows object {i}."},
+            ],
+        })
     data_path = os.path.join(path, "train.json")
     with open(data_path, "w") as f:
         json.dump(items, f)
@@ -84,27 +105,30 @@ def preprocess_qwen_sample(item: dict, tokenizer, cfg, grid,
                            max_len: int = 512,
                            system_message: str = "You are a helpful assistant.",
                            kind: str = "video"):
-    """Multi-turn ChatML ids + labels + the video span (start, n_visual).
+    """Multi-turn ChatML ids + labels + the visual span (start, n_visual).
 
     The system block and every user turn are IGNORE; the first user turn
-    carries <|vision_start|><|video_pad|>*N<|vision_end|>; every assistant
-    turn supervises its answer tokens and <|im_end|>, not the role header or
-    the trailing newline."""
-    from ..models.vstream_qwen import visual_token_count
+    carries <|vision_start|><|video_pad|>*N<|vision_end|> (kind="image":
+    <|image_pad|> * h*w/4, the merged patch grid, no Flash memory); every
+    assistant turn supervises its answer tokens and <|im_end|>, not the
+    role header or the trailing newline."""
+    from ..models.vstream_qwen import image_token_count, visual_token_count
     from ..preprocess.qwen_processor import (IM_END, IM_START, VISION_END,
-                                             VISION_START, _video_pad_id)
-    if kind != "video":
-        raise NotImplementedError(
-            "image items need the varlen ViT, not ported yet: ROADMAP A3")
+                                             VISION_START, _image_pad_id,
+                                             _video_pad_id)
 
     def enc(text):
         if hasattr(tokenizer, "special_id"):
             return tokenizer.encode(text, add_bos=False)
         return tokenizer.encode(text, add_special_tokens=False)
 
-    pad_tok = _video_pad_id(tokenizer, cfg)
-    dam, csm = visual_token_count(cfg, *grid)
-    n_vis = dam + csm
+    if kind == "image":
+        pad_tok = _image_pad_id(tokenizer, cfg)
+        n_vis = image_token_count(grid[1], grid[2])
+    else:
+        pad_tok = _video_pad_id(tokenizer, cfg)
+        dam, csm = visual_token_count(cfg, *grid)
+        n_vis = dam + csm
 
     ids, labels = [], []
     system = enc(f"{IM_START}system\n{system_message}{IM_END}\n")
@@ -155,18 +179,21 @@ def default_kmeans_draws(step: int, micro: int, sample: int, n: int
 def sample_loss(cfg, base: dict, lora_params: dict, patches: torch.Tensor,
                 grid, ids: torch.Tensor, labels: torch.Tensor,
                 seg: torch.Tensor, vis_start: int, n_vis: int,
-                draws: torch.Tensor, *, alpha: float, rank: int,
-                vit_chunk: int = 8) -> torch.Tensor:
+                draws: Optional[torch.Tensor], *, alpha: float, rank: int,
+                vit_chunk: int = 8, kind: str = "video") -> torch.Tensor:
     """One sample's LoRA loss (JAX `one_sample`): the f32 adapters cast to
-    bf16 and viewed over the detached base, the video encoded (ViT and
-    Flash memory without a graph, `draws` seeding k-means) and spliced at
-    `vis_start`, the decoder checkpointed per layer (per group of 4 from
-    max_len 8192 on), then cross entropy, chunked over the sequence when
-    max_len * vocab > 2**26. ids, labels, seg: [max_len]."""
+    bf16 and viewed over the detached base (bf16, f32 or quantized), the
+    video encoded (ViT and Flash memory without a graph, `draws` seeding
+    k-means; kind="image": `encode_image` of the (1, h, w) grid, no draws)
+    and spliced at `vis_start`, the decoder checkpointed per layer (per
+    group of 4 from max_len 8192 on), then cross entropy, chunked over the
+    sequence when max_len * vocab > 2**26 (a quantized head also over the
+    vocabulary). ids, labels, seg: [max_len]."""
     from ..models.llm import (cross_entropy_loss, cross_entropy_loss_chunked,
                               decoder_forward, embed_tokens, lm_head)
     from ..models.vstream_qwen import (build_qwen_positions_dynamic,
-                                       encode_video, splice_embeds_dynamic)
+                                       encode_image, encode_video,
+                                       splice_embeds_dynamic)
     from .lora import lora_views
     span = torch.profiler.record_function      # named spans for a trace
     max_len = ids.shape[0]
@@ -174,8 +201,11 @@ def sample_loss(cfg, base: dict, lora_params: dict, patches: torch.Tensor,
             for p, ab in lora_params.items()}
     eff = lora_views(base, lp16, alpha=alpha, rank=rank)
     with span("train/encode_video"):
-        vis = encode_video(eff, cfg, patches, grid, init_scores=draws,
-                           vit_chunk=vit_chunk)
+        if kind == "image":
+            vis = encode_image(eff, cfg, patches, (grid[1], grid[2]))
+        else:
+            vis = encode_video(eff, cfg, patches, grid, init_scores=draws,
+                               vit_chunk=vit_chunk)
     positions, _ = build_qwen_positions_dynamic(max_len, vis_start, n_vis,
                                                 vis.visual_positions)
     embeds = embed_tokens(eff["llm"], ids[None])
@@ -193,15 +223,19 @@ def sample_loss(cfg, base: dict, lora_params: dict, patches: torch.Tensor,
 
 
 def run_training(args, *, cfg=None, params: Optional[dict] = None,
-                 lora: Optional[dict] = None,
+                 lora: Optional[dict] = None, tokenizer=None,
                  kmeans_draws: Optional[Callable] = None,
                  on_step: Optional[Callable] = None) -> dict:
-    """Train the LoRA adapters; returns {"final_loss", "losses", "lora"}.
+    """Train the LoRA adapters; returns {"final_loss", "losses", "lora",
+    "merged_path", "export_s"} (the export's path and seconds under
+    --export-merged, else None).
 
     `cfg`/`params` (and optionally `lora`, an adapter tree such as
     `weights.from_jax.lora_from_numpy` gives) replace the dry-run or
-    checkpoint model; `on_step(step, trainer, record)` runs after every
-    optimizer step with the record written to the scalars file."""
+    checkpoint model, and `tokenizer` the byte tokenizer or the
+    checkpoint's; --int8-base quantizes whichever base the run has.
+    `on_step(step, trainer, record)` runs after every optimizer step with
+    the record written to the scalars file."""
     from ..core.config import FlashMemoryConfig, tiny_qwen_config
     from ..core.device import dry_run_dtype, resolve_device
     from ..models.vstream_qwen import init_qwen_params
@@ -210,43 +244,53 @@ def run_training(args, *, cfg=None, params: Optional[dict] = None,
     from ..preprocess.qwen_processor import make_byte_qwen_tokenizer
     from ..preprocess.video import load_video, probe_video_hw, probe_video_len
     from ..utils.prefetch import BackgroundPrefetcher
+    from ..weights.quantize import quantize_params, quantize_params4
     from . import recipes
-    from .checkpoint import latest_checkpoint, restore_checkpoint, save_checkpoint
+    from .checkpoint import (export_safetensors, latest_checkpoint,
+                             restore_checkpoint, save_checkpoint)
     from .data import proportional_schedule
-    from .lora import QWEN_TARGETS, init_lora_params
+    from .lora import QWEN_TARGETS, init_lora_params, merge_lora
     from .reporting import ScalarsWriter, StepProfiler, lr_at
     from .trainer import DP_TODO, Trainer
 
     if args.pp > 1 or args.sp > 1:
         raise NotImplementedError(DP_TODO)
-    if args.int8_base:
-        raise NotImplementedError("QLoRA int8/int4 bases are not ported yet: "
-                                  "ROADMAP A10/A12")
-    if args.export_merged:
-        raise NotImplementedError("merged-weight export needs a safetensors "
-                                  "writer, not ported yet: ROADMAP A10")
     device = resolve_device(args.device)
     if params is None:
-        if not args.dry_run:
-            raise NotImplementedError(
-                "training from a checkpoint needs load_qwen_checkpoint, not "
-                "ported yet: ROADMAP A10 (pass --dry-run, or hand "
-                "run_training a config and parameters)")
-        # bf16 on the card (the kernels' type), f32 on the CPU; the
-        # adapters and the optimizer keep their own dtypes
-        cfg = tiny_qwen_config()
-        params = init_qwen_params(
-            cfg, torch.Generator(device=device).manual_seed(0), device,
-            dtype=dry_run_dtype(device))
-        if not args.data_path:
-            args.data_path, args.video_dir = build_synthetic_dataset(
-                os.path.join(args.output_dir, "synthetic"))
+        if args.dry_run:
+            # bf16 on the card (the kernels' type), f32 on the CPU; the
+            # adapters and the optimizer keep their own dtypes
+            cfg = tiny_qwen_config()
+            params = init_qwen_params(
+                cfg, torch.Generator(device=device).manual_seed(0), device,
+                dtype=dry_run_dtype(device))
+            if not args.data_path:
+                args.data_path, args.video_dir = build_synthetic_dataset(
+                    os.path.join(args.output_dir, "synthetic"))
+        elif args.model_path:
+            from ..weights.convert import (load_qwen_checkpoint,
+                                           qwen_config_from_hf)
+            cfg = qwen_config_from_hf(args.model_path)
+            params = load_qwen_checkpoint(args.model_path, cfg,
+                                          dtype=torch.bfloat16, device=device)
+            if tokenizer is None:
+                from ..preprocess.tokenizer import load_tokenizer
+                tokenizer = load_tokenizer(args.model_path)
+        else:
+            raise ValueError("pass --model-path DIR (an HF Qwen2-VL "
+                             "checkpoint directory) or --dry-run, or hand "
+                             "run_training a config and parameters")
     elif cfg is None:
         raise ValueError("run_training(params=...) needs its cfg")
     if args.flash_memory_dict:
         cfg = cfg.replace(flash_memory=FlashMemoryConfig.from_dict(
             json.loads(args.flash_memory_dict)))
-    tokenizer = make_byte_qwen_tokenizer()
+    if args.int8_base:
+        # QLoRA: the frozen base quantized (the reference's bnb 4/8-bit
+        # load + peft LoRA); the adapters stay f32 masters
+        params = (quantize_params4(params) if args.base_bits == 4
+                  else quantize_params(params))
+    tokenizer = tokenizer or make_byte_qwen_tokenizer()
     kmeans_draws = kmeans_draws or default_kmeans_draws
 
     with open(args.data_path) as f:
@@ -276,8 +320,12 @@ def run_training(args, *, cfg=None, params: Optional[dict] = None,
 
     def bucket_of(item):
         if "image" in item:
-            raise NotImplementedError(
-                "image items need the varlen ViT, not ported yet: ROADMAP A3")
+            # a still image: frame rung 0 marks the modality
+            from PIL import Image
+            with Image.open(os.path.join(args.video_dir, item["image"])) as f:
+                w, h = f.size
+            return (smart_resize(h, w, factor=56,
+                                 max_pixels=args.max_pixels), 0)
         path = os.path.join(args.video_dir, item["video"])
         h, w = probe_video_hw(path)
         n = min(probe_video_len(path), args.max_frames)
@@ -290,8 +338,31 @@ def run_training(args, *, cfg=None, params: Optional[dict] = None,
     logger.info(f"(resolution, frames) buckets: "
                 f"{ {bk: len(v) for bk, v in buckets.items()} }")
 
+    def finish(item, patches, grid, kind):
+        ids, labels, span = preprocess_qwen_sample(item, tokenizer, cfg, grid,
+                                                   max_len, kind=kind)
+        pad = max_len - len(ids)
+        seg = np.concatenate([np.zeros(len(ids), np.int32),
+                              np.full(pad, -1, np.int32)])
+        ids = np.pad(ids, (0, pad))
+        labels = np.pad(labels, (0, pad), constant_values=IGNORE_INDEX)
+        return patches, grid, ids, labels, span, seg
+
     def prepare(item, bk):
         train_hw, target = bk
+        if target == 0:                            # the image bucket
+            from PIL import Image
+            with Image.open(os.path.join(args.video_dir,
+                                         item["image"])) as f:
+                img = np.asarray(f.convert("RGB"))
+            if img.shape[:2] != train_hw:
+                img = np.clip(_resize_bilinear(_to_float_chw(img), train_hw)
+                              * 255, 0, 255).transpose(1, 2, 0).astype(
+                    np.uint8)
+            # the single frame fills the temporal patch (qwen_patchify)
+            patches, grid = qwen_preprocess([img],
+                                            max_pixels=args.max_pixels)
+            return finish(item, patches, grid, "image")
         frames = list(load_video(os.path.join(args.video_dir, item["video"]),
                                  max_frames=target))
         # pad to the bucket's frame count by repeating the last frame
@@ -303,22 +374,15 @@ def run_training(args, *, cfg=None, params: Optional[dict] = None,
                   if np.asarray(f).shape[:2] != train_hw else np.asarray(f)
                   for f in frames]
         patches, grid = qwen_preprocess(frames, max_pixels=args.max_pixels)
-        ids, labels, span = preprocess_qwen_sample(item, tokenizer, cfg, grid,
-                                                   max_len)
-        pad = max_len - len(ids)
-        seg = np.concatenate([np.zeros(len(ids), np.int32),
-                              np.full(pad, -1, np.int32)])
-        ids = np.pad(ids, (0, pad))
-        labels = np.pad(labels, (0, pad), constant_values=IGNORE_INDEX)
-        return patches, grid, ids, labels, span, seg
+        return finish(item, patches, grid, "video")
 
-    def make_loss(grid, span):
+    def make_loss(grid, span, kind):
         def one_sample(lora_params, base, patches, ids, labels, seg,
                        vis_start, draws):
             return sample_loss(cfg, base, lora_params, patches, grid, ids,
                                labels, seg, vis_start, span[1], draws,
                                alpha=alpha, rank=rank,
-                               vit_chunk=args.vit_chunk)
+                               vit_chunk=args.vit_chunk, kind=kind)
 
         def loss_fn(lora_params, batch, key, base):
             (step, micro), B = key, batch["ids"].shape[0]
@@ -326,7 +390,8 @@ def run_training(args, *, cfg=None, params: Optional[dict] = None,
             for b in range(B):
                 def dev(name, dtype=None):
                     return torch.from_numpy(batch[name][b]).to(device, dtype)
-                draws = kmeans_draws(step, micro, b, grid[0]).to(device)
+                draws = (None if kind == "image" else
+                         kmeans_draws(step, micro, b, grid[0]).to(device))
                 losses.append(one_sample(
                     lora_params, base, dev("patches"), dev("ids"),
                     dev("labels"), dev("seg"), int(batch["vis_start"][b]),
@@ -337,14 +402,18 @@ def run_training(args, *, cfg=None, params: Optional[dict] = None,
     order = sorted(buckets, key=lambda hw: -len(buckets[hw]))
     first_hw = order[0]
     first = prepare(buckets[first_hw][0], first_hw)
-    trainer = Trainer(make_loss(first[1], first[4]), lora, tcfg,
-                      frozen=params)
+    def kind_of(bk):
+        return "image" if bk[1] == 0 else "video"
+
+    trainer = Trainer(make_loss(first[1], first[4], kind_of(first_hw)), lora,
+                      tcfg, frozen=params)
     step_fns = {first_hw: trainer._train_step}
 
     def step_fn_for(hw):
         if hw not in step_fns:
             probe = prepare(buckets[hw][0], hw)
-            step_fns[hw] = trainer.compile_step(make_loss(probe[1], probe[4]))
+            step_fns[hw] = trainer.compile_step(
+                make_loss(probe[1], probe[4], kind_of(hw)))
         return step_fns[hw]
 
     start_step = 0
@@ -413,9 +482,20 @@ def run_training(args, *, cfg=None, params: Optional[dict] = None,
         prefetch.close()
         profiler.close()
         scalars.close()
+    merged_path = export_s = None
+    if args.export_merged:
+        t0 = time.perf_counter()
+        merged_path = os.path.join(args.output_dir, "model_merged.safetensors")
+        with torch.no_grad():
+            export_safetensors(merged_path, merge_lora(
+                params, trainer.params, alpha=alpha, rank=rank))
+        export_s = time.perf_counter() - t0
+        logger.info(f"merged weights written to {merged_path} in "
+                    f"{export_s:.1f} s")
     return {"final_loss": losses[-1] if losses else None, "losses": losses,
-            "lora": trainer.params, "profile": getattr(profiler, "profile",
-                                                       None)}
+            "lora": trainer.params, "merged_path": merged_path,
+            "export_s": export_s,
+            "profile": getattr(profiler, "profile", None)}
 
 
 def make_parser():
@@ -430,8 +510,11 @@ def make_parser():
     p.add_argument("--batch-size", type=int, default=1,
                    help="samples per micro-batch")
     p.add_argument("--int8-base", action="store_true",
-                   help="QLoRA base (not ported: ROADMAP A10/A12)")
-    p.add_argument("--base-bits", type=int, choices=[4, 8], default=4)
+                   help="QLoRA: freeze the base quantized (the bits of "
+                        "--base-bits)")
+    p.add_argument("--base-bits", type=int, choices=[4, 8], default=4,
+                   help="with --int8-base: 4 (default) = packed int4 in "
+                        "blocks of 128 input rows; 8 = weight-only int8")
     p.add_argument("--lora-rank", type=int, default=64)
     p.add_argument("--lora-alpha", type=float, default=32)
     p.add_argument("--learning-rate", type=float, default=8e-4)
@@ -465,7 +548,8 @@ def make_parser():
     p.add_argument("--profile-steps", type=int, default=3)
     p.add_argument("--flash-memory-dict", default=None)
     p.add_argument("--export-merged", action="store_true",
-                   help="not ported: ROADMAP A10")
+                   help="after training, write the base with the adapters "
+                        "merged to <output-dir>/model_merged.safetensors")
     p.add_argument("--dry-run", action="store_true")
     return p
 

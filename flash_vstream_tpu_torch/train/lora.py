@@ -6,7 +6,9 @@ wq/w"), each {"a": [..., din, r], "b": [..., r, dout]}. `lora_views` puts a
 merge-free `LoRAWeight` at each adapted leaf, which `models.layers.dense`
 computes as x @ w + (x @ a) @ b; `merge_lora` materializes w + (alpha/r) a b
 for export. The base tree never gets a gradient: its tensors enter the views
-detached.
+detached. The base may be quantized (QLoRA): a `QuantWeight` or
+`QuantWeight4` is one leaf, adapted by its logical [din, dout] shape, and
+`merge_lora` dequantizes it before merging.
 
 Reference: peft LoRA over all LLM projections + visual.merger.mlp
 (Flash-VStream-Qwen/finetune_flash.py:544-578).
@@ -54,25 +56,38 @@ def _map_with_path(fn, tree: dict, prefix: str = "") -> dict:
     return out
 
 
+def _weight_shape(x) -> tuple:
+    """A leaf's logical shape: an int4 leaf packs input pairs into a byte."""
+    if hasattr(x, "q4"):
+        *lead, half, dout = x.q4.shape
+        return (*lead, half * 2, dout)
+    return tuple(x.q.shape if hasattr(x, "q") else x.shape)
+
+
+def _detach(x):
+    if hasattr(x, "_fields"):            # a quantized leaf: every field
+        return type(x)(*(f.detach() for f in x))
+    return x.detach()
+
+
 def init_lora_params(generator: torch.Generator, params: dict, rank: int,
                      targets: Sequence[str] = DEFAULT_TARGETS,
                      dtype=torch.float32) -> Dict[str, dict]:
-    """Adapter tree: for each targeted weight [..., din, dout],
-    a [..., din, r] ~ N(0, 1) / sqrt(r) drawn from `generator` on the
-    weight's device, and b [..., r, dout] zeros (peft's init; so the
-    adapters start as the identity and `a` gets no gradient at step 1)."""
+    """Adapter tree: for each targeted weight of logical shape [..., din,
+    dout] (a tensor or a quantized leaf), a [..., din, r] ~ N(0, 1) /
+    sqrt(r) drawn from `generator` on the weight's device, and b [..., r,
+    dout] zeros (peft's init; so the adapters start as the identity and `a`
+    gets no gradient at step 1)."""
     out = {}
     for path, x in tree_leaves_with_path(params):
-        if not isinstance(x, torch.Tensor):
-            raise NotImplementedError(
-                f"leaf {path!r} is a {type(x).__name__}; LoRA over quantized "
-                f"bases is not ported yet: ROADMAP A10-A12")
-        if not is_lora_target(path, targets) or x.dim() < 2:
+        shape = _weight_shape(x)
+        if not is_lora_target(path, targets) or len(shape) < 2:
             continue
-        *lead, din, dout = x.shape
+        *lead, din, dout = shape
+        device = x[0].device if hasattr(x, "_fields") else x.device
         a = torch.randn(*lead, din, rank, generator=generator, dtype=dtype,
-                        device=x.device) / math.sqrt(rank)
-        b = torch.zeros(*lead, rank, dout, dtype=dtype, device=x.device)
+                        device=device) / math.sqrt(rank)
+        b = torch.zeros(*lead, rank, dout, dtype=dtype, device=device)
         out[path] = {"a": a, "b": b}
     return out
 
@@ -94,11 +109,12 @@ def lora_views(params: dict, lora: Dict[str, dict], alpha: float,
     """The base tree with a `LoRAWeight` at each adapted leaf. Base tensors
     enter detached (JAX's stop_gradient), so no base gradient is ever built;
     `a` is scaled by alpha / rank in its own dtype (after the trainer's f32 ->
-    bf16 cast, as in JAX)."""
+    bf16 cast, as in JAX). A quantized leaf is wrapped as it is: `dense`
+    multiplies by it without a gradient to it."""
     scale = alpha / rank
 
     def one(path, x):
-        x = x.detach()
+        x = _detach(x)
         ab = lora.get(path)
         if ab is None:
             return x
@@ -111,13 +127,22 @@ def merge_lora(params: dict, lora: Dict[str, dict], alpha: float,
                rank: int) -> dict:
     """Effective parameters w + (alpha / rank) a @ b at each adapted leaf, in
     the base's dtype (materialized: for export; training uses
-    `lora_views`)."""
+    `lora_views`). A quantized leaf is dequantized to the adapters' dtype
+    first (QLoRA export), so it merges into that dtype."""
+    from ..weights.quantize import dequantize_weight, dequantize_weight4
     scale = alpha / rank
 
     def one(path, x):
         ab = lora.get(path)
         if ab is None:
             return x
+        if hasattr(x, "q") or hasattr(x, "q4"):
+            # a fresh f32 copy: the delta goes in in place, so a 7B leaf
+            # holds one [L, din, dout] copy, not three
+            x = (dequantize_weight if hasattr(x, "q") else
+                 dequantize_weight4)(x, dtype=ab["a"].dtype)
+            mm = x.baddbmm_ if x.dim() == 3 else x.addmm_
+            return mm(ab["a"], ab["b"], alpha=scale)
         delta = torch.einsum("...ir,...ro->...io", ab["a"], ab["b"]) * scale
         return x + delta.to(x.dtype)
 

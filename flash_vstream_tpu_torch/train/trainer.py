@@ -59,10 +59,14 @@ class TrainConfig:
 
 
 def label_params(params: dict, cfg: TrainConfig) -> Dict[str, str]:
-    """path -> "projector" / "train" / "frozen" for every leaf."""
+    """path -> "projector" / "train" / "frozen" for every leaf; a quantized
+    leaf (`QuantWeight`, `QuantWeight4`: integer values, no gradient) is
+    always "frozen"."""
     out = {}
-    for p, _ in tree_leaves_with_path(params):
-        if any(re.search(f, p) for f in cfg.frozen):
+    for p, x in tree_leaves_with_path(params):
+        if not isinstance(x, torch.Tensor):
+            out[p] = "frozen"
+        elif any(re.search(f, p) for f in cfg.frozen):
             out[p] = "frozen"
         elif cfg.trainable is not None and not any(
                 re.search(t, p) for t in cfg.trainable):
@@ -134,6 +138,12 @@ def make_optimizer(cfg: TrainConfig, params: dict) -> AdamW:
     return AdamW(cfg, params)
 
 
+def _tensor_leaves(tree: dict):
+    """(path, tensor) of every tensor leaf; quantized leaves are frozen."""
+    return [(p, x) for p, x in tree_leaves_with_path(tree)
+            if isinstance(x, torch.Tensor)]
+
+
 def _micro(batch, i: int):
     if isinstance(batch, dict):
         return {k: _micro(v, i) for k, v in batch.items()}
@@ -153,7 +163,7 @@ class Trainer:
             raise NotImplementedError(DP_TODO)
         self.cfg = cfg
         self.frozen = frozen
-        for _, x in tree_leaves_with_path(params):
+        for _, x in _tensor_leaves(params):
             x.requires_grad_(True)
         self.params = params
         self.optimizer = make_optimizer(cfg, params)
@@ -168,8 +178,8 @@ class Trainer:
         accum = self.cfg.grad_accum
 
         def step(batch, key):
-            paths = [p for p, _ in tree_leaves_with_path(self.params)]
-            leaves = [x for _, x in tree_leaves_with_path(self.params)]
+            paths = [p for p, _ in _tensor_leaves(self.params)]
+            leaves = [x for _, x in _tensor_leaves(self.params)]
             acc, losses = None, []
             span = torch.profiler.record_function  # named spans for a trace
             for i in range(accum):
@@ -200,9 +210,9 @@ class Trainer:
     def load_state(self, params: dict, opt_state: dict) -> None:
         """Install restored state (copied into this trainer's tensors, on
         their devices)."""
-        mine = dict(tree_leaves_with_path(self.params))
+        mine = dict(_tensor_leaves(self.params))
         with torch.no_grad():
-            for p, x in tree_leaves_with_path(params):
+            for p, x in _tensor_leaves(params):
                 mine[p].copy_(x)
         dev = {p: x.device for p, x in mine.items()}
         self.opt_state = {

@@ -1,6 +1,6 @@
 """HF checkpoint -> the port's parameter tree, Qwen family.
 
-Port of flash_vstream_tpu/weights/convert.py:27-101, 147-202, 261-284,
+Port of flash_vstream_tpu/weights/convert.py:27-101, 147-202, 261-327,
 425-488: a directory of `.safetensors` shards (read with the port's own
 reader, weights/safetensors_io.py) or an in-memory {name: tensor} state
 dict becomes the tree of models/llm.py and models/qwen2_vit.py. Linear
@@ -11,13 +11,15 @@ embedding flattens to one matmul weight.
 Each stacked [L, ...] leaf is allocated once on the target device and
 filled layer by layer from the mapped shards, so a 7B load holds one copy
 of the weights on the device and none on the host beyond one layer's
-tensor in flight. The LLaVA converters, `apply_lora_adapter` and
-`load_pretrained_model` wait for ROADMAP A13.
+tensor in flight. `apply_lora_adapter` merges a torch-PEFT adapter into
+the stacked decoder tree. The LLaVA converters and `load_pretrained_model`
+wait for ROADMAP A13.
 """
 from __future__ import annotations
 
 import json
 import os
+import re
 from typing import Dict, Optional
 
 import torch
@@ -201,6 +203,48 @@ def resize_token_embeddings(llm_params: dict, new_size: int) -> dict:
             [head, mean_out.expand(head.shape[0], new_size - n_old)
              .to(head.dtype)], dim=1)
     return out
+
+
+_LORA_PROJ = {"q_proj": ("attn", "wq"), "k_proj": ("attn", "wk"),
+              "v_proj": ("attn", "wv"), "o_proj": ("attn", "wo"),
+              "gate_proj": ("mlp", "gate"), "up_proj": ("mlp", "up"),
+              "down_proj": ("mlp", "down")}
+
+
+def apply_lora_adapter(llm_params: dict, adapter_sd: Dict[str, object],
+                       alpha: float, rank: int) -> dict:
+    """Merge torch-PEFT LoRA deltas into the stacked decoder tree:
+    W[in, out] += (alpha / r) * (B @ A)^T (merge_and_unload), summed in f32
+    and cast back to each leaf's dtype. Adapter keys look like
+    base_model.model.model.layers.{i}.self_attn.q_proj.lora_A.weight; their
+    values are tensors or arrays. Returns a new tree; `llm_params` is not
+    changed."""
+    scale = alpha / rank
+    pat = re.compile(r"layers\.(\d+)\.(?:self_attn|mlp)\.(\w+)\."
+                     r"lora_(A|B)\.weight$")
+    deltas: Dict[tuple, dict] = {}
+    for k, v in adapter_sd.items():
+        m = pat.search(k)
+        if m:
+            deltas.setdefault((int(m.group(1)), m.group(2)), {})[
+                m.group(3)] = torch.as_tensor(v).float().cpu()
+    stacked: Dict[tuple, dict] = {}
+    for (i, proj), ab in deltas.items():
+        if "A" not in ab or "B" not in ab:
+            raise ValueError(f"incomplete LoRA pair for {proj} of layer {i}")
+        stacked.setdefault(_LORA_PROJ[proj], {})[i] = \
+            scale * (ab["B"] @ ab["A"]).T   # torch [out, in] -> [in, out]
+    params = dict(llm_params)
+    layers = {k: dict(v) if isinstance(v, dict) else v
+              for k, v in llm_params["layers"].items()}
+    for (grp, name), per_layer in stacked.items():
+        old = llm_params["layers"][grp][name]["w"]
+        w = old.float().clone()
+        for i, d in per_layer.items():
+            w[i] += d.to(w.device)
+        layers[grp][name] = dict(layers[grp][name], w=w.to(old.dtype))
+    params["layers"] = layers
+    return params
 
 
 def load_qwen_checkpoint(model_dir: str, cfg: VStreamQwenConfig,

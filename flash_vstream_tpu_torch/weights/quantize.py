@@ -71,6 +71,12 @@ def quantize_weight(w: torch.Tensor) -> QuantWeight:
     return _per_layer(_quantize8, w)
 
 
+def dequantize_weight(qw: QuantWeight, dtype=torch.float32) -> torch.Tensor:
+    """int8 values times their per-channel scales, in f32, cast to dtype."""
+    w = qw.q.float()
+    return w.mul_(qw.scale).to(dtype)
+
+
 def _block_size4(din: int, block: int) -> int:
     """Largest EVEN divisor of din <= block (pairs pack within a block)."""
     bs = min(block, din)
@@ -110,8 +116,8 @@ def dequantize_weight4(qw: QuantWeight4, dtype=torch.bfloat16) -> torch.Tensor:
     *lead, nb, dout = qw.scale.shape
     q = unpack_weight4(qw)
     din = q.shape[-2]
-    q = q.reshape(*lead, nb, din // nb, dout).float()
-    w = q * qw.scale[..., :, None, :]
+    w = q.reshape(*lead, nb, din // nb, dout).float()
+    w.mul_(qw.scale[..., :, None, :])          # the f32 copy, scaled in place
     return w.reshape(*lead, din, dout).to(dtype)
 
 

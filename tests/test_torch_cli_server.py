@@ -115,7 +115,10 @@ def _run_both(monkeypatch, flags):
     # which w8a8 takes (the tiny ViT's 16-token frames stay weight-only)
     ["--load-8bit", "--int8-vit", "--w8a8-prefill",
      "--question_interval", "0.0001", "--question", LONG_QUESTION],
-], ids=["load_4bit", "load_8bit_int8_vit", "load_8bit_int8_vit_w8a8"])
+    # the int8 KV cache: the answers' k/v quantized per position in both
+    ["--kv-int8", "--question_interval", "0.0001"],
+], ids=["load_4bit", "load_8bit_int8_vit", "load_8bit_int8_vit_w8a8",
+        "kv_int8"])
 def test_dry_run_matches_jax_server(monkeypatch, flags):
     calls = {"jax": 0, "port": 0}        # w8a8 products taken (JAX: traced)
     for name, mod in (("jax", jlayers), ("port", tlayers)):
@@ -213,7 +216,6 @@ def test_frame_directory_source(tmp_path):
 
 @pytest.mark.parametrize("flag,item", [
     (["--model-family", "llava"], "A13"),
-    (["--kv-int8"], "A10"),
     (["--threaded-ingest"], "A15"),
     (["--ingest-devices", "1"], "A16"),
     (["--decode-devices", "1"], "A16"),
@@ -334,11 +336,19 @@ def test_w8a8_flag_sets_the_switch():
 
 
 def test_session_refuses_unported_options():
+    """A disaggregated placement raises (ROADMAP A16); the int8 KV cache is
+    ported: --kv-int8 builds a session whose answers' cache is int8 with
+    its two scale buffers (its ids are held to JAX's in
+    test_dry_run_matches_jax_server and tests/test_torch_streaming.py)."""
     from flash_vstream_tpu_torch.runtime.streaming import QwenStreamSession
     sess = tcli.build_session(tcli.make_parser().parse_args(
-        ["--dry-run", "--device", "cpu"]))
-    with pytest.raises(NotImplementedError, match="A10"):
-        QwenStreamSession(sess.model, sess.tokenizer,
-                          kv_cache_dtype=torch.int8)
+        ["--dry-run", "--device", "cpu", "--kv-int8"]))
+    cache = sess.generator.new_cache(1, 16)
+    assert cache.k.dtype == cache.v.dtype == torch.int8 and cache.quantized
+    assert cache.k_scale.shape == cache.k.shape[:-1] + (1,)
+    assert cache.k_scale.data_ptr() != cache.v_scale.data_ptr()
+    assert tcli.build_session(tcli.make_parser().parse_args(
+        ["--dry-run", "--device", "cpu"])).generator.cache_dtype \
+        == torch.bfloat16
     with pytest.raises(NotImplementedError, match="A16"):
         QwenStreamSession(sess.model, sess.tokenizer, placement=object())

@@ -178,12 +178,19 @@ def test_gelu_mlp(x, act):
 
 def test_quantized_leaves_and_int8_cache_raise():
     """Quantized leaves are ported (tests/test_torch_quantize.py holds them
-    against JAX); a leaf of no known kind raises, and so does the int8 KV
-    cache, which is not ported yet."""
+    against JAX); a leaf of no known kind raises. The int8 KV cache is
+    ported: its buffers have JAX's shapes and dtypes, with two distinct
+    scale buffers (tests/test_torch_kv_int8.py holds its arithmetic)."""
     from flash_vstream_tpu_torch.weights.quantize import quantize_weight4
     qw = quantize_weight4(torch.ones(4, 8))
     assert tl.dense(torch.ones(2, 4), qw).shape == (2, 8)
     with pytest.raises(TypeError, match="QuantWeight4"):
         tl.dense(torch.zeros(2, 4), object())
-    with pytest.raises(NotImplementedError, match="A10"):
-        tl.KVCache.create(1, 1, 1, 8, 4, dtype=torch.int8)
+    got = tl.KVCache.create(2, 1, 3, 8, 4, dtype=torch.int8)
+    want = jl.KVCache.create(2, 1, 3, 8, 4, dtype=jnp.int8)
+    for name in ("k", "v", "segments", "k_scale", "v_scale"):
+        g, w = getattr(got, name), getattr(want, name)
+        assert tuple(g.shape) == w.shape and str(g.dtype)[6:] == str(w.dtype)
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    assert got.quantized and got.k_scale.data_ptr() != got.v_scale.data_ptr()
+    assert not tl.KVCache.create(2, 1, 3, 8, 4).quantized

@@ -4,8 +4,11 @@ checkpoint written and loaded by the port's own safetensors code, a video
 and an image answered through QwenPipeline, the eval worker over `.npy`
 frames; none of the three is in sys.modules afterwards, as on the card's
 machine, which has none of them), then a tiny ingest +
-answer, a tiny LoRA training step, an answer over an int4 decoder (prefill
-and a decode step), the --load-4bit dry-run server, the HTTP server
+answer (also over an int8 KV cache, in prefill and decode chunks), a tiny
+LoRA training step, two QLoRA steps over an int4 base with an image item,
+--export-merged, merge_lora_weights.py and apply_lora_adapter, an answer
+over an int4 decoder (prefill and a decode step), the --load-4bit
+--kv-int8 dry-run server, the HTTP server
 (frames, a preemptible speculative answer, a sampled SSE answer), a
 session's clone, save/load and streamed answer, the plain versions of
 P1 and P2, the ViT and gather probes (the ViT probe with --int8, so
@@ -82,12 +85,49 @@ for _ in range(6):
 toks = sess.answer_tokens(*sess._published, "what?",
                           GenerationConfig(max_new_tokens=4))
 assert sess.n_frames == 6 and 1 <= len(toks) <= 4
+sess8 = QwenStreamSession(model, make_byte_qwen_tokenizer(), frame_hw=(56, 56),
+                          clip_size=2, bank_size=8, max_len=512,
+                          kv_cache_dtype=torch.int8)
+sess8.load_session(sess.save_session(tempfile.mkdtemp() + "/s.pt"))
+toks = sess8.answer_tokens(*sess8._published, "what?",
+                           GenerationConfig(max_new_tokens=4,
+                                            preemptible_chunk=2,
+                                            prefill_chunk=64))
+assert 1 <= len(toks) <= 4
 with tempfile.TemporaryDirectory() as out:
     res = run_training(make_parser().parse_args([
         "--dry-run", "--device", "cpu", "--output-dir", out, "--max-steps", "1",
         "--grad-accum", "1", "--max-frames", "4", "--frame-bucket", "4",
         "--max-len", "128", "--max-pixels", str(56 * 56), "--lora-rank", "2"]))
 assert len(res["losses"]) == 1 and np.isfinite(res["losses"][0])
+from flash_vstream_tpu_torch.scripts import merge_lora_weights
+from flash_vstream_tpu_torch.train.checkpoint import save_checkpoint
+from flash_vstream_tpu_torch.train.finetune_flash import build_synthetic_dataset
+from flash_vstream_tpu_torch.weights.convert import apply_lora_adapter
+from flash_vstream_tpu_torch.weights.quantize import quantize_params4
+with tempfile.TemporaryDirectory() as out:
+    data, frames = build_synthetic_dataset(out + "/data", n_items=1,
+                                           n_frames=4, n_images=1)
+    res = run_training(make_parser().parse_args([
+        "--dry-run", "--device", "cpu", "--output-dir", out + "/run",
+        "--data-path", data, "--video-dir", frames, "--max-steps", "2",
+        "--grad-accum", "1", "--max-frames", "4", "--frame-bucket", "4",
+        "--max-len", "128", "--max-pixels", str(56 * 56), "--lora-rank", "2",
+        "--int8-base", "--export-merged", "--save-steps", "1"]))
+    assert len(res["losses"]) == 2 and np.isfinite(res["losses"]).all()
+    save_checkpoint(out + "/base", 0, quantize_params4(params))
+    import contextlib, io
+    with contextlib.redirect_stdout(io.StringIO()):
+        merge_lora_weights.main(["--base-checkpoint", out + "/base",
+                                 "--lora-checkpoint", out + "/run", "--output",
+                                 out + "/m.safetensors", "--rank", "2",
+                                 "--device", "cpu"])
+merged = apply_lora_adapter(params["llm"], {
+    "layers.0.self_attn.q_proj.lora_A.weight": np.ones((2, 64), np.float32),
+    "layers.0.self_attn.q_proj.lora_B.weight": np.ones((64, 2), np.float32)},
+    alpha=2.0, rank=2)
+assert not torch.equal(merged["layers"]["attn"]["wq"]["w"],
+                       params["llm"]["layers"]["attn"]["wq"]["w"])
 from flash_vstream_tpu_torch.weights.quantize import QuantWeight4, quantize_params4
 qmodel = VStreamQwen(cfg, {"vit": model.vit.tree(),
                           "llm": quantize_params4(model.llm.tree())})
@@ -100,7 +140,7 @@ toks = qsess.answer_tokens(*qsess._published, "what?",
                            GenerationConfig(max_new_tokens=2))
 assert 1 <= len(toks) <= 2
 from flash_vstream_tpu_torch.serve.cli_server import main
-summary = main(["--dry-run", "--device", "cpu", "--load-4bit",
+summary = main(["--dry-run", "--device", "cpu", "--load-4bit", "--kv-int8",
                 "--synthetic-frames", "4", "--play_speed", "0",
                 "--question", "Q?", "--question_interval", "1000",
                 "--max-new-tokens", "2"])

@@ -235,6 +235,59 @@ def test_answer_variants_match_jax(sessions, j, kw):
 
 
 @pytest.fixture(scope="module")
+def sessions8(j):
+    """`sessions`' stream in a pair whose answers keep an int8 KV cache
+    (kv_cache_dtype: jnp.int8 in JAX, torch.int8 in the port)."""
+    import jax.numpy as jnp
+    jsess = j.streaming.QwenStreamSession(j.params, j.cfg(), j.tok(),
+                                          kv_cache_dtype=jnp.int8, **KW)
+    tsess = QwenStreamSession(j.model, make_byte_qwen_tokenizer(),
+                              kv_cache_dtype=torch.int8, **KW)
+    tsess._init_scores = j.scores
+    rng = np.random.default_rng(0)
+    scenes = rng.integers(0, 256, size=(3, 112, 112, 3))
+    for i in range(N_INGESTS):
+        frames = _frames(rng, scenes, i, 2)
+        jsess.ingest_frames(frames)
+        tsess.ingest_frames(frames)
+    return jsess, tsess
+
+
+@pytest.mark.parametrize("kw", [
+    dict(), dict(preemptible_chunk=3, prefill_chunk=40),
+    dict(speculative_k=3, speculative_ngram=2),
+], ids=["greedy", "prefill_chunks", "speculative"])
+def test_int8_kv_session_matches_jax(sessions8, j, kw):
+    """With the int8 cache the session answers JAX's ids on JAX's snapshot
+    (the snapshots agree to bf16 rounding, and int8 rounding of k/v turns
+    that into a different step now and then: the answer path is held on
+    equal inputs, as in sessions4); greedy: the fused answer, chunked and
+    speculative: the recorded generate, each also the greedy ids. A clone
+    keeps the int8 cache."""
+    jsess, tsess = sessions8
+    base = dict(max_new_tokens=8, eos_token_ids=())
+    jsnap, jn = jsess._published
+    snap = (_snap_torch(jsnap, tsess._published[0]), tsess._published[1])
+    assert jn == snap[1]
+    greedy = tsess.answer_tokens(*snap, Q, GenerationConfig(**base))
+    if kw:
+        ids = j.record(jsess)
+        try:
+            jsess.answer(Q, j.gen.GenerationConfig(**base, **kw))
+        finally:
+            del jsess.generator.generate
+        want = ids[-1]
+    else:
+        want = jsess._answer_fused(jsnap, jn, Q,
+                                   j.gen.GenerationConfig(**base))
+    got = tsess.answer_tokens(*snap, Q, GenerationConfig(**base, **kw))
+    assert got == [int(t) for t in want] == greedy and len(got) == 8
+    assert tsess.generator.new_cache(1, 8).k.dtype == torch.int8
+    c = tsess.clone_fresh()
+    assert c.generator.cache_dtype == torch.int8
+
+
+@pytest.fixture(scope="module")
 def sessions4(j):
     """clip_size 4 with partial clips; after every ingest the snapshots of
     both sessions and the greedy answer of each on JAX's snapshot (the

@@ -47,6 +47,17 @@ Phases, one or more lines each; any failure raises and exits non-zero:
    (an MCQ sample and a consistency pair, each pred the in-memory
    pipeline's) and `eval_any_dataset --dry-run --num-chunks 2` with two
    card workers; K1's launches checked against the reckoned count;
+   llava: the LLaVA family at full width (VStreamLLaVAConfig(): CLIP
+   ViT-L/14, STAR memory, mlp2x_gelu, Vicuna-7B) on random bf16 weights:
+   a stream of 80 frames in clips of 8 (the 64-frame bank wraps) answered
+   before saturation and after the wrap (ingest ms a clip, prefill,
+   ms/token, busy; answer_stream, preemptible, prefill-chunked and
+   speculative ids against greedy, parting only at a tie of greedy's bf16
+   logits; an int8 cache teacher-forced), LLaVAPipeline over 50 frames and
+   a 336 x 448 image, card vs CPU at 2 + 2 layers, `run_server
+   --model-family llava --load-4bit` (K6 at Vicuna's shapes, timed beside
+   `_weight_int4pack_mm`), a depth-4 checkpoint round trip; K1 and K6
+   launches against the counts reckoned as the steps run;
 6. backward: K4/K5's ptxas registers and SASS counts first; K3 (forward +
    lse), K4 (dq) and K5 (dk/dv) against their plain versions at the
    training shape, two small edge cases and the tile cases, K4/K5 equal bit
@@ -201,9 +212,12 @@ def _nbytes(*xs):
 
 
 def _tree_nbytes(tree):
-    """Bytes of a nested dict of tensors and quantized (tuple) leaves."""
+    """Bytes of a nested dict (or list) of tensors and tuple leaves
+    (quantized weights, NTMParams)."""
     if isinstance(tree, dict):
         return sum(_tree_nbytes(v) for v in tree.values())
+    if isinstance(tree, list):
+        return sum(_tree_nbytes(v) for v in tree)
     return _nbytes(*tree) if isinstance(tree, tuple) else _nbytes(tree)
 
 
@@ -454,6 +468,13 @@ def check_kernels(dev):
     seg = torch.zeros(1, S, dtype=torch.int32, device=dev)
     seg[:, 64 + 1920 + 720:64 + 2880] = -1
     seg[:, 64 + 2880 + 40:] = -1
+    # the LLaVA answer's prompt: 35 text ids, 681 memory slots of which the
+    # last 17 are padding (-1, inside the sequence), the question padded
+    # from 20 to 32 ids
+    S_v = 35 + 681 + 32
+    seg_v = torch.zeros(1, S_v, dtype=torch.int32, device=dev)
+    seg_v[:, 35 + 664:35 + 681] = -1
+    seg_v[:, 35 + 681 + 20:] = -1
     q_seg = torch.zeros(2, 100, dtype=torch.int32, device=dev)
     q_seg[:, 17] = 5                      # an id no key has: a masked row
     kv_seg = torch.zeros(2, 100, dtype=torch.int32, device=dev)
@@ -470,6 +491,13 @@ def check_kernels(dev):
         "masked_row": ((randn(2, 4, 100, 64), randn(2, 4, 100, 64),
                         randn(2, 4, 100, 64)),
                        dict(q_segment_ids=q_seg, kv_segment_ids=kv_seg)),
+        # CLIP ViT-L/14 over a clip of 8 frames: 257 tokens, head_dim 64
+        "clip_l14": ((heads(8, 257, 16, 64), heads(8, 257, 16, 64),
+                      heads(8, 257, 16, 64)), {}),
+        "vicuna_prefill": ((randn(1, 32, S_v, 128), randn(1, 32, S_v, 128),
+                            randn(1, 32, S_v, 128)),
+                           dict(causal=True, q_segment_ids=seg_v,
+                                kv_segment_ids=seg_v)),
     }
     # the varlen ViT of a still image (one segment of h*w tokens, mha's
     # [1, S, H, D] -> [1, H, S, D] views): 448 x 448 px and 392 x 504 px,
@@ -485,7 +513,7 @@ def check_kernels(dev):
                        dict(q_segment_ids=ids, kv_segment_ids=ids))
     cases.update({name: tile_case(dev, g, name) for name in fa.TILE_CASES})
     timed = ("vit_full", "vit_small", "vit_448", "prefill", "vit_image_448",
-             "vit_image_392x504")
+             "vit_image_392x504", "clip_l14", "vicuna_prefill")
     k1_err, k1_times = 0.0, {}
     for name, (args, kw) in cases.items():
         out = flash_attention_cuda(*args, **kw)
@@ -505,7 +533,7 @@ def check_kernels(dev):
                 f"plan {plan.blocks} blocks of {plan.rows_per_block} rows")
         if name in timed:
             q, k, v = args
-            iters = 50 if name in ("vit_full", "vit_small") else 20
+            iters = 50 if name in ("vit_full", "vit_small", "clip_l14") else 20
             ms = _ms(lambda i: flash_attention_cuda(*args, **kw), iters)
             plain = _ms(lambda i: flash_attention_reference(*args, **kw), 5)
             lib = _ms(lambda i: _sdpa(q, k, v, kw.get("causal", False)),
@@ -557,6 +585,12 @@ def check_kernels(dev):
 K6_SHAPES = (("wq/wo", 3584, 3584, 56), ("wk/wv", 3584, 512, 56),
              ("gate/up", 3584, 18944, 56), ("down", 18944, 3584, 28),
              ("lm_head", 3584, 152064, 1))
+# K6 at Vicuna-7B's shapes (the LLaVA family under --load-4bit): 32 layers of
+# wq/wk/wv/wo, gate/up and down, and the lm_head: 7 x 32 + 1 = 225 calls
+K6_VICUNA_SHAPES = (("wq/wk/wv/wo", 4096, 4096, 128),
+                    ("gate/up", 4096, 11008, 64),
+                    ("down", 11008, 4096, 32),
+                    ("lm_head", 4096, 32000, 1))
 # K6 against its plain version: max |err| over max |plain|. The kernel
 # writes bf16 (one rounding, 2^-9 of the value) of f32 sums taken in
 # another order than the plain version's.
@@ -582,14 +616,17 @@ def _int4pack_mm(x, qw, zero=0.0):
         return None, f"{type(e).__name__}: {str(e).splitlines()[0][:100]}"
 
 
-def check_int4_kernel(dev):
+def check_int4_kernel(dev, shapes=K6_SHAPES, multi_b=("gate/up", "down"),
+                      model="7B", check_build=True):
     """K6 against its plain version at the five 7B shapes at B = 1, gate/up
     and down also at B = 8 and 32 (down has nb = 148 scale blocks); device
     times by CUDA-graph replay rotating through enough weight copies to
     exceed the 50 MB L2 (a decode step finds each weight cold); the bound
     (bytes); torch's int4 matmul, a bf16 matmul of the dequantized weight
     and dequantize + matmul on the same inputs. Returns K6's row, summed
-    over one decode token's 197 calls."""
+    over one decode token's calls (197). With `shapes` (the llava phase's
+    K6_VICUNA_SHAPES) another `model`'s shapes, each first put to the gate
+    JAX's kernel uses; `check_build` runs the build's ptxas check first."""
     import torch
     from flash_vstream_tpu_torch.kernels.int4_matmul import (
         int4_matmul_cuda, int4_matmul_reference)
@@ -599,20 +636,29 @@ def check_int4_kernel(dev):
     from flash_vstream_tpu_torch.kernels import _build
     from flash_vstream_tpu_torch.kernels.int4_matmul import _plan, _sms
 
-    check_k6_build(_build.library_path())
+    from flash_vstream_tpu_torch.kernels.int4_matmul import (
+        int4_matmul_supported)
+    if check_build:
+        check_k6_build(_build.library_path())
     g = torch.Generator(device=dev).manual_seed(SEED + 3)
     per_token = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0)
     worst = 0.0
     lib_missing = None
-    for name, din, dout, calls in K6_SHAPES:
+    for name, din, dout, calls in shapes:
         scale = 0.02 if name == "lm_head" else din ** -0.5   # the init's
         qw = quantize_weight4(torch.randn(din, dout, generator=g,
                                           device=dev) * scale)
+        gate = int4_matmul_supported(1, din // 2, qw.scale.shape[0], dout)
+        print(f"K6 gate {model} {name}: [{din}, {dout}] nb={qw.scale.shape[0]} at "
+              f"B=1 {'passes' if gate else 'FAILS'}", flush=True)
+        if not gate:
+            raise AssertionError(f"K6 gate refuses {model} {name} [{din}, "
+                                 f"{dout}]")
         nbytes = _nbytes(*qw)
         copies = [qw] + [QuantWeight4(qw.q4.clone(), qw.scale.clone())
                          for _ in range(min(63, -(-100_000_000 // nbytes)) - 1)]
         n = len(copies)
-        for B in ((1, 8, 32) if name in ("gate/up", "down") else (1,)):
+        for B in ((1, 8, 32) if name in multi_b else (1,)):
             x = torch.randn(B, din, generator=g, device=dev).to(torch.bfloat16)
             n0 = int4_matmul_cuda.launches
             got = int4_matmul_cuda(x, *qw)
@@ -623,18 +669,20 @@ def check_int4_kernel(dev):
             err = (got.float() - want).abs().max().item()
             rel = err / want.abs().max().item()
             if not torch.isfinite(got).all() or rel > K6_TOL:
-                raise AssertionError(f"K6 {name} B={B}: max err {err} is "
-                                     f"{rel:.3e} of max |plain| > {K6_TOL}")
+                raise AssertionError(f"K6 {model} {name} B={B}: max err "
+                                     f"{err} is {rel:.3e} of max |plain| > "
+                                     f"{K6_TOL}")
             if not torch.equal(got, again):
-                raise AssertionError(f"K6 {name} B={B}: two runs differ")
+                raise AssertionError(f"K6 {model} {name} B={B}: two runs "
+                                     f"differ")
             plan = _plan(B, din // 2, qw.scale.shape[0], dout,
                          _sms(dev.index))
             # the kernel's own launches per call (a second, the reduction
             # of the f32 partials, follows at B > 1 where split > 1)
             kernels_per_call = 1 + (B > 1 and plan.split > 1)
             if per_call != 1:
-                raise AssertionError(f"K6 {name} B={B}: {per_call} counted "
-                                     f"launches per call")
+                raise AssertionError(f"K6 {model} {name} B={B}: {per_call} "
+                                     f"counted launches per call")
             worst = max(worst, err)
             iters = max(20, 2 * n)
             ms = _ms(lambda i: int4_matmul_cuda(x, *copies[i % n]), iters)
@@ -654,7 +702,7 @@ def check_int4_kernel(dev):
             deq_ms = _ms(lambda i: torch.matmul(
                 x, dequantize_weight4(copies[i % n], torch.bfloat16)),
                 min(iters, 8))
-            print(f"K6 {name}: x[{B}, {din}] @ int4[{din}, {dout}] nb="
+            print(f"K6 {model} {name}: x[{B}, {din}] @ int4[{din}, {dout}] nb="
                   f"{qw.scale.shape[0]} max_abs_err={err:.3e} "
                   f"({rel:.2e} of max, limit {K6_TOL:.0e}) kernel_ms="
                   f"{ms:.4f} eager_ms={eager:.4f} plain_ms={plain:.4f} "
@@ -681,15 +729,17 @@ def check_int4_kernel(dev):
         torch.cuda.empty_cache()
     if lib_missing:
         per_token["library_ms"] = None
-    print(f"K6 per decode token (197 calls at B=1): kernel_ms="
+    n_calls = sum(c for *_, c in shapes)
+    print(f"K6 per decode token ({n_calls} calls at B=1, {model}): "
+          f"kernel_ms="
           f"{per_token['ms']:.4f} plain_ms={per_token['plain_ms']:.4f} "
           f"bound_ms={per_token['bound_ms']:.4f} (bytes) library_ms="
           + (f"{per_token['library_ms']:.4f}" if per_token["library_ms"]
              is not None else f"none ({lib_missing})"), flush=True)
     return {"int4_matmul": dict(
         max_abs_err=worst, bound_by="bytes",
-        per="decode token: 197 calls at B=1 over the five 7B shapes",
-        **per_token)}
+        per=f"decode token: {n_calls} calls at B=1 over the "
+            f"{len(shapes)} {model} shapes", **per_token)}
 
 
 def _fold_instance(name):
@@ -1638,15 +1688,24 @@ def _write_checkpoint(params, cfg, ckpt, dev):
 
 
 def _leaf_pairs(a, b, path=""):
-    """(path, leaf of a, leaf of b) over two trees with the same keys."""
+    """(path, leaf of a, leaf of b) over two trees with the same keys
+    (dicts, and lists or NamedTuples of leaves, as the LLaVA tree's
+    projector layers and NTMParams)."""
+    if isinstance(a, (list, tuple)):
+        if len(a) != len(b):
+            raise AssertionError(f"{path}: {len(a)} entries, the loaded "
+                                 f"tree {len(b)}")
+        for i, (x, y) in enumerate(zip(a, b)):
+            yield from _leaf_pairs(x, y, f"{path}{i}/")
+        return
+    if not isinstance(a, dict):
+        yield path.rstrip("/"), a, b
+        return
     if sorted(a) != sorted(b):
         raise AssertionError(f"offline: {path or 'the tree'} has keys "
                              f"{sorted(a)}, the loaded one {sorted(b)}")
     for k in sorted(a):
-        if isinstance(a[k], dict):
-            yield from _leaf_pairs(a[k], b[k], f"{path}{k}/")
-        else:
-            yield path + k, a[k], b[k]
+        yield from _leaf_pairs(a[k], b[k], f"{path}{k}/")
 
 
 def _npy_video(root, name, frames):
@@ -1969,8 +2028,14 @@ def run_offline(dev, params, work, card, root, keep_ckpt=False):
 
 
 def _tree_to(tree, device, dtype=None):
-    return {k: _tree_to(v, device, dtype) if isinstance(v, dict)
-            else v.to(device, dtype) for k, v in tree.items()}
+    """A tree of dicts, lists and NamedTuples of tensors on `device`."""
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device, dtype) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_to(v, device, dtype) for v in tree]
+    if hasattr(tree, "_fields"):
+        return type(tree)(*(_tree_to(v, device, dtype) for v in tree))
+    return tree.to(device, dtype)
 
 
 def _scene_frames(rng, n_scenes, side):
@@ -3835,8 +3900,490 @@ def run_serve_kv8(dev, params, work):
     return k["K1"], k2, k6
 
 
+# llava: the LLaVA family at full width (CLIP ViT-L/14, STAR memory, the
+# mlp2x_gelu projector, Vicuna-7B) with random bf16 weights
+LLAVA_CLIP = 8              # frames a clip
+LLAVA_CLIPS = 10            # 80 frames: the 64-frame bank wraps
+LLAVA_Q1_AT = 3             # the first question after 24 frames
+LLAVA_OFFLINE_FRAMES = 50   # video_max_frames
+LLAVA_TOKENS = 32
+# card vs CPU, reduced depth: the memory tokens within this share of their
+# max (bf16 rounding through two CLIP layers on two devices)
+LLAVA_REF_TOL = 5e-2
+LLAVA_CKPT_LAYERS = 4       # the checkpoint round trip's decoder depth
+LLAVA_PREFILL_CHUNK = 256  # the chunked answer's sequence chunk
+LLAVA_SPEC_K = 4            # the speculative answer's drafted tokens
+# A prefill in chunks (K1 on the first chunk, the plain cache path's f32
+# scores past it) and a speculative verify (k + 1 rows through one
+# decode_multi forward) round bf16 in other places than the one-shot
+# prefill and single-token steps. Their logits are held to the one-shot
+# path's within OFFLINE_LOGIT_TOL of max |logit|, as run_offline holds
+# its chunked prefill: the chunked first-token logits against the
+# one-shot's, and the verify's at every step of greedy's answer against
+# single steps on the same prefix. Where their ids part from greedy's, the
+# step they part at must be an exact tie of greedy's own logits (gap 0;
+# the lm_head writes bf16), the only deviation accepted.
+
+
+def _llava_answer_timed(sess, snap, n, q, steps=LLAVA_TOKENS):
+    """(greedy ids, prefill ms, decode ms/token, device-busy ms/token) of
+    one greedy answer on a snapshot, through the session's prompt and its
+    Generator: host clock around the synchronized prefill and decode, then
+    torch.profiler over 8 more decode steps for the device's busy time
+    (kernels and copies; one stream, so they do not overlap). One one-shot
+    prefill and steps + 8 decode steps."""
+    import torch
+    from torch.autograd import DeviceType
+    dev = sess.device
+    embeds, pos, start, seg, last = sess._prompt_parts(q, snap, n)
+    g = sess.generator
+    cache = g.new_cache(1, g._active_len(embeds.shape[1], steps + 8))
+    seg = torch.as_tensor(seg, device=dev)[None]
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    tok = g.prefill(embeds, pos, cache, seg, last).argmax(dim=-1)
+    torch.cuda.synchronize(dev)
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    ids = [int(tok[0])]
+    t0 = time.perf_counter()
+    for i in range(steps - 1):
+        tok = g.step(tok, start + i, cache).argmax(dim=-1)
+        ids.append(int(tok[0]))
+    torch.cuda.synchronize(dev)
+    decode_ms = (time.perf_counter() - t0) / (steps - 1) * 1e3
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for i in range(8):
+            tok = g.step(tok, start + steps - 1 + i, cache).argmax(dim=-1)
+        torch.cuda.synchronize(dev)
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / 1e3 / 8
+    return ids, prefill_ms, decode_ms, busy
+
+
+def _llava_forced(sess, snap, n, q, ids):
+    """How many of the steps of answer `ids` the session's cache picks
+    given that answer's prefix (teacher-forced): one prefill and
+    len(ids) - 1 decode steps."""
+    import torch
+    dev = sess.device
+    embeds, pos, start, seg, last = sess._prompt_parts(q, snap, n)
+    g = sess.generator
+    cache = g.new_cache(1, g._active_len(embeds.shape[1], len(ids)))
+    picks = [int(g.prefill(embeds, pos, cache,
+                           torch.as_tensor(seg, device=dev)[None],
+                           last).argmax())]
+    for i, t in enumerate(ids[:-1]):
+        picks.append(int(g.step(torch.tensor([t], device=dev), start + i,
+                                cache).argmax()))
+    return sum(a == b for a, b in zip(picks, ids))
+
+
+def _llava_logit_checks(sess, snap, n, q, greedy, others):
+    """The logits behind the chunked and speculative answers against the
+    one-shot path's on greedy's prefix: (chunked first-token error, verify
+    error, {kind: (step, gap) or None}). Errors are max |diff| over max
+    |logit|; (step, gap) is where `others[kind]` first parts from greedy,
+    and greedy's logit there less the other token's, over max |logit|.
+    Three prefills: one-shot then single steps on greedy's tokens (their
+    argmax must be greedy), one-shot then verifies of LLAVA_SPEC_K + 1 of
+    greedy's tokens, and chunked."""
+    import torch
+    dev = sess.device
+    embeds, pos, start, seg, last = sess._prompt_parts(q, snap, n)
+    seg = torch.as_tensor(seg, device=dev)[None]
+    g, S, T, k = sess.generator, embeds.shape[1], len(greedy), LLAVA_SPEC_K
+    cache = g.new_cache(1, g._active_len(S, T))
+    steps = [g.prefill(embeds, pos, cache, seg, last)[0]]
+    for j in range(T - 1):
+        steps.append(g.step(torch.tensor([greedy[j]], device=dev), start + j,
+                            cache)[0])
+    steps = torch.stack(steps).float()               # [T, V]: token j's
+    if steps.argmax(dim=-1).tolist() != greedy:
+        raise AssertionError("llava: single steps on greedy's prefix do "
+                             "not give greedy's ids")
+    cache = g.new_cache(1, g._active_len(S, T + k))
+    ver = [g.prefill(embeds, pos, cache, seg, last)[0]]
+    for j in range(0, T - 1, k + 1):
+        ver.extend(g.verify(torch.tensor(greedy[j:j + k + 1], device=dev)
+                            [None], start + j, cache)[0])
+    ver = torch.stack(ver[:T]).float()
+    cache = g.new_cache(1, g._active_len(S, 1))
+    chunked = g._prefill_chunked(embeds, pos, cache, seg, last,
+                                 LLAVA_PREFILL_CHUNK)[0].float()
+    chunk_err = ((chunked - steps[0]).abs().max()
+                 / steps[0].abs().max()).item()
+    ver_err = ((ver - steps).abs().max() / steps.abs().max()).item()
+    ties = {}
+    for kind, other in others.items():
+        i = next((j for j, (a, b) in enumerate(zip(greedy, other))
+                  if a != b), None)
+        ties[kind] = None if i is None else (i, (
+            (steps[i, greedy[i]] - steps[i, other[i]])
+            / steps[i].abs().max()).item())
+    return chunk_err, ver_err, ties
+
+
+def run_llava(dev, smi, root):
+    """The LLaVA family's serving path at full width on random bf16
+    weights (VStreamLLaVAConfig(): CLIP ViT-L/14 at 224 px, 23 of its 24
+    layers run, STAR memory of 25 Turing, 25 long and 3 key frames over a
+    64-frame ring bank, mlp2x_gelu, Vicuna-7B):
+    1. LLaVAStreamSession, clips of 8, 80 frames of 8 scenes (the bank
+       wraps): ingest ms a clip; a question of 32 greedy tokens after 24
+       frames (before saturation: padded memory slots) and one after the
+       wrap, each timed (prefill, ms/token, device busy); answer_stream's
+       deltas joined = the answer; preemptible (decode chunks of 8),
+       prefill-chunked (chunks of 256) and speculative (k 4) ids = greedy,
+       their logits within OFFLINE_LOGIT_TOL of the one-shot path's
+       (chunked first token; the verify at every step on greedy's
+       prefix), ids parting from greedy only at an exact tie of greedy's
+       logits; an int8 KV cache picks the bf16 answer's token in at least
+       KV8_AGREE of 32 teacher-forced steps;
+    2. LLaVAPipeline: a 50-frame video (encode, consolidate, prefill and
+       decode timed; the pipeline's own answer = the timed steps' ids) and
+       one 336 x 448 image;
+    3. the config cut to 2 CLIP and 2 decoder layers (full widths): one
+       clip and an answer on the card and on the CPU (plain versions) from
+       the same bf16 weights and draws; the memory tokens within
+       LLAVA_REF_TOL of their max, the greedy ids equal (the CPU answering
+       on the card's snapshot);
+    4. `run_server --model-family llava --load-4bit` over a session on
+       the weights quantized by `_apply_quantization`: K6 at 225 calls a
+       decode step and 1 a prefill, the decoder's ms/token and busy time;
+       K6 at Vicuna's shapes beside `_weight_int4pack_mm`;
+    5. a checkpoint at decoder depth LLAVA_CKPT_LAYERS (every other width
+       full): export_llava_checkpoint -> save_hf_checkpoint ->
+       load_llava_checkpoint, every leaf bit-equal, write and load GB/s;
+       deleted after;
+    6. K1's launches (23 a CLIP call, 32 a one-shot prefill or a chunked
+       prefill's first chunk; the reduced model's 2 and 2) and K6's,
+       reckoned as the steps run, against the counters. Returns (K1, K6)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from flash_vstream_tpu_torch.core.config import VStreamLLaVAConfig
+    from flash_vstream_tpu_torch.kernels.flash_attention import (
+        flash_attention_cuda)
+    from flash_vstream_tpu_torch.kernels.int4_matmul import int4_matmul_cuda
+    from flash_vstream_tpu_torch.models.clip_vit import clip_layers_run
+    from flash_vstream_tpu_torch.models.vstream_llava import (
+        build_multimodal_embeds, consolidate, init_llava_params,
+        star_valid_counts)
+    from flash_vstream_tpu_torch.preprocess.tokenizer import ByteTokenizer
+    from flash_vstream_tpu_torch.runtime.generation import GenerationConfig
+    from flash_vstream_tpu_torch.models.layers import layer_slice
+    from flash_vstream_tpu_torch.runtime.pipeline import (LLaVAPipeline,
+                                                          _bucket,
+                                                          llava_prompt,
+                                                          seeded_draws)
+    from flash_vstream_tpu_torch.runtime.streaming import LLaVAStreamSession
+    from flash_vstream_tpu_torch.serve.cli_server import (
+        _apply_quantization, make_parser, run_server)
+    from flash_vstream_tpu_torch.weights.convert import load_llava_checkpoint
+    from flash_vstream_tpu_torch.weights.export import (
+        export_llava_checkpoint, save_hf_checkpoint)
+
+    t_phase = time.perf_counter()
+    cfg = VStreamLLaVAConfig()
+    tok = ByteTokenizer()
+    n_clip = clip_layers_run(cfg.vit)                 # 23
+    L = cfg.llm.num_layers                            # 32
+    params = init_llava_params(cfg, torch.Generator(device=dev).manual_seed(
+        SEED + 11), dev, dtype=torch.bfloat16)
+    torch.cuda.synchronize(dev)
+    print(f"llava: {smi}: VStreamLLaVAConfig() with random bf16 weights, "
+          f"{_tree_nbytes(params) / 1e9:.2f} GB (CLIP "
+          f"{_tree_nbytes(params['vit']) / 1e9:.2f} GB)", flush=True)
+    _reset_launches()
+    want = {"K1": 0, "K6": 0}
+    gen = GenerationConfig(max_new_tokens=LLAVA_TOKENS, eos_token_ids=())
+
+    # --- 1. streaming ---
+    sess = LLaVAStreamSession(params, cfg, tok, clip_size=LLAVA_CLIP,
+                              max_len=4096)
+    rng = np.random.default_rng(SEED + 11)
+    frames = _offline_frames(rng, LLAVA_CLIP * LLAVA_CLIPS, 224)
+    order = rng.permutation(len(frames))       # scenes recur over the stream
+    frames = [frames[i] for i in order]
+    clip_ms, snaps = [], {}
+    for c in range(LLAVA_CLIPS):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        sess.ingest_frames(frames[c * LLAVA_CLIP:(c + 1) * LLAVA_CLIP])
+        sess.block_until_ingested()
+        clip_ms.append((time.perf_counter() - t0) * 1e3)
+        want["K1"] += n_clip
+        if c + 1 in (LLAVA_Q1_AT, LLAVA_CLIPS):
+            snaps[c + 1] = sess._published
+    st = sess.state
+    print(f"llava stream: {LLAVA_CLIPS} clips of {LLAVA_CLIP} frames at 224 "
+          f"px, ingest ms a clip (host clock around a synchronized ingest) "
+          f"first {clip_ms[0]:.1f}, then mean {np.mean(clip_ms[1:]):.1f} "
+          f"min {min(clip_ms[1:]):.1f} max {max(clip_ms[1:]):.1f}; frames "
+          f"{sess.n_frames}, bank positions {int(st.bank_pos.min())}.."
+          f"{int(st.bank_pos.max())} of {cfg.star.max_frames_static} slots, "
+          f"long {int(st.long_valid.sum())}/{cfg.star.long_length}, Turing "
+          f"{int(st.turing_valid.sum())}/{cfg.star.turing_length}",
+          flush=True)
+    if (int(st.bank_pos.min()) != sess.n_frames - cfg.star.max_frames_static
+            or not bool(st.long_valid.all())):
+        raise AssertionError("llava: the bank did not wrap or the memory "
+                             "is not saturated")
+    for at, (snap, n) in snaps.items():
+        q = QUESTIONS[0] if at == LLAVA_Q1_AT else QUESTIONS[1]
+        real = sum(star_valid_counts(cfg, n, streaming=True))
+        n_mem = sess._bucket_n_mem(real)
+        ids, pre_ms, dec_ms, busy = _llava_answer_timed(sess, snap, n, q)
+        want["K1"] += L
+        greedy = sess.answer_tokens(snap, n, q, gen)
+        want["K1"] += L
+        sess._published = (snap, n)
+        text = sess.answer(q, gen)
+        want["K1"] += L
+        deltas = list(sess.answer_stream(q, gen))
+        want["K1"] += L
+        kinds = {}
+        for name, kw in (("preemptible", dict(preemptible_chunk=8)),
+                         ("prefill_chunks", dict(
+                             preemptible_chunk=8,
+                             prefill_chunk=LLAVA_PREFILL_CHUNK)),
+                         ("speculative", dict(speculative_k=LLAVA_SPEC_K))):
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            kinds[name] = sess.answer_tokens(snap, n, q, dataclasses.replace(
+                gen, **kw))
+            torch.cuda.synchronize(dev)
+            kinds[name] = (kinds[name], time.perf_counter() - t0)
+            want["K1"] += L                   # one-shot, or the first chunk
+        chunk_err, ver_err, ties = _llava_logit_checks(
+            sess, snap, n, q, greedy, {k: v[0] for k, v in kinds.items()})
+        want["K1"] += 3 * L          # two one-shot prefills, a first chunk
+        S = sess._prompt_parts(q, snap, n)[0].shape[1]
+        print(f"llava answer after {n} frames: memory {real} real tokens in "
+              f"a bucket of {n_mem} ({n_mem - real} padded slots at segment "
+              f"-1), S={S}; prefill {pre_ms:.1f} ms, decode {dec_ms:.2f} "
+              f"ms/token, device busy {busy:.2f} ms/token (idle share "
+              f"{1 - busy / dec_ms:.3f}); {LLAVA_TOKENS} greedy ids equal to "
+              f"the timed ones: {greedy == ids}; answer_stream deltas joined "
+              f"= answer: {''.join(deltas) == text}; "
+              + "; ".join(f"{k} {v[1]:.3f} s = greedy: {v[0] == greedy}"
+                          + ("" if ties[k] is None else
+                             f" (parts at step {ties[k][0]}, greedy's "
+                             f"logits {ties[k][1]:.2e} of max apart there, "
+                             f"an exact tie: {ties[k][1] == 0.0})")
+                          for k, v in kinds.items())
+              + f"; logits against the one-shot path's: chunked first "
+              f"token {chunk_err:.3e}, verify over {LLAVA_TOKENS} steps "
+              f"{ver_err:.3e} of max |logit| (limit "
+              f"{OFFLINE_LOGIT_TOL:.0e})", flush=True)
+        if (greedy != ids or len(greedy) != LLAVA_TOKENS
+                or "".join(deltas) != text
+                or kinds["preemptible"][0] != greedy
+                or any(t is not None and t[1] != 0.0
+                       for t in ties.values())
+                or chunk_err > OFFLINE_LOGIT_TOL
+                or ver_err > OFFLINE_LOGIT_TOL):
+            raise AssertionError(f"llava: answers after {n} frames differ: "
+                                 f"greedy {greedy}, timed {ids}, "
+                                 f"{ {k: v[0] for k, v in kinds.items()} },"
+                                 f" ties {ties}, logits chunked "
+                                 f"{chunk_err}, verify {ver_err}")
+        if at == LLAVA_Q1_AT and n_mem == real:
+            raise AssertionError("llava: the first answer has no padding")
+    # the int8 KV cache on the last snapshot
+    sess8 = LLaVAStreamSession(params, cfg, tok, clip_size=LLAVA_CLIP,
+                               max_len=4096, kv_cache_dtype=torch.int8)
+    snap, n = snaps[LLAVA_CLIPS]
+    ids16 = sess.answer_tokens(snap, n, QUESTIONS[1], gen)
+    ids8 = sess8.answer_tokens(snap, n, QUESTIONS[1], gen)
+    tf = _llava_forced(sess8, snap, n, QUESTIONS[1], ids16)
+    want["K1"] += 3 * L                        # int8: its prefill is one-shot
+    print(f"llava int8 KV cache: {sum(a == b for a, b in zip(ids8, ids16))}"
+          f"/{LLAVA_TOKENS} free-running, {tf}/{LLAVA_TOKENS} teacher-forced "
+          f"on the bf16 answer (limit {KV8_AGREE})", flush=True)
+    if tf < KV8_AGREE:
+        raise AssertionError(f"llava: int8 cache {tf}/32 teacher-forced")
+    del sess8
+
+    # --- 2. offline ---
+    pipe = LLaVAPipeline(params, cfg, tok, max_len=4096)
+    vid = _offline_frames(rng, LLAVA_OFFLINE_FRAMES, 224)
+    times = {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize(dev)
+        times[name] = time.perf_counter() - t0
+        return out
+    feats = timed("encode", lambda: pipe.encode_video(vid))
+    want["K1"] += n_clip
+    T = feats.shape[0]
+    padded = torch.cat([feats, feats.new_zeros(_bucket(T) - T,
+                                               *feats.shape[1:])])
+    mem = timed("consolidate", lambda: consolidate(
+        params, cfg, padded, T, seeded_draws(SEED, dev)))
+    ids_in = llava_prompt(QUESTIONS[2], tok)[1]
+    embeds, pos = build_multimodal_embeds(params, cfg, ids_in, mem, T)
+    g = pipe.generator
+    cache = g.new_cache(1, g._active_len(embeds.shape[1], LLAVA_TOKENS))
+    first = timed("prefill", lambda: g.prefill(embeds, pos, cache)
+                  .argmax(dim=-1))
+    want["K1"] += L
+
+    def decode():
+        t, out = first, [int(first[0])]
+        for i in range(LLAVA_TOKENS - 1):
+            t = g.step(t, embeds.shape[1] + i, cache).argmax(dim=-1)
+            out.append(int(t[0]))
+        return out
+    manual = timed("decode", decode)
+    whole = timed("answer", lambda: pipe.answer_tokens(
+        vid, QUESTIONS[2], gen, seed=SEED))
+    want["K1"] += n_clip + L
+    image = _offline_frames(rng, 1, 448)[0][:336]          # 336 x 448
+    img_ids = timed("image", lambda: pipe.answer_image_tokens(
+        image, QUESTIONS[2], gen))
+    want["K1"] += n_clip + L
+    print(f"llava offline: {T} frames of 224 px, memory "
+          f"{sum(star_valid_counts(cfg, T))} tokens, S={embeds.shape[1]}: "
+          f"encode {times['encode']:.3f} s, consolidate "
+          f"{times['consolidate']:.3f} s, prefill {times['prefill']:.3f} s, "
+          f"decode {times['decode']:.3f} s ({LLAVA_TOKENS} tokens), the "
+          f"pipeline's answer {times['answer']:.3f} s, its ids = the timed "
+          f"steps': {whole == manual}; image 336 x 448 (padded to a square, "
+          f"224 px, 256 patch tokens): {times['image']:.3f} s, "
+          f"{len(img_ids)} ids", flush=True)
+    if whole != manual or len(img_ids) != LLAVA_TOKENS:
+        raise AssertionError(f"llava offline: {whole} / {manual}, image "
+                             f"{len(img_ids)} ids")
+    del pipe, cache, mem, feats, padded
+
+    # --- 3. card vs CPU at reduced depth ---
+    rcfg = cfg.replace(vit=dataclasses.replace(cfg.vit, num_layers=3),
+                       llm=dataclasses.replace(cfg.llm, num_layers=2))
+    rparams = init_llava_params(rcfg, torch.Generator(device=dev).manual_seed(
+        SEED + 12), dev, dtype=torch.bfloat16)
+    cparams = _tree_to(rparams, "cpu")
+    card = LLaVAStreamSession(rparams, rcfg, tok, clip_size=LLAVA_CLIP,
+                              max_len=2048)
+    cpu = LLaVAStreamSession(cparams, rcfg, tok, clip_size=LLAVA_CLIP,
+                             max_len=2048)
+    cpu._uniforms = lambda step, n: card._uniforms(step, n).cpu()
+    clip = frames[:LLAVA_CLIP]
+    t0 = time.perf_counter()
+    card.ingest_frames(clip)
+    cpu.ingest_frames(clip)
+    want["K1"] += clip_layers_run(rcfg.vit)
+    gsnap, n = card._published
+    csnap = cpu._published[0]
+    if not torch.equal(gsnap.valid.cpu(), csnap.valid):
+        raise AssertionError("llava reference: validity differs")
+    scale = csnap.tokens.abs().max().item()
+    err = (gsnap.tokens.cpu() - csnap.tokens).abs().max().item()
+    rgen = dataclasses.replace(gen, max_new_tokens=8)
+    gids = card.answer_tokens(gsnap, n, QUESTIONS[0], rgen)
+    want["K1"] += rcfg.llm.num_layers
+    from flash_vstream_tpu_torch.models.star_memory import STARMemory
+    cids = cpu.answer_tokens(STARMemory(*(x.cpu() for x in gsnap)), n,
+                             QUESTIONS[0], rgen)
+    print(f"llava reference: 2 CLIP + 2 decoder layers at full width, one "
+          f"clip, card vs CPU plain ({time.perf_counter() - t0:.1f} s): "
+          f"memory tokens max diff {err:.3e} of max {scale:.3e} (limit "
+          f"{LLAVA_REF_TOL:.0e} of max), 8 greedy ids equal: {gids == cids}",
+          flush=True)
+    if err > LLAVA_REF_TOL * scale or gids != cids:
+        raise AssertionError(f"llava reference: err {err} of {scale}, ids "
+                             f"{gids} / {cids}")
+    del card, cpu, rparams, cparams
+
+    # --- 4. --load-4bit through the CLI server ---
+    args = make_parser().parse_args([
+        "--model-family", "llava", "--device", str(dev), "--load-4bit",
+        "--synthetic-frames", "16", "--clip-size", str(LLAVA_CLIP),
+        "--frame-size", "224", "--play_speed", "0", "--question",
+        QUESTIONS[0], "--question_interval", "1000", "--max-new-tokens",
+        str(LLAVA_TOKENS)])
+    qparams = _apply_quantization(dict(params), args)
+    qsess = LLaVAStreamSession(qparams, cfg, tok, clip_size=LLAVA_CLIP,
+                               max_len=4096)
+    k6_0 = int4_matmul_cuda.launches
+    summary = run_server(args, session=qsess)
+    n_tok = int(qsess.metrics.get("answer_tokens").sum)
+    per = 7 * L + 1
+    want["K1"] += 2 * n_clip + L
+    want["K6"] += per * (n_tok - 1) + 1
+    k6_serve = int4_matmul_cuda.launches - k6_0
+    ids4, pre4, dec4, busy4 = _llava_answer_timed(
+        qsess, *qsess._published, QUESTIONS[0])
+    want["K1"] += L
+    want["K6"] += 1 + per * (LLAVA_TOKENS - 1 + 8)
+    print(f"llava --load-4bit: run_server answered {len(summary['answers'])}"
+          f" question(s) after {summary['frames_ingested']} frames, "
+          f"{n_tok} tokens; K6={k6_serve} ({per} x {n_tok - 1} decode steps "
+          f"+ 1 prefill = {per * (n_tok - 1) + 1}); the int4 decoder: "
+          f"prefill {pre4:.1f} ms, decode {dec4:.2f} ms/token, device busy "
+          f"{busy4:.2f} ms/token", flush=True)
+    if k6_serve != per * (n_tok - 1) + 1 or n_tok != LLAVA_TOKENS:
+        raise AssertionError(f"llava --load-4bit: K6 {k6_serve}, {n_tok} "
+                             f"tokens")
+    del qsess, qparams
+    _release(dev)
+
+    # --- 6. launch counts (the kernel checks below launch outside it) ---
+    k1 = flash_attention_cuda.launches
+    k6 = int4_matmul_cuda.launches
+    print(f"llava launches: K1={k1} K6={k6}, reckoned K1={want['K1']} "
+          f"({n_clip} a CLIP call, {L} a one-shot prefill or a chunked "
+          f"prefill's first chunk, 2 and 2 at reduced depth), "
+          f"K6={want['K6']} ({per} a decode step, 1 a prefill)", flush=True)
+    if {"K1": k1, "K6": k6} != want:
+        raise AssertionError(f"llava: launches K1={k1} K6={k6}, reckoned "
+                             f"{want}")
+    check_int4_kernel(dev, shapes=K6_VICUNA_SHAPES, multi_b=(),
+                      model="vicuna", check_build=False)
+
+    # --- 5. checkpoint round trip at reduced decoder depth ---
+    ccfg = cfg.replace(llm=dataclasses.replace(cfg.llm,
+                                               num_layers=LLAVA_CKPT_LAYERS))
+    cut = dict(params, llm=dict(params["llm"], layers=layer_slice(
+        params["llm"]["layers"], slice(0, LLAVA_CKPT_LAYERS))))
+    ckpt = os.path.join(root, "build", "llava_ckpt")
+    try:
+        sd = export_llava_checkpoint(cut, ccfg)
+        nbytes = _nbytes(*sd.values())
+        t0 = time.perf_counter()
+        names = save_hf_checkpoint(ckpt, sd, max_shard_bytes=OFFLINE_SHARD)
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = load_llava_checkpoint(ckpt, ccfg, dtype=torch.bfloat16,
+                                     device=dev)
+        torch.cuda.synchronize(dev)
+        load_s = time.perf_counter() - t0
+        pairs = list(_leaf_pairs(cut, back))
+        equal = all(x.dtype == y.dtype and torch.equal(x, y)
+                    for _, x, y in pairs)
+        print(f"llava checkpoint: decoder depth {LLAVA_CKPT_LAYERS} of {L}, "
+              f"every width full: {nbytes / 1e9:.2f} GB in {len(names)} "
+              f"shard(s), write {write_s:.2f} s ({nbytes / 1e9 / write_s:.2f}"
+              f" GB/s), load {load_s:.2f} s ({nbytes / 1e9 / load_s:.2f} "
+              f"GB/s), {len(pairs)} leaves bit-equal: {equal}", flush=True)
+        if not equal:
+            raise AssertionError("llava checkpoint: leaves differ")
+        del back, sd
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    del params, cut, sess
+    _release(dev)
+    print(f"llava: phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return k1, k6
+
+
 PHASES = ("kernels", "int4_kernel", "reference", "int4_reference", "slice",
-          "serve_http", "offline", "backward", "function", "train_reference", "dry_run_train",
+          "llava", "serve_http", "offline", "backward", "function", "train_reference", "dry_run_train",
           "train_slice",
           "production", "finetune_ckpt", "serve_kv8", "serve4", "bank_gather",
           "vit_probe", "int4_probe")
@@ -3848,7 +4395,7 @@ def main() -> int:
                         help="comma-separated phases to run (default all; "
                              "serve_http, offline, the training phases, "
                              "finetune_ckpt, serve_kv8 and serve4 need "
-                             "'slice')")
+                             "'slice'; llava runs after them, alone)")
     parser.add_argument("--profile", default=None, metavar="DIR",
                         help="also profile one training-slice step into DIR")
     opts = parser.parse_args()
@@ -3971,6 +4518,10 @@ def main() -> int:
         finally:
             shutil.rmtree(work, ignore_errors=True)
             shutil.rmtree(ckpt, ignore_errors=True)
+    if "llava" in only:
+        _release(dev)
+        k1, k6 = run_llava(dev, smi, root)
+        paths["llava"] = dict(flash_attention_fwd=k1, int4_matmul=k6)
     sources = {
         "flash_attention_fwd": ("flash_attention.cu", ":90"),
         "gather_rows": ("gather_rows.cu", ""),

@@ -464,15 +464,16 @@ def gelu_mlp(params: dict, x: torch.Tensor,
     return dense(h, params["fc2"]["w"], params["fc2"].get("b"))
 
 
-def _index(v, i: int):
+def _index(v, i):
     if hasattr(v, "_fields"):            # a LoRA view or a quantized leaf:
         return type(v)(*(_index(f, i) for f in v))   # slice every field
     return v[i]
 
 
-def layer_slice(tree: dict, i: int) -> dict:
-    """One layer's parameters out of a tree stacked on a leading [L] axis
-    (views, no copy)."""
+def layer_slice(tree: dict, i) -> dict:
+    """One layer's parameters (`i` an int), or a run of layers (`i` a
+    slice), out of a tree stacked on a leading [L] axis (views, no
+    copy)."""
     return {k: layer_slice(v, i) if isinstance(v, dict) else _index(v, i)
             for k, v in tree.items()}
 

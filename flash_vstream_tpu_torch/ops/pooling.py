@@ -1,14 +1,49 @@
-"""Low-resolution pathway of the dual-resolution Qwen ViT.
+"""Pooling of patch tokens: the STAR memory's spatial pools and 2x2 merge,
+and the low-resolution pathway of the dual-resolution Qwen ViT.
 
-Port of `qwen_temporal_pool` (flash_vstream_tpu/ops/pooling.py:51-108).
+Port of flash_vstream_tpu/ops/pooling.py: `spatial_pool` (:22),
+`merge_2x2_tokens` (:37) and `qwen_temporal_pool` (:51-108).
 """
 from __future__ import annotations
 
+import math
 from functools import lru_cache
 from typing import Tuple
 
 import numpy as np
 import torch
+
+
+def spatial_pool(x: torch.Tensor, out_size: int) -> torch.Tensor:
+    """Average-pool patch tokens x [..., P, D] (P = p*p, a square grid) to
+    out_size**2 tokens (compress_spatial_features, vstream_arch.py:193-212).
+    The mean runs in x's dtype, as jnp.mean does."""
+    *lead, P, D = x.shape
+    p = math.isqrt(P)
+    if p * p != P:
+        raise ValueError(f"patch grid must be square, got P={P}")
+    if p == out_size:
+        return x
+    if out_size == 1:
+        return x.mean(dim=-2, keepdim=True)
+    if p % out_size:
+        raise ValueError(f"grid side {p} is no multiple of {out_size}")
+    r = p // out_size
+    x = x.reshape(*lead, out_size, r, out_size, r, D)
+    return x.mean(dim=(-4, -2)).reshape(*lead, out_size * out_size, D)
+
+
+def merge_2x2_tokens(x: torch.Tensor) -> torch.Tensor:
+    """Concatenate 2x2 neighbour patches channelwise: [..., P, D] ->
+    [..., P/4, 4D], channels in the order (r0c0, r0c1, r1c0, r1c1) of
+    reshape_2x2_image_features (vstream_arch.py:163-172)."""
+    *lead, P, D = x.shape
+    p = math.isqrt(P)
+    if p * p != P or p % 2:
+        raise ValueError(f"merge_2x2_tokens needs an even square grid, "
+                         f"got P={P}")
+    x = x.reshape(*lead, p // 2, 2, p // 2, 2, D).transpose(-4, -3)
+    return x.reshape(*lead, (p // 2) ** 2, 4 * D)
 
 
 @lru_cache(maxsize=None)

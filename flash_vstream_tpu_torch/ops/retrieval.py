@@ -1,8 +1,13 @@
-"""Key-frame retrieval for the Flash DAM memory.
+"""Key-frame retrieval: the STAR retrieved memory and the Flash DAM memory.
 
-Port of flash_vstream_tpu/ops/retrieval.py:26-87: the spatial_length
-heaviest CSM clusters query the pooled frame bank, and each picks its
-nearest valid frame.
+Port of flash_vstream_tpu/ops/retrieval.py:26-87. STAR (`star_retrieve`):
+the key_length heaviest long-memory clusters query the pooled frame bank
+and each picks its nearest valid frame. The reference indexes the
+uncompressed frame list with the weight-sorted cluster ids
+(`long_memory[sorted_indices]`, vstream_arch.py:262), an indexing quirk;
+the JAX package implements the documented intent (the centroids are the
+queries) and so does this port. DAM (`dam_retrieve`): the spatial_length
+heaviest CSM clusters query the pooled bank the same way.
 """
 from __future__ import annotations
 
@@ -37,6 +42,20 @@ def retrieve_nearest_frames(
     else:
         raise ValueError(f"unknown metric {metric}")
     return torch.argmin(d, dim=1).to(torch.int32)
+
+
+def star_retrieve(
+    cluster_centroids: torch.Tensor,   # [L, Dp] compressed long memory
+    cluster_weights: torch.Tensor,     # [L]
+    pooled_bank: torch.Tensor,         # [T, Dp] spatially pooled frames
+    bank_valid: torch.Tensor,          # [T] bool
+    key_length: int,
+) -> torch.Tensor:
+    """STAR retrieved-memory frame indices [key_length] int32: the nearest
+    valid bank frame to each of the key_length heaviest clusters."""
+    top = topk_by_weight(cluster_weights, key_length)
+    return retrieve_nearest_frames(cluster_centroids[top], pooled_bank,
+                                   bank_valid)
 
 
 def dam_retrieve(

@@ -1,15 +1,39 @@
-"""The byte-level tokenizer stub of the weightless runs, the HF tokenizer
-of a checkpoint directory, and the keyword stopping criterion of stepwise
-decode.
+"""The LLaVA prompt's tokenization, the byte-level tokenizer stub of the
+weightless runs, the HF tokenizer of a checkpoint directory, and the
+keyword stopping criterion of stepwise decode.
 
-Copies of `ByteTokenizer`, `load_tokenizer` and `KeywordsStoppingCriteria`
-(flash_vstream_tpu/preprocess/tokenizer.py:43, 100-135), so the port
-imports nothing of the JAX package. `load_tokenizer` imports `transformers`
-only when called.
+Copies of `tokenizer_image_token`, `ByteTokenizer`, `load_tokenizer` and
+`KeywordsStoppingCriteria` (flash_vstream_tpu/preprocess/tokenizer.py:19,
+43, 100-135), so the port imports nothing of the JAX package.
+`load_tokenizer` imports `transformers` only when called.
 """
 from __future__ import annotations
 
 from typing import List, Sequence
+
+import numpy as np
+
+from ..core.config import IMAGE_TOKEN_INDEX
+
+
+def tokenizer_image_token(prompt: str, tokenizer,
+                          image_token_index: int = IMAGE_TOKEN_INDEX
+                          ) -> np.ndarray:
+    """The ids of a prompt with '<image>' placeholders, image_token_index
+    (-200) at each (mm_utils.py:45-64): the chunks between placeholders
+    tokenized apart, a leading BOS kept once. int64 [S]."""
+    chunks = [tokenizer.encode(c) for c in prompt.split("<image>")]
+    offset = 0
+    input_ids: List[int] = []
+    if chunks and len(chunks[0]) > 0 and chunks[0][0] == tokenizer.bos_token_id:
+        offset = 1
+        input_ids.append(chunks[0][0])
+    sep = [image_token_index] * (offset + 1)
+    for i, x in enumerate(chunks):
+        if i:
+            input_ids.extend(sep[offset:])
+        input_ids.extend(x[offset:])
+    return np.asarray(input_ids, np.int64)
 
 
 class ByteTokenizer:

@@ -70,6 +70,13 @@ class GenerationConfig:
 _SPEC_PREEMPT_WARNED = False
 
 
+def default_gen(tokenizer) -> GenerationConfig:
+    """The decode of an entry point given none: greedy, up to 128 new
+    tokens, ending at the tokenizer's EOS."""
+    return GenerationConfig(max_new_tokens=128,
+                            eos_token_ids=(tokenizer.eos_token_id,))
+
+
 def _warn_spec_preempt_once():
     """speculative_k with preemptible_chunk: speculation runs and preemption
     is ignored; say so once a process."""

@@ -1,4 +1,4 @@
-"""Real-time streaming QA server (CLI), Qwen family, one card.
+"""Real-time streaming QA server (CLI), both families, one card.
 
 Port of flash_vstream_tpu/serve/cli_server.py: a frame pacer drives clip
 ingestion at --fps * --play_speed; questions fire every --question_interval
@@ -24,11 +24,16 @@ config.json, `--flash-memory-dict` over its Flash memory, the HF
 tokenizer, which needs `transformers`, and frames of `--frame-size`), or
 with --dry-run from the tiny config (random weights from a torch generator
 seeded 0, the byte tokenizer, 56 px frames); `run_server(args,
-session=...)` serves a session built by the caller instead. Flags of
-features the port does not have yet raise NotImplementedError naming their
-ROADMAP item.
+session=...)` serves a session built by the caller instead.
+`--model-family llava` serves a Flash-VStream-LLaVA model (CLIP, STAR
+memory, projector, Vicuna): with --dry-run the tiny LLaVA config, else
+the checkpoint directory in bf16 with the full config (frames resize to
+CLIP's 224 px). Flags of features the port does not have yet raise
+NotImplementedError naming their ROADMAP item.
 
     python -m flash_vstream_tpu_torch.serve.cli_server --model-path DIR
+    python -m flash_vstream_tpu_torch.serve.cli_server --model-family llava \
+        --dry-run --device cpu
 """
 from __future__ import annotations
 
@@ -43,7 +48,6 @@ import torch
 from ..preprocess.video import SyntheticSource, load_video
 from ..runtime.generation import GenerationConfig
 from ..runtime.metrics import MetricMeter, Timer
-from ..runtime.streaming import bucket_candidates, bucket_up
 from ..utils.logging import build_logger
 
 # flag (argparse attribute), its spelling, the ROADMAP item that ports it
@@ -55,9 +59,6 @@ _NOT_PORTED = (
 
 
 def _check_ported(args) -> None:
-    if args.model_family != "qwen":
-        raise NotImplementedError("the LLaVA family is not ported yet: "
-                                  "ROADMAP A13")
     for attr, flag, item in _NOT_PORTED:
         if getattr(args, attr, None):
             raise NotImplementedError(f"{flag} is not ported yet: ROADMAP "
@@ -85,9 +86,19 @@ def _apply_quantization(params: dict, args) -> dict:
 
 
 def build_session(args):
-    """The server's session over `load_qwen_model`'s model on --device
-    (--dry-run or --model-path), quantized as the flags ask."""
+    """The server's session over `load_qwen_model`'s (or, for the LLaVA
+    family, `load_llava_model`'s) model on --device (--dry-run or
+    --model-path), quantized as the flags ask."""
     _check_ported(args)
+    kv_dtype = torch.int8 if args.kv_int8 else None
+    if args.model_family == "llava":
+        from ..runtime.pipeline import load_llava_model
+        from ..runtime.streaming import LLaVAStreamSession
+        cfg, params, tokenizer = load_llava_model(
+            args.model_path, args.device, dry_run=args.dry_run)
+        return LLaVAStreamSession(_apply_quantization(params, args), cfg,
+                                  tokenizer, clip_size=args.clip_size,
+                                  kv_cache_dtype=kv_dtype)
     from ..models.vstream_qwen import VStreamQwen
     from ..runtime.pipeline import load_qwen_model
     from ..runtime.streaming import QwenStreamSession
@@ -99,8 +110,7 @@ def build_session(args):
     return QwenStreamSession(VStreamQwen(cfg, params), tokenizer,
                              frame_hw=(side, side), clip_size=args.clip_size,
                              bank_size=args.video_max_frames,
-                             kv_cache_dtype=(torch.int8 if args.kv_int8
-                                             else None))
+                             kv_cache_dtype=kv_dtype)
 
 
 def _frame_side(args) -> int:
@@ -119,19 +129,12 @@ def prewarm_session(session, args, gen, logger):
     session.block_until_ingested()
     snapshot, _ = session._published
     q = args.question or "What is happening?"
-    fm = session.cfg.flash_memory
-    ns = sorted(set(bucket_candidates(fm.dam_grid_len))
-                | set(bucket_candidates(fm.csm_grid_len)))
-    seen = set()
-    for n in ns:
-        key = (bucket_up(min(n, fm.dam_grid_len), fm.dam_grid_len),
-               bucket_up(min(n, fm.csm_grid_len), fm.csm_grid_len))
-        if key not in seen:
-            seen.add(key)
-            session.answer_snapshot(snapshot, n, q, gen)
+    counts = session.prewarm_frame_counts()
+    for n in counts:
+        session.answer_tokens(snapshot, n, q, gen)
     session.reset()
     session.metrics = MetricMeter()
-    logger.info(f"prewarmed {len(seen)} answer buckets in "
+    logger.info(f"prewarmed {len(counts)} answer buckets in "
                 f"{time.perf_counter() - t0:.1f}s")
 
 

@@ -1,19 +1,20 @@
-"""HF checkpoint -> the port's parameter tree, Qwen family.
+"""HF checkpoint -> the port's parameter tree, both families.
 
-Port of flash_vstream_tpu/weights/convert.py:27-101, 147-202, 261-327,
-425-488: a directory of `.safetensors` shards (read with the port's own
-reader, weights/safetensors_io.py) or an in-memory {name: tensor} state
-dict becomes the tree of models/llm.py and models/qwen2_vit.py. Linear
-weights transpose from torch's [out, in] to the tree's [in, out], the
-packed qkv of the vision blocks splits into q, k and v, and the conv patch
-embedding flattens to one matmul weight.
+Port of flash_vstream_tpu/weights/convert.py: a directory of
+`.safetensors` shards (read with the port's own reader,
+weights/safetensors_io.py) or an in-memory {name: tensor} state dict
+becomes the tree of models/llm.py, models/qwen2_vit.py, models/clip_vit.py,
+models/projector.py and the NTM. Linear weights transpose from torch's
+[out, in] to the tree's [in, out], the packed qkv of the Qwen vision blocks
+splits into q, k and v, and the conv patch embeddings flatten to one matmul
+weight.
 
 Each stacked [L, ...] leaf is allocated once on the target device and
 filled layer by layer from the mapped shards, so a 7B load holds one copy
 of the weights on the device and none on the host beyond one layer's
 tensor in flight. `apply_lora_adapter` merges a torch-PEFT adapter into
-the stacked decoder tree. The LLaVA converters and `load_pretrained_model`
-wait for ROADMAP A13.
+the stacked decoder tree; `load_pretrained_model` is the reference
+builder's three LLaVA branches (full, projector-only, LoRA over a base).
 """
 from __future__ import annotations
 
@@ -179,6 +180,200 @@ def convert_qwen_vit(sd: Dict[str, torch.Tensor], cfg: VitConfig,
                     "b": c.one(prefix + "merger.mlp.2.bias")},
         },
     }
+
+
+def convert_clip_vit(sd: Dict[str, torch.Tensor], cfg: VitConfig,
+                     prefix: str = "vision_model.", dtype=torch.float32,
+                     device=None) -> dict:
+    """HF CLIPVisionModel state dict -> the models/clip_vit.py tree on
+    `device` (default: the card); the conv patch embedding [D, C, ps, ps]
+    becomes the matmul weight [C*ps*ps, D]."""
+    c = _Converter(sd, device, dtype)
+    L = cfg.num_layers
+    lay = prefix + "encoder.layers.{i}."
+
+    def ln(fmt):
+        return {"scale": c.stack(fmt + ".weight", L),
+                "bias": c.stack(fmt + ".bias", L)}
+
+    patch = sd[prefix + "embeddings.patch_embedding.weight"]
+    patch = patch.reshape(patch.shape[0], -1)          # [D, C*ps*ps]
+    # 'pre_layrnorm' is the (misspelled) HF attribute name
+    pre = prefix + ("pre_layrnorm" if prefix + "pre_layrnorm.weight" in sd
+                    else "pre_layernorm")
+    return {
+        "patch_embed": {"w": c.one(patch, transpose=True)},
+        "class_embed": c.one(
+            sd[prefix + "embeddings.class_embedding"].reshape(-1)),
+        "pos_embed": c.one(prefix + "embeddings.position_embedding.weight"),
+        "pre_ln": {"scale": c.one(pre + ".weight"),
+                   "bias": c.one(pre + ".bias")},
+        "layers": {
+            "ln1": ln(lay + "layer_norm1"),
+            "ln2": ln(lay + "layer_norm2"),
+            "attn": {
+                "wq": c.lin(lay + "self_attn.q_proj", L, True),
+                "wk": c.lin(lay + "self_attn.k_proj", L, True),
+                "wv": c.lin(lay + "self_attn.v_proj", L, True),
+                "wo": c.lin(lay + "self_attn.out_proj", L, True),
+            },
+            "mlp": {
+                "fc1": c.lin(lay + "mlp.fc1", L, True),
+                "fc2": c.lin(lay + "mlp.fc2", L, True),
+            },
+        },
+    }
+
+
+def convert_ntm(sd: Dict[str, torch.Tensor],
+                prefix: str = "model.attention_model.", dtype=torch.float32,
+                device=None):
+    """The reference's NeuralTuringMachine weights (vstream_arch.py:34-45)
+    -> NTMParams on `device` (default: the card)."""
+    from ..ops.ntm import NTMParams
+    c = _Converter(sd, device, dtype)
+
+    def g(k, transpose=False):
+        return c.one(prefix + k, transpose=transpose)
+
+    return NTMParams(
+        wq=g("q_proj.weight", True), bq=g("q_proj.bias"),
+        wk=g("k_proj.weight", True), bk=g("k_proj.bias"),
+        wv=g("v_proj.weight", True), bv=g("v_proj.bias"),
+        wo=g("out_proj.weight", True), bo=g("out_proj.bias"),
+        ln_scale=g("out_ln.weight"), ln_bias=g("out_ln.bias"))
+
+
+def convert_projector(sd: Dict[str, torch.Tensor],
+                      prefix: str = "model.mm_projector.",
+                      dtype=torch.float32, device=None) -> dict:
+    """The mm_projector Sequential (Linear[, GELU, Linear ...], or one bare
+    Linear) -> {"layers": [{"w", "b"}, ...]} on `device`."""
+    c = _Converter(sd, device, dtype)
+    if prefix + "weight" in sd:                      # a bare Linear
+        return {"layers": [{"w": c.one(prefix + "weight", transpose=True),
+                            "b": c.one(prefix + "bias")}]}
+    layers = []
+    i = 0
+    while f"{prefix}{i}.weight" in sd:
+        layers.append({"w": c.one(f"{prefix}{i}.weight", transpose=True),
+                       "b": c.one(f"{prefix}{i}.bias")})
+        i += 2                                       # skip the GELU modules
+    if not layers:
+        raise KeyError(f"no projector weights under {prefix}")
+    return {"layers": layers}
+
+
+def load_torch_bin(path: str) -> Dict[str, torch.Tensor]:
+    """A torch-serialized state dict (.bin) read on the CPU with
+    weights_only=True, every tensor in f32 (as JAX's numpy copy)."""
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    return {k: v.float() for k, v in sd.items()}
+
+
+def _strip_peft_prefixes(sd: Dict[str, torch.Tensor]
+                         ) -> Dict[str, torch.Tensor]:
+    """base_model.model.model.* / model.model.* -> model.* (builder.py:76-78)."""
+    out = {}
+    for k, v in sd.items():
+        if k.startswith("base_model."):
+            k = k[len("base_model."):]
+        if k.startswith("model.model."):
+            k = k[len("model."):]
+        out[k] = v
+    return out
+
+
+def load_llava_checkpoint(model_dir: str, cfg, dtype=torch.float32,
+                          device=None) -> dict:
+    """A Flash-VStream-LLaVA HF checkpoint directory -> {"vit",
+    "projector", "ntm", "llm"} on `device` (default: the card) in `dtype`.
+    The reference nests CLIPVisionModel twice
+    (model.vision_tower.vision_tower.vision_model.*, clip_encoder.py:28-31);
+    the tower is read from under the last 'vision_tower.'."""
+    sd = load_safetensors_dir(model_dir)
+    vit_sd = {k.rsplit("vision_tower.", 1)[1]: v for k, v in sd.items()
+              if "vision_tower." in k}
+    if not vit_sd:
+        raise FileNotFoundError(
+            f"no vision tower weights in {model_dir}; the CLIP tower must be "
+            f"in the checkpoint (model.vision_tower.vision_tower.*)")
+    kw = dict(dtype=dtype, device=device)
+    return {
+        "vit": convert_clip_vit(vit_sd, cfg.vit, **kw),
+        "projector": convert_projector(sd, **kw),
+        "ntm": convert_ntm(sd, **kw),
+        "llm": convert_llama(sd, cfg.llm, **kw),
+    }
+
+
+def load_pretrained_model(model_path: str, cfg,
+                          model_base: Optional[str] = None,
+                          model_name: Optional[str] = None,
+                          tokenizer_len: Optional[int] = None,
+                          dtype=torch.float32, device=None) -> dict:
+    """LLaVA-family loading with the reference's three branches
+    (model/builder.py:48-98):
+
+    - LoRA ('lora' in the model name, model_base given): the base weights,
+      the token embeddings resized, non_lora_trainables.bin laid over them
+      (projector, NTM, embedding rows), then the adapter_model deltas
+      merged;
+    - projector-only (model_base given): the base weights with
+      mm_projector.bin laid over them (the stage-1 pretraining artifact);
+    - full: everything from model_path.
+    """
+    name = (model_name or os.path.basename(model_path.rstrip("/"))).lower()
+    kw = dict(dtype=dtype, device=device)
+    params = load_llava_checkpoint(model_base or model_path, cfg, **kw)
+    if tokenizer_len:
+        params["llm"] = resize_token_embeddings(params["llm"], tokenizer_len)
+    if model_base is None:
+        return params
+
+    def overlay(sd):
+        sd = _strip_peft_prefixes(sd)
+        if any(k.startswith("model.mm_projector.") for k in sd):
+            params["projector"] = convert_projector(sd, **kw)
+        if any(k.startswith("model.attention_model.") for k in sd):
+            params["ntm"] = convert_ntm(sd, **kw)
+        if "model.embed_tokens.weight" in sd:
+            embed = params["llm"]["embed"]
+            rows = sd["model.embed_tokens.weight"].to(embed.device, dtype)
+            params["llm"]["embed"] = (torch.cat([rows, embed[rows.shape[0]:]])
+                                      if rows.shape[0] < embed.shape[0]
+                                      else rows)
+        if "lm_head.weight" in sd:
+            params["llm"]["lm_head"] = _Converter(sd, device, dtype).one(
+                "lm_head.weight", transpose=True)
+
+    if "lora" in name:
+        nlt = os.path.join(model_path, "non_lora_trainables.bin")
+        if os.path.exists(nlt):
+            overlay(load_torch_bin(nlt))
+        adapter_st = os.path.join(model_path, "adapter_model.safetensors")
+        adapter_bin = os.path.join(model_path, "adapter_model.bin")
+        if os.path.exists(adapter_st):
+            adapter = load_file(adapter_st)
+        elif os.path.exists(adapter_bin):
+            adapter = load_torch_bin(adapter_bin)
+        else:
+            raise FileNotFoundError(f"no adapter_model under {model_path}")
+        acfg = {}
+        acfg_path = os.path.join(model_path, "adapter_config.json")
+        if os.path.exists(acfg_path):
+            with open(acfg_path) as f:
+                acfg = json.load(f)
+        params["llm"] = apply_lora_adapter(
+            params["llm"], adapter, alpha=acfg.get("lora_alpha", 16),
+            rank=acfg.get("r", 16))
+    else:
+        proj = os.path.join(model_path, "mm_projector.bin")
+        if not os.path.exists(proj):
+            raise FileNotFoundError(
+                f"{proj} not found (projector-only load, builder.py:88-95)")
+        overlay(load_torch_bin(proj))
+    return params
 
 
 def resize_token_embeddings(llm_params: dict, new_size: int) -> dict:

@@ -1,12 +1,13 @@
 """The port's parameter trees -> HF-format state dicts and checkpoint
-directories (the inverse of weights/convert.py), Qwen family.
+directories (the inverse of weights/convert.py), both families.
 
-Port of flash_vstream_tpu/weights/export.py:20-80, 154-160. The state
-dicts hold views of the tree's tensors (transposes, layer slices) on their
-device, so exporting copies nothing; `save_hf_checkpoint` copies one
-tensor at a time to the host as it writes. `hf_qwen_config` writes the
-config.json that `qwen_config_from_hf` reads back. The LLaVA exporters wait
-for ROADMAP A13.
+Port of flash_vstream_tpu/weights/export.py. The state dicts hold views of
+the tree's tensors (transposes, layer slices) on their device, so
+exporting copies nothing (the Qwen ViT's packed qkv aside);
+`save_hf_checkpoint` copies one tensor at a time to the host as it writes.
+`hf_qwen_config` writes the config.json that `qwen_config_from_hf` reads
+back; `export_llava_checkpoint` lays a LLaVA tree out as the reference's
+checkpoint (the CLIP tower under model.vision_tower.vision_tower.).
 """
 from __future__ import annotations
 
@@ -77,6 +78,78 @@ def export_qwen_vit(params: dict, cfg: VitConfig,
     sd[prefix + "merger.mlp.0.bias"] = m["fc1"]["b"]
     sd[prefix + "merger.mlp.2.weight"] = m["fc2"]["w"].T
     sd[prefix + "merger.mlp.2.bias"] = m["fc2"]["b"]
+    return sd
+
+
+def export_clip_vit(params: dict, cfg: VitConfig,
+                    prefix: str = "vision_model."
+                    ) -> Dict[str, torch.Tensor]:
+    """models/clip_vit.py tree -> HF CLIPVisionModel state dict."""
+    D = cfg.hidden_size
+    pw = params["patch_embed"]["w"].T                # [D, C*ps*ps]
+    sd: Dict[str, torch.Tensor] = {
+        prefix + "embeddings.patch_embedding.weight": pw.reshape(
+            D, cfg.in_channels, cfg.patch_size, cfg.patch_size),
+        prefix + "embeddings.class_embedding": params["class_embed"],
+        prefix + "embeddings.position_embedding.weight": params["pos_embed"],
+        prefix + "pre_layrnorm.weight": params["pre_ln"]["scale"],
+        prefix + "pre_layrnorm.bias": params["pre_ln"]["bias"],
+    }
+    lay = params["layers"]
+    for i in range(cfg.num_layers):
+        p = f"{prefix}encoder.layers.{i}."
+        for ln, key in (("layer_norm1", "ln1"), ("layer_norm2", "ln2")):
+            sd[p + f"{ln}.weight"] = lay[key]["scale"][i]
+            sd[p + f"{ln}.bias"] = lay[key]["bias"][i]
+        for name, key in (("q_proj", "wq"), ("k_proj", "wk"),
+                          ("v_proj", "wv"), ("out_proj", "wo")):
+            sd[p + f"self_attn.{name}.weight"] = lay["attn"][key]["w"][i].T
+            sd[p + f"self_attn.{name}.bias"] = lay["attn"][key]["b"][i]
+        for fc in ("fc1", "fc2"):
+            sd[p + f"mlp.{fc}.weight"] = lay["mlp"][fc]["w"][i].T
+            sd[p + f"mlp.{fc}.bias"] = lay["mlp"][fc]["b"][i]
+    return sd
+
+
+def export_projector(params: dict, prefix: str = "model.mm_projector."
+                     ) -> Dict[str, torch.Tensor]:
+    """projector tree -> the mm_projector Sequential's state dict (one bare
+    Linear for a single layer; the GELUs hold no weights)."""
+    layers = params["layers"]
+    if len(layers) == 1:
+        return {prefix + "weight": layers[0]["w"].T,
+                prefix + "bias": layers[0]["b"]}
+    sd: Dict[str, torch.Tensor] = {}
+    for j, lp in enumerate(layers):
+        sd[f"{prefix}{2 * j}.weight"] = lp["w"].T
+        sd[f"{prefix}{2 * j}.bias"] = lp["b"]
+    return sd
+
+
+def export_ntm(ntm, prefix: str = "model.attention_model."
+               ) -> Dict[str, torch.Tensor]:
+    """NTMParams -> the reference's NeuralTuringMachine state dict
+    (vstream_arch.py:34-45)."""
+    sd = {}
+    for name, w, b in (("q_proj", ntm.wq, ntm.bq), ("k_proj", ntm.wk, ntm.bk),
+                       ("v_proj", ntm.wv, ntm.bv),
+                       ("out_proj", ntm.wo, ntm.bo)):
+        sd[prefix + name + ".weight"] = w.T
+        sd[prefix + name + ".bias"] = b
+    sd[prefix + "out_ln.weight"] = ntm.ln_scale
+    sd[prefix + "out_ln.bias"] = ntm.ln_bias
+    return sd
+
+
+def export_llava_checkpoint(params: dict, cfg) -> Dict[str, torch.Tensor]:
+    """A whole Flash-VStream-LLaVA state dict in the reference's layout (the
+    CLIP tower under model.vision_tower.vision_tower.vision_model.)."""
+    sd = export_llama(params["llm"], cfg.llm)
+    sd.update(export_clip_vit(
+        params["vit"], cfg.vit,
+        prefix="model.vision_tower.vision_tower.vision_model."))
+    sd.update(export_projector(params["projector"]))
+    sd.update(export_ntm(params["ntm"]))
     return sd
 
 

@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from ..core.device import resolve_device
+from ..ops.ntm import NTMParams
 from .quantize import QuantWeight, QuantWeight4
 
 
@@ -35,16 +36,23 @@ def params_from_numpy(tree: dict, device=None, dtype=None) -> dict:
     Quantized leaves (JAX `QuantWeight` / `QuantWeight4`, NamedTuples of
     numpy arrays as `jax.tree.map(np.asarray, ...)` leaves them) become the
     port's types with their dtypes kept: int8 / uint8 values and f32 scales,
-    whatever `dtype` is. Anything else that is not an array raises (LoRA
-    views: `lora_from_numpy` carries an adapter tree)."""
+    whatever `dtype` is. The LLaVA tree's `NTMParams` (a NamedTuple of
+    arrays) becomes the port's NTMParams, its fields cast like any leaf.
+    Anything else that is not an array raises (LoRA views:
+    `lora_from_numpy` carries an adapter tree)."""
     device = resolve_device(device)
     out = {}
     for k, v in tree.items():
         if isinstance(v, dict):
             out[k] = params_from_numpy(v, device, dtype)
+        elif isinstance(v, list):        # the projector's layer list
+            out[k] = [params_from_numpy(x, device, dtype) for x in v]
         elif tuple(getattr(v, "_fields", ())) in _QUANT:
             out[k] = _QUANT[tuple(v._fields)](
                 *(_tensor(np.asarray(f), device, None) for f in v))
+        elif tuple(getattr(v, "_fields", ())) == NTMParams._fields:
+            out[k] = NTMParams(*(_tensor(np.asarray(f), device, dtype)
+                                 for f in v))
         elif isinstance(v, np.ndarray):
             out[k] = _tensor(v, device, dtype)
         else:

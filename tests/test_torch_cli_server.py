@@ -199,6 +199,33 @@ def test_question_intervals_output_file_and_prewarm(tmp_path):
     assert summary["metrics"]["answer_tokens"]["count"] == 5   # after prewarm
 
 
+@pytest.mark.parametrize("family", ["qwen", "llava"])
+def test_prewarm_frame_counts_cover_every_bucket_once(family):
+    """`prewarm_frame_counts` (what --prewarm answers at) gives one frame
+    count for each prompt length an answer can take, before the memory
+    saturates and after, and no two of the same length."""
+    sess = tcli.build_session(tcli.make_parser().parse_args(
+        ["--model-family", family, "--dry-run", "--device", "cpu"]))
+    if family == "qwen":
+        fm = sess.cfg.flash_memory
+        top = max(fm.dam_grid_len, fm.csm_grid_len) + 1
+
+        def length(n):
+            return sess._prompt_host("What is happening?", n)["S"]
+    else:
+        top = sess.cfg.star.video_max_frames + 4
+        sess.ingest_frames([np.zeros((56, 56, 3), np.uint8)])
+        snap = sess._published[0]
+
+        def length(n):
+            return sess._prompt_parts("What is happening?", snap,
+                                      n)[0].shape[1]
+    counts = sess.prewarm_frame_counts()
+    lengths = [length(n) for n in counts]
+    assert len(set(lengths)) == len(lengths) >= 1
+    assert set(lengths) == {length(n) for n in range(1, top + 1)}
+
+
 def test_frame_directory_source(tmp_path):
     from PIL import Image
     d = tmp_path / "frames"
@@ -215,7 +242,6 @@ def test_frame_directory_source(tmp_path):
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--model-family", "llava"], "A13"),
     (["--threaded-ingest"], "A15"),
     (["--ingest-devices", "1"], "A16"),
     (["--decode-devices", "1"], "A16"),
@@ -352,3 +378,150 @@ def test_session_refuses_unported_options():
         == torch.bfloat16
     with pytest.raises(NotImplementedError, match="A16"):
         QwenStreamSession(sess.model, sess.tokenizer, placement=object())
+
+
+# ---------------------------------------------------------------------------
+# the LLaVA family
+# ---------------------------------------------------------------------------
+
+LLAVA = ["--model-family", "llava", "--dry-run", "--synthetic-frames", "8",
+         "--clip-size", "2", "--fps", "2", "--play_speed", "0",
+         "--question", "What is happening?", "--max-new-tokens", "6"]
+
+
+def _run_both_llava(monkeypatch, argv):
+    """Both servers over argv on the JAX tiny LLaVA tree and the JAX
+    session's draws (PRNGKey(step)): (JAX summary, port summary, JAX
+    greedy ids, port ids)."""
+    from flash_vstream_tpu.core.config import tiny_llava_config as jtiny
+    from flash_vstream_tpu.models.vstream_llava import init_llava_params
+    jparams = init_llava_params(jax.random.PRNGKey(0), jtiny())
+    jids, tids = [], []
+
+    def jax_build(args, build=jcli.build_session):
+        sess = build(args)
+        fused = sess._answer_fused
+
+        def record(*a, **k):
+            out = fused(*a, **k)
+            jids.append([int(t) for t in out])
+            return out
+        sess._answer_fused = record
+        return sess
+
+    def port_init(cfg, generator, device=None, dtype=torch.float32):
+        return params_from_numpy(jax.tree.map(np.asarray, jparams), device)
+
+    def port_build(args, build=tcli.build_session):
+        sess = build(args)
+        sess._uniforms = _jax_draws
+        tokens = sess.answer_tokens
+
+        def record(*a, **k):
+            out = tokens(*a, **k)
+            tids.append(list(out))
+            return out
+        sess.answer_tokens = record
+        return sess
+    monkeypatch.setattr(jcli, "build_session", jax_build)
+    monkeypatch.setattr(tcli, "build_session", port_build)
+    monkeypatch.setattr(
+        "flash_vstream_tpu_torch.models.vstream_llava.init_llava_params",
+        port_init)
+    want = jcli.run_server(jcli.make_parser().parse_args(argv))
+    got = tcli.run_server(tcli.make_parser().parse_args(
+        argv + ["--device", "cpu"]))
+    return want, got, jids, tids
+
+
+@pytest.mark.parametrize("flags", [
+    ["--question_interval", "0.0001"],
+    ["--prewarm", "--question_interval", "1000"],
+    ["--load-4bit", "--question_interval", "0.0001"],
+    ["--kv-int8", "--question_interval", "0.0001"],
+], ids=["plain", "prewarm", "load_4bit", "kv_int8"])
+def test_llava_dry_run_matches_jax_server(monkeypatch, flags):
+    """--model-family llava --dry-run: the same frames ingested and every
+    greedy answer JAX's ids and text (the answer after each clip and after
+    the stream; with --prewarm the answers of the prewarm too)."""
+    want, got, jids, tids = _run_both_llava(monkeypatch, LLAVA + flags)
+    assert got["frames_ingested"] == want["frames_ingested"] == 8
+    assert len(tids) == len(jids) >= len(got["answers"]) >= 1
+    assert tids == jids
+    assert [a["answer"] for a in got["answers"]] == [
+        a["answer"] for a in want["answers"]]
+    assert [a["frames"] for a in got["answers"]] == [
+        a["frames"] for a in want["answers"]]
+    for name in ("memory_latency", "llm_latency", "conv_latency",
+                 "memory_latency_dispatch", "memory_latency_host_preprocess"):
+        assert name in got["metrics"] and name in want["metrics"], name
+
+
+def test_llava_flags_build_the_session():
+    """--load-4bit / --load-8bit quantize the Vicuna decoder, --kv-int8
+    gives the answers an int8 cache; the CLIP tower stays as it is."""
+    from flash_vstream_tpu_torch.runtime.streaming import LLaVAStreamSession
+    base = ["--model-family", "llava", "--dry-run", "--device", "cpu"]
+    sess = tcli.build_session(tcli.make_parser().parse_args(
+        base + ["--load-4bit", "--kv-int8", "--clip-size", "3"]))
+    assert isinstance(sess, LLaVAStreamSession) and sess.clip_size == 3
+    llm = sess.generator.llm.tree()
+    assert isinstance(llm["layers"]["mlp"]["up"]["w"], QuantWeight4)
+    assert isinstance(sess.params["vit"]["layers"]["attn"]["wq"]["w"],
+                      torch.Tensor)
+    assert sess.generator.cache_dtype == torch.int8
+    sess = tcli.build_session(tcli.make_parser().parse_args(
+        base + ["--load-8bit"]))
+    assert isinstance(sess.generator.llm.tree()["layers"]["attn"]["wq"]["w"],
+                      QuantWeight)
+    assert sess.generator.cache_dtype == torch.bfloat16
+
+
+def test_llava_model_path_serves_the_checkpoint(monkeypatch, tmp_path):
+    """--model-family llava --model-path DIR on a tiny LLaVA checkpoint the
+    port wrote (an HF Llama-style tokenizer beside it): the port's server
+    loads it in bf16 and answers JAX's server's ids and text on the same
+    directory (both given the tiny config, where they take the full one)."""
+    from torch_ckpt import write_tiny_llava_checkpoint
+    import flash_vstream_tpu.core.config as jconfig
+    from flash_vstream_tpu_torch.core.config import tiny_llava_config
+    ckpt = str(tmp_path / "llava")
+    cfg, params = write_tiny_llava_checkpoint(ckpt)
+    jtiny = jconfig.tiny_llava_config()
+    monkeypatch.setattr(jconfig, "VStreamLLaVAConfig", lambda: jtiny)
+    monkeypatch.setattr("flash_vstream_tpu_torch.runtime.pipeline."
+                        "VStreamLLaVAConfig", tiny_llava_config)
+    argv = ["--model-family", "llava", "--model-path", ckpt,
+            "--frame-size", "112", "--synthetic-frames", "6",
+            "--clip-size", "2", "--play_speed", "0", "--question", "Q?",
+            "--question_interval", "1000", "--max-new-tokens", "5"]
+    jids, tids = [], []
+
+    def jax_build(args, build=jcli.build_session):
+        sess = build(args)
+        fused = sess._answer_fused
+        sess._answer_fused = lambda *a, **k: jids.append(
+            [int(t) for t in fused(*a, **k)]) or jids[-1]
+        return sess
+
+    def port_build(args, build=tcli.build_session):
+        sess = build(args)
+        sess._uniforms = _jax_draws
+        tokens = sess.answer_tokens
+        sess.answer_tokens = lambda *a, **k: tids.append(
+            list(tokens(*a, **k))) or tids[-1]
+        return sess
+    monkeypatch.setattr(jcli, "build_session", jax_build)
+    monkeypatch.setattr(tcli, "build_session", port_build)
+    want = jcli.run_server(jcli.make_parser().parse_args(argv))
+    got = tcli.run_server(tcli.make_parser().parse_args(
+        argv + ["--device", "cpu"]))
+    assert got["frames_ingested"] == want["frames_ingested"] == 6
+    assert tids == jids and len(tids) == 1
+    assert got["answers"][0]["answer"] == want["answers"][0]["answer"]
+    served = tcli.build_session(tcli.make_parser().parse_args(
+        argv + ["--device", "cpu"]))
+    assert served.tokenizer.eos_token_id == 2
+    assert served.params["llm"]["embed"].dtype == torch.bfloat16
+    assert torch.equal(served.params["vit"]["pos_embed"],
+                       params["vit"]["pos_embed"].to(torch.bfloat16))

@@ -327,3 +327,51 @@ def test_http_concurrent_frame_posts(server):
     st = httpd.registry.get("busy")
     assert st.n_frames_received == 48 and not st.buf
     assert st.session.n_frames == 24
+
+
+def test_http_llava_family():
+    """--model-family llava through make_server (the prewarmed template and
+    its clones): two streams fed the same .npy frames (a partial clip
+    flushed) answer what a solo LLaVA session answers on them, greedy and
+    as SSE deltas joined, and a preemptible answer (the server's chunks)
+    is the greedy one."""
+    argv = ["--model-family", "llava", "--dry-run", "--device", "cpu",
+            "--port", "0", "--clip-size", "2", "--max-new-tokens", "6",
+            "--preempt", "2", "--prefill-chunk", "64", "--prewarm"]
+    httpd = ths.make_server(argv)
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    frames = _frames(5, 80, 120, seed=4)
+    body = {"question": "Q?", "max_new_tokens": 6}
+    try:
+        answers = []
+        for sid in ("a", "b"):
+            assert _req(f"{base}/v1/streams", "POST", {"id": sid})[0] == 201
+            code, _ = _req(f"{base}/v1/streams/{sid}/frames?flush=1", "POST",
+                           _npy(frames),
+                           content_type="application/octet-stream")
+            assert code == 200
+            code, out = _req(f"{base}/v1/streams/{sid}/answer", "POST", body)
+            assert code == 200
+            answers.append(out["answer"])
+        deltas, done = _sse(f"{base}/v1/streams/b/answer",
+                            dict(body, stream=True))
+        code, pre = _req(f"{base}/v1/streams/b/answer", "POST",
+                         dict(body, preemptible_chunk=1))
+        reg = httpd.registry
+        a, b = reg.get("a").session, reg.get("b").session
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+    assert a.generator is b.generator and a.params is b.params
+    assert a.n_frames == b.n_frames == 5
+    solo = build_session(make_parser().parse_args(
+        ["--model-family", "llava", "--dry-run", "--device", "cpu",
+         "--clip-size", "2"]))
+    for i in (0, 2, 4):
+        solo.ingest_frames(list(frames[i:i + 2]))
+    want = solo.answer("Q?", GenerationConfig(
+        max_new_tokens=6, eos_token_ids=(solo.tokenizer.eos_token_id,)))
+    assert answers == [want, want]
+    assert done and "".join(deltas) == want
+    assert code == 200 and pre["answer"] == want

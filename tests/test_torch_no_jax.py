@@ -12,8 +12,12 @@ over an int4 decoder (prefill and a decode step), the --load-4bit
 (frames, a preemptible speculative answer, a sampled SSE answer), a
 session's clone, save/load and streamed answer, the plain versions of
 P1 and P2, the ViT and gather probes (the ViT probe with --int8, so
-w8a8), the int4 probe's variants (P3, P4) and its `main` and `main2` on
-the CPU in a fresh interpreter leave
+w8a8), the int4 probe's variants (P3, P4) and its `main` and `main2`,
+and the LLaVA family with PIL blocked (every new module imported, a tiny
+LLaVA checkpoint written and loaded, a video and an image through
+LLaVAPipeline, a stream answered speculatively, the --model-family llava
+--load-4bit --kv-int8 dry-run server; frames resized by the numpy
+resampling) on the CPU in a fresh interpreter leave
 `jax` and `flash_vstream_tpu` out of sys.modules (the tests' own conftest
 imports jax, hence the subprocess); no source file of the port imports
 either; and the port's copy of the config dataclasses equals the JAX
@@ -192,6 +196,42 @@ with contextlib.redirect_stdout(io.StringIO()):
             "128", "--iters", "1", "--trials", "1"]
     assert len(probe_int4_variants.main(tiny)) == 5
     assert len(probe_int4_variants.main2(tiny + ["--which", "v6,v7"])) == 2
+sys.modules["PIL"] = None     # no PIL, as on the card's machine
+import flash_vstream_tpu_torch.models.clip_vit, flash_vstream_tpu_torch.models.projector
+import flash_vstream_tpu_torch.models.star_memory, flash_vstream_tpu_torch.ops.ntm
+import flash_vstream_tpu_torch.ops.sequential
+from flash_vstream_tpu_torch.core.config import tiny_llava_config
+from flash_vstream_tpu_torch.models.vstream_llava import init_llava_params
+from flash_vstream_tpu_torch.preprocess.tokenizer import ByteTokenizer
+from flash_vstream_tpu_torch.runtime.pipeline import LLaVAPipeline
+from flash_vstream_tpu_torch.runtime.streaming import LLaVAStreamSession
+from flash_vstream_tpu_torch.weights.convert import load_pretrained_model
+from flash_vstream_tpu_torch.weights.export import export_llava_checkpoint
+lcfg = tiny_llava_config()
+lp = init_llava_params(lcfg, torch.Generator().manual_seed(0), "cpu")
+with tempfile.TemporaryDirectory() as d:
+    save_hf_checkpoint(d + "/llava", export_llava_checkpoint(lp, lcfg),
+                       max_shard_bytes=300000)
+    lp2 = load_pretrained_model(d + "/llava", lcfg, device="cpu")
+assert torch.equal(lp2["ntm"].wq, lp["ntm"].wq)
+assert torch.equal(lp2["vit"]["pos_embed"], lp["vit"]["pos_embed"])
+lframes = [rng.integers(0, 256, (60, 90, 3), dtype=np.uint8) for _ in range(5)]
+lpipe = LLaVAPipeline(lp2, lcfg, ByteTokenizer(), max_len=1024)
+gen = GenerationConfig(max_new_tokens=3)
+assert 1 <= len(lpipe.answer_tokens(lframes, "what?", gen)) <= 3
+assert isinstance(lpipe.answer_image(lframes[0], "what?", gen), str)
+lsess = LLaVAStreamSession(lp2, lcfg, ByteTokenizer(), clip_size=2, max_len=1024)
+for i in range(0, 5, 2):
+    lsess.ingest_frames(lframes[i:i + 2])
+assert lsess.n_frames == 5
+assert 1 <= len(lsess.answer_tokens(*lsess._published, "what?", GenerationConfig(
+    max_new_tokens=3, speculative_k=2))) <= 3
+summary = main(["--model-family", "llava", "--dry-run", "--device", "cpu",
+                "--load-4bit", "--kv-int8", "--synthetic-frames", "4",
+                "--play_speed", "0", "--question", "Q?",
+                "--question_interval", "1000", "--max-new-tokens", "2"])
+assert summary["frames_ingested"] == 4 and len(summary["answers"]) == 1
+del sys.modules["PIL"]
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flash_vstream_tpu"))
 assert not bad, bad

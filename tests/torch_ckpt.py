@@ -37,3 +37,19 @@ def write_tiny_checkpoint(path: str, seed: int = 0):
     save_hf_checkpoint(path, sd, config=hf_qwen_config(cfg))
     make_hf_qwen_tokenizer().save_pretrained(path)
     return cfg, params
+
+
+def write_tiny_llava_checkpoint(path: str, seed: int = 0):
+    """A tiny Flash-VStream-LLaVA checkpoint (the tiny LLaVA config, random
+    f32 weights, the reference's layout) with a Llama-style HF tokenizer
+    (bos 1, eos 2, a vocabulary inside the tiny config's 512) beside it;
+    returns (cfg, f32 params)."""
+    from flash_vstream_tpu_torch.core.config import tiny_llava_config
+    from flash_vstream_tpu_torch.models.vstream_llava import init_llava_params
+    from flash_vstream_tpu_torch.weights.export import export_llava_checkpoint
+    from hf_tok import make_hf_llama_tokenizer
+    cfg = tiny_llava_config()
+    params = init_llava_params(cfg, torch.Generator().manual_seed(seed), "cpu")
+    save_hf_checkpoint(path, export_llava_checkpoint(params, cfg))
+    make_hf_llama_tokenizer().save_pretrained(path)
+    return cfg, params

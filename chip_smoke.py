@@ -132,6 +132,7 @@ are per (`per`: one call, or K6's decode token); the last is the device
 record {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 import argparse
+import contextlib
 import json
 import logging
 import math
@@ -2120,7 +2121,8 @@ def lora_leaf_grads(case, device, dtype):
         case["cfg"], _tree_to(case["params"], device, dtype), lp,
         t(case["patches"]), case["grid"], t(case["ids"]), t(case["labels"]),
         t(case["seg"]), case["start"], case["n_vis"],
-        case["draws"].to(device), alpha=16, rank=8, vit_chunk=4)
+        lambda n, d=case["draws"].to(device): d, alpha=16, rank=8,
+        vit_chunk=4)
     grads = torch.autograd.grad(loss, leaves)
     return loss.item(), {n: g.float().cpu() for n, g in zip(names, grads)}
 
@@ -4376,17 +4378,742 @@ def run_llava(dev, smi, root):
         del back, sd
     finally:
         shutil.rmtree(ckpt, ignore_errors=True)
-    del params, cut, sess
+    del cut, sess
     _release(dev)
     print(f"llava: phase {time.perf_counter() - t_phase:.1f} s", flush=True)
-    return k1, k6
+    return k1, k6, params
+
+
+# The multistream phase: QwenMultiStreamEngine (8 streams, the 7B config),
+# MultiStreamEngine (4 LLaVA streams), --threaded-ingest and the Flash
+# memory registry, card against CPU
+MS_STREAMS = 8               # BASELINE config #5: 8 concurrent streams
+MS_CLIP = 8
+MS_BANK = 256                # the JAX engine's default bank
+MS_TICKS = 16                # after one warm-up tick: 64 frame pairs a stream
+MS_TOKENS = 32
+MS_SOLO = (0, 7)             # streams held to a solo session
+MS_LLAVA_STREAMS = 4
+MS_LLAVA_TICKS = 10          # 80 frames a stream: the 64-frame bank wraps
+THREADED_FRAMES = 120        # --threaded-ingest: 30 fps in clips of 8
+REGISTRY_METHODS = ("kmeans_ordered", "pca_kmeans_ordered", "merge", "drop",
+                    "attention", "sample", "dbscan", "gmm")
+REGISTRY_TOL = 1e-4          # card vs CPU, of the features' max
+
+
+def _ms_questions(n):
+    return [f"{QUESTIONS[i % len(QUESTIONS)]} (stream {i})" for i in range(n)]
+
+
+def _teacher_forced(gen, embeds, pos, seg, last, start, ids, profile=False):
+    """Logits [B, T, V] f32 of a prefill and T - 1 decode steps fed `ids`
+    [B][T] (each row its own decode start `start[b]`), with the host ms a
+    decode step and, with `profile`, the device-busy ms a step (profiled
+    over the last 8; else 0)."""
+    import torch
+    from torch.autograd import DeviceType
+    dev = embeds.device
+    B, T = len(ids), len(ids[0])
+    torch.set_grad_enabled(False)
+    cache = gen.new_cache(B, gen._active_len(embeds.shape[1], T))
+    out = [gen.prefill(embeds, pos, cache, seg, last).float()]
+    pos0 = torch.as_tensor(start, device=dev).reshape(B)
+    tok = torch.tensor(ids, device=dev)
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    for j in range(T - 9):
+        out.append(gen.step(tok[:, j], pos0 + j, cache).float())
+    torch.cuda.synchronize(dev)
+    host = (time.perf_counter() - t0) / (T - 9)
+    prof = (torch.profiler.profile(activities=[
+        torch.profiler.ProfilerActivity.CPU,
+        torch.profiler.ProfilerActivity.CUDA]) if profile
+        else contextlib.nullcontext())
+    with prof:
+        for j in range(T - 9, T - 1):
+            out.append(gen.step(tok[:, j], pos0 + j, cache).float())
+        torch.cuda.synchronize(dev)
+    busy = (sum(e.self_device_time_total for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA) / 1e3 / 8
+            if profile else 0.0)
+    torch.set_grad_enabled(True)
+    return torch.stack(out, dim=1), host * 1e3, busy
+
+
+def _bf16_step(x):
+    """One bf16 step (ulp) at the magnitude of x: the lm_head writes bf16
+    logits, so two that differ by this are neighbours."""
+    return 2.0 ** (math.floor(math.log2(abs(x))) - 7)
+
+
+def _batched_rule(name, single_ids, single_logits, batch_ids, batch_logits):
+    """The batched answers against the per-stream ones. The batched logits
+    (teacher-forced on the per-stream ids) lie within OFFLINE_LOGIT_TOL of
+    max |logit| at every step. A batched id may part from the per-stream
+    one at an exact tie of the per-stream logits (gap 0), or at a gap of
+    one bf16 step of max |logit| with a witness: the batched path's own
+    teacher-forced logits at that step (the same prefix) rank the batched
+    id at or above the per-stream one, so the parting follows from the
+    batch's logits, which the tolerance bounds, and not from the decode
+    loop. Returns (worst error over max, [(stream, step, gap in bf16
+    steps, shift in bf16 steps)] of the partings, (median, max) of the
+    shift elsewhere). A shift is how far the per-stream top-two gap moves
+    on the batched path: the rounding that separates the two paths."""
+    import numpy as np
+    worst, parts, shifts = 0.0, [], []
+    for s, (ids, lg, blg) in enumerate(zip(single_ids, single_logits,
+                                           batch_logits)):
+        if lg.argmax(dim=-1).tolist() != list(ids):
+            raise AssertionError(f"{name}: stream {s}'s teacher-forced "
+                                 f"steps do not give its own answer")
+        worst = max(worst, ((blg - lg).abs().max()
+                            / lg.abs().max()).item())
+    if worst > OFFLINE_LOGIT_TOL:
+        raise AssertionError(f"{name}: batched logits {worst:.3e} of max "
+                             f"from the per-stream ones (limit "
+                             f"{OFFLINE_LOGIT_TOL})")
+    for s, (ids, lg, blg, bids) in enumerate(zip(
+            single_ids, single_logits, batch_logits, batch_ids)):
+        i = next((j for j, (a, b) in enumerate(zip(ids, bids)) if a != b),
+                 None)
+        for j in range(lg.shape[0]):
+            step = _bf16_step(lg[j].abs().max().item())
+            if j == i:
+                a, b = ids[i], bids[i]
+            else:
+                a, b = lg[j].topk(2).indices.tolist()
+            shift = ((lg[j, a] - lg[j, b]) - (blg[j, a] - blg[j, b])).item()
+            if j != i:
+                shifts.append(abs(shift) / step)
+                continue
+            gap = (lg[i, a] - lg[i, b]).item()
+            if gap > step:
+                raise AssertionError(f"{name}: stream {s} parts from its own "
+                                     f"answer at step {i}, its logits {gap} "
+                                     f"apart there (more than one bf16 step, "
+                                     f"{step})")
+            if gap > 0 and blg[i, b] < blg[i, a]:
+                raise AssertionError(f"{name}: stream {s} parts at step {i} "
+                                     f"one bf16 step from a tie, but the "
+                                     f"batched logits there rank its "
+                                     f"per-stream token first")
+            parts.append((s, i, gap / step, round(shift / step, 3)))
+    return worst, parts, (float(np.median(shifts)), max(shifts))
+
+
+def _check_solo(name, got, want, state):
+    """A stream's snapshot against a solo session's: CSM positions equal,
+    DAM positions equal but at an exact tie (`_dam_tie`, the solo state),
+    features within 5e-2. Returns (worst feature diff, ties)."""
+    import torch
+    spa_pos, tem_pos, spa_x, tem_x = (x.float() for x in got)
+    wpos, wtem, wx, wtx = (x.float() for x in want)
+    if not torch.equal(tem_pos, wtem):
+        raise AssertionError(f"{name}: CSM positions differ")
+    worst = (tem_x - wtx).abs().max().item()
+    ties = 0
+    for j in range(spa_pos.shape[0]):
+        if spa_pos[j] == wpos[j]:
+            worst = max(worst, (spa_x[j] - wx[j]).abs().max().item())
+        elif _dam_tie(state, spa_pos.shape[0], j, int(spa_pos[j]),
+                      int(wpos[j])):
+            ties += 1
+        else:
+            raise AssertionError(f"{name}: DAM slot {j} frame "
+                                 f"{int(spa_pos[j])} against "
+                                 f"{int(wpos[j])}, not a tie")
+    if worst > 5e-2:
+        raise AssertionError(f"{name}: features differ by {worst}")
+    return worst, ties
+
+
+def run_multistream_qwen(dev, smi, params):
+    """QwenMultiStreamEngine at BASELINE config #5: 8 streams of 224 px
+    over the 7B config (VStreamQwenConfig(), random bf16 weights), clip 8,
+    bank 256; one warm-up tick and 16 timed ticks (64 frame pairs a
+    stream: the 60 CSM slots saturate), then a ragged tick of 0-7 frames.
+    Streams 0 and 7 are held to solo QwenStreamSessions fed the same
+    frames and draws; K1 = 64 and K2 = 1 a tick, checked; `answer_all` of 8
+    questions (32 tokens) against the per-stream answers by the logit rule
+    (`_batched_rule`), 28 K1 a batched prefill; a control, two streams'
+    prompts swapped in the batch, must fail that rule. Returns (K1, K2) of
+    the engine's own run (its ticks and `answer_all`), without the solo
+    sessions, the per-stream reference answers and the logit checks."""
+    import numpy as np
+    import torch
+    from flash_vstream_tpu_torch.core.config import VStreamQwenConfig
+    from flash_vstream_tpu_torch.kernels.flash_attention import (
+        flash_attention_cuda)
+    from flash_vstream_tpu_torch.kernels.gather_rows import gather_rows_cuda
+    from flash_vstream_tpu_torch.models.vstream_qwen import (VStreamQwen,
+                                                             init_qwen_params)
+    from flash_vstream_tpu_torch.preprocess.qwen_processor import (
+        make_byte_qwen_tokenizer)
+    from flash_vstream_tpu_torch.runtime.generation import GenerationConfig
+    from flash_vstream_tpu_torch.runtime.streaming import (
+        QwenMultiStreamEngine, QwenStreamSession, _stream_view)
+
+    cfg = VStreamQwenConfig()
+    if params is None:
+        params = init_qwen_params(cfg, torch.Generator(device=dev).manual_seed(
+            SEED), device=dev, dtype=torch.bfloat16)
+    model = VStreamQwen(cfg, params)
+    tok = make_byte_qwen_tokenizer()
+    N = MS_STREAMS
+    eng = QwenMultiStreamEngine(model, tok, N, frame_hw=(224, 224),
+                                clip_size=MS_CLIP, bank_size=MS_BANK,
+                                max_len=4096)
+    solo = {}
+    for s in MS_SOLO:
+        sess = QwenStreamSession(model, tok, frame_hw=(224, 224),
+                                 clip_size=MS_CLIP, bank_size=MS_BANK,
+                                 max_len=4096)
+        sess._init_scores = lambda step, n, s=s: eng.draws(step, s, n)
+        solo[s] = sess
+    banks = _nbytes(eng.states.bank, eng.states.bank_small)
+    n_frames = MS_CLIP * (1 + MS_TICKS)
+    frames = [_offline_frames(np.random.default_rng(SEED + 100 + s),
+                              n_frames + MS_CLIP, 224) for s in range(N)]
+    ticks = [[f[k * MS_CLIP:(k + 1) * MS_CLIP] for f in frames]
+             for k in range(1 + MS_TICKS)]
+    ticks.append([f[n_frames:n_frames + s] for s, f in enumerate(frames)])
+    k1 = k2 = 0
+    tick_ms, solo_ms = [], []
+    worst, ties = 0.0, 0
+    for k, clips in enumerate(ticks):
+        before = eng._published[0]
+        a1, a2 = flash_attention_cuda.launches, gather_rows_cuda.launches
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        eng.ingest(clips)
+        eng.block()
+        dt = (time.perf_counter() - t0) * 1e3
+        d1 = flash_attention_cuda.launches - a1
+        d2 = gather_rows_cuda.launches - a2
+        if (d1, d2) != (2 * cfg.vit.num_layers, 1):
+            raise AssertionError(f"multistream: tick {k} launched K1 {d1}, "
+                                 f"K2 {d2}; reckoned 64, 1")
+        k1, k2 = k1 + d1, k2 + d2
+        if 0 < k <= MS_TICKS:
+            tick_ms.append(dt)
+        for s, sess in solo.items():
+            if not clips[s]:          # an empty clip: the stream keeps its
+                w, t = _check_solo(   # frames and its snapshot's positions
+                    f"multistream: tick {k} stream {s} (empty clip)",
+                    eng._published[0][s], before[s], sess.state)
+            else:
+                t0 = time.perf_counter()
+                sess.ingest_frames(clips[s])
+                sess.block_until_ingested()
+                if 0 < k <= MS_TICKS and s == MS_SOLO[0]:
+                    solo_ms.append((time.perf_counter() - t0) * 1e3)
+                w, t = _check_solo(f"multistream: tick {k} stream {s}",
+                                   eng._published[0][s], sess._published[0],
+                                   sess.state)
+            worst, ties = max(worst, w), ties + t
+    counts = eng.n_frames
+    want = [4 * (1 + MS_TICKS) + -(-s // 2) for s in range(N)]
+    if list(counts) != want or counts[MS_SOLO[1]] != solo[MS_SOLO[1]].n_frames:
+        raise AssertionError(f"multistream: frame pairs {counts}, want {want}")
+    n_csm = [int(eng.states.tem_valid[s].sum()) for s in range(N)]
+    print(f"multistream: {smi}: QwenMultiStreamEngine, {N} streams x 224 px "
+          f"clips of {MS_CLIP}, banks of {MS_BANK} ({banks / 1e9:.2f} GB); "
+          f"ms/tick mean={np.mean(tick_ms):.2f} best={min(tick_ms):.2f} "
+          f"median={np.median(tick_ms):.2f} over {MS_TICKS} ticks after 1 "
+          f"warm-up ({np.mean(tick_ms) / N:.2f} ms a stream-clip) against a "
+          f"solo session's {np.mean(solo_ms):.2f} ms/clip (median "
+          f"{np.median(solo_ms):.2f}); frame pairs {list(counts)} after a "
+          f"ragged tick of 0-7 frames, CSM {min(n_csm)}-{max(n_csm)}/"
+          f"{cfg.flash_memory.csm_grid_len}; streams {MS_SOLO} against solo "
+          f"sessions: positions equal but {ties} exact DAM ties, features "
+          f"within {worst:.3e}; launches K1 {k1} = 64 x {len(ticks)} ticks, "
+          f"K2 {k2} = 1 a tick ({N * cfg.flash_memory.dam_grid_len} rows "
+          f"each)", flush=True)
+
+    qs = _ms_questions(N)
+    gen = GenerationConfig(max_new_tokens=MS_TOKENS, eos_token_ids=())
+    g = eng.sess.generator
+    batch = []
+    gb = g.generate_batch
+
+    def recorded(*a, **kw):
+        batch.append(gb(*a, **kw))
+        return batch[-1]
+    g.generate_batch = recorded
+    try:
+        a1 = flash_attention_cuda.launches
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        texts = eng.answer_all(qs, gen)
+        torch.cuda.synchronize(dev)
+        all_s = time.perf_counter() - t0
+        d1 = flash_attention_cuda.launches - a1
+    finally:
+        del g.generate_batch
+    if len(batch) != 1 or len(texts) != N or d1 != cfg.llm.num_layers:
+        raise AssertionError(f"multistream: answer_all took {len(batch)} "
+                             f"batched decodes and {d1} K1 launches "
+                             f"(reckoned 1, {cfg.llm.num_layers})")
+    k1 += d1
+    # the checks below launch K1 too; the path's counts stop here
+    snaps, counts = eng._published
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    single = [eng.sess.answer_tokens(snaps[s], counts[s], q, gen)
+              for s, q in enumerate(qs)]
+    torch.cuda.synchronize(dev)
+    seq_s = time.perf_counter() - t0
+    # teacher-forced logits: each stream alone, then the batch
+    single_lg, one_ms, one_busy = [], 0.0, 0.0
+    for s, q in enumerate(qs):
+        h = eng.sess._prompt_host(q, counts[s])
+        e, p, start, seg = eng.sess._prompt_inputs(snaps[s], h)
+        lg, ms, busy = _teacher_forced(g, e, p, seg, h["last_real"],
+                                       [int(start)], [single[s]],
+                                       profile=s == 0)
+        single_lg.append(lg[0])
+        if s == 0:
+            one_ms, one_busy = ms, busy
+    e, p, seg, starts, lasts = eng.batch_inputs(qs)
+    blg, b_ms, b_busy = _teacher_forced(g, e, p, seg, lasts, starts, single,
+                                        profile=True)
+    worst_lg, parts, shift = _batched_rule("multistream answer_all", single,
+                                           single_lg, batch[0], blg)
+    # the control: streams 0 and 1 trade prompts in the batch (a planted
+    # row fault), and the rule must refuse the result
+    sw = [1, 0, *range(2, N)]
+    bad, _, _ = _teacher_forced(g, e[sw], p[:, sw], seg[sw],
+                                [lasts[i] for i in sw],
+                                [starts[i] for i in sw], single)
+    try:
+        _batched_rule("control", single, single_lg, batch[0], bad)
+        raise RuntimeError("multistream: the batched-answer rule passed a "
+                           "batch with two streams' prompts swapped")
+    except AssertionError as err:
+        control = str(err)
+    del bad
+    print(f"multistream: answer_all of {N} questions ({MS_TOKENS} tokens, "
+          f"batched prefill S={e.shape[1]}) {all_s:.3f} s against {N} "
+          f"sequential answers {seq_s:.3f} s; batched logits within "
+          f"{worst_lg:.3e} of max (limit {OFFLINE_LOGIT_TOL}), ids equal to "
+          f"the per-stream ones but {len(parts)} partings where those logits "
+          f"are tied or bf16 neighbours (stream, step, gap and shift in bf16 "
+          f"steps) {parts}; the top-two gap's shift between the paths "
+          f"elsewhere median {shift[0]:.3f} max {shift[1]:.3f} bf16 steps; "
+          f"control (streams 0 and 1 swapped in the batch) refused: "
+          f"{control}; decode ms/token B={N} {b_ms:.2f} (busy {b_busy:.2f}) "
+          f"against B=1 {one_ms:.2f} (busy {one_busy:.2f}); K1 "
+          f"{cfg.llm.num_layers} a batched prefill", flush=True)
+    return k1, k2
+
+
+def run_multistream_llava(dev, smi, params):
+    """MultiStreamEngine over VStreamLLaVAConfig() (random bf16 weights):
+    4 streams, clips of 8, 10 ticks (the 64-frame bank wraps); stream 0
+    held to a solo LLaVAStreamSession's memory on the same draws; K1 = 23
+    a tick; `answer_all` against `answer` by the logit rule. Returns K1 of
+    the engine's own run (its ticks and `answer_all`)."""
+    import numpy as np
+    import torch
+    from flash_vstream_tpu_torch.core.config import VStreamLLaVAConfig
+    from flash_vstream_tpu_torch.kernels.flash_attention import (
+        flash_attention_cuda)
+    from flash_vstream_tpu_torch.models.clip_vit import clip_layers_run
+    from flash_vstream_tpu_torch.models.vstream_llava import init_llava_params
+    from flash_vstream_tpu_torch.preprocess.tokenizer import ByteTokenizer
+    from flash_vstream_tpu_torch.runtime.generation import GenerationConfig
+    from flash_vstream_tpu_torch.runtime.streaming import (
+        LLaVAStreamSession, MultiStreamEngine)
+
+    cfg = VStreamLLaVAConfig()
+    if params is None:
+        params = init_llava_params(cfg, torch.Generator(device=dev).manual_seed(
+            SEED + 11), dev, dtype=torch.bfloat16)
+    tok = ByteTokenizer()
+    N = MS_LLAVA_STREAMS
+    n_clip = clip_layers_run(cfg.vit)
+    eng = MultiStreamEngine(params, cfg, tok, N, clip_size=LLAVA_CLIP,
+                            max_len=4096)
+    solo = LLaVAStreamSession(params, cfg, tok, clip_size=LLAVA_CLIP,
+                              max_len=4096)
+    solo._uniforms = lambda step, n: eng.draws(step, 0, n)
+    frames = [_offline_frames(np.random.default_rng(SEED + 200 + s),
+                              LLAVA_CLIP * MS_LLAVA_TICKS, 224)
+              for s in range(N)]
+    k1, tick_ms, worst = 0, [], 0.0
+    for k in range(MS_LLAVA_TICKS):
+        clips = [f[k * LLAVA_CLIP:(k + 1) * LLAVA_CLIP] for f in frames]
+        a1 = flash_attention_cuda.launches
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        eng.ingest(clips)
+        eng.block()
+        tick_ms.append((time.perf_counter() - t0) * 1e3)
+        d1 = flash_attention_cuda.launches - a1
+        if d1 != n_clip:
+            raise AssertionError(f"multistream llava: tick {k} launched K1 "
+                                 f"{d1}, reckoned {n_clip}")
+        k1 += d1
+        solo.ingest_frames(clips[0])
+        got, want = eng._published[0][0], solo._published[0]
+        if not torch.equal(got.valid, want.valid):
+            raise AssertionError(f"multistream llava: tick {k} validity")
+        scale = want.tokens.float().abs().max().item()
+        worst = max(worst, (got.tokens.float() - want.tokens.float()).abs()
+                    .max().item() / scale)
+    if worst > LLAVA_REF_TOL:
+        raise AssertionError(f"multistream llava: stream 0 memory {worst:.3e}"
+                             f" of max from the solo session's (limit "
+                             f"{LLAVA_REF_TOL})")
+    qs = _ms_questions(N)
+    gen = GenerationConfig(max_new_tokens=MS_TOKENS, eos_token_ids=())
+    single = []
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    for s, q in enumerate(qs):
+        e, p = eng.prompt_embeds(s, q)
+        single.append(eng.generator.generate(e, p, gen))
+    torch.cuda.synchronize(dev)
+    seq_s = time.perf_counter() - t0
+    e, p, seg, starts = eng.batch_inputs(qs)
+    batch = []
+    gb = eng.generator.generate_batch
+
+    def recorded(*a, **kw):
+        batch.append(gb(*a, **kw))
+        return batch[-1]
+    eng.generator.generate_batch = recorded
+    try:
+        a1 = flash_attention_cuda.launches
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        eng.answer_all(qs, gen)
+        torch.cuda.synchronize(dev)
+        all_s = time.perf_counter() - t0
+        d1 = flash_attention_cuda.launches - a1
+    finally:
+        del eng.generator.generate_batch
+    if len(batch) != 1 or d1 != cfg.llm.num_layers:
+        raise AssertionError(f"multistream llava: answer_all took "
+                             f"{len(batch)} batched decodes and {d1} K1 "
+                             f"launches (reckoned 1, {cfg.llm.num_layers})")
+    k1 += d1
+    single_lg = []
+    for s, q in enumerate(qs):
+        es, ps = eng.prompt_embeds(s, q)
+        lg, _, _ = _teacher_forced(eng.generator, es, ps, None, None,
+                                   [es.shape[1]], [single[s]])
+        single_lg.append(lg[0])
+    blg, b_ms, b_busy = _teacher_forced(eng.generator, e, p, seg, None,
+                                        starts, single, profile=True)
+    worst_lg, parts, shift = _batched_rule("multistream llava answer_all",
+                                           single, single_lg, batch[0], blg)
+    print(f"multistream llava: {smi}: MultiStreamEngine, {N} streams, clips "
+          f"of {LLAVA_CLIP}, {MS_LLAVA_TICKS} ticks (the bank wraps): ms/tick "
+          f"mean={np.mean(tick_ms[1:]):.2f} best={min(tick_ms[1:]):.2f}; "
+          f"stream 0 against a solo session: memory within {worst:.3e} of "
+          f"max (limit {LLAVA_REF_TOL}); answer_all {all_s:.3f} s against "
+          f"{N} sequential answers {seq_s:.3f} s, batched logits within "
+          f"{worst_lg:.3e} of max, {len(parts)} partings at tied or "
+          f"neighbouring bf16 logits (stream, step, gap, shift) {parts}, "
+          f"the shift elsewhere median {shift[0]:.3f} max {shift[1]:.3f} "
+          f"bf16 steps; decode B={N} {b_ms:.2f} ms/token (busy {b_busy:.2f}); "
+          f"K1 {n_clip} a tick", flush=True)
+    return k1
+
+
+def run_threaded_ingest(dev, params):
+    """`run_server --threaded-ingest` on a QwenStreamSession over the 7B
+    config: 120 frames at 30 fps in clips of 8 (267 ms deadlines), a
+    question every 1.0 s and one after the stream, 32 tokens; every frame
+    ingested, no ERROR record, and the final memory equal, bit for bit, to a
+    sequential session's over the same frames and draws. Readings: missed
+    deadlines, the answers' s and ms/token while ingesting against the
+    final answer alone. Returns (K1, K2) of the server's run."""
+    import torch
+    from flash_vstream_tpu_torch.core.config import VStreamQwenConfig
+    from flash_vstream_tpu_torch.kernels.gather_rows import gather_rows_cuda
+    from flash_vstream_tpu_torch.models.vstream_qwen import VStreamQwen
+    from flash_vstream_tpu_torch.preprocess.qwen_processor import (
+        make_byte_qwen_tokenizer)
+    from flash_vstream_tpu_torch.preprocess.video import SyntheticSource
+    from flash_vstream_tpu_torch.runtime.streaming import QwenStreamSession
+    from flash_vstream_tpu_torch.serve.cli_server import make_parser, run_server
+
+    cfg = VStreamQwenConfig()
+    model = VStreamQwen(cfg, params)
+    tok = make_byte_qwen_tokenizer()
+
+    def session():
+        return QwenStreamSession(model, tok, frame_hw=(224, 224),
+                                 clip_size=MS_CLIP, bank_size=1024,
+                                 max_len=4096)
+    sess = session()
+    timed = []
+    tokens = sess.answer_tokens
+
+    def answer_tokens(*a, **kw):
+        t0 = time.perf_counter()
+        ids = tokens(*a, **kw)
+        torch.cuda.synchronize(dev)
+        timed.append((time.perf_counter() - t0, len(ids)))
+        return ids
+    sess.answer_tokens = answer_tokens
+    args = make_parser().parse_args([
+        "--threaded-ingest", "--synthetic-frames", str(THREADED_FRAMES),
+        "--fps", "30", "--play_speed", "1", "--clip-size", str(MS_CLIP),
+        "--question", QUESTIONS[0], "--question_interval", "1.0",
+        "--max-new-tokens", str(MS_TOKENS)])
+    errors = []
+    catch = logging.Handler(logging.ERROR)
+    catch.emit = errors.append
+    server_log = logging.getLogger("cli_server")
+    server_log.addHandler(catch)
+    a1, a2 = _launches()["K1"], gather_rows_cuda.launches
+    t0 = time.perf_counter()
+    try:
+        summary = run_server(args, session=sess)
+    finally:
+        server_log.removeHandler(catch)
+    wall = time.perf_counter() - t0
+    k1, k2 = _launches()["K1"] - a1, gather_rows_cuda.launches - a2
+    ref = session()
+    src = SyntheticSource(THREADED_FRAMES, 224, 224, fps=30)
+    frames = [src[i] for i in range(THREADED_FRAMES)]
+    for i in range(0, THREADED_FRAMES, MS_CLIP):
+        ref.ingest_frames(frames[i:i + MS_CLIP])
+    ref.block_until_ingested()
+    equal = all(torch.equal(a, b) for a, b in zip(sess._published[0],
+                                                   ref._published[0]))
+    m = summary["metrics"]
+    missed = int(m["missed_clip_deadlines"]["val"])
+    during = [(s, n) for s, n in timed[:-1]]
+    alone = timed[-1]
+    print(f"threaded_ingest: run_server --threaded-ingest, "
+          f"{summary['frames_ingested']} frames at 30 fps in clips of "
+          f"{MS_CLIP} in {wall:.2f} s: missed clip deadlines {missed} of "
+          f"{THREADED_FRAMES // MS_CLIP}; {len(during)} answers while "
+          f"ingesting: s {[round(s, 3) for s, _ in during]}, ms/token "
+          f"{[round(s / n * 1e3, 2) for s, n in during]}; the final answer "
+          f"alone {alone[0]:.3f} s, {alone[0] / alone[1] * 1e3:.2f} ms/token; "
+          f"final memory {'equal' if equal else 'NOT equal'} to a sequential "
+          f"session's bit for bit; K1 {k1} K2 {k2}; errors logged "
+          f"{len(errors)}", flush=True)
+    if (summary["frames_ingested"] != THREADED_FRAMES or errors or not equal
+            or sess.n_frames != ref.n_frames):
+        raise AssertionError("threaded_ingest: frames, errors or the final "
+                             "memory differ from the sequential run")
+    return k1, k2
+
+
+def run_registry(dev, t=120, p_full=1024, p_small=256, D=1280):
+    """`flash_consolidate` under REGISTRY_METHODS at the offline phase's
+    shape (240 frames: t 120, P 1,024 / 256, D 1,280, f32 features from the
+    seed in 20 scenes of 6 frames) and `flash_stream_update` under sample,
+    merge, drop and attention over 20 clips of 4 frame pairs at the slice's
+    shape (P 256 / 64, a 64-pair bank that wraps), on the card and on the
+    CPU from the same inputs and draws: positions equal, features within
+    REGISTRY_TOL of max. Card ms a call; a consolidation's also without
+    its DAM part (spatial_length 0: the temporal method alone)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from flash_vstream_tpu_torch.core.config import FlashMemoryConfig
+    from flash_vstream_tpu_torch.models.flash_memory import (
+        flash_consolidate, flash_stream_update, init_flash_state)
+    from flash_vstream_tpu_torch.ops.retrieval import topk_by_weight
+    from flash_vstream_tpu_torch.runtime.pipeline import seeded_draws
+
+    # 20 scenes of 6 frames, fewer than the 60 CSM slots, so that the
+    # methods merge frames and choose among them; features with a decaying
+    # spectrum, so that PCA's leading subspace is well defined (over a flat
+    # spectrum the 32nd component is picked by rounding, and card and CPU
+    # then cluster in other spaces)
+    n_scenes = 20
+    g = torch.Generator().manual_seed(SEED + 300)
+    scales = torch.exp(-torch.arange(D) / 64.0)
+    centers = torch.randn(n_scenes, 1, D, generator=g) * scales
+    scene = torch.arange(t) * n_scenes // t
+
+    def feats(P):
+        return (centers[scene]
+                + 0.3 * scales * torch.randn(t, P, D, generator=g))
+    x, small = feats(p_full), feats(p_small)
+    rows = []
+
+    def same(name, a, b, frames, frame_pos):
+        """Card output `a` against CPU output `b`: CSM positions equal, DAM
+        positions equal but where the CPU's query cluster is as near to
+        both frames (a merged slot is the mean of two frames), features
+        within REGISTRY_TOL of max where the frames agree."""
+        if not torch.equal(a.tem_positions.cpu(), b.tem_positions):
+            raise AssertionError(f"registry {name}: CSM positions differ")
+        keep = a.spa_positions.cpu() == b.spa_positions
+        for j in (~keep).nonzero().flatten().tolist():
+            q = b.tem_x[topk_by_weight(b.tem_weights, keep.numel())[j]]
+            q = q.flatten().float()
+            d = [((frames[int((frame_pos == p).nonzero()[0, 0])].flatten()
+                   .float() - q) ** 2).sum().item()
+                 for p in (int(a.spa_positions[j]), int(b.spa_positions[j]))]
+            if abs(d[0] - d[1]) > 1e-3 * max(d):
+                raise AssertionError(f"registry {name}: DAM slot {j} differs "
+                                     f"and is no tie {d}")
+        err = 0.0
+        for f, sel in (("tem_x", slice(None)), ("tem_weights", slice(None)),
+                       ("spa_x", keep)):
+            w = getattr(b, f)[sel].float()
+            if w.numel():
+                err = max(err, ((getattr(a, f).cpu()[sel].float() - w).abs()
+                                .max() / w.abs().max().clamp_min(1e-30))
+                          .item())
+        if err > REGISTRY_TOL:
+            raise AssertionError(f"registry {name}: features {err:.3e} of "
+                                 f"max apart (limit {REGISTRY_TOL})")
+        return err
+
+    for method in REGISTRY_METHODS:
+        cfg = dataclasses.replace(FlashMemoryConfig(), temporal_method=method)
+        # gmm's PCA takes the covariance of whole frames, [P * D, P * D]
+        # (JAX's too): 429 GB at P 256, so it runs at P 4
+        xs, ss = (x, small) if method != "gmm" else (x[:, :16], small[:, :4])
+        cpu = flash_consolidate(cfg, xs, ss, draws=seeded_draws(SEED, "cpu"))
+        xd, sd = xs.to(dev), ss.to(dev)
+        draws = lambda n: seeded_draws(SEED, "cpu")(n).to(dev)
+        card = flash_consolidate(cfg, xd, sd, draws=draws)
+        ms = []
+        for c in (cfg, dataclasses.replace(cfg, spatial_length=0)):
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            flash_consolidate(c, xd, sd, draws=draws)
+            torch.cuda.synchronize(dev)
+            ms.append((time.perf_counter() - t0) * 1e3)
+        rows.append((f"consolidate {method}",
+                     same(method, card, cpu, ss, torch.arange(t)), *ms))
+        del xd, sd
+    for method in ("sample", "merge", "drop", "attention"):
+        cfg = dataclasses.replace(FlashMemoryConfig(), temporal_method=method)
+        states = [init_flash_state(cfg, p_small, p_small // 4, D,
+                                   bank_size=64, device=d)
+                  for d in ("cpu", dev)]
+        gs = torch.Generator().manual_seed(SEED + 301)
+        worst, card_ms = 0.0, []
+        for clip in range(20):
+            nx = torch.randn(4, p_small, D, generator=gs)
+            ns = (0.3 * scales * torch.randn(4, p_small // 4, D, generator=gs)
+                  + centers[clip % centers.shape[0]])
+            n_new = 3 if clip == 5 else 4
+            outs = []
+            for i, d in enumerate(("cpu", dev)):
+                draws = lambda n: seeded_draws(clip, "cpu")(n).to(d)
+                torch.cuda.synchronize(dev)
+                t0 = time.perf_counter()
+                states[i], out = flash_stream_update(
+                    cfg, states[i], nx.to(d), ns.to(d), n_new, draws)
+                torch.cuda.synchronize(dev)
+                if i:
+                    card_ms.append((time.perf_counter() - t0) * 1e3)
+                outs.append(out)
+            worst = max(worst, same(f"stream {method} clip {clip}",
+                                    outs[1], outs[0], states[0].bank_small,
+                                    states[0].bank_pos))
+        rows.append((f"stream {method}", worst, float(np.median(card_ms))))
+    print("registry: card vs CPU, positions equal, features of max, card ms "
+          "a call (a consolidation's temporal part alone after the slash): "
+          + "; ".join(f"{n} {e:.2e} " + "/".join(f"{m:.1f}" for m in ms)
+                      + " ms" for n, e, *ms in rows), flush=True)
+
+
+def check_multistream_kernels(dev):
+    """K1 and K2 at the multi-stream engine's shapes: the ViT over 8
+    streams' frames ([32, 16, 256, 80] and the pooled [32, 16, 64, 80]),
+    the batched prefill at B = 8 (left-padded rows, -1 padding), and K2's
+    batched form (8 banks of [256, 256, 1280] bf16, 30 rows each, one
+    launch); each against its plain version, timed beside SDPA or
+    index_select and its bound."""
+    import torch
+    from flash_vstream_tpu_torch.kernels.flash_attention import (
+        flash_attention_cuda, flash_attention_reference)
+    from flash_vstream_tpu_torch.kernels.gather_rows import (
+        gather_rows_batched_cuda, gather_rows_batched_reference,
+        gather_rows_cuda)
+    g = torch.Generator(device=dev).manual_seed(SEED + 5)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, device=dev).to(torch.bfloat16)
+
+    def heads(T, P, H, D):
+        return randn(T, P, H, D).transpose(1, 2)
+    B, S = MS_STREAMS, 3008
+    seg = torch.zeros(B, S, dtype=torch.int32, device=dev)
+    for b in range(B):
+        seg[b, :32 * (b % 3)] = -1                 # left padding
+        seg[b, 32 * (b % 3) + 64 + 2880 + 24:] = -1
+    cases = {
+        "vit_8streams": ((heads(32, 256, 16, 80), heads(32, 256, 16, 80),
+                          heads(32, 256, 16, 80)), {}),
+        "vit_small_8streams": ((heads(32, 64, 16, 80), heads(32, 64, 16, 80),
+                                heads(32, 64, 16, 80)), {}),
+        "prefill_b8": ((randn(B, 28, S, 128), randn(B, 4, S, 128),
+                        randn(B, 4, S, 128)),
+                       dict(causal=True, q_segment_ids=seg,
+                            kv_segment_ids=seg)),
+    }
+    for name, (args, kw) in cases.items():
+        q, k, v = args
+        out = flash_attention_cuda(*args, **kw)
+        ref = flash_attention_reference(*args, **kw)
+        torch.cuda.synchronize()
+        err, row = check_fwd(f"K1 {name}", out, ref, q, k, kw)
+        del ref
+        iters = 20 if name == "prefill_b8" else 50
+        ms = _ms(lambda i: flash_attention_cuda(*args, **kw), iters)
+        plain = _ms(lambda i: flash_attention_reference(*args, **kw),
+                    1 if name == "prefill_b8" else 5)
+        lib = _ms(lambda i: _sdpa(q, k, v, kw.get("causal", False)), iters)
+        bound = _bound(
+            _visible_pairs(q, k, kw.get("causal", False),
+                           kw.get("q_segment_ids"), kw.get("kv_segment_ids"))
+            * 4 * q.shape[-1],
+            _nbytes(q, k, v, q, kw.get("q_segment_ids"),
+                    kw.get("kv_segment_ids")))
+        print(f"K1 {name}: shape q{tuple(q.shape)} k{tuple(k.shape)} "
+              f"max_abs_err={err:.3e} row_err={row:.3e} kernel_ms={ms:.4f} "
+              f"plain_ms={plain:.4f} bound_ms={bound[0]:.4f} ({bound[1]}) "
+              f"library_ms={lib:.4f} (scaled_dot_product_attention"
+              f"{', causal only, no segment mask' if kw else ''})",
+              flush=True)
+        torch.cuda.empty_cache()
+    bank = randn(B, MS_BANK, 256, 1280)
+    idxs = [torch.randint(0, MS_BANK, (B, 30), generator=g, device=dev,
+                          dtype=torch.int32) for _ in range(8)]
+    n0 = gather_rows_cuda.launches
+    for idx in idxs:
+        if not torch.equal(gather_rows_batched_cuda(bank, idx),
+                           gather_rows_batched_reference(bank, idx)):
+            raise AssertionError("K2 batched: gather is not bit-exact")
+    if gather_rows_cuda.launches - n0 != len(idxs):
+        raise AssertionError("K2 batched: not one launch a call")
+    ms = _ms(lambda i: gather_rows_batched_cuda(bank, idxs[i % 8]), 16)
+    plain = _ms(lambda i: gather_rows_batched_reference(bank, idxs[i % 8]),
+                16)
+    flat = bank.view(B * MS_BANK, 256, 1280)
+    offs = torch.arange(B, device=dev)[:, None] * MS_BANK
+    lidx = [(i.long() + offs).reshape(-1) for i in idxs]
+    lib = _ms(lambda i: flat.index_select(0, lidx[i % 8]), 16)
+    bound = _bound(0, 2 * _nbytes(bank[0, :B * 30 // B]) * B
+                   + _nbytes(idxs[0]))
+    print(f"K2 dam_gather_8streams: bank{tuple(bank.shape)} bf16 idx"
+          f"{tuple(idxs[0].shape)} bit-exact, one launch a call "
+          f"kernel_ms={ms:.4f} plain_ms={plain:.4f} bound_ms={bound[0]:.4f} "
+          f"({bound[1]}) library_ms={lib:.4f} (index_select on the flat "
+          f"bank)", flush=True)
 
 
 PHASES = ("kernels", "int4_kernel", "reference", "int4_reference", "slice",
           "llava", "serve_http", "offline", "backward", "function", "train_reference", "dry_run_train",
           "train_slice",
           "production", "finetune_ckpt", "serve_kv8", "serve4", "bank_gather",
-          "vit_probe", "int4_probe")
+          "vit_probe", "int4_probe", "multistream")
 
 
 def main() -> int:
@@ -4427,6 +5154,7 @@ def main() -> int:
 
     rows = {}
     paths = {}                # path -> {kernel: launches in that path's run}
+    params = lparams = None   # the slice's and the llava phase's weights
     if "kernels" in only:
         rows.update(check_kernels(dev))
     if "int4_kernel" in only:
@@ -4520,8 +5248,52 @@ def main() -> int:
             shutil.rmtree(ckpt, ignore_errors=True)
     if "llava" in only:
         _release(dev)
-        k1, k6 = run_llava(dev, smi, root)
+        k1, k6, lparams = run_llava(dev, smi, root)
         paths["llava"] = dict(flash_attention_fwd=k1, int4_matmul=k6)
+    if "multistream" in only:
+        _release(dev)
+        t_phase = time.perf_counter()
+        check_multistream_kernels(dev)
+        print(f"multistream: kernels done at "
+              f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+        if params is None or "llm" not in params:
+            # serve4 frees the slice's bf16 decoder: build the weights anew
+            params = None
+            from flash_vstream_tpu_torch.core.config import VStreamQwenConfig
+            from flash_vstream_tpu_torch.models.vstream_qwen import (
+                init_qwen_params)
+            params = init_qwen_params(
+                VStreamQwenConfig(), torch.Generator(device=dev).manual_seed(
+                    SEED), device=dev, dtype=torch.bfloat16)
+        # the counts of the path's run: every wrapper's count from 0 here
+        _reset_launches()
+        k1, k2 = run_multistream_qwen(dev, smi, params)
+        print(f"multistream: qwen engine done at "
+              f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+        tk1, tk2 = run_threaded_ingest(dev, params)
+        print(f"multistream: threaded ingest done at "
+              f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+        k1, k2 = k1 + tk1, k2 + tk2
+        params = None
+        _release(dev)
+        k1 += run_multistream_llava(dev, smi, lparams)
+        lparams = None
+        from flash_vstream_tpu_torch.kernels.gather_rows import (
+            gather_rows_cuda)
+        got = _launches()["K1"], gather_rows_cuda.launches
+        if min(k1, k2) == 0:
+            raise AssertionError("multistream: a kernel of the path was "
+                                 "never launched")
+        print(f"multistream: launches of the path (the engines' and the "
+              f"threaded server's runs) K1={k1} K2={k2}; of the checks (solo "
+              f"sessions, per-stream reference answers, teacher-forced "
+              f"logits, the control) K1={got[0] - k1} K2={got[1] - k2}; "
+              f"llava engine done at {time.perf_counter() - t_phase:.1f} s",
+              flush=True)
+        paths["multistream"] = dict(flash_attention_fwd=k1, gather_rows=k2)
+        run_registry(dev)
+        print(f"multistream: registry done, phase "
+              f"{time.perf_counter() - t_phase:.1f} s", flush=True)
     sources = {
         "flash_attention_fwd": ("flash_attention.cu", ":90"),
         "gather_rows": ("gather_rows.cu", ""),

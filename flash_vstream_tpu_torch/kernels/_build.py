@@ -17,6 +17,7 @@ import ctypes
 import hashlib
 import os
 import subprocess
+import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().with_name("csrc")
@@ -64,6 +65,9 @@ for _name in ("v1_current", "v2_biasfold", "v3_floor", "v5_u8mask",
     _SIGNATURES[f"fvt_int4_{_name}"] = [_P] * 4 + [_I] * 7 + [_P]
 
 _LIB = None          # the loaded library, once per process
+# threads of one process (an ingest thread beside the answering one) may
+# reach their first kernel at once: one builds and loads, the others wait
+_LIB_LOCK = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -121,17 +125,21 @@ def build() -> Path:
 
 
 def library() -> ctypes.CDLL:
-    """The kernel library, built on first use and loaded once."""
+    """The kernel library, built on first use and loaded once, whichever
+    thread of the process asks first."""
     global _LIB
-    if _LIB is None:
-        lib = ctypes.CDLL(str(build()))
-        for name, argtypes in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        lib.fvt_error_string.argtypes = [ctypes.c_int]
-        lib.fvt_error_string.restype = ctypes.c_char_p
-        _LIB = lib
+    if _LIB is not None:
+        return _LIB
+    with _LIB_LOCK:
+        if _LIB is None:
+            lib = ctypes.CDLL(str(build()))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            lib.fvt_error_string.argtypes = [ctypes.c_int]
+            lib.fvt_error_string.restype = ctypes.c_char_p
+            _LIB = lib
     return _LIB
 
 

@@ -5,8 +5,12 @@ Replaces the Pallas TPU kernel `_copy_kernel`
 full-resolution frames ([P, D] rows of 640 KB in bf16) out of the streaming
 ring bank on every ingest. Dispatch is by device: a CPU tensor takes
 `gather_rows_reference` (`index_select`), a CUDA tensor launches the kernel
-(`gather_rows_cuda`), which raises on what it does not take. The batched
-multi-stream form of the JAX module is not part of the port yet.
+(`gather_rows_cuda`), which raises on what it does not take.
+
+`gather_rows_batched` is the multi-stream form (the JAX module's
+`custom_vmap` rule, gather_rows.py:44-68): N streams' banks [N, T, P, D]
+and indices [N, K] in one K2 launch over the contiguous bank viewed as
+[N * T, P, D], each stream's indices offset by s * T.
 """
 from __future__ import annotations
 
@@ -63,3 +67,47 @@ def gather_rows(bank: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     if bank.device.type == "cpu":
         return gather_rows_reference(bank, idx)
     return gather_rows_cuda(bank, idx)
+
+
+def gather_rows_batched_reference(bank: torch.Tensor,
+                                  idx: torch.Tensor) -> torch.Tensor:
+    """bank [N, T, P, D] (or one [T, P, D] bank for every stream), idx
+    [N, K] -> [N, K, P, D]: out[s, i] = bank[s, idx[s, i]]."""
+    if bank.dim() == 3:
+        return bank[idx.long()]
+    rows = torch.arange(bank.shape[0], device=bank.device)[:, None]
+    return bank[rows, idx.long()]
+
+
+def gather_rows_batched_cuda(bank: torch.Tensor,
+                             idx: torch.Tensor) -> torch.Tensor:
+    """One K2 launch for N streams. bank: contiguous [N, T, P, D] (or one
+    [T, P, D] bank shared by every stream) on the card; idx: [N, K] int
+    indices into each stream's T rows, in range."""
+    if idx.dim() != 2:
+        raise ValueError(f"idx must be [N, K], got shape {tuple(idx.shape)}")
+    n, k = idx.shape
+    if bank.dim() == 3:                   # one bank, batched indices
+        return gather_rows_cuda(bank, idx.reshape(-1).to(torch.int32)
+                                .contiguous()).reshape(n, k, *bank.shape[1:])
+    if bank.dim() != 4 or bank.shape[0] != n:
+        raise ValueError(f"bank must be [N, T, P, D] with N = {n}, got "
+                         f"shape {tuple(bank.shape)}")
+    if not bank.is_contiguous():
+        raise ValueError(f"bank must be contiguous, got strides "
+                         f"{bank.stride()}")
+    t = bank.shape[1]
+    if n * t > 2 ** 31 - 1:
+        raise ValueError(f"{n} x {t} bank rows exceed int32 indices")
+    offs = torch.arange(n, device=idx.device, dtype=torch.int32)[:, None] * t
+    flat = (idx.to(torch.int32) + offs).reshape(-1).contiguous()
+    out = gather_rows_cuda(bank.view(n * t, *bank.shape[2:]), flat)
+    return out.view(n, k, *bank.shape[2:])
+
+
+def gather_rows_batched(bank: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """bank [N, T, P, D] or [T, P, D], idx [N, K] -> [N, K, P, D]. idx must
+    be in range."""
+    if bank.device.type == "cpu":
+        return gather_rows_batched_reference(bank, idx)
+    return gather_rows_batched_cuda(bank, idx)

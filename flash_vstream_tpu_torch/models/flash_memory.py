@@ -17,18 +17,26 @@ Differences from the JAX version, all of interface:
 - the banks are updated in place (`index_copy_`), where JAX donates and
   rewrites the state; every tensor the update publishes is fresh, so a
   snapshot held by a reader never changes under it;
-- `n_frames` is a host int: the session knows how many frames it fed;
-- the k-means init takes its uniform draws (`init_scores`) from the caller
-  where JAX takes a PRNG key (torch cannot reproduce jax.random).
+- `n_frames` is a host int: the session knows how many frames it fed, so
+  the short-stream branches and the sequential methods' frame counts are
+  host branches where JAX computes both sides and selects one;
+- where JAX takes a PRNG key, both functions take `draws`, a function
+  n -> [n] uniform f32 draws (torch cannot reproduce jax.random): the
+  k-means init takes draws(T), the drop coins are draws(T - t0) < 0.5
+  (`jax.random.bernoulli` is `uniform < p`), as STAR's functions do; the
+  tests hand in `jax.random.uniform(key, (n,))`.
 
-Temporal methods: the k-means family (every name the JAX path sends to
-ordered k-means). 'sample', 'merge', 'drop', 'attention' and the PCA,
-dbscan and gmm methods raise NotImplementedError (ROADMAP A14). Spatial
-methods: klarge_retrieve(_cos), sample, nearest.
+Temporal methods, every entry of JAX's registry: the k-means family
+(kmeans, kmeans_ordered, fast_kmeans_ordered), the PCA k-means
+(pca_kmeans_ordered, torchpca_kmeans_ordered), merge and drop (timed
+sequential scans), attention (the parameter-free Turing blend), sample,
+and offline dbscan and gmm (streaming sends those two, and the PCA names,
+to ordered k-means, as JAX does). Spatial methods: klarge_retrieve(_cos),
+sample, nearest.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -36,12 +44,18 @@ import torch
 from ..core.config import FlashMemoryConfig
 
 from ..kernels.gather_rows import gather_rows
-from ..ops.kmeans import weighted_kmeans
+from ..ops.kmeans import pca_weighted_kmeans_ordered, weighted_kmeans
 from ..ops.retrieval import dam_retrieve
+from ..ops.sequential import (drop_frames_timed, merge_frames_timed,
+                              sample_frames)
 
+Draws = Callable[[int], torch.Tensor]
 INT32_MAX = 2 ** 31 - 1
-UNPORTED_TEMPORAL = ("sample", "merge", "drop", "attention")
 KMEANS_TEMPORAL = ("kmeans_ordered", "fast_kmeans_ordered", "kmeans")
+PCA_TEMPORAL = ("pca_kmeans_ordered", "torchpca_kmeans_ordered")
+# the Qwen 'attention' method's blend ratio: LLaVA STAR's Turing-memory
+# decay (the reference's own Qwen entry calls attention_fn=None)
+ATTENTION_UPDATE_RATIO = 0.2
 
 
 class FlashMemoryOutput(NamedTuple):
@@ -111,20 +125,57 @@ def _ordered_kmeans_with_times(flat, k, weights, times, valid, init_scores,
     return res.centroids[order], res.cluster_weights[order], ts[order]
 
 
+def _attention_blend(memory: torch.Tensor, chunk: torch.Tensor,
+                     key_valid: Optional[torch.Tensor] = None,
+                     ratio: float = ATTENTION_UPDATE_RATIO) -> torch.Tensor:
+    """The parameter-free Turing-memory blend: memory tokens [M, D] attend
+    to chunk tokens [N, D] (scaled dot product, identity projections) and
+    move toward what they read by `ratio`; with no valid key the memory is
+    unchanged. f32."""
+    mem = memory.float()
+    scores = (mem @ chunk.float().T) / torch.sqrt(
+        torch.tensor(float(memory.shape[-1])))
+    if key_valid is not None:
+        if not bool(key_valid.any()):
+            return mem
+        scores = torch.where(key_valid[None, :], scores, float("-inf"))
+    read = torch.softmax(scores, dim=-1) @ chunk.float()
+    return (1.0 - ratio) * mem + ratio * read
+
+
+def _attention_compress(small_x: torch.Tensor, t_csm: int) -> torch.Tensor:
+    """[t, P, D] -> [t_csm, P, D]: the memory is the first t_csm frames'
+    tokens, and each later chunk of t_csm frames folds in through
+    `_attention_blend` (the last chunk's missing frames masked)."""
+    t, P, D = small_x.shape
+    mem = small_x[:t_csm].reshape(t_csm * P, D).float()
+    for c in range(t_csm, t, t_csm):
+        chunk = small_x[c:c + t_csm].reshape(-1, D)
+        n = chunk.shape[0]
+        pad = t_csm * P - n
+        key_valid = None
+        if pad:
+            chunk = torch.cat([chunk, chunk.new_zeros(pad, D)])
+            key_valid = torch.arange(t_csm * P, device=small_x.device) < n
+        mem = _attention_blend(mem, chunk, key_valid=key_valid)
+    return mem.reshape(t_csm, P, D)
+
+
 def flash_stream_update(
     cfg: FlashMemoryConfig,
     state: FlashState,
     new_x: torch.Tensor,         # [T_new, P_full, D]
     new_small: torch.Tensor,     # [T_new, P_small, D]
     n_new: int,                  # valid leading rows of new_x / new_small
-    init_scores: torch.Tensor,   # [K + T_new] uniform draws for k-means init
-) -> Tuple[FlashState, FlashMemoryOutput]:
+    draws: Draws,                # n -> [n] uniforms (k-means init, coins)
+    *,
+    gather: bool = True,
+):
     """Fold a clip into the streaming memory and produce the current
-    [DAM | CSM] snapshot. The banks of `state` are written in place."""
-    if cfg.temporal_method in UNPORTED_TEMPORAL:
-        raise NotImplementedError(
-            f"temporal_method {cfg.temporal_method!r} is not ported yet: "
-            f"ROADMAP A14")
+    [DAM | CSM] snapshot. The banks of `state` are written in place.
+    Returns (state, snapshot); with gather=False the snapshot's spa_x is
+    None and (state, snapshot, DAM bank indices [t_dam] int32) come back,
+    so that a caller holding several streams' banks gathers them at once."""
     T_new, P_full, D = new_x.shape
     P_small = new_small.shape[1]
     K = cfg.csm_grid_len
@@ -153,22 +204,63 @@ def flash_stream_update(
     cat_t = torch.cat([state.tem_times, new_times])
     n_cat = state.tem_valid.sum() + n_new
     flat = cat_x.reshape(K + T_new, P_small * D)
-    cents, cw, cts = _ordered_kmeans_with_times(flat, K, cat_w, cat_t,
-                                                cat_valid, init_scores)
-    slot = torch.arange(K, device=dev)
-    is_short = n_cat <= K
+    # [old clusters | new frames] in temporal order, invalid rows last
     order = torch.argsort(torch.where(cat_valid, cat_t, float("inf")),
-                          stable=True)[:K]
-    packed, packed_w, packed_t = cat_x[order], cat_w[order], cat_t[order]
-    in_prefix = slot < n_cat
-    tem_x = torch.where(is_short,
-                        torch.where(in_prefix[:, None, None], packed, 0.0),
-                        cents.reshape(K, P_small, D))
-    tem_weights = torch.where(is_short, torch.where(in_prefix, packed_w, 0.0),
-                              cw)
-    tem_times = torch.where(is_short, torch.where(in_prefix, packed_t, 0.0),
-                            cts)
-    tem_valid = torch.where(is_short, in_prefix, True)
+                          stable=True)
+    method = cfg.temporal_method
+    # the short branch: [old clusters | new frames] packed in order while
+    # they fit in the K slots
+    in_prefix = torch.arange(K, device=dev) < n_cat
+    packed_idx = order[:K]
+    short_x = torch.where(in_prefix[:, None, None], cat_x[packed_idx], 0.0)
+    short_w = torch.where(in_prefix, cat_w[packed_idx], 0.0)
+    short_t = torch.where(in_prefix, cat_t[packed_idx], 0.0)
+    if method in ("sample", "merge", "drop", "attention"):
+        # host loops or host branches: the count of valid rows on the host
+        n_cat_host = int(n_cat)
+        if n_cat_host <= K:
+            tem_x, tem_weights, tem_times = short_x, short_w, short_t
+            tem_valid = in_prefix
+        else:
+            srt_x, srt_w, srt_t = flat[order], cat_w[order], cat_t[order]
+            if method == "sample":
+                cents, idx = sample_frames(srt_x, n_cat_host, K)
+                idx = idx.long()
+                cw, cts = srt_w[idx], srt_t[idx]
+            elif method == "attention":
+                # cells: the first K entries; later ones fold in as one
+                # parameter-free cross-attention blend
+                rest_valid = (torch.arange(K, K + T_new, device=dev)
+                              < n_cat_host).repeat_interleave(P_small)
+                cents = _attention_blend(
+                    srt_x[:K].reshape(K * P_small, D),
+                    srt_x[K:].reshape(T_new * P_small, D),
+                    key_valid=rest_valid)
+                cw, cts = srt_w[:K], srt_t[:K]
+            else:
+                # the offline scan continued over [old cells | new frames]
+                if method == "merge":
+                    res = merge_frames_timed(srt_x, n_cat_host, K,
+                                             times=srt_t, weights=srt_w)
+                else:
+                    res = drop_frames_timed(srt_x, n_cat_host, K,
+                                            draws(T_new) < 0.5,
+                                            times=srt_t, weights=srt_w)
+                cents, cw, cts = res.features, res.weights, res.times
+            tem_x = cents.reshape(K, P_small, D)
+            tem_weights, tem_times = cw, cts
+            tem_valid = torch.ones(K, dtype=torch.bool, device=dev)
+    else:
+        # the clustering registry; streaming sends the PCA, dbscan and gmm
+        # names to ordered k-means too, as JAX does; both sides on the
+        # device, selected by the device flag
+        cents, cw, cts = _ordered_kmeans_with_times(
+            flat, K, cat_w, cat_t, cat_valid, draws(K + T_new))
+        is_short = n_cat <= K
+        tem_x = torch.where(is_short, short_x, cents.reshape(K, P_small, D))
+        tem_weights = torch.where(is_short, short_w, cw)
+        tem_times = torch.where(is_short, short_t, cts)
+        tem_valid = torch.where(is_short, in_prefix, True)
 
     n_total = n0 + n_new
     new_state = FlashState(tem_x=tem_x, tem_valid=tem_valid,
@@ -210,15 +302,14 @@ def flash_stream_update(
             tem_x, torch.where(tem_valid, tem_weights, float("-inf")),
             state.bank_small, bank_pos >= 0, t_dam, metric)
     idx = idx.to(torch.int32)
-    spa_x = gather_rows(bank, idx)
     out = FlashMemoryOutput(
-        spa_x=spa_x,
+        spa_x=gather_rows(bank, idx) if gather else None,
         spa_positions=bank_pos[idx.long()],
         tem_x=tem_x,
         tem_weights=tem_weights,
         tem_positions=torch.round(tem_times).to(torch.int32),
     )
-    return new_state, out
+    return (new_state, out) if gather else (new_state, out, idx)
 
 
 def flash_consolidate(
@@ -226,14 +317,14 @@ def flash_consolidate(
     x: torch.Tensor,             # [t, P_full, D] full-res per-frame features
     small_x: torch.Tensor,       # [t, P_small, D] pooled per-frame features
     *,
-    init_scores: Optional[torch.Tensor] = None,   # [t] k-means init draws
+    draws: Optional[Draws] = None,  # n -> [n] uniforms (k-means, coins)
     times: Optional[torch.Tensor] = None,
 ) -> FlashMemoryOutput:
     """Offline consolidation of a whole video (FlashMemory.forward's
     per-sample pipeline). CSM: the t pooled frames themselves when
-    t <= csm_grid_len, else ordered k-means into csm_grid_len clusters (its
-    init drawn from `init_scores`, the uniform draws JAX takes from its key).
-    DAM: every frame when t <= dam_grid_len, else the spatial method's
+    t <= csm_grid_len, else the temporal method's csm_grid_len slots (the
+    k-means methods draw their init from `draws`, drop its coins). DAM:
+    every frame when t <= dam_grid_len, else the spatial method's
     dam_grid_len frames."""
     t, P_full, D = x.shape
     P_small = small_x.shape[1]
@@ -242,24 +333,72 @@ def flash_consolidate(
     t_dam = min(t, cfg.dam_grid_len)
     if times is None:
         times = torch.arange(t, dtype=torch.float32, device=dev)
+    method = cfg.temporal_method
+    if (t > cfg.csm_grid_len and draws is None
+            and method in (*KMEANS_TEMPORAL, *PCA_TEMPORAL, "drop")):
+        raise ValueError(f"temporal_method {method!r} needs `draws`")
+    flat = small_x.reshape(t, P_small * D)
 
     # --- CSM: temporal compression ---
     if t <= cfg.csm_grid_len:
         tem_x = small_x
         tem_weights = torch.ones(t, dtype=torch.float32, device=dev)
         tem_ts = times
-    elif cfg.temporal_method in KMEANS_TEMPORAL:
-        if init_scores is None:
-            raise ValueError("k-means consolidation needs `init_scores`")
+    elif method in KMEANS_TEMPORAL:
         cents, tem_weights, tem_ts = _ordered_kmeans_with_times(
-            small_x.reshape(t, P_small * D), t_csm,
-            torch.ones(t, dtype=torch.float32, device=dev), times,
-            torch.ones(t, dtype=torch.bool, device=dev), init_scores)
+            flat, t_csm, torch.ones(t, dtype=torch.float32, device=dev),
+            times, torch.ones(t, dtype=torch.bool, device=dev), draws(t))
         tem_x = cents.reshape(t_csm, P_small, D)
+    elif method in PCA_TEMPORAL:
+        res = pca_weighted_kmeans_ordered(
+            flat, t_csm, cfg.temporal_pca_dim, init_scores=draws(t),
+            tokens_per_frame=P_small)
+        onehot = (res.labels.long()[:, None]
+                  == torch.arange(t_csm, device=dev)[None, :]).float()
+        counts = onehot.sum(dim=0)
+        tsum = (onehot.T @ times.float()[:, None])[:, 0]
+        tem_ts = torch.where(counts > 0,
+                             tsum / torch.clamp_min(counts, 1.0), 0.0)
+        order = torch.argsort(tem_ts, stable=True)
+        tem_x = res.centroids[order].reshape(t_csm, P_small, D)
+        tem_weights = res.cluster_weights[order]
+        tem_ts = tem_ts[order]
+    elif method in ("merge", "drop"):
+        if method == "merge":
+            res = merge_frames_timed(flat, t, t_csm, times=times)
+        else:
+            res = drop_frames_timed(flat, t, t_csm, draws(t - t_csm) < 0.5,
+                                    times=times)
+        tem_x = res.features.reshape(t_csm, P_small, D)
+        tem_weights, tem_ts = res.weights, res.times
+    elif method == "attention":
+        tem_x = _attention_compress(small_x, t_csm)
+        tem_weights = torch.ones(t_csm, dtype=torch.float32, device=dev)
+        # the cells keep the timestamps of the frames that seeded them
+        tem_ts = times[:t_csm]
+    elif method == "sample":
+        sampled, idx = sample_frames(flat, t, t_csm)
+        tem_x = sampled.reshape(t_csm, P_small, D)
+        tem_weights = torch.ones(t_csm, dtype=torch.float32, device=dev)
+        tem_ts = times[idx.long()]
+    elif method in ("dbscan", "gmm"):
+        from ..ops.clustering_extra import dbscan_compress, gmm_compress
+        res = (dbscan_compress(flat, t_csm) if method == "dbscan" else
+               gmm_compress(flat, t_csm, pca_dim=cfg.temporal_pca_dim))
+        # empty slots take the earliest frames (the reference pads with
+        # img_feature[:pad])
+        slot = torch.arange(t_csm, device=dev)
+        fallback = flat[torch.clamp(slot, max=t - 1)].float()
+        tem_x = torch.where(res.valid[:, None], res.centroids,
+                            fallback).reshape(t_csm, P_small, D)
+        onehot = (res.labels.long()[:, None] == slot[None, :]).float()
+        counts = onehot.sum(dim=0)
+        tsum = (onehot.T @ times.float()[:, None])[:, 0]
+        tem_ts = torch.where(counts > 0, tsum / torch.clamp_min(counts, 1.0),
+                             slot.float())
+        tem_weights = torch.clamp_min(counts, 1.0)
     else:
-        raise NotImplementedError(
-            f"temporal_method {cfg.temporal_method!r} is not ported yet: "
-            f"ROADMAP A14")
+        raise NotImplementedError(f"temporal_method {method}")
     tem_positions = torch.round(tem_ts).to(torch.int32)
 
     # --- DAM: spatial retrieval ---

@@ -120,7 +120,7 @@ def encode_video(
     patches: torch.Tensor,       # [t*h*w, pd] patchified pixels
     grid: Tuple[int, int, int],  # (t, h, w)
     *,
-    init_scores: Optional[torch.Tensor] = None,   # [t] k-means init draws
+    draws=None,                  # n -> [n] uniforms (k-means, coins)
     vit_chunk: int = 0,
     patch_norm=None,             # (scale_pd, shift_pd) for uint8 patches
 ) -> QwenVisualOutput:
@@ -176,8 +176,7 @@ def encode_video(
                 hw_small=(small_grid[1], small_grid[2]))
             x = hidden[:t * h * w].reshape(t, h * w, D)
             sx = hidden[t * h * w:].reshape(t, P_small, D)
-        fm = flash_consolidate(cfg.flash_memory, x, sx,
-                               init_scores=init_scores)
+        fm = flash_consolidate(cfg.flash_memory, x, sx, draws=draws)
         merged_in = cat_spa_tem(fm.spa_x, fm.tem_x)            # [N_tok, D]
         vis_pos = am_rope_visual_positions(
             fm.spa_positions, fm.tem_positions, (h, w),
@@ -295,10 +294,10 @@ def qwen_forward_train(params: dict, cfg: VStreamQwenConfig,
                        video_span: Tuple[int, int],       # (start, n_visual)
                        positions: torch.Tensor,           # [3, 1, S]
                        segment_ids: Optional[torch.Tensor] = None,
-                       init_scores: Optional[torch.Tensor] = None,
+                       draws=None,
                        remat: bool = True) -> torch.Tensor:
     """Training forward -> f32 logits [1, S, vocab], positions given."""
-    vis = encode_video(params, cfg, patches, grid, init_scores=init_scores)
+    vis = encode_video(params, cfg, patches, grid, draws=draws)
     start, n_vis = video_span
     embeds = embed_tokens(params["llm"], input_ids)
     embeds = splice_embeds_dynamic(embeds, vis.video_embeds, start)

@@ -1,8 +1,10 @@
 """Masked, fixed-shape weighted k-means for temporal memory consolidation.
 
-Port of flash_vstream_tpu/ops/kmeans.py:40-214: fixed `iters` Lloyd steps
+Port of flash_vstream_tpu/ops/kmeans.py: fixed `iters` Lloyd steps
 over a [T, D] matrix with a validity mask, matmul distances and one-hot
-matmul updates, deterministic empty-cluster repair at the worst-fit points.
+matmul updates, deterministic empty-cluster repair at the worst-fit points;
+the greedy farthest-point init, PCA and the PCA k-means of the Flash
+memory's `pca_kmeans_ordered` methods.
 
 One difference of interface: the JAX init draws `jax.random.uniform(key)`,
 which torch cannot reproduce. Here the caller passes those uniform draws
@@ -76,6 +78,27 @@ def init_centroids(x: torch.Tensor, k: int, valid: torch.Tensor,
     return x[idx].float()
 
 
+def greedy_init_centroids(x: torch.Tensor, k: int,
+                          valid: torch.Tensor) -> torch.Tensor:
+    """Greedy farthest-point init (deterministic): the valid point farthest
+    from the valid mean, then k - 1 times the point farthest from every
+    centroid chosen so far. [k, D] f32."""
+    xf = x.float()
+    vf = valid.float()
+    mean = (xf * vf[:, None]).sum(0) / torch.clamp_min(vf.sum(), 1.0)
+    d0 = ((xf - mean) ** 2).sum(1)
+    first = int(torch.argmax(torch.where(valid, d0, float("-inf"))))
+    cents = torch.zeros((k, x.shape[1]), dtype=torch.float32, device=x.device)
+    cents[0] = xf[first]
+    mind = torch.where(valid, ((xf - xf[first]) ** 2).sum(1), float("-inf"))
+    for i in range(1, k):
+        nxt = int(torch.argmax(mind))
+        cents[i] = xf[nxt]
+        d = ((xf - xf[nxt]) ** 2).sum(1)
+        mind = torch.minimum(mind, torch.where(valid, d, float("-inf")))
+    return cents
+
+
 def weighted_kmeans(
     x: torch.Tensor,
     k: int,
@@ -143,3 +166,46 @@ def weighted_kmeans_ordered(
         cluster_weights=res.cluster_weights[order],
         timestamps=res.timestamps[order],
     )
+
+
+def pca_project(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Rows of x [N, D] projected onto their `dim` largest principal
+    components (the reference's pca_torch takes the smallest; JAX takes the
+    largest, and so does this). An eigenvector's sign is the solver's
+    choice, so the coordinates may differ from JAX's in sign per
+    component."""
+    xf = x.float()
+    xc = xf - xf.mean(dim=0, keepdim=True)
+    cov = (xc.T @ xc) / max(x.shape[0] - 1, 1)
+    _, vecs = torch.linalg.eigh(cov)          # ascending eigenvalues
+    return xc @ vecs[:, -dim:]
+
+
+def pca_weighted_kmeans_ordered(
+    x: torch.Tensor,
+    k: int,
+    pca_dim: int,
+    *,
+    weights: Optional[torch.Tensor] = None,
+    valid: Optional[torch.Tensor] = None,
+    init_scores: Optional[torch.Tensor] = None,
+    iters: int = 10,
+    tokens_per_frame: int = 1,
+) -> KMeansResult:
+    """Ordered k-means in a PCA-reduced space: rows [T, P * D] project per
+    token ([T * P, D] -> [T * P, pca_dim]), cluster as [T, P * pca_dim]
+    (init from `init_scores` [T]), and the centroids returned are the
+    unweighted means of the original rows of each cluster."""
+    T, PD = x.shape
+    P = tokens_per_frame
+    x_red = pca_project(x.reshape(T * P, PD // P), pca_dim).reshape(
+        T, P * pca_dim)
+    res = weighted_kmeans_ordered(x_red, k, weights=weights, valid=valid,
+                                  init_scores=init_scores, iters=iters)
+    if valid is None:
+        valid = torch.ones(T, dtype=torch.bool, device=x.device)
+    onehot = _onehot(res.labels.long(), k, valid)
+    counts = onehot.sum(dim=0)
+    centroids = (onehot.T @ x.float()) / torch.clamp_min(counts, 1.0)[:, None]
+    return KMeansResult(centroids, res.labels, res.cluster_weights,
+                        res.timestamps)

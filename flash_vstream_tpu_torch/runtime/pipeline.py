@@ -25,9 +25,9 @@ mm rope index.
 
 The k-means init of the consolidation draws `[t]` uniforms from a
 `torch.Generator` seeded with `seed`, where JAX draws them from
-`PRNGKey(seed)`; callers may hand the draws in (`init_scores`), as the
-tests hand in JAX's. PyTorch compiles nothing, so the JAX versions' jit
-caches have no counterpart.
+`PRNGKey(seed)`; callers may hand the draws in (`draws`: a function n ->
+[n] uniforms), as the tests hand in JAX's. PyTorch compiles nothing, so
+the JAX versions' jit caches have no counterpart.
 """
 from __future__ import annotations
 
@@ -242,15 +242,15 @@ class QwenPipeline:
     @torch.no_grad()
     def video_inputs(self, frames: Sequence[np.ndarray], question: str,
                      seed: int = 0,
-                     init_scores: Optional[torch.Tensor] = None) -> Inputs:
+                     draws: Optional[Callable] = None) -> Inputs:
         """The prompt of a video question: every frame through the ViT and
         Flash memory, the video block spliced into the ChatML ids."""
         u8, (gh, gw) = self._resize(frames)
         grid = (u8.shape[0] // 2, gh, gw)
-        if init_scores is None:
-            init_scores = seeded_draws(seed, self.device)(grid[0])
+        if draws is None:
+            draws = seeded_draws(seed, self.device)
         vis = encode_video(self.params, self.cfg, qwen_device_preprocess(u8),
-                           grid, init_scores=init_scores.to(self.device))
+                           grid, draws=draws)
         input_ids, (start, n) = build_video_prompt(
             self.cfg, self.tokenizer, question, grid=grid)
         # the tokenizer's pad id (JAX splices at cfg.video_token_id, the
@@ -282,11 +282,10 @@ class QwenPipeline:
     @torch.no_grad()
     def answer_tokens(self, frames: Sequence[np.ndarray], question: str,
                       gen: Optional[GenerationConfig] = None, seed: int = 0,
-                      init_scores: Optional[torch.Tensor] = None
-                      ) -> List[int]:
+                      draws: Optional[Callable] = None) -> List[int]:
         """The answer's token ids over a whole video."""
         embeds, positions, start = self.video_inputs(frames, question, seed,
-                                                     init_scores)
+                                                     draws)
         return self.generator.generate(embeds, positions,
                                        gen or default_gen(self.tokenizer),
                                        decode_pos_start=start)
@@ -294,10 +293,10 @@ class QwenPipeline:
     @torch.no_grad()
     def answer(self, frames: Sequence[np.ndarray], question: str,
                gen: Optional[GenerationConfig] = None, seed: int = 0,
-               init_scores: Optional[torch.Tensor] = None) -> str:
+               draws: Optional[Callable] = None) -> str:
         gen = gen or default_gen(self.tokenizer)
         return self._text(self.answer_tokens(frames, question, gen, seed,
-                                             init_scores), gen)
+                                             draws), gen)
 
     @torch.no_grad()
     def answer_image_tokens(self, image: np.ndarray, question: str,

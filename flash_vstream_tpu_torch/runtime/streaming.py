@@ -45,12 +45,13 @@ from __future__ import annotations
 import copy
 import os
 import time
-from typing import Iterator, List, Optional, Sequence
+from typing import Callable, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..core.config import IMAGE_TOKEN_INDEX, VStreamLLaVAConfig
+from ..kernels.gather_rows import gather_rows_batched
 from ..models.flash_memory import (
     FlashState,
     am_rope_visual_positions,
@@ -61,8 +62,9 @@ from ..models.llm import Qwen2Decoder
 from ..models.projector import project
 from ..models.star_memory import (STARMemory, STARState, init_star_state,
                                   star_memory_tokens, star_stream_update)
-from ..models.vstream_llava import (encode_frames, pack_memory_tokens,
-                                    splice_image, star_valid_counts)
+from ..models.vstream_llava import (build_multimodal_embeds, encode_frames,
+                                    pack_memory_tokens, splice_image,
+                                    star_valid_counts)
 from ..models.vstream_qwen import VStreamQwen
 from ..ops.pooling import qwen_temporal_pool
 from ..preprocess.image import (clip_device_preprocess, clip_resize_u8,
@@ -424,9 +426,9 @@ class QwenStreamSession:
         self._step = 0
 
     def _init_scores(self, step: int, n: int) -> torch.Tensor:
-        """Uniform draws [n] for the k-means init of ingest `step`, from a
-        generator seeded by the step (the JAX session keys its draw by the
-        step the same way)."""
+        """Uniform draws [n] of ingest `step` (its k-means init or drop
+        coins), from a generator seeded by the step (the JAX session keys
+        its draws by the step the same way)."""
         return seeded_draws(step, self.device)(n)
 
     @torch.no_grad()
@@ -442,9 +444,10 @@ class QwenStreamSession:
                                 t_small=t_clip, hw_small=(gh // 2, gw // 2))
         x = hidden[:S].reshape(t_clip, self.p_full, D)
         sx = hidden[S:].reshape(t_clip, self.p_small, D)
-        fm = self.cfg.flash_memory
-        scores = self._init_scores(self._step, fm.csm_grid_len + t_clip)
-        state, out = flash_stream_update(fm, self.state, x, sx, n_new, scores)
+        step = self._step
+        state, out = flash_stream_update(
+            self.cfg.flash_memory, self.state, x, sx, n_new,
+            lambda n: self._init_scores(step, n))
         # raw memory rows; the patch merger runs at answer time
         return state, (out.spa_positions, out.tem_positions, out.spa_x,
                        out.tem_x)
@@ -632,3 +635,450 @@ class QwenStreamSession:
         this session's raises, naming the field: the config or the bank
         size is not the one saved."""
         _load_state(self, FlashState, path, tuple)
+
+
+def stream_draws(device) -> Callable[[int, int, int], torch.Tensor]:
+    """(step, stream, n) -> [n] uniform draws of one stream's ingest `step`
+    in an engine, from a generator seeded by (step, stream): the JAX
+    engines key stream s of ingest `step` with split(PRNGKey(step), N)[s]."""
+    def draws(step: int, s: int, n: int) -> torch.Tensor:
+        return seeded_draws(step * 1_000_003 + s, device)(n)
+    return draws
+
+
+def _stack_state(one, n: int):
+    """n copies of a state's tensor fields on a new leading stream axis,
+    one allocation each (so that a stream's bank is a row of one
+    contiguous [N, ...] tensor)."""
+    return type(one)(**{
+        k: (v.unsqueeze(0).repeat(n, *([1] * v.dim()))
+            if isinstance(v, torch.Tensor) else v)
+        for k, v in one._asdict().items()})
+
+
+def _stream_view(states, s: int, n_frames: int):
+    """Stream s of stacked states: views of its rows (a write to the view's
+    bank lands in the stack), with its own host frame count."""
+    return type(states)(**{
+        k: (v[s] if isinstance(v, torch.Tensor) else n_frames)
+        for k, v in states._asdict().items()})
+
+
+def _write_back(states, s: int, new, skip=("bank", "bank_small",
+                                          "bank_pos")) -> None:
+    """Copy stream s's new state into the stack (the banks were written in
+    place). The new state's tensors stay what they are, so a snapshot
+    holding them never sees a later ingest."""
+    for k, v in new._asdict().items():
+        if isinstance(v, torch.Tensor) and k not in skip:
+            getattr(states, k)[s].copy_(v)
+
+
+def _left_pad(parts, pos_axis_3d: bool):
+    """Left-pad per-stream prompts into one batch: parts are (embeds [1, n,
+    D], positions [1, n] or [3, 1, n], segment row [n]); returns (embeds
+    [B, S, D], positions [B, S] or [3, B, S], segments [B, S] with -1 at
+    the padding, each row's pad count)."""
+    S = max(e.shape[1] for e, _, _ in parts)
+    B, D = len(parts), parts[0][0].shape[-1]
+    dev = parts[0][0].device
+    embeds = torch.zeros((B, S, D), dtype=parts[0][0].dtype, device=dev)
+    pos_shape = (3, B, S) if pos_axis_3d else (B, S)
+    positions = torch.zeros(pos_shape, dtype=torch.long, device=dev)
+    segments = torch.full((B, S), -1, dtype=torch.int32, device=dev)
+    pads = []
+    for b, (e, p, seg) in enumerate(parts):
+        n = e.shape[1]
+        embeds[b, S - n:] = e[0]
+        if pos_axis_3d:
+            positions[:, b, S - n:] = p[:, 0]
+        else:
+            positions[b, S - n:] = p[0]
+        segments[b, S - n:] = torch.as_tensor(seg, device=dev)
+        pads.append(S - n)
+    return embeds, positions, segments, pads
+
+
+class _Engine:
+    """What both multi-stream engines share: the published (per-stream
+    snapshots, per-stream frame counts) pair, swapped by one reference
+    assignment, the ingest step that keys the draws, and the checks of
+    per-stream arguments."""
+
+    def _reset(self, n_streams: int, clip_size: int):
+        self.n_streams = n_streams
+        self.clip_size = clip_size
+        self._published = (None, (0,) * n_streams)
+        self._step = 0
+
+    @property
+    def n_frames(self) -> Tuple[int, ...]:
+        """Published frame count of each stream (Qwen: frame pairs)."""
+        return self._published[1]
+
+    def _per_stream(self, items: Sequence, what: str) -> None:
+        if len(items) != self.n_streams:
+            raise ValueError(f"{len(items)} {what} for {self.n_streams} "
+                             f"streams")
+
+    def _check_clips(self, clips: Sequence[Sequence[np.ndarray]]) -> None:
+        self._per_stream(clips, "clips")
+        for clip in clips:
+            if len(clip) > self.clip_size:
+                raise ValueError(f"clip of {len(clip)} frames > clip_size "
+                                 f"{self.clip_size}")
+
+    def _publish(self, snaps: list, ns: Sequence[int]) -> None:
+        self._step += 1
+        self._published = (snaps, tuple(c + n for c, n in
+                                        zip(self._published[1], ns)))
+
+    def _snapshots(self):
+        if self._published[0] is None:
+            raise RuntimeError("no frames ingested yet")
+        return self._published
+
+    def block(self):
+        """Wait for the device to finish every ingest dispatched so far."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+
+class QwenMultiStreamEngine(_Engine):
+    """N concurrent Qwen-family streams (JAX streaming.py:856-969): their
+    FlashStates stack on a leading stream axis; an ingest runs one device
+    preprocess, temporal pool and ViT over every stream's frames, then each
+    stream's own `flash_stream_update` on views of the stack, then gathers
+    every stream's DAM frames in one K2 launch (`gather_rows_batched`).
+    `answer_all` serves every stream's question through one left-padded
+    batched prefill and `Generator.generate_batch`.
+
+    JAX vmaps the whole update; here each stream's update runs on its own,
+    because the frame counts are host ints and streams fed ragged clips
+    sit on different sides of the short-stream branches. Draws come from
+    `draws(step, stream, n)` (default `stream_draws`)."""
+
+    def __init__(self, model: VStreamQwen, tokenizer, n_streams: int,
+                 frame_hw=(224, 224), clip_size: int = 2,
+                 bank_size: int = 256, max_len: int = 8192,
+                 max_pixels: int = 4 * 224 * 224, draws=None):
+        self._reset(n_streams, clip_size)
+        self.sess = QwenStreamSession(model, tokenizer, frame_hw=frame_hw,
+                                      clip_size=clip_size,
+                                      bank_size=bank_size, max_len=max_len,
+                                      max_pixels=max_pixels)
+        self.device = self.sess.device
+        self.draws = draws or stream_draws(self.device)
+        self.states = _stack_state(self.sess.state, n_streams)
+        self.sess.state = None          # the engine's streams hold the state
+
+    def ingest(self, clips: Sequence[Sequence[np.ndarray]]):
+        """One clip per stream (ragged; an empty clip adds no frame, though
+        its stream's memory is updated, as JAX's vmapped update does)."""
+        self._check_clips(clips)
+        sess = self.sess
+        nh, nw = sess.resize_hw
+        frames, ns = [], []
+        for clip in clips:
+            arr = (list(qwen_resize_u8(clip, (nh, nw), pad_to_even=False))
+                   if len(clip) else [])
+            n = len(arr)
+            while len(arr) % 2 or len(arr) < sess.clip_size:
+                arr.append(arr[-1] if arr else np.zeros((nh, nw, 3), np.uint8))
+            frames.append(np.stack(arr[:sess.clip_size]))
+            ns.append(-(-n // 2))
+        u8 = torch.from_numpy(np.concatenate(frames)).to(self.device)
+        self._publish(self._ingest(u8, ns, self._step), ns)
+
+    @torch.no_grad()
+    def _ingest(self, frames_u8: torch.Tensor, ns: List[int], step: int):
+        sess = self.sess
+        N, t_clip = self.n_streams, sess.clip_size // 2
+        gh, gw = sess.grid_hw
+        S = N * t_clip * sess.p_full
+        D = sess.cfg.vit.hidden_size
+        # one encode for every stream: the ViT's attention is frame-local and
+        # its rope 2D, so stacking the streams' frames computes the same
+        patches = qwen_device_preprocess(frames_u8)
+        small, _ = qwen_temporal_pool(patches, (N * t_clip, gh, gw))
+        hidden = sess.model.vit(torch.cat([patches, small]),
+                                t_full=N * t_clip, hw_full=(gh, gw),
+                                t_small=N * t_clip,
+                                hw_small=(gh // 2, gw // 2))
+        x = hidden[:S].reshape(N, t_clip, sess.p_full, D)
+        sx = hidden[S:].reshape(N, t_clip, sess.p_small, D)
+        fm = sess.cfg.flash_memory
+        outs, idx = [], []
+        for s in range(N):
+            view = _stream_view(self.states, s, self._published[1][s])
+            new, out, i = flash_stream_update(
+                fm, view, x[s], sx[s], ns[s],
+                lambda n, s=s: self.draws(step, s, n), gather=False)
+            _write_back(self.states, s, new)
+            outs.append(out)
+            idx.append(i)
+        # every stream's DAM rows in one K2 launch
+        spa_x = gather_rows_batched(self.states.bank, torch.stack(idx))
+        return [(o.spa_positions, o.tem_positions, spa_x[s], o.tem_x)
+                for s, o in enumerate(outs)]
+
+    def answer(self, stream_idx: int, question: str,
+               gen: Optional[GenerationConfig] = None) -> str:
+        """Stream i's answer against its published snapshot; the shared
+        session's state is never touched, so threads may answer streams
+        at once."""
+        snaps, counts = self._snapshots()
+        return self.sess.answer_snapshot(snaps[stream_idx],
+                                         counts[stream_idx], question, gen)
+
+    @torch.no_grad()
+    def batch_inputs(self, questions: Sequence[str]):
+        """The batched prefill's inputs, every stream's prompt left-padded
+        to the longest: (embeds [N, S, D], positions [3, N, S], segments
+        [N, S], decode starts [N], last real indices [N]), or None when the
+        streams' memory buckets differ (their prompts then differ in
+        layout, as in JAX)."""
+        snaps, counts = self._snapshots()
+        self._per_stream(questions, "questions")
+        sess = self.sess
+        fm = sess.cfg.flash_memory
+        if (len({bucket_up(min(c, fm.dam_grid_len), fm.dam_grid_len)
+                 for c in counts}) > 1
+                or len({bucket_up(min(c, fm.csm_grid_len), fm.csm_grid_len)
+                        for c in counts}) > 1):
+            return None
+        parts, starts, lasts = [], [], []
+        for i, q in enumerate(questions):
+            h = sess._prompt_host(q, counts[i])
+            embeds, pos, dstart, seg = sess._prompt_inputs(snaps[i], h)
+            parts.append((embeds, pos, seg[0]))
+            starts.append(int(dstart))
+            lasts.append(h["last_real"])
+        embeds, positions, segments, pads = _left_pad(parts, True)
+        return (embeds, positions, segments, starts,
+                [p + last for p, last in zip(pads, lasts)])
+
+    def answer_all(self, questions: Sequence[str],
+                   gen: Optional[GenerationConfig] = None) -> List[str]:
+        """Every stream's question through one batched prefill and decode
+        loop; per-stream answers when the memory buckets differ."""
+        inputs = self.batch_inputs(questions)
+        if inputs is None:
+            return [self.answer(i, q, gen) for i, q in enumerate(questions)]
+        sess = self.sess
+        gen = gen or default_gen(sess.tokenizer)
+        embeds, positions, segments, starts, lasts = inputs
+        outs = sess.generator.generate_batch(embeds, positions, segments, gen,
+                                             starts, last_real_idx=lasts)
+        stops = tuple(gen.stop_strings) or ("<|im_end|>",)
+        return [trim_stop_strings(
+                    sess.tokenizer.decode(o, skip_special_tokens=True), stops)
+                for o in outs]
+
+
+class MultiStreamEngine(_Engine):
+    """N concurrent LLaVA-family streams (JAX streaming.py:1059-1164): their
+    STARStates stack on a leading stream axis; an ingest runs one device
+    preprocess and one CLIP encode over every stream's images, then each
+    stream's `star_stream_update` on views of the stack. Answers splice the
+    stream's memory with `build_multimodal_embeds(streaming=True)` (the
+    JAX engine's layout, not the session's bucketed one); `answer_all`
+    left-pads every stream's prompt into one `generate_batch`. Draws come
+    from `draws(step, stream, n)` (default `stream_draws`)."""
+
+    def __init__(self, params: dict, cfg: VStreamLLaVAConfig, tokenizer,
+                 n_streams: int, clip_size: int = 1, max_len: int = 4096,
+                 draws=None):
+        self._reset(n_streams, clip_size)
+        self.params = params
+        self.cfg = cfg
+        self.tokenizer = tokenizer
+        self.metrics = MetricMeter()
+        self.generator = Generator(Qwen2Decoder(cfg.llm, params["llm"]),
+                                   max_len=max_len)
+        self.device = self.generator.device
+        self.draws = draws or stream_draws(self.device)
+        self.states = _stack_state(init_star_state(
+            cfg.star, cfg.projector.effective_input_dim, device=self.device),
+            n_streams)
+
+    def ingest(self, clips: Sequence[Sequence[np.ndarray]]):
+        """One frame list per stream (ragged; padded, the padding masked)."""
+        self._check_clips(clips)
+        side = self.cfg.vit.image_size
+        imgs, ns = [], []
+        for frames in clips:
+            x = (clip_resize_u8(frames, side) if len(frames)
+                 else np.zeros((0, side, side, 3), np.uint8))
+            n = x.shape[0]
+            if n < self.clip_size:
+                pad = np.zeros((self.clip_size - n, *x.shape[1:]), np.uint8)
+                x = np.concatenate([x, pad]) if n else pad
+            imgs.append(x)
+            ns.append(n)
+        t0 = time.perf_counter()
+        u8 = torch.from_numpy(np.concatenate(imgs)).to(self.device)
+        self._publish(self._ingest(u8, ns, self._step), ns)
+        self.metrics.update("memory_latency_dispatch",
+                            time.perf_counter() - t0)
+
+    @torch.no_grad()
+    def _ingest(self, frames_u8: torch.Tensor, ns: List[int], step: int):
+        feats = encode_frames(self.params, self.cfg,
+                              clip_device_preprocess(frames_u8))
+        feats = feats.reshape(self.n_streams, self.clip_size,
+                              *feats.shape[1:])
+        snaps = []
+        for s in range(self.n_streams):
+            view = _stream_view(self.states, s, self._published[1][s])
+            new = star_stream_update(self.params["ntm"], self.cfg.star, view,
+                                     feats[s], ns[s],
+                                     lambda n, s=s: self.draws(step, s, n))
+            _write_back(self.states, s, new, skip=("bank", "bank_pos"))
+            snaps.append(star_memory_tokens(self.cfg.star, new))
+        return snaps
+
+    @torch.no_grad()
+    def prompt_embeds(self, stream_idx: int, question: str):
+        """(embeds [1, S, D], positions [1, S]) of stream i's question over
+        its published memory."""
+        snaps, counts = self._snapshots()
+        input_ids = llava_prompt(question, self.tokenizer)[1]
+        return build_multimodal_embeds(self.params, self.cfg, input_ids,
+                                       snaps[stream_idx], counts[stream_idx],
+                                       streaming=True)
+
+    def _text(self, ids, gen: GenerationConfig) -> str:
+        return trim_stop_strings(
+            self.tokenizer.decode(ids, skip_special_tokens=True),
+            tuple(gen.stop_strings) or (conv_templates["vicuna_v1"].stop_str,))
+
+    def answer(self, stream_idx: int, question: str,
+               gen: Optional[GenerationConfig] = None) -> str:
+        embeds, positions = self.prompt_embeds(stream_idx, question)
+        gen = gen or default_gen(self.tokenizer)
+        return self._text(self.generator.generate(embeds, positions, gen), gen)
+
+    @torch.no_grad()
+    def batch_inputs(self, questions: Sequence[str]):
+        """(embeds [N, S, D], positions [N, S], segments [N, S], decode
+        starts [N]): every stream's prompt left-padded to the longest."""
+        self._per_stream(questions, "questions")
+        parts = []
+        for i, q in enumerate(questions):
+            e, p = self.prompt_embeds(i, q)
+            parts.append((e, p, np.zeros(e.shape[1], np.int32)))
+        embeds, positions, segments, _ = _left_pad(parts, False)
+        return embeds, positions, segments, [e.shape[1] for e, _, _ in parts]
+
+    def answer_all(self, questions: Sequence[str],
+                   gen: Optional[GenerationConfig] = None) -> List[str]:
+        """Every stream's question through one batched prefill and decode
+        loop."""
+        embeds, positions, segments, starts = self.batch_inputs(questions)
+        gen = gen or default_gen(self.tokenizer)
+        outs = self.generator.generate_batch(embeds, positions, segments,
+                                             gen, starts)
+        return [self._text(o, gen) for o in outs]
+
+
+class ThreadedIngestor:
+    """Paced ingestion on a background thread (JAX streaming.py:972-1056):
+    the reference's producer/consumer (cli_video_stream.py's frame
+    simulator and memory manager) as one pacing thread, while answers run
+    on the caller's thread against the latest published snapshot (one
+    reference swap, as the sessions publish).
+
+    After each clip the pacing thread records a CUDA event on its current
+    stream; a watcher thread waits on the events in dispatch order and
+    counts a missed deadline when a clip's work completes after its wall
+    deadline (start + frames / fps). It never synchronizes the device, which
+    would wait for the answers' work too. Both threads use the default
+    stream, so an event also follows the answer work queued before it. On
+    the CPU an ingest has completed when it returns."""
+
+    def __init__(self, session, frame_iter, fps: float, clip_size: int):
+        import queue
+        import threading
+        self.session = session
+        self.frames = list(frame_iter)
+        self.fps = fps
+        self.clip_size = clip_size
+        self.frames_ingested = 0
+        self.missed_deadlines = 0
+        self.error: Optional[BaseException] = None
+        self._stop = threading.Event()
+        self._done = threading.Event()
+        # (completion event or None, wall deadline) per clip, then None
+        self._pending = queue.Queue()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._watcher = threading.Thread(target=self._watch, daemon=True)
+
+    def start(self) -> "ThreadedIngestor":
+        self._thread.start()
+        self._watcher.start()
+        return self
+
+    def _event(self):
+        dev = self.session.device
+        if dev.type != "cuda":
+            return None
+        ev = torch.cuda.Event()
+        ev.record(torch.cuda.current_stream(dev))
+        return ev
+
+    def _run(self):
+        start = time.perf_counter()
+        last = None
+        i = 0
+        try:
+            while i < len(self.frames) and not self._stop.is_set():
+                clip = self.frames[i:i + self.clip_size]
+                deadline = (start + (i + len(clip)) / self.fps
+                            if self.fps > 0 else 0.0)
+                self.session.ingest_frames(clip)
+                i += len(clip)
+                self.frames_ingested = i
+                last = self._event()
+                self._pending.put((last, deadline))
+                now = time.perf_counter()
+                if self.fps > 0 and deadline > now:
+                    time.sleep(deadline - now)
+            if last is not None:
+                last.synchronize()
+        except BaseException as e:          # noqa: BLE001 - kept for wait()
+            self.error = e
+            raise
+        finally:
+            self._pending.put(None)
+            self._done.set()
+
+    def _watch(self):
+        """Wait on each clip's event in dispatch order (clip i's work is
+        queued after clip i - 1's, so its completion implies theirs) and
+        count a miss when it completed after the clip's deadline."""
+        while True:
+            item = self._pending.get()
+            if item is None or self._stop.is_set():
+                return
+            ev, deadline = item
+            if ev is not None:
+                ev.synchronize()
+            if self.fps > 0 and time.perf_counter() > deadline + 1e-3:
+                self.missed_deadlines += 1
+
+    def wait(self, timeout=None) -> bool:
+        """Whether ingestion has ended (all frames, a stop or an error),
+        waiting up to `timeout` seconds; joins both threads once it has."""
+        done = self._done.wait(timeout)
+        if done:
+            self._thread.join()
+            self._watcher.join()
+        return done
+
+    def stop(self):
+        """Stop after the clip in flight and join both threads."""
+        self._stop.set()
+        self._pending.put(None)
+        self._thread.join()
+        self._watcher.join(timeout=10)

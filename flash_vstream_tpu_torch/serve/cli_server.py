@@ -14,7 +14,11 @@ matvec runs the CUDA kernel K6 (kernels/int4_matmul.py). `--load-8bit`
 serves an int8 decoder and `--int8-vit` int8 ViT blocks; `--w8a8-prefill`
 runs their prefill-scale matmuls as int8 x int8 products. `--kv-int8`
 keeps the answers' KV cache in int8 with per-position scales.
-`--stream-output` prints each answer as it decodes; `--preempt N` decodes
+`--threaded-ingest` paces the ingest on a background thread
+(`ThreadedIngestor`) while the questions are answered on the caller's, and
+counts the clips whose work completed after their deadline
+(`missed_clip_deadlines`). `--stream-output` prints each answer as it
+decodes; `--preempt N` decodes
 answers in chunks of N steps (and `--prefill-chunk M` prefills in chunks of
 M tokens) with a host sync between chunks; `--resume-session` loads a
 stream's memory before streaming and `--save-session` writes it after.
@@ -52,7 +56,6 @@ from ..utils.logging import build_logger
 
 # flag (argparse attribute), its spelling, the ROADMAP item that ports it
 _NOT_PORTED = (
-    ("threaded_ingest", "--threaded-ingest", "A15"),
     ("ingest_devices", "--ingest-devices", "A16"),
     ("decode_devices", "--decode-devices", "A16"),
 )
@@ -195,35 +198,61 @@ def run_server(args, session=None) -> dict:
     q_idx = 0
     answers = []
     start = time.perf_counter()
-    i = 0
-    while i < len(src):
-        clip = [src[j] for j in range(i, min(i + args.clip_size, len(src)))]
-        target = start + i * frame_interval
-        now = time.perf_counter()
-        if args.play_speed > 0 and now < target:
-            time.sleep(target - now)
-        try:
-            with Timer(metrics, "memory_latency"):
-                session.ingest_frames(clip)
-                if args.sync_every_clip:
-                    session.block_until_ingested()
-        except Exception as e:
-            # keep streaming past a bad clip, as the reference does
-            # (cli_video_stream.py:201-203)
-            logger.error(f"ingest failed at frame {i}: {e}")
-        i += len(clip)
 
-        elapsed = time.perf_counter() - start
-        if questions and elapsed >= next_q_time:
-            q = questions[q_idx % len(questions)]
-            q_idx += 1
-            next_q_time += args.question_interval
-            with Timer(metrics, "conv_latency"):
-                ans = do_answer(q)
-            logger.info(f"[t={elapsed:.1f}s frames={i}] Q: {q}")
-            logger.info(f"A: {ans}")
-            answers.append({"t": elapsed, "frames": i, "question": q,
-                            "answer": ans})
+    def ask(elapsed: float, frames: int) -> None:
+        nonlocal q_idx, next_q_time
+        q = questions[q_idx % len(questions)]
+        q_idx += 1
+        next_q_time += args.question_interval
+        with Timer(metrics, "conv_latency"):
+            ans = do_answer(q)
+        logger.info(f"[t={elapsed:.1f}s frames={frames}] Q: {q}")
+        logger.info(f"A: {ans}")
+        answers.append({"t": elapsed, "frames": frames, "question": q,
+                        "answer": ans})
+
+    if args.threaded_ingest:
+        # a pacing thread ingests while this thread answers: a long answer
+        # never holds the stream back
+        from ..runtime.streaming import ThreadedIngestor
+        ing = ThreadedIngestor(
+            session, list(src),
+            fps=args.fps * args.play_speed if args.play_speed > 0 else 0.0,
+            clip_size=args.clip_size).start()
+        while not ing.wait(timeout=0.05):
+            elapsed = time.perf_counter() - start
+            if session.n_frames == 0:
+                continue                  # nothing published yet
+            if questions and elapsed >= next_q_time:
+                ask(elapsed, ing.frames_ingested)
+        ing.stop()
+        if ing.error is not None:
+            logger.error(f"ingest failed at frame {ing.frames_ingested}: "
+                         f"{ing.error}")
+        i = ing.frames_ingested
+        metrics.update("missed_clip_deadlines", ing.missed_deadlines)
+    else:
+        i = 0
+        while i < len(src):
+            clip = [src[j] for j in range(i, min(i + args.clip_size,
+                                                 len(src)))]
+            target = start + i * frame_interval
+            now = time.perf_counter()
+            if args.play_speed > 0 and now < target:
+                time.sleep(target - now)
+            try:
+                with Timer(metrics, "memory_latency"):
+                    session.ingest_frames(clip)
+                    if args.sync_every_clip:
+                        session.block_until_ingested()
+            except Exception as e:
+                # keep streaming past a bad clip, as the reference does
+                # (cli_video_stream.py:201-203)
+                logger.error(f"ingest failed at frame {i}: {e}")
+            i += len(clip)
+            elapsed = time.perf_counter() - start
+            if questions and elapsed >= next_q_time:
+                ask(elapsed, i)
 
     session.block_until_ingested()
     if questions:                     # a final question after the stream
@@ -310,7 +339,9 @@ def make_parser():
     p.add_argument("--decode-devices", type=int, default=0,
                    help="not ported yet (ROADMAP A16)")
     p.add_argument("--threaded-ingest", action="store_true",
-                   help="not ported yet (ROADMAP A15)")
+                   help="ingest on a pacing thread while answering on this "
+                        "one; the summary's metrics count "
+                        "missed_clip_deadlines")
     p.add_argument("--dry-run", action="store_true")
     return p
 

@@ -179,12 +179,14 @@ def default_kmeans_draws(step: int, micro: int, sample: int, n: int
 def sample_loss(cfg, base: dict, lora_params: dict, patches: torch.Tensor,
                 grid, ids: torch.Tensor, labels: torch.Tensor,
                 seg: torch.Tensor, vis_start: int, n_vis: int,
-                draws: Optional[torch.Tensor], *, alpha: float, rank: int,
+                draws, *, alpha: float, rank: int,
                 vit_chunk: int = 8, kind: str = "video") -> torch.Tensor:
     """One sample's LoRA loss (JAX `one_sample`): the f32 adapters cast to
     bf16 and viewed over the detached base (bf16, f32 or quantized), the
-    video encoded (ViT and Flash memory without a graph, `draws` seeding
-    k-means; kind="image": `encode_image` of the (1, h, w) grid, no draws)
+    video encoded (ViT and Flash memory without a graph; `draws`, a function
+    n -> [n] uniforms, seeds the memory's k-means
+    or drop coins; kind="image": `encode_image` of the (1, h, w) grid, no
+    draws)
     and spliced at `vis_start`, the decoder checkpointed per layer (per
     group of 4 from max_len 8192 on), then cross entropy, chunked over the
     sequence when max_len * vocab > 2**26 (a quantized head also over the
@@ -204,7 +206,7 @@ def sample_loss(cfg, base: dict, lora_params: dict, patches: torch.Tensor,
         if kind == "image":
             vis = encode_image(eff, cfg, patches, (grid[1], grid[2]))
         else:
-            vis = encode_video(eff, cfg, patches, grid, init_scores=draws,
+            vis = encode_video(eff, cfg, patches, grid, draws=draws,
                                vit_chunk=vit_chunk)
     positions, _ = build_qwen_positions_dynamic(max_len, vis_start, n_vis,
                                                 vis.visual_positions)
@@ -391,7 +393,8 @@ def run_training(args, *, cfg=None, params: Optional[dict] = None,
                 def dev(name, dtype=None):
                     return torch.from_numpy(batch[name][b]).to(device, dtype)
                 draws = (None if kind == "image" else
-                         kmeans_draws(step, micro, b, grid[0]).to(device))
+                         lambda n, b=b: kmeans_draws(step, micro, b, n)
+                         .to(device))
                 losses.append(one_sample(
                     lora_params, base, dev("patches"), dev("ids"),
                     dev("labels"), dev("seg"), int(batch["vis_start"][b]),

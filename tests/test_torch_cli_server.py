@@ -242,7 +242,6 @@ def test_frame_directory_source(tmp_path):
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--threaded-ingest"], "A15"),
     (["--ingest-devices", "1"], "A16"),
     (["--decode-devices", "1"], "A16"),
 ])
@@ -525,3 +524,22 @@ def test_llava_model_path_serves_the_checkpoint(monkeypatch, tmp_path):
     assert served.params["llm"]["embed"].dtype == torch.bfloat16
     assert torch.equal(served.params["vit"]["pos_embed"],
                        params["vit"]["pos_embed"].to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("family", ["qwen", "llava"])
+def test_threaded_ingest_matches_jax_server(monkeypatch, family):
+    """--threaded-ingest: a pacing thread ingests every frame while the
+    caller's thread waits to answer; the answer after the stream is JAX's
+    (ids and text), and the summary counts missed_clip_deadlines, as
+    JAX's does."""
+    flags = ["--threaded-ingest", "--question_interval", "1000"]
+    if family == "qwen":
+        want, got, jids, tids, _ = _run_both(monkeypatch, flags)
+    else:
+        want, got, jids, tids = _run_both_llava(monkeypatch, LLAVA + flags)
+    assert got["frames_ingested"] == want["frames_ingested"] == 8
+    assert len(got["answers"]) == len(want["answers"]) == 1
+    assert tids == jids and len(tids) == 1
+    assert got["answers"][0]["answer"] == want["answers"][0]["answer"]
+    assert got["metrics"]["missed_clip_deadlines"]["val"] == 0
+    assert "missed_clip_deadlines" in want["metrics"]

@@ -1,11 +1,12 @@
 """The Flash memory of the port against JAX in f32 on the CPU: distances,
 k-means, DAM retrieval, AM-RoPE positions, and `flash_stream_update` over
 nine clips (the CSM saturates after the third and the ring bank wraps),
-comparing state and snapshot after every clip. Tolerances: 1e-5 for single
-ops, 1e-4 for the streaming state (ten k-means iterations per clip).
+comparing state and snapshot after every clip, and the streaming branches
+of the sample, merge, drop and attention methods. Tolerances: 1e-5 for
+single ops, 1e-4 for the streaming state (ten k-means iterations per clip).
 
-The k-means init is the one place the two cannot share an RNG: the port
-takes the uniform draws themselves, so the tests hand it JAX's draws."""
+The draws are the one place the two cannot share an RNG: the port takes
+a function n -> [n] uniforms, so the tests hand it JAX's draws."""
 import dataclasses
 
 import jax
@@ -13,6 +14,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from flash_ties import dam_tie
 
 from flash_vstream_tpu.core.config import FlashMemoryConfig
 from flash_vstream_tpu.models import flash_memory as jfm
@@ -145,7 +147,6 @@ def test_stream_update_every_clip(spatial):
                                                 spatial_length=4),
                               spatial_method=spatial)
     p_full, p_small, D, bank, T_new = 16, 4, 32, 16, 2
-    K = cfg.csm_grid_len
     jstate = jfm.init_flash_state(cfg, p_full, p_small, D, bank_size=bank,
                                   bank_dtype=jnp.float32)
     tstate = tfm.flash_state_from_numpy(jax.tree.map(np.asarray, jstate))
@@ -160,7 +161,7 @@ def test_stream_update_every_clip(spatial):
             cfg, jstate, jnp.asarray(x), jnp.asarray(sx), jnp.int32(n_new),
             key)
         tstate, tout = tfm.flash_stream_update(
-            cfg, tstate, _t(x), _t(sx), n_new, _uniform(key, K + T_new))
+            cfg, tstate, _t(x), _t(sx), n_new, lambda n: _uniform(key, n))
         for name in tfm.FlashState._fields:
             got, want = getattr(tstate, name), getattr(jstate, name)
             got = got if name == "n_frames" else got.numpy()
@@ -179,20 +180,57 @@ def test_snapshot_tensors_are_fresh():
     cfg = FlashMemoryConfig(temporal_length=8, spatial_length=4)
     state = tfm.init_flash_state(cfg, 16, 4, 8, bank_size=8)
     x, sx = torch.ones(2, 16, 8), torch.ones(2, 4, 8)
-    state, out = tfm.flash_stream_update(cfg, state, x, sx, 2,
-                                         torch.rand(cfg.csm_grid_len + 2))
+    state, out = tfm.flash_stream_update(cfg, state, x, sx, 2, torch.rand)
     before = [t.clone() for t in out]
     for _ in range(5):
         state, _ = tfm.flash_stream_update(cfg, state, x * 3, sx * 3, 2,
-                                           torch.rand(cfg.csm_grid_len + 2))
+                                           torch.rand)
     for a, b in zip(out, before):
         assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("method", ["sample", "merge", "drop", "attention"])
-def test_unported_temporal_methods_raise(method):
-    cfg = FlashMemoryConfig(temporal_method=method)
-    state = tfm.init_flash_state(cfg, 4, 1, 2, bank_size=4)
-    with pytest.raises(NotImplementedError, match="A14"):
-        tfm.flash_stream_update(cfg, state, torch.zeros(1, 4, 2),
-                                torch.zeros(1, 1, 2), 1, torch.rand(61))
+def test_temporal_methods_stream_like_jax(method):
+    """The streaming branches of the methods outside the k-means family
+    against JAX over a bank that wraps, with partial clips: state and
+    snapshot after every clip, the drop coins and k-means draws JAX's."""
+    cfg = FlashMemoryConfig(temporal_length=6, spatial_length=4,
+                            temporal_method=method)
+    p_full, p_small, D, bank, T_new = 8, 2, 8, 6, 2
+    jstate = jfm.init_flash_state(cfg, p_full, p_small, D, bank_size=bank,
+                                  bank_dtype=jnp.float32)
+    tstate = tfm.flash_state_from_numpy(jax.tree.map(np.asarray, jstate))
+    jupdate = jax.jit(jfm.flash_stream_update, static_argnums=(0,))
+    rng = np.random.default_rng(3)
+    for clip, n_new in enumerate((2, 1, 2, 2, 0, 1, 2, 2)):
+        x = rng.normal(size=(T_new, p_full, D)).astype(np.float32)
+        sx = rng.normal(size=(T_new, p_small, D)).astype(np.float32)
+        key = jax.random.PRNGKey(clip)
+        jstate, jout = jupdate(cfg, jstate, jnp.asarray(x), jnp.asarray(sx),
+                               jnp.int32(n_new), key)
+        tstate, tout = tfm.flash_stream_update(
+            cfg, tstate, _t(x), _t(sx), n_new, lambda n: _uniform(key, n))
+        for name in tfm.FlashState._fields:
+            got, want = getattr(tstate, name), getattr(jstate, name)
+            got = got if name == "n_frames" else got.numpy()
+            np.testing.assert_allclose(got, np.asarray(want), atol=STATE_ATOL,
+                                       err_msg=f"clip {clip} state.{name}")
+        _check_out(tout, jout, tstate, f"clip {clip}")
+    assert tstate.n_frames == 12 > bank         # the ring wrapped
+
+
+def _check_out(tout, jout, tstate, msg):
+    """A snapshot against JAX's: everything within STATE_ATOL, DAM frames
+    equal but at an exact retrieval tie."""
+    for name in ("tem_x", "tem_weights", "tem_positions"):
+        np.testing.assert_allclose(
+            getattr(tout, name).numpy(), np.asarray(getattr(jout, name)),
+            atol=STATE_ATOL, err_msg=f"{msg} out.{name}")
+    want_pos, want_x = np.asarray(jout.spa_positions), np.asarray(jout.spa_x)
+    for j, (a, b) in enumerate(zip(tout.spa_positions.tolist(), want_pos)):
+        if a == b:
+            np.testing.assert_allclose(tout.spa_x[j].numpy(), want_x[j],
+                                       atol=STATE_ATOL, err_msg=msg)
+        else:
+            assert dam_tie(tstate, len(want_pos), j, a, int(b), 1e-5), (
+                msg, j, a, b)

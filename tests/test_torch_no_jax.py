@@ -17,7 +17,8 @@ and the LLaVA family with PIL blocked (every new module imported, a tiny
 LLaVA checkpoint written and loaded, a video and an image through
 LLaVAPipeline, a stream answered speculatively, the --model-family llava
 --load-4bit --kv-int8 dry-run server; frames resized by the numpy
-resampling) on the CPU in a fresh interpreter leave
+resampling), both multi-stream engines, the threaded ingest and the gmm
+consolidation on the CPU in a fresh interpreter leave
 `jax` and `flash_vstream_tpu` out of sys.modules (the tests' own conftest
 imports jax, hence the subprocess); no source file of the port imports
 either; and the port's copy of the config dataclasses equals the JAX
@@ -231,6 +232,30 @@ summary = main(["--model-family", "llava", "--dry-run", "--device", "cpu",
                 "--play_speed", "0", "--question", "Q?",
                 "--question_interval", "1000", "--max-new-tokens", "2"])
 assert summary["frames_ingested"] == 4 and len(summary["answers"]) == 1
+from flash_vstream_tpu_torch.runtime.streaming import (
+    MultiStreamEngine, QwenMultiStreamEngine, ThreadedIngestor)
+qframe = lambda: rng.integers(0, 256, (56, 56, 3), dtype=np.uint8)
+qeng = QwenMultiStreamEngine(model, make_byte_qwen_tokenizer(), 2,
+                             frame_hw=(56, 56), clip_size=2, bank_size=4,
+                             max_len=512)
+for _ in range(3):
+    qeng.ingest([[qframe(), qframe()], [qframe()]])
+assert qeng.n_frames == (3, 3)
+assert len(qeng.answer_all(["a?", "b?"], GenerationConfig(max_new_tokens=2))) == 2
+leng = MultiStreamEngine(lp2, lcfg, ByteTokenizer(), 2, clip_size=2,
+                         max_len=1024)
+leng.ingest([lframes[:2], lframes[2:3]])
+assert leng.n_frames == (2, 1)
+assert isinstance(leng.answer(1, "what?", GenerationConfig(max_new_tokens=2)), str)
+ing = ThreadedIngestor(sess.clone_fresh(), [qframe() for _ in range(4)],
+                       fps=0, clip_size=2).start()
+assert ing.wait(timeout=60) and ing.frames_ingested == 4
+import dataclasses
+from flash_vstream_tpu_torch.models.flash_memory import flash_consolidate
+out = flash_consolidate(
+    dataclasses.replace(cfg.flash_memory, temporal_method="gmm"),
+    torch.randn(6, 16, 32), torch.randn(6, 4, 32))
+assert out.tem_x.shape == (cfg.flash_memory.csm_grid_len, 4, 32)
 del sys.modules["PIL"]
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flash_vstream_tpu"))

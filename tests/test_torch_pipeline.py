@@ -99,9 +99,10 @@ def _scenes(seed, sizes, side=56):
     return frames
 
 
-def _draws(seed, t):
-    return torch.from_numpy(np.array(jax.random.uniform(
-        jax.random.PRNGKey(seed), (t,))))
+def _draws(seed):
+    """JAX's k-means draws for PRNGKey(seed) as a draw function."""
+    return lambda n: torch.from_numpy(np.array(jax.random.uniform(
+        jax.random.PRNGKey(seed), (n,))))
 
 
 # ---------------------------------------------------------------------------
@@ -289,10 +290,8 @@ def test_video_inputs_match_jax(pipes):
     embeddings equal, visual embeddings to bf16 rounding."""
     jp, tp = pipes
     frames = _scenes(0, (3, 2, 3, 2))
-    t = len(frames) // 2
     want, wpos, wstart, start, n = _jax_video_inputs(jp, frames, Q, 3)
-    embeds, pos, dstart = tp.video_inputs(frames, Q,
-                                          init_scores=_draws(3, t))
+    embeds, pos, dstart = tp.video_inputs(frames, Q, draws=_draws(3))
     np.testing.assert_array_equal(pos.numpy(), wpos)
     assert dstart == wstart
     got = embeds.numpy()
@@ -313,10 +312,10 @@ def test_answer_same_ids_as_jax(f32_patches, seed, sizes):
     gen_t = GenerationConfig(max_new_tokens=12)
     jp.tokenizer.ids.clear()
     wtext = jp.answer(frames, Q, gen=gen_j, seed=seed)
-    draws = _draws(seed, len(frames) // 2)
-    ids = tp.answer_tokens(frames, Q, gen_t, init_scores=draws)
+    draws = _draws(seed)
+    ids = tp.answer_tokens(frames, Q, gen_t, draws=draws)
     assert ids == jp.tokenizer.ids[-1] and len(ids) == 12
-    assert tp.answer(frames, Q, gen_t, init_scores=draws) == wtext
+    assert tp.answer(frames, Q, gen_t, draws=draws) == wtext
     own = tp.answer_tokens(frames, Q, gen_t, seed=seed)
     assert own == tp.answer_tokens(frames, Q, gen_t, seed=seed)
 

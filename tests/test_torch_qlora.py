@@ -233,7 +233,8 @@ def test_qlora_trainer_steps_match_jax(tiny, bits):
     patches, grid, ids, labels, (start, n_vis), seg = _scene_sample(
         cfg, max_len)
     key = jax.random.PRNGKey(7)
-    draws = torch.from_numpy(np.array(jax.random.uniform(key, (grid[0],))))
+    draws = lambda n: torch.from_numpy(np.array(jax.random.uniform(
+        key, (n,))))
     jl = _adapters(jbase, 5)
 
     def jviews(lora_params, base):

@@ -20,10 +20,10 @@ card test runs alone:
 import numpy as np
 import pytest
 import torch
+from flash_ties import dam_tie
 
 from flash_vstream_tpu_torch.core.config import tiny_qwen_config
 from flash_vstream_tpu_torch.models.vstream_qwen import VStreamQwen
-from flash_vstream_tpu_torch.ops.retrieval import topk_by_weight
 from flash_vstream_tpu_torch.preprocess.qwen_processor import (
     make_byte_qwen_tokenizer)
 from flash_vstream_tpu_torch.runtime.generation import GenerationConfig
@@ -34,6 +34,7 @@ torch.set_num_threads(1)
 # features reach |x| ~ 5, where one bf16 ulp is 0.031; the sessions differ
 # by at most 0.039 (one ulp plus the f32 noise under it)
 FEATURE_ATOL = 5e-2
+BF16_TIE = 1e-2          # an exact DAM tie, up to the bf16 ViT's rounding
 N_INGESTS = 7
 KW = dict(frame_hw=(112, 112), clip_size=2, bank_size=16, max_len=512)
 # clip_size 4, a bank of 6 frame pairs that wraps, and partial clips
@@ -122,19 +123,6 @@ def _snap_torch(jsnap, like):
                  for x, y in zip(jsnap, like))
 
 
-def _dam_tie(state, t_dam, j, p_a, p_b):
-    """Whether DAM slot j's query cluster is as near to bank frame p_a as
-    to p_b (an exact k-means tie, up to bf16 rounding)."""
-    w = torch.where(state.tem_valid, state.tem_weights, float("-inf"))
-    q = state.tem_x[topk_by_weight(w, t_dam)[j]].float().flatten()
-
-    def dist(p):
-        slot = int((state.bank_pos == p).nonzero()[0, 0])
-        return ((state.bank_small[slot].float().flatten() - q) ** 2).sum().item()
-
-    return abs(dist(p_a) - dist(p_b)) <= 1e-2 * max(dist(p_a), dist(p_b))
-
-
 def _check_snapshot(want, got, msg, state=None):
     """Positions equal (DAM slots may differ at an exact tie in the port's
     `state` of that ingest: returns how many did) and features within
@@ -149,8 +137,9 @@ def _check_snapshot(want, got, msg, state=None):
                 got[2][j], np.asarray(spa_x[j], np.float32),
                 atol=FEATURE_ATOL, err_msg=msg)
         else:
-            assert state is not None and _dam_tie(
-                state, len(spa_pos), j, int(a), int(b)), (msg, j, a, b)
+            assert state is not None and dam_tie(
+                state, len(spa_pos), j, int(a), int(b), BF16_TIE), (
+                    msg, j, a, b)
             ties += 1
     return ties
 

@@ -136,7 +136,8 @@ def test_flash_consolidate(tiny, t, spatial):
                                  key=key)
     got = tfm.flash_consolidate(
         cfg, torch.from_numpy(x), torch.from_numpy(small),
-        init_scores=torch.from_numpy(np.array(jax.random.uniform(key, (t,)))))
+        draws=lambda n: torch.from_numpy(np.array(jax.random.uniform(
+            key, (n,)))))
     for name in ("spa_x", "tem_x", "tem_weights"):
         _close(getattr(got, name), getattr(want, name), 1e-4, name)
     for name in ("spa_positions", "tem_positions"):
@@ -259,7 +260,8 @@ def test_one_sample_loss_and_grads(tiny):
     for ab in tl.values():
         for x in ab.values():
             x.requires_grad_()
-    draws = torch.from_numpy(np.array(jax.random.uniform(key, (grid[0],))))
+    draws = lambda n: torch.from_numpy(np.array(jax.random.uniform(
+        key, (n,))))
     loss = tft.sample_loss(cfg, tparams, tl, torch.from_numpy(patches), grid,
                            torch.from_numpy(ids), torch.from_numpy(labels),
                            torch.from_numpy(seg), start, n_vis, draws,
@@ -448,19 +450,13 @@ def test_entry_points_default_to_the_card(tmp_path, tiny):
             ["--dry-run", "--output-dir", str(tmp_path)]))
 
 
-def test_unported_paths_raise(tmp_path, tiny):
-    import dataclasses
-    cfg, _, _ = tiny
+def test_unported_paths_raise(tmp_path):
     parse = lambda *a: tft.make_parser().parse_args(
         ["--device", "cpu", "--output-dir", str(tmp_path), *a])
     with pytest.raises(ValueError, match="--model-path"):
         tft.run_training(parse())              # neither a model nor --dry-run
     with pytest.raises(NotImplementedError, match="A16"):
         tft.run_training(parse("--dry-run", "--pp", "2"))
-    x = torch.zeros(6, 4, 8)
-    fm = dataclasses.replace(cfg.flash_memory, temporal_method="sample")
-    with pytest.raises(NotImplementedError, match="A14"):
-        tfm.flash_consolidate(fm, x, x)
     with pytest.raises(NotImplementedError, match="A16"):
         ttrainer.Trainer(lambda p, b, k: 0, {"w": torch.zeros(2)},
                          ttrainer.TrainConfig(zero_stage=3))

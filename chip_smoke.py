@@ -4,7 +4,9 @@ NVIDIA Hopper card.
 
     python3 chip_smoke.py [--only PHASE,...] [--profile DIR]
 
-Phases, one or more lines each; any failure raises and exits non-zero:
+Phases, one or more lines each; any failure raises and exits non-zero
+(serve_http, offline, train_slice, production and finetune_ckpt run the
+Qwen2-VL-7B decoder at QWEN_LAYERS of its 28 layers, every width full):
 
 1. environment: refuses to run without CUDA; prints the card's name and
    power limit (nvidia-smi) and the torch / CUDA versions;
@@ -122,7 +124,24 @@ Phases, one or more lines each; any failure raises and exits non-zero:
    subtract HADD2.BF16_V2, v3 and v7 with any LDGSTS), then bit-identical
    run to run and one device kernel a call; the probe
    (scripts/probe_int4_variants.py) at its defaults through main and main2,
-   every variant's launches exact.
+   every variant's launches exact;
+15. llava_train (after multistream, on the llava phase's weights, trained
+   in place): the LLaVA family's training at the full width of
+   VStreamLLaVAConfig(): K3/K4/K5 against their plain versions at the
+   finetune stage's attention shape [16, 32, 937, 128] (causal, the
+   collator's -1 padding) and K1 at the raw-frame step's CLIP shape, timed
+   beside SDPA; the card against the CPU at reduced depth (loss and every
+   trained leaf's gradient, then two steps' bf16 update sliced on the
+   card against the CPU's whole update on the same gradients, each with
+   a planted fault refused); then the path:
+   stage 1 (--stage pretrain, micro-batch 32) and stage 2 (--stage
+   finetune, micro-batch 16, every Vicuna-7B leaf trained on the card)
+   through run_training over synthetic features at the real shape (S
+   937): step s, tokens/s, peak beside the reckoned state, launches a
+   step, which parts moved; one step each of raw `.npy` frames, images and
+   text; run_training's entry point at decoder depth 4 with a resume equal
+   to an uninterrupted run; extract_features and the eval worker, its ids
+   equal to LLaVAPipeline's.
 
 `--profile DIR` also traces one training-slice step with torch.profiler and
 writes its kernel table there. The line before the last is one JSON object
@@ -145,6 +164,13 @@ import time
 
 SEED = 0
 N_CLIPS = 20
+# decoder depth of the Qwen2-VL-7B paths serve_http, offline, train_slice,
+# production and finetune_ckpt (views of the slice's first layers), of the
+# config's 28, every width full: the script's time limit (the whole script
+# read 1,201-1,222 s at 28 on a slower host). slice, serve_kv8, serve4 and
+# multistream keep 28: at 12, serve_kv8's speculative int8 answer parted
+# from greedy at a near tie of two alternating tokens
+QWEN_LAYERS = 12
 PEAK_BF16 = 989e12       # H100 SXM dense bf16 FLOP/s
 PEAK_HBM = 3.35e12       # H100 SXM HBM bytes/s
 QUESTIONS = ("What is happening in the video?",
@@ -1182,6 +1208,23 @@ def _frames(rng, n, hw):
     return list(rng.integers(0, 256, size=(n, *hw, 3), dtype=np.uint8))
 
 
+def _qwen_config():
+    """VStreamQwenConfig() with its decoder cut to QWEN_LAYERS layers."""
+    import dataclasses
+    from flash_vstream_tpu_torch.core.config import VStreamQwenConfig
+    cfg = VStreamQwenConfig()
+    return cfg.replace(llm=dataclasses.replace(cfg.llm,
+                                               num_layers=QWEN_LAYERS))
+
+
+def _qwen_cut(params):
+    """The slice's weights with the decoder's first QWEN_LAYERS layers
+    (views)."""
+    from flash_vstream_tpu_torch.models.layers import layer_slice
+    return dict(params, llm=dict(params["llm"], layers=layer_slice(
+        params["llm"]["layers"], slice(0, QWEN_LAYERS))))
+
+
 def _small_cfg():
     """The 7B config cut to two layers of each tower, narrow, keeping the
     head dims (ViT 80, decoder 128), M-RoPE and GQA; Flash memory of 4 CSM
@@ -1446,7 +1489,6 @@ def run_serve_http(dev, params, work):
     import threading
     import numpy as np
     import torch
-    from flash_vstream_tpu_torch.core.config import VStreamQwenConfig
     from flash_vstream_tpu_torch.kernels.flash_attention import (
         flash_attention_cuda)
     from flash_vstream_tpu_torch.kernels.gather_rows import gather_rows_cuda
@@ -1458,7 +1500,7 @@ def run_serve_http(dev, params, work):
     from flash_vstream_tpu_torch.runtime.streaming import QwenStreamSession
     from flash_vstream_tpu_torch.serve.http_server import serve_http
 
-    cfg = VStreamQwenConfig()
+    cfg = _qwen_config()
     model = VStreamQwen(cfg, params)
     tok = make_byte_qwen_tokenizer()
 
@@ -1742,14 +1784,13 @@ def run_offline(dev, params, work, card, root, keep_ckpt=False):
     5. `eval_any_dataset --dry-run --num-chunks 2` as a subprocess with no
     --device: two card workers, both exit 0, every id in their answers.
     Returns K1's launches in 1-4, checked against the count reckoned from
-    the calls (2 x 32 ViT + 28 prefill a video answer, 32 + 28 an image
-    answer, 28 a prefill alone; a chunked prefill launches K1 on its first
-    chunk only). With `keep_ckpt` the checkpoint directory stays for
+    the calls (2 x 32 ViT + 1 a decoder layer a video answer's prefill, 32
+    + 1 a layer an image answer, 1 a layer a prefill alone; a chunked
+    prefill launches K1 on its first chunk only). With `keep_ckpt` the checkpoint directory stays for
     finetune_ckpt, which deletes it."""
     import dataclasses
     import numpy as np
     import torch
-    from flash_vstream_tpu_torch.core.config import VStreamQwenConfig
     from flash_vstream_tpu_torch.eval import inference_mcq_vqa as worker
     from flash_vstream_tpu_torch.eval.scoring import calc_mcq_result
     from flash_vstream_tpu_torch.kernels.flash_attention import (
@@ -1764,7 +1805,7 @@ def run_offline(dev, params, work, card, root, keep_ckpt=False):
     from flash_vstream_tpu_torch.weights.convert import (
         load_qwen_checkpoint, qwen_config_from_hf)
 
-    cfg = VStreamQwenConfig()
+    cfg = _qwen_config()
     tok = make_byte_qwen_tokenizer()
     pipe = QwenPipeline(params, cfg, tok, max_len=16384,
                         max_pixels=4 * 224 * 224)
@@ -1906,7 +1947,8 @@ def run_offline(dev, params, work, card, root, keep_ckpt=False):
               f"(largest {max(sizes) / 1e9:.2f} GB): write_s={write_s:.2f} "
               f"({total / 1e9 / write_s:.2f} GB/s) load_s={load_s:.2f} "
               f"({total / 1e9 / load_s:.2f} GB/s, read back from the page "
-              f"cache); config.json = VStreamQwenConfig(); {n_leaves} leaves "
+              f"cache); config.json = the config ({cfg.llm.num_layers} "
+              f"decoder layers); {n_leaves} leaves "
               f"bit-equal", flush=True)
         if not keep_ckpt:
             shutil.rmtree(ckpt, ignore_errors=True)
@@ -3031,12 +3073,11 @@ def run_train_slice(dev, params, work, cfg=None):
     and K5 launched with K3 = 2 x K4 (each layer's forward runs again under
     checkpointing)."""
     import torch
-    from flash_vstream_tpu_torch.core.config import VStreamQwenConfig
     from flash_vstream_tpu_torch.train.finetune_flash import run_training
     from flash_vstream_tpu_torch.train.lora import (QWEN_TARGETS,
                                                     init_lora_params)
 
-    cfg = cfg or VStreamQwenConfig()
+    cfg = cfg or _qwen_config()
     data = _synthetic_videos(os.path.join(work, "data224"), 6, 224)
     lora = init_lora_params(torch.Generator(device=dev).manual_seed(SEED + 1),
                             params, rank=64, targets=QWEN_TARGETS)
@@ -3113,7 +3154,6 @@ def run_production_step(dev, params, work, cfg=None):
     backward's attention shapes and segment ids are read from the step
     (its first K4 + K5 call) and K4, K5 and SDPA's backward timed there."""
     import torch
-    from flash_vstream_tpu_torch.core.config import VStreamQwenConfig
     from flash_vstream_tpu_torch.kernels import flash_attention as fa
     from flash_vstream_tpu_torch.train.finetune_flash import run_training
 
@@ -3135,7 +3175,7 @@ def run_production_step(dev, params, work, cfg=None):
     try:
         res = run_training(_train_args(dev, os.path.join(work, "run448"),
                                        data, 14000, 1, 1),
-                           cfg=cfg or VStreamQwenConfig(), params=params,
+                           cfg=cfg or _qwen_config(), params=params,
                            on_step=lambda s, t, r: recs.append(r))
     finally:
         fa.flash_attention_bwd_cuda = bwd
@@ -3209,7 +3249,8 @@ def run_serve4(dev, params, work):
     `run_server(args, session=...)`
     over 168 synthetic 224 px frames paced at 8 fps (21 clips of 8, memory
     saturated by the end), questions every 7 s and one after the stream, 32
-    new tokens each; K6 must launch 197 times per decode step and once per
+    new tokens each; K6 must launch 7 times a decoder layer and once (the
+    head) per decode step and once per
     answer's prefill, K1 twice per ViT layer per clip and once per decoder
     layer per answer, K2 once per clip, and the server must log no error
     (it logs a failed clip and streams on, as the reference does). Then, on
@@ -3320,12 +3361,13 @@ def run_serve4(dev, params, work):
           f"{m['conv_latency']['avg']:.3f} max={m['conv_latency']['max']:.3f}"
           f", {n_tok} tokens; peak {peak:.2f} GiB", flush=True)
     clips = 168 // 8
-    want = {"K6": 197 * steps + len(answers),
+    per = 7 * cfg.llm.num_layers + 1       # 7 projections a layer, lm_head
+    want = {"K6": per * steps + len(answers),
             "K1": 2 * cfg.vit.num_layers * clips
             + cfg.llm.num_layers * len(answers),
             "K2": clips}
     got = {"K6": k6, "K1": k["K1"], "K2": k2}
-    print(f"serve4: launches K6={k6} (197 x {steps} decode steps + "
+    print(f"serve4: launches K6={k6} ({per} x {steps} decode steps + "
           f"{len(answers)} prefills = {want['K6']}), K1={k['K1']} (2 x "
           f"{cfg.vit.num_layers} ViT layers x {clips} clips + "
           f"{cfg.llm.num_layers} x {len(answers)} prefills = {want['K1']}), "
@@ -3453,13 +3495,12 @@ def profile_train_step(dev, params, data, work, out_dir, step_s, cfg=None):
     idle share is taken against the unprofiled step time `step_s` (the
     profiler slows the host several-fold, not the kernels)."""
     from torch.autograd import DeviceType
-    from flash_vstream_tpu_torch.core.config import VStreamQwenConfig
     from flash_vstream_tpu_torch.train.finetune_flash import run_training
 
     res = run_training(_train_args(dev, os.path.join(work, "run_prof"), data,
                                    4096, 2, 2,
                                    profile_dir=os.path.join(work, "trace")),
-                       cfg=cfg or VStreamQwenConfig(), params=params)
+                       cfg=cfg or _qwen_config(), params=params)
     avg = res["profile"].key_averages()
     # device rows are kernels and copies, plus the spans' own device-side
     # annotations (named like the spans), which are left out
@@ -3573,7 +3614,6 @@ def run_finetune_ckpt(dev, params, work, root, ckpt):
     handed in: the card's machine has no `transformers` for the
     checkpoint's. Returns the launches of the three runs summed."""
     import torch
-    from flash_vstream_tpu_torch.core.config import VStreamQwenConfig
     from flash_vstream_tpu_torch.kernels.int4_matmul import int4_matmul_cuda
     from flash_vstream_tpu_torch.preprocess.qwen_processor import (
         make_byte_qwen_tokenizer)
@@ -3584,7 +3624,7 @@ def run_finetune_ckpt(dev, params, work, root, ckpt):
     from flash_vstream_tpu_torch.weights.quantize import (quantize_params,
                                                           quantize_params4)
 
-    cfg = VStreamQwenConfig()
+    cfg = _qwen_config()
     tok = make_byte_qwen_tokenizer()
     if not os.path.exists(os.path.join(ckpt, "config.json")):
         _, total, write_s = _write_checkpoint(params, cfg, ckpt, dev)
@@ -3744,7 +3784,8 @@ def run_serve_kv8(dev, params, work):
     (bf16, int8, int8, bf16) with their bytes. Then the CLI server's own
     quantization flags, --load-4bit --kv-int8 (`_apply_quantization`, the
     session as `build_session` makes it), answer on the same snapshot: K6
-    launched 197 times a decode step and once a prefill. K1 (the ViT, the
+    launched 7 times a decoder layer and once (the head) a decode step and
+    once a prefill. K1 (the ViT, the
     one-shot prefills) and K2 (one a clip) are checked as reckoned; a
     chunked prefill over an int8 cache launches no K1 (its first chunk
     takes the int8 plain path, as in JAX). Returns (K1, K2, K6)."""
@@ -5109,11 +5150,777 @@ def check_multistream_kernels(dev):
           f"bank)", flush=True)
 
 
+# The llava_train phase: the LLaVA family's two-stage training at full
+# width (projector pretrain at micro-batch 32, the full Vicuna-7B finetune
+# at 16, S 937), one step of each other modality, card vs CPU at reduced
+# depth, K1/K3/K4/K5 at the phase's shapes, run_training's entry point with
+# a resume at decoder depth 4, extract_features and the eval worker
+LT_FRAMES = 50               # --frame-bucket: the reference's video_max_frames
+LT_PRE, LT_POST = 64, 192    # --pre-len, --post-len: S = 64 + 681 + 192
+LT_STAGES = (("pretrain", 32), ("finetune", 16))   # micro-batches (SURVEY L20)
+LT_STEPS = 4                 # 1 warm-up + 3 timed
+LT_ITEMS = 32                # feature items (some shorter, some with `time`)
+LT_RAW_BATCH = 8             # the raw-frame, image and text steps' micro-batch
+LT_TEXT_LEN = 512
+LT_DEPTH = 4                 # the entry point's checkpoint depth
+# card bf16 against CPU f32, per trained leaf: the gradient's relative L2.
+# bf16 gradients of f32 sums in another order read 1e-2-5e-2 a leaf (LoRA
+# leaves up to 7.3e-2); labels shifted by one read ~1
+LT_REF_TOL = 1e-1
+LT_REF_LOSS_TOL = 1e-2       # the loss, relative
+# the update check: Trainer steps of the finetune recipe in bf16 on the card,
+# the update sliced by LT_CHECK_SLICE elements (every Vicuna layer leaf one
+# layer a slice, embed and lm_head 256 rows), each step's gradients also
+# handed to the CPU's whole bf16 update; each trained leaf's change within
+# LT_UPDATE_TOL relative L2 (the same arithmetic on both sides; the global
+# norm's f32 sums alone run in another order; it reads 0: bit-equal), a
+# slice left out on the card (the planted fault) must fail it
+LT_CHECK_SLICE = 1 << 20
+LT_CHECK_STEPS = 2           # lr 0 (moments only), then the peak
+LT_UPDATE_TOL = 1e-1
+
+
+def _lt_conv(i, n_words):
+    return [{"from": "human", "value": "<image>\nWhat happens in this "
+             f"video, and in what order? Item {i}."},
+            {"from": "gpt", "value": " ".join(
+                f"Scene {j} of item {i} shows motion." for j in
+                range(n_words))}]
+
+
+def _lt_feature_set(root, rng, cfg):
+    """LT_ITEMS `.npy` feature files at the real shape, f32 [T, 64, 1024]
+    (CLIP-L's 1,024 channels pooled to 8 x 8): most of 50 frames, some of
+    20 or 35, every eighth a 70-frame feature with a breakpoint `time` key
+    (a 30-frame window), written in one pass from one normal draw."""
+    import numpy as np
+    fdir = os.path.join(root, "feats")
+    os.makedirs(fdir, exist_ok=True)
+    base = rng.standard_normal((70, cfg.star.current_size ** 2,
+                                cfg.projector.effective_input_dim),
+                               dtype=np.float32)
+    items = []
+    for i in range(LT_ITEMS):
+        T = {7: 70, 3: 20, 5: 35}.get(i % 8, 50) * LT_FRAMES // 50
+        np.save(os.path.join(fdir, f"f{i}.npy"),
+                np.roll(base[:T], i, axis=0) * (1 + 0.01 * i))
+        item = {"id": i, "video": f"f{i}", "conversations": _lt_conv(i, 4)}
+        if i % 8 == 7:
+            item["time"] = T * 4 // 7
+        items.append(item)
+    path = os.path.join(root, "train.json")
+    with open(path, "w") as f:
+        json.dump(items, f)
+    return path, fdir
+
+
+def _lt_raw_set(root, rng, side):
+    """LT_RAW_BATCH `.npy` frame directories of LT_FRAMES frames of 224 px,
+    as many `.npy` images and text items: one step of each modality."""
+    import numpy as np
+    media = os.path.join(root, "media")
+    items = []
+    frames = _offline_frames(rng, LT_FRAMES, side)
+    for i in range(LT_RAW_BATCH):
+        d = os.path.join(media, f"v{i}")
+        os.makedirs(d, exist_ok=True)
+        for t in range(LT_FRAMES):
+            np.save(os.path.join(d, f"{t:04d}.npy"), frames[(t + i) % LT_FRAMES])
+        items.append({"id": f"v{i}", "video": f"v{i}",
+                      "conversations": _lt_conv(i, 4)})
+    for i in range(LT_RAW_BATCH):
+        np.save(os.path.join(media, f"img{i}.npy"), frames[3 * i])
+        items.append({"id": f"i{i}", "image": f"img{i}.npy",
+                      "conversations": _lt_conv(i, 3)})
+    for i in range(LT_RAW_BATCH):
+        items.append({"id": f"t{i}", "conversations": [
+            {"from": "human", "value": f"Tell the story number {i}. " * 3},
+            {"from": "gpt", "value": f"Once there was a frame {i}. " * 12}]})
+    path = os.path.join(root, "raw.json")
+    with open(path, "w") as f:
+        json.dump(items, f)
+    return path, media
+
+
+def _lt_args(dev, out, *extra):
+    from flash_vstream_tpu_torch.train import train as lt
+    return lt.make_parser().parse_args(
+        ["--output-dir", out, "--frame-bucket", str(LT_FRAMES),
+         "--pre-len", str(LT_PRE), "--post-len", str(LT_POST),
+         "--video-max-frames", str(LT_FRAMES), "--text-len",
+         str(LT_TEXT_LEN), "--device", str(dev), *extra])
+
+
+def _lt_leaf_bytes(params, labels, which):
+    """Bytes of the tensor leaves whose label is in `which`."""
+    from flash_vstream_tpu_torch.train.trainer import tree_leaves_with_path
+    return sum(_nbytes(x) for p, x in tree_leaves_with_path(params)
+               if labels[p] in which)
+
+
+def _lt_run(dev, cfg, params, tok, args, tag):
+    """run_training with a record of each step: (result, [(record,
+    launches of the step)], peak bytes, (params, grads, moments) bytes)."""
+    import torch
+    from flash_vstream_tpu_torch.train import train as lt
+    recs, last = [], [_launches()]
+    labels = []
+
+    def on_step(step, trainer, rec):
+        now = _launches()
+        recs.append((rec, {k: now[k] - last[0][k] for k in now}))
+        last[0] = now
+        if not labels:
+            labels.append(trainer.optimizer.labels)
+        print(f"llava_train {tag} step {step + 1}: [{rec['modality']}] "
+              f"loss {rec['loss']:.4f} {rec['step_time_s']:.3f} s "
+              f"tokens_per_s {rec['tokens_per_s']:.0f} launches "
+              + " ".join(f"{k}={v}" for k, v in recs[-1][1].items()),
+              flush=True)
+
+    _release(dev)
+    res = lt.run_training(args, cfg=cfg, params=params, tokenizer=tok,
+                          on_step=on_step)
+    peak = torch.cuda.max_memory_allocated(dev)
+    grads = _lt_leaf_bytes(res["params"], labels[0], ("train", "projector"))
+    # Adam's mu and nu take each trained leaf's dtype, as the gradient
+    return res, recs, peak, (_tree_nbytes(res["params"]), grads, 2 * grads)
+
+
+def _lt_sums(params):
+    """{leaf: byte sum} of a parameter tree (`_leaf_sums` without the
+    version counter)."""
+    return {p: s for p, (s, _) in _leaf_sums(params).items()}
+
+
+def _lt_stage(dev, smi, cfg, params, tok, stage, B, data, work):
+    """One stage at full width through run_training (no checkpoint: the
+    full-width state would take ~110 s to write): LT_STEPS steps, the
+    first a warm-up. Checks the losses finite and which parts moved."""
+    import numpy as np
+    from flash_vstream_tpu_torch.models.vstream_llava import star_valid_counts
+    data_path, fdir = data
+    before = _lt_sums(params)
+    args = _lt_args(dev, os.path.join(work, stage), "--stage", stage,
+                    "--batch-size", str(B), "--max-steps", str(LT_STEPS),
+                    "--save-steps", "0", "--data-path", data_path,
+                    "--feature-dir", fdir)
+    res, recs, peak, (pb, gb, mb) = _lt_run(dev, cfg, params, tok, args,
+                                            stage)
+    after = _lt_sums(params)
+    moved = {p.split(".")[0] for p in after if after[p] != before[p]}
+    moved_llm = sorted(p for p in after if p.startswith("llm.")
+                       and after[p] != before[p])
+    losses = [r["loss"] for r, _ in recs]
+    timed = [r["step_time_s"] for r, _ in recs[1:]]
+    tps = [r["tokens_per_s"] for r, _ in recs[1:]]
+    S = LT_PRE + sum(star_valid_counts(cfg, LT_FRAMES)) + LT_POST
+    per = recs[-1][1]
+    print(f"llava_train {stage} [{smi}]: micro-batch {B}, S {S:.0f}, "
+          f"{LT_STEPS} steps (1 warm-up): step s "
+          + " ".join(f"{t:.3f}" for t in timed)
+          + f" (mean {np.mean(timed):.3f}), tokens_per_s "
+          + " ".join(f"{t:.0f}" for t in tps)
+          + f"; peak {peak / 2**30:.2f} GiB beside the reckoned params "
+          f"{pb / 2**30:.2f} + grads {gb / 2**30:.2f} + moments "
+          f"{mb / 2**30:.2f} = {(pb + gb + mb) / 2**30:.2f} GiB; launches a "
+          f"step K3={per['K3']} K4={per['K4']} K5={per['K5']} K1={per['K1']};"
+          f" losses " + " ".join(f"{x:.4f}" for x in losses)
+          + f"; moved {sorted(moved)} ({len(moved_llm)} llm leaves)",
+          flush=True)
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"llava_train {stage}: a loss is not finite")
+    want = {"pretrain": {"projector", "ntm"},
+            "finetune": {"projector", "llm"}}[stage]
+    if "vit" in moved or not want <= moved or (
+            stage == "pretrain" and moved != want):
+        raise AssertionError(f"llava_train {stage}: moved {sorted(moved)}")
+    if stage == "finetune":
+        big = [p for p in after if p.startswith("llm.") and "norm" not in p]
+        if not set(big) <= set(moved_llm):
+            raise AssertionError(f"llava_train finetune: llm leaves that did "
+                                 f"not move: {sorted(set(big) - set(moved_llm))}")
+    return dict(step_s=timed, tokens_per_s=tps, peak=peak,
+                reckoned=pb + gb + mb, launches=per, losses=losses)
+
+
+def _lt_ref_batch(cfg, tok, rng, frames):
+    """One video micro-batch (B 1, bucket 8 frames of 8, pre 32, post 128)
+    for the reduced-depth check: f32 features [8, 64, 1024] or uint8
+    224 px frames."""
+    import numpy as np
+    from flash_vstream_tpu_torch.models.vstream_llava import star_valid_counts
+    from flash_vstream_tpu_torch.train import data as td
+    ids, labels = td.preprocess_v1(_lt_conv(0, 6), tok)
+    s = {"input_ids": ids, "labels": labels, "n_frames": 8}
+    if frames:
+        s["frames"] = _offline_frames(rng, 8, cfg.vit.image_size)
+    else:
+        s["features"] = rng.standard_normal(
+            (8, cfg.star.current_size ** 2, cfg.projector.effective_input_dim),
+            dtype=np.float32)
+    b = td.collate_llava([s], 8, tok.pad_token_id, fixed_pre_len=32,
+                         fixed_post_len=128)
+    n_mem = sum(star_valid_counts(cfg, 8))
+    out = {"input_ids": b["input_ids"], "n_frames": b["n_frames"],
+           "labels": td.spliced_labels(b, n_mem),
+           "segments": td.spliced_segments(b, n_mem, tok.pad_token_id)}
+    out["frames" if frames else "images"] = b["frames" if frames
+                                              else "features"]
+    return out, n_mem
+
+
+def _lt_grads(cfg, params, batch, n_mem, device, shift=0):
+    """(loss, {trained leaf: gradient}) of one finetune-stage video step
+    (every leaf but the tower trains) on `device`."""
+    import numpy as np
+    import torch
+    from flash_vstream_tpu_torch.train import train as lt
+    from flash_vstream_tpu_torch.train.finetune_flash import (
+        default_kmeans_draws)
+    from flash_vstream_tpu_torch.train.trainer import tree_leaves_with_path
+    leaves = {p: x for p, x in tree_leaves_with_path(params)
+              if not p.startswith("vit")}
+    for x in leaves.values():
+        x.requires_grad_(True)
+    if shift:
+        batch = dict(batch, labels=np.roll(batch["labels"], shift, axis=1))
+    loss = lt.make_losses(cfg, torch.device(device), 32, n_mem,
+                          default_kmeans_draws)["video"](params, batch, (0, 0))
+    grads = torch.autograd.grad(loss, list(leaves.values()),
+                                allow_unused=True)
+    return float(loss.detach()), {p: (torch.zeros_like(x) if g is None else g)
+                         .detach().float().cpu()
+                         for (p, x), g in zip(leaves.items(), grads)}
+
+
+def _lt_copy(tree, device, dtype):
+    """A copy of a parameter tree (dicts, lists, NamedTuples) on `device`
+    in `dtype`."""
+    if isinstance(tree, dict):
+        return {k: _lt_copy(v, device, dtype) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_lt_copy(v, device, dtype) for v in tree]
+    if hasattr(tree, "_fields"):
+        return type(tree)(*(_lt_copy(v, device, dtype) for v in tree))
+    return tree.detach().to(device, dtype, copy=True)
+
+
+def _lt_update_steps(dev, cfg, cut, batch, n_mem, fault=False):
+    """LT_CHECK_STEPS Trainer steps of the finetune recipe (the schedule of
+    LT_STEPS, as stage 2) over one video micro-batch on the card in bf16
+    from `cut`'s weights, the update sliced by LT_CHECK_SLICE; each step's
+    gradients also go to a whole bf16 update of a copy on the CPU.
+    fault=True leaves each sliced leaf's last slice out of the card's
+    update and keeps the whole update's copy on the card. Returns (losses,
+    {trained leaf: rel L2 of the card's change against the copy's}, {leaf:
+    share of elements that differ})."""
+    import numpy as np
+    import torch
+    from flash_vstream_tpu_torch.train import recipes
+    from flash_vstream_tpu_torch.train import train as lt
+    from flash_vstream_tpu_torch.train import trainer as tr
+    from flash_vstream_tpu_torch.train.finetune_flash import (
+        default_kmeans_draws)
+    ref = dev if fault else "cpu"
+    card = _lt_copy(cut, dev, torch.bfloat16)
+    host = _lt_copy(cut, ref, torch.bfloat16)
+    tcfg = recipes.llava_finetune(LT_STEPS)
+    trainer = tr.Trainer(lt.make_losses(cfg, torch.device(dev), 32, n_mem,
+                                        default_kmeans_draws)["video"],
+                         card, tcfg)
+    shadow = tr.AdamW(tcfg, host)
+    sstate = [shadow.init(host)]
+    card_update, real_slices = trainer.optimizer.update, tr._slices
+
+    def update(grads, state, params):
+        copied = {p: g.detach().to(ref, copy=True) for p, g in grads.items()}
+        tr.UPDATE_SLICE, tr._slices = 1 << 62, real_slices
+        sstate[0] = shadow.update(copied, sstate[0], host)
+        del copied
+        tr.UPDATE_SLICE = LT_CHECK_SLICE
+        if fault:
+            tr._slices = lambda x: real_slices(x)[:-1] or real_slices(x)
+        return card_update(grads, state, params)
+
+    trainer.optimizer.update = update
+    stacked = {k: np.asarray(v)[None] for k, v in batch.items()}
+    try:
+        losses = [trainer.run_step(stacked, s) for s in range(LT_CHECK_STEPS)]
+    finally:
+        tr.UPDATE_SLICE, tr._slices = 1 << 26, real_slices
+    errs, differ = {}, {}
+    hosts = dict(tr.tree_leaves_with_path(host))
+    start = dict(tr.tree_leaves_with_path(cut))
+    for p, x in tr.tree_leaves_with_path(card):
+        if trainer.optimizer.labels[p] == "frozen":
+            continue
+        got, want = x.detach().float(), hosts[p].to(dev).float()
+        d_want = want - start[p].detach().float()
+        wn = float(d_want.norm())
+        errs[p] = (float((got - want).norm()) / wn if wn
+                   else float((got - want).abs().max()))
+        differ[p] = float((got != want).float().mean())
+    del card, host, trainer, shadow, sstate
+    _release(dev)
+    return losses, errs, differ
+
+
+def check_llava_train_update(dev, cfg, cut, batch, n_mem):
+    """The bf16 update the card's stage 2 runs (sliced along the stacked
+    layer axis), against the CPU's on the card's own gradients, at the
+    reduced depth of `check_llava_train_reference`: every trained leaf's
+    change after LT_CHECK_STEPS steps within LT_UPDATE_TOL; a slice left
+    out on the card must fail it against a whole update. Prints the losses
+    of the steps."""
+    t0 = time.perf_counter()
+    losses, errs, differ = _lt_update_steps(dev, cfg, cut, batch, n_mem)
+    _, bad, _ = _lt_update_steps(dev, cfg, cut, batch, n_mem, fault=True)
+    p_worst = max(errs, key=errs.get)
+    f_worst = max(bad, key=bad.get)
+    print(f"llava_train update: {LT_CHECK_STEPS} finetune steps in bf16 "
+          f"(slices of {LT_CHECK_SLICE} elements on the card, whole on the "
+          f"CPU, the card's gradients on both), {len(errs)} trained leaves: "
+          f"losses " + " ".join(f"{x:.5f}" for x in losses)
+          + f"; worst change rel L2 {errs[p_worst]:.3e} ({p_worst}; limit "
+          f"{LT_UPDATE_TOL:.0e}), elements that differ at most "
+          f"{max(differ.values()):.3e} of a leaf; planted fault (a slice "
+          f"left out, against a whole update on the card) worst "
+          f"{bad[f_worst]:.3e} ({f_worst}); "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    if errs[p_worst] > LT_UPDATE_TOL or bad[f_worst] <= LT_UPDATE_TOL:
+        raise AssertionError(f"llava_train update: worst leaf "
+                             f"{errs[p_worst]:.3e}, fault {bad[f_worst]:.3e}")
+    return errs[p_worst], bad[f_worst]
+
+
+def check_llava_train_reference(dev, cfg, params, tok):
+    """The finetune stage's loss and every trained leaf's gradient of one
+    video-feature step and one raw-frame step at reduced depth (CLIP 2
+    layers, 1 run; Vicuna 2; the Turing memory cut to 4 frames so that its
+    NTM trains over 8 frames without k-means, whose decisions on random
+    features the two sides' rounding could flip), every width full: the
+    card on the full model's bf16 weights (K1 in the tower, K3/K4/K5 in the
+    decoder) against the CPU in f32 on the same weights. Each leaf's
+    gradient within LT_REF_TOL relative L2 (the NTM key bias, zero in exact
+    arithmetic under the softmax, and leaves zero on both sides excepted),
+    the loss within LT_REF_LOSS_TOL; labels shifted by one on the card
+    (the planted fault) must fail the limit."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from flash_vstream_tpu_torch.models.layers import layer_slice
+    rcfg = cfg.replace(
+        vit=dataclasses.replace(cfg.vit, num_layers=2),
+        llm=dataclasses.replace(cfg.llm, num_layers=2),
+        star=dataclasses.replace(cfg.star, turing_length=4))
+    cut = dict(params,
+               vit=dict(params["vit"], layers=layer_slice(
+                   params["vit"]["layers"], slice(0, 2))),
+               llm=dict(params["llm"], layers=layer_slice(
+                   params["llm"]["layers"], slice(0, 2))))
+
+    rng = np.random.default_rng(SEED + 21)
+    worst = {}
+    for kind in ("features", "frames"):
+        batch, n_mem = _lt_ref_batch(rcfg, tok, rng, kind == "frames")
+        t0 = time.perf_counter()
+        card_l, card_g = _lt_grads(rcfg, _lt_copy(cut, dev,
+                                                  torch.bfloat16),
+                                   batch, n_mem, dev)
+        bad_l, bad_g = _lt_grads(rcfg, _lt_copy(cut, dev,
+                                                torch.bfloat16),
+                                 batch, n_mem, dev, shift=1)
+        cpu_l, cpu_g = _lt_grads(rcfg, _lt_copy(cut, "cpu",
+                                                torch.float32),
+                                 batch, n_mem, "cpu")
+        errs, fault = {}, {}
+        for p, want in cpu_g.items():
+            wn = float(want.norm())
+            if p == "ntm.bk" or p.endswith("/.bk") or wn == 0:
+                if wn == 0 and float(card_g[p].norm()) != 0:
+                    raise AssertionError(f"llava_train reference: {p} is 0 "
+                                         f"on the CPU, not on the card")
+                continue
+            errs[p] = float((card_g[p] - want).norm()) / wn
+            fault[p] = float((bad_g[p] - want).norm()) / wn
+        p_worst = max(errs, key=errs.get)
+        f_worst = max(fault.values())
+        loss_err = abs(card_l - cpu_l) / abs(cpu_l)
+        print(f"llava_train reference {kind}: 2 CLIP + 2 Vicuna layers, "
+              f"Turing 4, S {batch['labels'].shape[1]}, {len(errs)} leaves: "
+              f"loss card {card_l:.5f} cpu {cpu_l:.5f} (rel {loss_err:.2e}, "
+              f"limit {LT_REF_LOSS_TOL:.0e}); worst gradient rel L2 "
+              f"{errs[p_worst]:.3e} ({p_worst}; limit {LT_REF_TOL:.0e}), "
+              f"ntm {max(v for p, v in errs.items() if 'ntm' in p):.3e}, "
+              f"projector {max(v for p, v in errs.items() if 'projector' in p):.3e}; "
+              f"planted fault (labels shifted by one) worst {f_worst:.3e}; "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        if (loss_err > LT_REF_LOSS_TOL or errs[p_worst] > LT_REF_TOL
+                or f_worst <= LT_REF_TOL):
+            raise AssertionError(f"llava_train reference {kind}: loss "
+                                 f"{loss_err:.3e}, worst leaf "
+                                 f"{errs[p_worst]:.3e}, fault {f_worst:.3e}")
+        worst[kind] = (errs[p_worst], f_worst)
+        if kind == "features":
+            update_batch = (batch, n_mem)
+    _release(dev)
+    worst["update"] = check_llava_train_update(dev, rcfg, cut, *update_batch)
+    return worst
+
+
+def check_llava_train_kernels(dev):
+    """K3, K4 and K5 against their plain versions at the finetune stage's
+    attention shape, q/k/v [16, 32, 937, 128] causal with the collator's
+    padding (-1 on a left run of the pre segment and a right run of the
+    post segment, per row), and K1 at the raw-frame step's CLIP shape [8 x
+    50, 16, 257, 64]; each timed by graph replay beside its plain version,
+    SDPA (forward; backward dq + dk + dv: causal, no segments) and its
+    bound. Returns {kernel: (row dict, shape text)}."""
+    import torch
+    from flash_vstream_tpu_torch.kernels import flash_attention as fa
+    g = torch.Generator(device=dev).manual_seed(SEED + 22)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, device=dev).to(torch.bfloat16)
+
+    B, H, S, D = 16, 32, LT_PRE + 681 + LT_POST, 128
+    seg = torch.zeros(B, S, dtype=torch.int32, device=dev)
+    for b in range(B):
+        seg[b, :(7 * b) % LT_PRE] = -1                 # left-padded pre
+        seg[b, S - (11 * b + 5) % LT_POST:] = -1       # right-padded post
+    kw = dict(causal=True, q_segment_ids=seg, kv_segment_ids=seg)
+    q, k, v, do = (randn(B, H, S, D) for _ in range(4))
+    out, lse = fa.flash_attention_fwd_lse_cuda(q, k, v, **kw)
+    dq, delta = fa.flash_attention_bwd_dq_cuda(q, k, v, out, do, lse, **kw)
+    dk, dv = fa.flash_attention_bwd_dkv_cuda(q, k, v, out, do, lse, delta,
+                                             **kw)
+    p_out, p_lse = fa.flash_attention_fwd_lse_reference(q, k, v, **kw)
+    p_dq, p_dk, p_dv = fa.flash_attention_bwd_reference(q, k, v, out, do,
+                                                        lse, **kw)
+    torch.cuda.synchronize()
+    e_out, r_out = check_fwd("K3 llava_train", out, p_out, q, k, kw)
+    fin = torch.isfinite(p_lse)
+    e_lse = (lse[fin] - p_lse[fin]).abs().max().item()
+    q_rows, k_rows = _grad_rows(q, k, kw)
+    rel, row = {}, {}
+    for n, a, b, r in (("dq", dq, p_dq, q_rows), ("dk", dk, p_dk, k_rows),
+                       ("dv", dv, p_dv, k_rows)):
+        rel[n] = ((a.float() - b.float()).abs().max()
+                  / b.float().abs().max().clamp_min(1e-30)).item()
+        row[n] = _row_err(a, b, r)
+    if (e_lse > 1e-3 or max(rel.values()) > 2e-2 or max(row.values()) > 2e-2
+            or not all(torch.isfinite(x).all() for x in (dq, dk, dv))):
+        raise AssertionError(f"llava_train K3/K4/K5: lse {e_lse:.3e} "
+                             f"grads/max {rel} by row {row}")
+    errs = {"K3": e_out,
+            "K4": (dq.float() - p_dq.float()).abs().max().item(),
+            "K5": max((dk.float() - p_dk.float()).abs().max().item(),
+                      (dv.float() - p_dv.float()).abs().max().item())}
+    del p_out, p_lse, p_dq, p_dk, p_dv
+    torch.cuda.empty_cache()
+    pairs = _visible_pairs(q, k, True, seg, seg)
+    seg_b = 2 * _nbytes(seg)
+    t_k3 = _ms(lambda i: fa.flash_attention_fwd_lse_cuda(q, k, v, **kw), 5)
+    t_plain = _ms(lambda i: fa.flash_attention_fwd_lse_reference(
+        q, k, v, **kw), 1, windows=1)
+    t_sdpa = _ms(lambda i: _sdpa(q, k, v, True), 5)
+    (t_k4, t_k5), _ = _bwd_ms((q, k, v, out, do, lse, delta), kw, iters=3)
+    t_plain_bwd = _ms(lambda i: fa.flash_attention_bwd_reference(
+        q, k, v, out, do, lse, **kw), 1, windows=1)
+    t_sdpa_bwd = _sdpa_bwd_ms(q, k, v, do)
+    shape = f"[{B}, {H}, {S}, {D}] causal, left/right padding -1"
+    res = {
+        "flash_attention_fwd_lse": (errs["K3"], t_k3, t_plain, t_sdpa,
+                                    _bound(pairs * 4 * D, _nbytes(
+                                        q, k, v, out, lse) + seg_b)),
+        "flash_attention_bwd_dq": (errs["K4"], t_k4, t_plain_bwd, t_sdpa_bwd,
+                                   _bound(pairs * 6 * D, _nbytes(
+                                       q, k, v, out, do, lse, dq, delta)
+                                       + seg_b)),
+        "flash_attention_bwd_dkv": (errs["K5"], t_k5, t_plain_bwd,
+                                    t_sdpa_bwd, _bound(pairs * 8 * D, _nbytes(
+                                        q, k, v, do, lse, delta, k, v)
+                                        + seg_b)),
+    }
+    del q, k, v, do, out, lse, dq, dk, dv, delta
+    torch.cuda.empty_cache()
+    # K1 at the raw-frame step's CLIP shape (no mask)
+    q1, k1, v1 = (randn(LT_RAW_BATCH * LT_FRAMES, 16, 257, 64)
+                  for _ in range(3))
+    o1 = fa.flash_attention_cuda(q1, k1, v1)
+    p1 = fa.flash_attention_reference(q1, k1, v1)
+    torch.cuda.synchronize()
+    e1, _ = check_fwd("K1 llava_train clip", o1, p1, q1, k1, {})
+    del p1
+    res["flash_attention_fwd"] = (
+        e1, _ms(lambda i: fa.flash_attention_cuda(q1, k1, v1), 5),
+        _ms(lambda i: fa.flash_attention_reference(q1, k1, v1), 1,
+            windows=1),
+        _ms(lambda i: _sdpa(q1, k1, v1, False), 5),
+        _bound(4 * q1.shape[0] * 16 * 257 * 257 * 64,
+               _nbytes(q1, k1, v1, o1)))
+    shapes = {"flash_attention_fwd": "[400, 16, 257, 64] (CLIP, 8 videos "
+              "x 50 frames)"}
+    out_rows = {}
+    for name, (err, ms, plain, lib, (bound, by)) in res.items():
+        kid = {"flash_attention_fwd": "K1", "flash_attention_fwd_lse": "K3",
+               "flash_attention_bwd_dq": "K4",
+               "flash_attention_bwd_dkv": "K5"}[name]
+        where = shapes.get(name, shape)
+        print(f"{kid} llava_train {where}: max_abs_err={err:.3e} "
+              f"kernel_ms={ms:.4f} plain_ms={plain:.4f} bound_ms={bound:.4f} "
+              f"({by}) library_ms={lib:.4f} ("
+              + ("SDPA backward, dq+dk+dv, causal only" if kid in ("K4", "K5")
+                 else "SDPA forward" + (", causal only" if kid == "K3"
+                                        else "")) + ")", flush=True)
+        out_rows[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                              bound_ms=bound, bound_by=by, library_ms=lib)
+    print(f"K3/K4/K5 llava_train by row: out {r_out:.3e}, lse {e_lse:.3e}, "
+          + " ".join(f"{n}/max={rel[n]:.3e} by row {row[n]:.3e}"
+                     for n in rel), flush=True)
+    del q1, k1, v1, o1
+    _release(dev)
+    return out_rows
+
+
+def _lt_entry_point(dev, cfg, params, tok, data, work):
+    """run_training through its parser at Vicuna depth LT_DEPTH: a
+    checkpoint written by the port's LLaVA export, `--model-path` on it,
+    `--stage finetune --save-steps 2` on a 6-step schedule stopped after
+    step 4's checkpoint (an exception in step 5), then a resume that takes
+    steps 5 and 6 only (and writes no checkpoint); its state equal to an
+    uninterrupted 6-step run's (no checkpoints). Returns (seconds, GB a
+    checkpoint)."""
+    import dataclasses
+    import torch
+    from flash_vstream_tpu_torch.models.layers import layer_slice
+    from flash_vstream_tpu_torch.train import train as lt
+    from flash_vstream_tpu_torch.train.checkpoint import latest_checkpoint
+    from flash_vstream_tpu_torch.weights.export import (
+        export_llava_checkpoint, save_hf_checkpoint)
+    t0 = time.perf_counter()
+    ccfg = cfg.replace(llm=dataclasses.replace(cfg.llm, num_layers=LT_DEPTH))
+    cut = dict(params, llm=dict(params["llm"], layers=layer_slice(
+        params["llm"]["layers"], slice(0, LT_DEPTH))))
+    ckpt = os.path.join(work, "llava_depth4")
+    save_hf_checkpoint(ckpt, export_llava_checkpoint(cut, ccfg),
+                       max_shard_bytes=OFFLINE_SHARD)
+    data_path, fdir = data
+    common = ("--model-path", ckpt, "--stage", "finetune", "--batch-size",
+              "2", "--max-steps", "6", "--data-path", data_path,
+              "--feature-dir", fdir)
+
+    class Stop(Exception):
+        pass
+
+    def stop_at_5(step, trainer, rec):
+        if step == 4:
+            raise Stop
+
+    out = os.path.join(work, "entry")
+    try:
+        lt.run_training(_lt_args(dev, out, *common, "--save-steps", "2"),
+                        cfg=ccfg, tokenizer=tok, on_step=stop_at_5)
+        raise AssertionError("llava_train entry point: the run was not "
+                             "stopped")
+    except Stop:
+        pass
+    first = latest_checkpoint(out)[0]
+    ck_gb = sum(os.path.getsize(os.path.join(r, f)) for r, _, fs in
+                os.walk(os.path.join(out, f"checkpoint-{first}"))
+                for f in fs) / 1e9
+    # the resume reads checkpoint-4 and writes none (a 7 GB write less)
+    resumed = lt.run_training(_lt_args(dev, out, *common, "--save-steps", "0"),
+                              cfg=ccfg, tokenizer=tok)
+    whole = lt.run_training(_lt_args(dev, os.path.join(work, "whole"), *common,
+                                     "--save-steps", "0"),
+                            cfg=ccfg, tokenizer=tok)
+    a, b = _lt_sums(resumed["params"]), _lt_sums(whole["params"])
+    differ = sorted(p for p in a if a[p] != b[p])
+    print(f"llava_train entry point: --model-path (depth {LT_DEPTH}, the "
+          f"port's export) --stage finetune --save-steps 2, stopped after "
+          f"checkpoint-{first} ({ck_gb:.2f} GB), resumed (no checkpoint "
+          f"written): steps "
+          f"{len(resumed['losses'])} losses "
+          + " ".join(f"{x:.4f}" for x in resumed["losses"])
+          + f", uninterrupted 6 steps: last losses "
+          + " ".join(f"{x:.4f}" for x in whole["losses"][-2:])
+          + f"; {len(a)} leaves, {len(differ)} differ; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    if first != 4 or len(resumed["losses"]) != 2 or differ or \
+            resumed["losses"] != whole["losses"][-2:]:
+        raise AssertionError(f"llava_train entry point: checkpoint {first}, "
+                             f"resumed {resumed['losses']}, whole "
+                             f"{whole['losses']}, differ {differ[:5]}")
+    del resumed, whole
+    shutil.rmtree(ckpt, ignore_errors=True)
+    torch.cuda.synchronize(dev)
+    return time.perf_counter() - t0, ck_gb
+
+
+def _lt_extract_and_eval(dev, cfg, params, tok, work, rng):
+    """extract_features over two `.npy` frame directories on the card, then
+    the eval worker over what it wrote (16 new tokens): the worker's
+    answers' ids (recorded) must equal LLaVAPipeline.answer_tokens on the
+    same features. Returns the pipeline and the worker's ids."""
+    import numpy as np
+    import torch
+    from flash_vstream_tpu_torch.eval import model_video_qa as qa
+    from flash_vstream_tpu_torch.runtime.pipeline import LLaVAPipeline
+    from flash_vstream_tpu_torch.scripts import extract_features as ex
+    vdir = os.path.join(work, "videos")
+    for i, n in enumerate((12, 20)):
+        d = os.path.join(vdir, f"clip{i}")
+        os.makedirs(d, exist_ok=True)
+        for t, f in enumerate(_offline_frames(rng, n, 256 + 64 * i)):
+            np.save(os.path.join(d, f"{t:04d}.npy"), f)
+    fdir = os.path.join(work, "features")
+    t0 = time.perf_counter()
+    written = ex.extract(ex.make_parser().parse_args(
+        ["--video_dir", vdir, "--output_dir", fdir, "--device", str(dev)]),
+        cfg, params)
+    torch.cuda.synchronize(dev)
+    ex_s = time.perf_counter() - t0
+    if written != ["clip0", "clip1"]:
+        raise AssertionError(f"extract_features wrote {written}")
+    gt = os.path.join(work, "qa.json")
+    with open(gt, "w") as f:
+        json.dump([{"id": i, "video_id": f"clip{i}",
+                    "question": "What happens in the video?"}
+                   for i in range(2)], f)
+    pipe = LLaVAPipeline(params, cfg, tok, max_len=4096)
+    ids, generate = [], pipe.generator.generate
+
+    def recorded(*a, **k):
+        out = generate(*a, **k)
+        ids.append([int(t) for t in out])
+        return out
+    pipe.generator.generate = recorded
+    t0 = time.perf_counter()
+    qa.run_inference(qa.make_parser().parse_args(
+        ["--video_dir", fdir, "--gt_file", gt, "--output_dir",
+         os.path.join(work, "eval"), "--max-new-tokens", "16",
+         "--device", str(dev)]),
+        pipeline=pipe)
+    ev_s = time.perf_counter() - t0
+    pipe.generator.generate = generate
+    feats = [qa.load_features(fdir, f"clip{i}") for i in range(2)]
+    print(f"llava_train extract_features: {written} -> "
+          + ", ".join(f"{tuple(f.shape)} {f.dtype}" for f in feats)
+          + f" in {ex_s:.2f} s; eval worker (16 tokens) {ev_s:.2f} s",
+          flush=True)
+    return pipe, ids, feats
+
+
+def run_llava_train(dev, smi, root, params=None, cfg=None):
+    """The LLaVA family's training path at the full width of
+    VStreamLLaVAConfig() on the llava phase's random bf16 weights (built
+    here when that phase did not run), trained in place:
+    1. K3/K4/K5 at the finetune stage's attention shape and K1 at the
+       raw-frame step's CLIP shape against their plain versions, timed
+       (`check_llava_train_kernels`); the card against the CPU at reduced
+       depth (`check_llava_train_reference`: gradients, then the bf16
+       update of two steps, `check_llava_train_update`);
+    2. the path (its launches counted from 0): stage 1, --stage pretrain,
+       micro-batch 32, and stage 2, --stage finetune, micro-batch 16, each
+       LT_STEPS steps through run_training over LT_ITEMS feature items at
+       the real shape (bucket 50, pre 64, post 192: S 937), no checkpoint;
+       one step each of raw `.npy` frames (the frozen CLIP, K1), images
+       and text (micro-batch LT_RAW_BATCH, text 512); run_training's entry
+       point at depth LT_DEPTH with its resume; extract_features and the
+       eval worker over two `.npy` frame directories;
+    3. the worker's ids against LLaVAPipeline.answer_tokens on the same
+       features (after the counts are read).
+    Returns (K1, K3, K4, K5 of the path, kernel rows, stage readings)."""
+    import numpy as np
+    import torch
+    from flash_vstream_tpu_torch.core.config import VStreamLLaVAConfig
+    from flash_vstream_tpu_torch.models.vstream_llava import init_llava_params
+    from flash_vstream_tpu_torch.preprocess.tokenizer import ByteTokenizer
+    from flash_vstream_tpu_torch.runtime.generation import GenerationConfig
+
+    t_phase = time.perf_counter()
+    cfg = cfg or VStreamLLaVAConfig()
+    tok = ByteTokenizer()
+    if params is None:
+        params = init_llava_params(
+            cfg, torch.Generator(device=dev).manual_seed(SEED + 11), dev,
+            dtype=torch.bfloat16)
+    work = os.path.join(root, "build", "chip_smoke_llava_train")
+    shutil.rmtree(work, ignore_errors=True)
+    rng = np.random.default_rng(SEED + 23)
+    try:
+        feats = _lt_feature_set(work, rng, cfg)
+        raw = _lt_raw_set(work, rng, cfg.vit.image_size)
+        print(f"llava_train: data written at "
+              f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+        rows = check_llava_train_kernels(dev)
+        check_llava_train_reference(dev, cfg, params, tok)
+        print(f"llava_train: checks done at "
+              f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+
+        _reset_launches()
+        stages = {}
+        for stage, B in LT_STAGES:
+            stages[stage] = _lt_stage(dev, smi, cfg, params, tok, stage, B,
+                                      feats, work)
+            print(f"llava_train: {stage} done at "
+                  f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+        _, recs, peak, _ = _lt_run(
+            dev, cfg, params, tok, _lt_args(
+                dev, os.path.join(work, "raw"), "--stage", "finetune",
+                "--batch-size", str(LT_RAW_BATCH), "--max-steps", "3",
+                "--save-steps", "0", "--data-path", raw[0], "--video-dir",
+                raw[1]), "modalities")
+        kinds = [r["modality"] for r, _ in recs]
+        if sorted(kinds) != ["image", "text", "video"] or not all(
+                np.isfinite(r["loss"]) and r["loss"] > 0 for r, _ in recs):
+            raise AssertionError(f"llava_train modalities: {kinds}, "
+                                 f"{[r['loss'] for r, _ in recs]}")
+        print(f"llava_train modalities: micro-batch {LT_RAW_BATCH} (raw "
+              f"frames {LT_FRAMES} a video through the frozen CLIP, one "
+              f"image each, text {LT_TEXT_LEN}), one step each, the first "
+              f"step of its kind: "
+              + ", ".join(f"{r['modality']} {r['step_time_s']:.3f} s loss "
+                          f"{r['loss']:.4f} K1={c['K1']} K3={c['K3']}"
+                          for r, c in recs)
+              + f"; peak {peak / 2**30:.2f} GiB", flush=True)
+        entry_s, ck_gb = _lt_entry_point(dev, cfg, params, tok, feats, work)
+        pipe, ids, feat_np = _lt_extract_and_eval(dev, cfg, params, tok,
+                                                  work, rng)
+        got = _launches()
+        if min(got.values()) == 0:
+            raise AssertionError(f"llava_train: a kernel of the path was "
+                                 f"never launched: {got}")
+        gen = GenerationConfig(max_new_tokens=16,
+                               eos_token_ids=(tok.eos_token_id,))
+        want = [pipe.answer_tokens(None, "What happens in the video?", gen,
+                                   features=torch.from_numpy(
+                                       np.asarray(f, np.float32)).to(dev))
+                for f in feat_np]
+        if want != ids:
+            raise AssertionError(f"llava_train eval worker ids {ids} != "
+                                 f"LLaVAPipeline's {want}")
+        print(f"llava_train eval worker: ids of both answers equal "
+              f"LLaVAPipeline.answer_tokens on the same features "
+              f"({[len(x) for x in ids]} tokens)", flush=True)
+        print(f"llava_train: launches of the path K1={got['K1']} "
+              f"K3={got['K3']} K4={got['K4']} K5={got['K5']} (the checks "
+              f"apart); entry point {entry_s:.1f} s, checkpoints "
+              f"{ck_gb:.2f} GB; phase {time.perf_counter() - t_phase:.1f} s",
+              flush=True)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    _release(dev)
+    return got, rows, stages
+
+
 PHASES = ("kernels", "int4_kernel", "reference", "int4_reference", "slice",
           "llava", "serve_http", "offline", "backward", "function", "train_reference", "dry_run_train",
           "train_slice",
           "production", "finetune_ckpt", "serve_kv8", "serve4", "bank_gather",
-          "vit_probe", "int4_probe", "multistream")
+          "vit_probe", "int4_probe", "multistream", "llava_train")
 
 
 def main() -> int:
@@ -5122,7 +5929,9 @@ def main() -> int:
                         help="comma-separated phases to run (default all; "
                              "serve_http, offline, the training phases, "
                              "finetune_ckpt, serve_kv8 and serve4 need "
-                             "'slice'; llava runs after them, alone)")
+                             "'slice'; llava runs after them, alone; "
+                             "llava_train last, on llava's weights when "
+                             "llava runs, else on its own)")
     parser.add_argument("--profile", default=None, metavar="DIR",
                         help="also profile one training-slice step into DIR")
     opts = parser.parse_args()
@@ -5148,6 +5957,11 @@ def main() -> int:
           f"device {torch.cuda.get_device_name(0)} tf32 off", flush=True)
 
     t0 = time.perf_counter()
+
+    def mark(phase):
+        print(f"chip_smoke: {phase} done at {time.perf_counter() - t0:.1f} s",
+              flush=True)
+
     lib = _build.build()
     _build.library()
     print(f"build: {lib.name} in {time.perf_counter() - t0:.1f} s", flush=True)
@@ -5157,18 +5971,25 @@ def main() -> int:
     params = lparams = None   # the slice's and the llava phase's weights
     if "kernels" in only:
         rows.update(check_kernels(dev))
+        mark("kernels")
     if "int4_kernel" in only:
         rows.update(check_int4_kernel(dev))
+        mark("int4_kernel")
     if "backward" in only:
         rows.update(check_backward_kernels(dev))
+        mark("backward")
     if "function" in only:
         check_function(dev)
+        mark("function")
     if "reference" in only:
         check_reference(dev)
+        mark("reference")
     if "int4_reference" in only:
         check_int4_reference(dev)
+        mark("int4_reference")
     if "train_reference" in only:
         check_train_reference(dev)
+        mark("train_reference")
     if "dry_run_train" in only:
         work = os.path.join(root, "build", "chip_smoke_dry_run")
         try:
@@ -5179,9 +6000,11 @@ def main() -> int:
             flash_attention_fwd=k["K1"], flash_attention_fwd_lse=k["K3"],
             flash_attention_bwd_dq=k["K4"], flash_attention_bwd_dkv=k["K5"])
         _release(dev)
+        mark("dry_run_train")
     if "bank_gather" in only:
         row, paths["probe_bank_gather"] = check_bank_gather(dev)
         rows.update(row)
+        mark("bank_gather")
     if "vit_probe" in only:
         rows.update(check_frame_attention(dev))
         paths["probe_vit_variants"] = run_vit_probe(dev)
@@ -5191,29 +6014,35 @@ def main() -> int:
         finally:
             shutil.rmtree(work, ignore_errors=True)
         _release(dev)
+        mark("vit_probe")
     if "int4_probe" in only:
         row, paths["probe_int4_variants"] = check_int4_probe(dev)
         rows.update(row)
         _release(dev)
+        mark("int4_probe")
     if "slice" in only:
         _reset_launches()
         k1, k2, params = run_slice(dev)
         paths["slice"] = dict(flash_attention_fwd=k1, gather_rows=k2)
+        mark("slice")
         work = os.path.join(root, "build", "chip_smoke_train")
+        qparams = _qwen_cut(params)     # QWEN_LAYERS: the time limit
         try:
             if "serve_http" in only:
-                k1, k2 = run_serve_http(dev, params, work)
+                k1, k2 = run_serve_http(dev, qparams, work)
                 paths["serve_http"] = dict(flash_attention_fwd=k1,
                                            gather_rows=k2)
                 _release(dev)
+                mark("serve_http")
             ckpt = os.path.join(root, "build", "offline_ckpt")
             if "offline" in only:
                 paths["offline"] = dict(flash_attention_fwd=run_offline(
-                    dev, params, work, smi, root,
+                    dev, qparams, work, smi, root,
                     keep_ckpt="finetune_ckpt" in only))
                 _release(dev)
+                mark("offline")
             if "train_slice" in only:
-                total, data, step_s = run_train_slice(dev, params, work)
+                total, data, step_s = run_train_slice(dev, qparams, work)
                 paths["train_slice"] = dict(
                     flash_attention_fwd=total["K1"],
                     flash_attention_fwd_lse=total["K3"],
@@ -5221,28 +6050,34 @@ def main() -> int:
                     flash_attention_bwd_dkv=total["K5"])
                 if opts.profile:
                     os.makedirs(opts.profile, exist_ok=True)
-                    profile_train_step(dev, params, data, work, opts.profile,
-                                       step_s)
+                    profile_train_step(dev, qparams, data, work,
+                                       opts.profile, step_s)
+                mark("train_slice")
             if "production" in only:
-                run_production_step(dev, params, work)
+                run_production_step(dev, qparams, work)
+                mark("production")
             if "finetune_ckpt" in only:
-                k = run_finetune_ckpt(dev, params, work, root, ckpt)
+                k = run_finetune_ckpt(dev, qparams, work, root, ckpt)
                 paths["finetune_ckpt"] = dict(
                     flash_attention_fwd=k["K1"],
                     flash_attention_fwd_lse=k["K3"],
                     flash_attention_bwd_dq=k["K4"],
                     flash_attention_bwd_dkv=k["K5"], int4_matmul=k["K6"])
                 _release(dev)
+                mark("finetune_ckpt")
+            qparams = None    # its views would keep serve4's frees alive
             if "serve_kv8" in only:
                 k1, k2, k6 = run_serve_kv8(dev, params, work)
                 paths["serve_kv8"] = dict(flash_attention_fwd=k1,
                                           gather_rows=k2, int4_matmul=k6)
                 _release(dev)
+                mark("serve_kv8")
             if "serve4" in only:
                 _release(dev)
                 k6, k1, k2 = run_serve4(dev, params, work)
                 paths["serve4"] = dict(int4_matmul=k6, flash_attention_fwd=k1,
                                        gather_rows=k2)
+                mark("serve4")
         finally:
             shutil.rmtree(work, ignore_errors=True)
             shutil.rmtree(ckpt, ignore_errors=True)
@@ -5250,6 +6085,7 @@ def main() -> int:
         _release(dev)
         k1, k6, lparams = run_llava(dev, smi, root)
         paths["llava"] = dict(flash_attention_fwd=k1, int4_matmul=k6)
+        mark("llava")
     if "multistream" in only:
         _release(dev)
         t_phase = time.perf_counter()
@@ -5277,7 +6113,8 @@ def main() -> int:
         params = None
         _release(dev)
         k1 += run_multistream_llava(dev, smi, lparams)
-        lparams = None
+        if "llava_train" not in only:
+            lparams = None
         from flash_vstream_tpu_torch.kernels.gather_rows import (
             gather_rows_cuda)
         got = _launches()["K1"], gather_rows_cuda.launches
@@ -5294,6 +6131,18 @@ def main() -> int:
         run_registry(dev)
         print(f"multistream: registry done, phase "
               f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+        mark("multistream")
+    if "llava_train" in only:
+        _release(dev)
+        got, lt_rows, _ = run_llava_train(dev, smi, root, lparams)
+        lparams = None
+        paths["llava_train"] = dict(
+            flash_attention_fwd=got["K1"], flash_attention_fwd_lse=got["K3"],
+            flash_attention_bwd_dq=got["K4"],
+            flash_attention_bwd_dkv=got["K5"])
+        for name, row in lt_rows.items():
+            rows.setdefault(name, row)
+        mark("llava_train")
     sources = {
         "flash_attention_fwd": ("flash_attention.cu", ":90"),
         "gather_rows": ("gather_rows.cu", ""),

@@ -118,6 +118,15 @@ def star_consolidate(
     if P != cfg.current_size ** 2:
         raise ValueError(f"features have {P} tokens a frame, want "
                          f"{cfg.current_size ** 2}")
+    need = max(cfg.long_length, cfg.turing_length, cfg.current_length)
+    if Tmax < need:
+        # a bucket shorter than a memory section: JAX's shapes fail here
+        # (a [Tmax] pass-through against [long_length] slots); frames past
+        # n_valid are masked everywhere, so zero frames up to the longest
+        # section give what a longer bucket gives
+        features = torch.cat([features, features.new_zeros(need - Tmax, P,
+                                                           D)])
+        Tmax = need
     dev = features.device
     c = cfg.current_length
     n_hist = max(n_valid - c, 0)

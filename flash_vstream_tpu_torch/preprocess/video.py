@@ -2,9 +2,11 @@
 
 Port of flash_vstream_tpu/preprocess/video.py:24-204 (numpy only):
 `FrameSource`, `SyntheticSource`, a decoder registry
-(`register_video_decoder`), JPEG/PNG frame directories (`load_frame_dir`,
-PIL imported when a directory is read), and the probes training uses to
-bucket items by resolution and length. All sources yield uint8 HWC frames.
+(`register_video_decoder`), frame directories (`load_frame_dir`: JPEG/PNG
+decoded by PIL, imported only for them; and, unlike JAX, `.npy` frames
+read with numpy, for machines without PIL), and the probes training uses
+to bucket items by resolution and length. All sources yield uint8 HWC
+frames.
 
 Not ported: the native JPEG decoder (PIL decodes frame directories), and the
 mp4/cv2/ffmpeg branches of `load_video`, which raise (ROADMAP A1): register a
@@ -18,7 +20,7 @@ from typing import Callable, Iterator, Optional, Sequence
 import numpy as np
 
 _VIDEO_DECODERS: dict = {}
-_FRAME_EXTS = (".jpg", ".jpeg", ".png")
+_FRAME_EXTS = (".jpg", ".jpeg", ".png", ".npy")
 
 
 def register_video_decoder(ext: str, fn: Callable[[str, float], Sequence]):
@@ -63,6 +65,16 @@ def _frame_names(path: str):
                   if n.lower().endswith(_FRAME_EXTS))
 
 
+def read_frame(path: str) -> np.ndarray:
+    """One uint8 [H, W, 3] frame: a `.npy` file with numpy, any other image
+    file decoded by PIL (imported only then) as RGB."""
+    if path.lower().endswith(".npy"):
+        return np.load(path)
+    from PIL import Image
+    with Image.open(path) as im:
+        return np.asarray(im.convert("RGB"))
+
+
 def load_frame_dir(path: str, fps: float = 1.0, source_fps: float = 1.0,
                    max_frames: Optional[int] = None) -> FrameSource:
     """A directory of extracted frames (sorted by name), subsampled from
@@ -71,21 +83,23 @@ def load_frame_dir(path: str, fps: float = 1.0, source_fps: float = 1.0,
     if max_frames is not None and len(names) > max_frames:
         idx = np.linspace(0, len(names) - 1, max_frames).round().astype(int)
         names = [names[i] for i in idx]
-    from PIL import Image
-    frames = [np.asarray(Image.open(os.path.join(path, n)).convert("RGB"))
-              for n in names]
-    return FrameSource(frames, fps)
+    return FrameSource([read_frame(os.path.join(path, n)) for n in names],
+                       fps)
 
 
 def probe_video_hw(path: str) -> tuple:
-    """(height, width) of a video's frames: a frame directory's first image
-    header, else one decoded frame."""
+    """(height, width) of a video's frames: a frame directory's first
+    frame's header (a `.npy` frame's array header), else one decoded
+    frame."""
     if os.path.isdir(path):
         names = _frame_names(path)
         if not names:
             raise FileNotFoundError(f"no frames in {path}")
+        first = os.path.join(path, names[0])
+        if first.lower().endswith(".npy"):
+            return tuple(np.load(first, mmap_mode="r").shape[:2])
         from PIL import Image
-        with Image.open(os.path.join(path, names[0])) as im:
+        with Image.open(first) as im:
             w, h = im.size
         return h, w
     frame = load_video(path, max_frames=1)[0]

@@ -61,9 +61,12 @@ def restore_checkpoint(output_dir: str, map_location=None
     if latest is None:
         return None
     step, path = latest
+    from ..ops.ntm import NTMParams
     from ..weights.quantize import QuantWeight, QuantWeight4
-    # a quantized base's leaves are NamedTuples of tensors
-    with torch.serialization.safe_globals([QuantWeight, QuantWeight4]):
+    # a quantized base's leaves and the LLaVA tree's NTM parameters are
+    # NamedTuples of tensors
+    with torch.serialization.safe_globals([QuantWeight, QuantWeight4,
+                                           NTMParams]):
         payload = torch.load(os.path.join(path, _STATE),
                              map_location=map_location, weights_only=True)
     return step, payload

@@ -35,17 +35,31 @@ def is_lora_target(path: str, targets: Sequence[str]) -> bool:
     return any(re.search(t, path) for t in targets)
 
 
-def tree_leaves_with_path(tree: dict, prefix: str = ""
+def _is_quantized(x) -> bool:
+    return hasattr(x, "q") or hasattr(x, "q4")
+
+
+def tree_leaves_with_path(tree, prefix: str = ""
                           ) -> Iterator[Tuple[str, object]]:
-    """(path, leaf) of a nested dict, keys sorted at every level as
-    `jax.tree_util` orders a dict; paths joined by "/"."""
-    for k in sorted(tree):
-        v = tree[k]
-        p = f"{prefix}/{k}" if prefix else str(k)
-        if isinstance(v, dict):
-            yield from tree_leaves_with_path(v, p)
-        else:
-            yield p, v
+    """(path, leaf) of a parameter tree in `jax.tree_util` order and with
+    its path spelling: dict keys sorted, list and tuple items by index,
+    NamedTuple fields in order as ".name"; "/" joins the parts. A quantized
+    leaf (`QuantWeight`, `QuantWeight4`) is one leaf."""
+    def join(k):
+        return f"{prefix}/{k}" if prefix else str(k)
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from tree_leaves_with_path(tree[k], join(k))
+    elif _is_quantized(tree):
+        yield prefix, tree
+    elif hasattr(tree, "_fields"):
+        for k in tree._fields:
+            yield from tree_leaves_with_path(getattr(tree, k), join(f".{k}"))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from tree_leaves_with_path(v, join(i))
+    else:
+        yield prefix, tree
 
 
 def _map_with_path(fn, tree: dict, prefix: str = "") -> dict:

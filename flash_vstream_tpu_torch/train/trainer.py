@@ -13,12 +13,26 @@ JAX trainer's optax chain has semantics the stock classes do not share:
   square root, and weight decay is added to the update before the learning
   rate scales it (optax.adamw);
 - each label group ("train", "projector", "frozen") has its own chain, so the
-  global norm is taken over a group's leaves; "frozen" leaves never move.
+  global norm is taken over a group's leaves; "frozen" leaves never move;
+- a bf16 tree rounds as optax's does: a Python constant (b1, b2, eps, the
+  step size) takes the array's dtype before the op (JAX's weak typing), and
+  the global norm sums each leaf's squares in f32, rounds that sum to the
+  leaf's dtype and adds the leaves' sums in it.
 
-Gradient accumulation takes the mean of the micro-batch gradients, summed in
-f32 as g / accum per micro-batch, as the JAX scan does. Parameters and
-moments are updated in place. ZeRO stages other than the default, moment
-offload and data parallelism raise (ROADMAP A16).
+Gradient accumulation takes the mean of the micro-batch gradients, each
+divided by accum and summed in place, as the JAX scan adds g / accum to its
+accumulator. Only leaves that train get gradients: optax's set_to_zero never
+reads a frozen leaf's, and the JAX step's dead gradient work is dropped by
+XLA, where autograd would run it (the dW of every frozen matrix). The
+update runs in place, a slice of at most 2**26 elements at a time along
+the leading axis (a stacked [L, ...] leaf one or more layers at a time), so
+its temporaries stay small beside a 7B model's parameters, gradients and
+moments; the arithmetic is elementwise, so slicing changes no value but
+the order of a leaf's f32 sum of squares. A
+parameter tree may hold dicts, lists and NamedTuples (the LLaVA tree's
+projector layers and NTM parameters), walked in JAX's order; quantized
+leaves are frozen. ZeRO stages other than the default, moment offload and
+data parallelism raise (ROADMAP A16).
 """
 from __future__ import annotations
 
@@ -56,6 +70,26 @@ class TrainConfig:
     # ZeRO stage of the JAX trainer; one device runs the default (2) only
     zero_stage: int = 2
     offload_moments: bool = False
+
+
+UPDATE_SLICE = 1 << 26      # elements an update step touches at a time
+
+
+def _slices(x: torch.Tensor):
+    """Index tuples covering x in runs of its leading axis of at most
+    UPDATE_SLICE elements (one slice for a small leaf)."""
+    if x.dim() == 0 or x.numel() <= UPDATE_SLICE:
+        return [(...,)]
+    rows = max(1, UPDATE_SLICE // (x.numel() // x.shape[0]))
+    return [(slice(r, r + rows),) for r in range(0, x.shape[0], rows)]
+
+
+def _weak(v: float, x: torch.Tensor) -> float:
+    """The Python constant `v` as JAX applies it to an array like `x`: a
+    weakly typed scalar takes the array's dtype, so against bf16 it is
+    rounded to bf16 first (0.999 acts as 0.99853515625). A torch op would
+    keep it in f32 against a bf16 tensor."""
+    return torch.tensor(v, dtype=x.dtype).item()
 
 
 def label_params(params: dict, cfg: TrainConfig) -> Dict[str, str]:
@@ -101,35 +135,43 @@ class AdamW:
     @torch.no_grad()
     def update(self, grads: Dict[str, torch.Tensor], state: dict,
                params: dict) -> dict:
-        """Apply one step to `params` in place; returns the new state."""
+        """Apply one step to `params` in place, the moments updated in
+        place too; returns the state."""
         cfg = self.cfg
         leaves = dict(tree_leaves_with_path(params))
         count = state["count"]
+        t = count + 1
+        bc1 = 1 - torch.tensor(cfg.b1, dtype=torch.float32) ** t
+        bc2 = 1 - torch.tensor(cfg.b2, dtype=torch.float32) ** t
         for group, lr in self.lr.items():
             paths = [p for p, lab in self.labels.items() if lab == group]
             if not paths:
                 continue
-            g_norm = torch.sqrt(sum((grads[p].float() ** 2).sum()
-                                    for p in paths))
+            g_norm = None                  # optax.global_norm, leaf by leaf
+            for p in paths:
+                sq = sum((grads[p][sl] * grads[p][sl]).float().sum()
+                         for sl in _slices(grads[p])).to(grads[p].dtype)
+                g_norm = sq if g_norm is None else g_norm + sq
+            g_norm = torch.sqrt(g_norm)
             keep = g_norm < cfg.max_grad_norm
             step_size = -lr_at(cfg, count, lr)
             for p in paths:
-                x = leaves[p]
-                g = torch.where(keep, grads[p],
-                                grads[p] / g_norm.to(grads[p].dtype)
-                                * cfg.max_grad_norm)
-                mu = (1 - cfg.b1) * g + cfg.b1 * state["mu"][p]
-                nu = (1 - cfg.b2) * g * g + cfg.b2 * state["nu"][p]
-                t = count + 1
-                bc1 = 1 - torch.tensor(cfg.b1, dtype=torch.float32) ** t
-                bc2 = 1 - torch.tensor(cfg.b2, dtype=torch.float32) ** t
-                u = (mu / bc1.to(mu.dtype)) / (
-                    torch.sqrt(nu / bc2.to(nu.dtype)) + cfg.eps)
-                if cfg.weight_decay:
-                    u = u + cfg.weight_decay * x
-                x.add_((u * step_size).to(x.dtype))
-                state["mu"][p] = mu.to(state["mu"][p].dtype)
-                state["nu"][p] = nu
+                for sl in _slices(leaves[p]):
+                    x, gp = leaves[p][sl], grads[p][sl]
+                    mu_s, nu_s = state["mu"][p][sl], state["nu"][p][sl]
+                    g = torch.where(keep, gp, gp / g_norm.to(gp.dtype)
+                                    * _weak(cfg.max_grad_norm, gp))
+                    mu = _weak(1 - cfg.b1, g) * g + _weak(cfg.b1, mu_s) * mu_s
+                    nu = (_weak(1 - cfg.b2, g) * (g * g)
+                          + _weak(cfg.b2, nu_s) * nu_s)
+                    u = (mu / bc1.to(mu.dtype)) / (
+                        torch.sqrt(nu / bc2.to(nu.dtype))
+                        + _weak(cfg.eps, nu))
+                    if cfg.weight_decay:
+                        u = u + _weak(cfg.weight_decay, x) * x
+                    x.add_((_weak(step_size, u) * u).to(x.dtype))
+                    mu_s.copy_(mu)
+                    nu_s.copy_(nu)
         state["count"] = count + 1
         return state
 
@@ -163,10 +205,11 @@ class Trainer:
             raise NotImplementedError(DP_TODO)
         self.cfg = cfg
         self.frozen = frozen
-        for _, x in _tensor_leaves(params):
-            x.requires_grad_(True)
         self.params = params
         self.optimizer = make_optimizer(cfg, params)
+        # gradients only where the update reads them
+        for p, x in _tensor_leaves(params):
+            x.requires_grad_(self.optimizer.labels[p] != "frozen")
         self.opt_state = self.optimizer.init(params)
         self.step = 0
         self._train_step = self.compile_step(loss_fn)
@@ -178,9 +221,10 @@ class Trainer:
         accum = self.cfg.grad_accum
 
         def step(batch, key):
-            paths = [p for p, _ in _tensor_leaves(self.params)]
-            leaves = [x for _, x in _tensor_leaves(self.params)]
-            acc, losses = None, []
+            paths = [p for p, lab in self.optimizer.labels.items()
+                     if lab != "frozen"]
+            leaves = dict(_tensor_leaves(self.params))
+            acc, losses = [None] * len(paths), []
             span = torch.profiler.record_function  # named spans for a trace
             for i in range(accum):
                 args = (self.params, _micro(batch, i), (key, i))
@@ -189,17 +233,24 @@ class Trainer:
                 with span("train/forward"):
                     loss = loss_fn(*args)
                 with span("train/backward"):
-                    grads = torch.autograd.grad(loss, leaves,
-                                                allow_unused=True)
-                grads = [torch.zeros_like(x) if g is None else g
-                         for g, x in zip(grads, leaves)]
-                if accum == 1:
-                    acc = grads
-                elif acc is None:
-                    acc = [g / accum for g in grads]
-                else:
-                    acc = [a + g / accum for a, g in zip(acc, grads)]
+                    # a loss that reaches no trained leaf (a text step of
+                    # the pretrain stage) has zero gradients, as in JAX
+                    grads = (list(torch.autograd.grad(
+                        loss, [leaves[p] for p in paths], allow_unused=True))
+                        if loss.requires_grad else [None] * len(paths))
                 losses.append(loss.detach().float())
+                del loss
+                for j, p in enumerate(paths):
+                    g = grads[j]
+                    grads[j] = None              # one leaf's temporaries
+                    if g is None:
+                        g = torch.zeros_like(leaves[p])
+                    if accum == 1:
+                        acc[j] = g
+                    elif acc[j] is None:
+                        acc[j] = g / accum
+                    else:
+                        acc[j].add_(g / accum)
             with span("train/optimizer"):
                 self.opt_state = self.optimizer.update(
                     dict(zip(paths, acc)), self.opt_state, self.params)

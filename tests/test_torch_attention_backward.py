@@ -552,3 +552,57 @@ def test_padded_kernels_match_plain_on_card(cuda, name):
     live = torch.isfinite(p_lse)
     assert (lse[live] - p_lse[live]).abs().max().item() <= 2e-2
     _assert_grads_close(q, k, v, out, do, lse, grads, kw)
+
+
+def _llava_train_padding(B, S, pre, post, dev):
+    """The LLaVA collator's segment ids of a [B, S] training batch: -1 on a
+    left run of the pre segment (left-padded) and on a right run of the
+    post segment (right-padded), a different length in each row."""
+    seg = torch.zeros(B, S, dtype=torch.int32, device=dev)
+    for b in range(B):
+        seg[b, :(7 * b) % pre] = -1
+        seg[b, S - (11 * b + 5) % post:] = -1
+    return seg
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [16, 32])
+def test_llava_train_shapes_on_card(cuda, B):
+    """K3, K4 and K5 through FlashAttentionFunction at the LLaVA training
+    stages' attention shapes (Vicuna's 32 heads of 128, S 937 = 64 + 681 +
+    192; micro-batch 16 for the finetune, 32 for the pretrain), causal with
+    the collator's padding: out within 2e-2 of the plain version, the
+    gradients by `_assert_grads_close`, one launch of each kernel."""
+    g = torch.Generator(device=cuda).manual_seed(B)
+    q, k, v, do = (torch.randn(B, 32, 937, 128, generator=g, device=cuda)
+                   .to(torch.bfloat16) for _ in range(4))
+    seg = _llava_train_padding(B, 937, 64, 192, cuda)
+    kw = dict(causal=True, q_segment_ids=seg, kv_segment_ids=seg)
+    fns = (fa.flash_attention_fwd_lse_cuda, fa.flash_attention_bwd_dq_cuda,
+           fa.flash_attention_bwd_dkv_cuda)
+    n = [f.launches for f in fns]
+    xs = [x.detach().requires_grad_() for x in (q, k, v)]
+    out = fa.flash_attention(*xs, **kw)
+    grads = torch.autograd.grad(out, xs, do)
+    torch.cuda.synchronize()
+    assert [f.launches for f in fns] == [c + 1 for c in n]
+    p_out, _ = fa.flash_attention_fwd_lse_reference(q, k, v, **kw)
+    assert (out.float() - p_out.float()).abs().max().item() <= 2e-2
+    del p_out
+    _, lse = fa.flash_attention_fwd_lse_cuda(q, k, v, **kw)
+    _assert_grads_close(q, k, v, out.detach(), do, lse, grads, kw)
+
+
+@pytest.mark.gpu
+def test_llava_train_clip_shape_on_card(cuda):
+    """K1 at the raw-frame step's CLIP shape (8 videos x 50 frames of 257
+    tokens, 16 heads of 64, no mask) within 2e-2 of the plain version."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    q, k, v = (torch.randn(400, 16, 257, 64, generator=g, device=cuda)
+               .to(torch.bfloat16) for _ in range(3))
+    n = fa.flash_attention_cuda.launches
+    out = fa.flash_attention_cuda(q, k, v)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_cuda.launches == n + 1
+    want = fa.flash_attention_reference(q, k, v)
+    assert (out.float() - want.float()).abs().max().item() <= 2e-2

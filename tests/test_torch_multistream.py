@@ -189,23 +189,23 @@ def _f32_snapshots(j, jeng):
     return jsnaps, port
 
 
-def _qwen_pair(j, cfg_fn=None):
+def _qwen_pair(j, cfg_fn=None, kw=KW):
     jcfg, tcfg = j.jqcfg(), tiny_qwen_config()
     if cfg_fn is not None:
         jcfg, tcfg = cfg_fn(jcfg), cfg_fn(tcfg)
     jeng = j.streaming.QwenMultiStreamEngine(
-        j.qparams, jcfg, j.jqtok(), n_streams=N, **KW)
+        j.qparams, jcfg, j.jqtok(), n_streams=N, **kw)
     teng = tst.QwenMultiStreamEngine(
         VStreamQwen(tcfg, j.tparams(j.qparams)), make_byte_qwen_tokenizer(),
-        N, draws=j.stream_draws(N), **KW)
+        N, draws=j.stream_draws(N), **kw)
     return jeng, teng
 
 
-def _run_qwen(j, ticks, seed, cfg_fn=None, answer_at=()):
+def _run_qwen(j, ticks, seed, cfg_fn=None, answer_at=(), kw=KW):
     """Both engines over the same ticks; after each tick every stream's
     snapshot is checked, and at the ticks in `answer_at` every stream is
     answered alone and all together in both packages."""
-    jeng, teng = _qwen_pair(j, cfg_fn)
+    jeng, teng = _qwen_pair(j, cfg_fn, kw)
     jfused = _recorder(jeng.sess, "_answer_fused")
     jbatch = _recorder(jeng.sess.generator, "generate_batch")
     tone = _recorder(teng.sess, "answer_tokens")
@@ -281,6 +281,28 @@ def test_qwen_engine_drop_method_matches_jax(j):
     assert a["tall"] == a["jall"] == a["jone"]
     assert a["tbatch"] == a["jbatch"]
     assert list(teng.n_frames) == [7, 7, 6]
+
+
+def test_qwen_engine_clip4_merge_matches_jax(j):
+    """Clips of 4 frames under the merge method: ragged clips of 0-4
+    frames a stream drawn at random (odd counts and empty clips among
+    them), banks of 8 pairs that wrap over 12 ticks; every stream's
+    snapshot held to JAX's engine after every tick, and answer,
+    answer_all and the batched ids equal to JAX's at the last tick."""
+    def merge(cfg):
+        return dataclasses.replace(cfg, flash_memory=dataclasses.replace(
+            cfg.flash_memory, temporal_method="merge"))
+    rng = np.random.default_rng(4)
+    ticks = [(4, 4, 4)] + [tuple(int(n) for n in rng.integers(0, 5, N))
+                           for _ in range(11)]
+    assert any(n % 2 for t in ticks for n in t) and any(
+        0 in t for t in ticks)
+    kw = dict(KW, clip_size=4, bank_size=8)
+    _, teng, answers = _run_qwen(j, ticks, 7, merge, answer_at=(11,), kw=kw)
+    a = answers[0]
+    assert a["tall"] == a["jall"] and a["tone"] == a["jone"]
+    assert a["tids"] == a["jfused"] and a["tbatch"] == a["jbatch"]
+    assert int(teng.states.bank_pos.max()) >= 8           # the banks wrapped
 
 
 def test_qwen_engine_batch_uses_one_gather(j, monkeypatch):

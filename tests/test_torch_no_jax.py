@@ -17,7 +17,9 @@ and the LLaVA family with PIL blocked (every new module imported, a tiny
 LLaVA checkpoint written and loaded, a video and an image through
 LLaVAPipeline, a stream answered speculatively, the --model-family llava
 --load-4bit --kv-int8 dry-run server; frames resized by the numpy
-resampling), both multi-stream engines, the threaded ingest and the gmm
+resampling; the LLaVA trainer's raw-media and feature dry runs,
+extract_features over `.npy` frame directories and the feature eval
+launcher over what it wrote), both multi-stream engines, the threaded ingest and the gmm
 consolidation on the CPU in a fresh interpreter leave
 `jax` and `flash_vstream_tpu` out of sys.modules (the tests' own conftest
 imports jax, hence the subprocess); no source file of the port imports
@@ -256,6 +258,30 @@ out = flash_consolidate(
     dataclasses.replace(cfg.flash_memory, temporal_method="gmm"),
     torch.randn(6, 16, 32), torch.randn(6, 4, 32))
 assert out.tem_x.shape == (cfg.flash_memory.csm_grid_len, 4, 32)
+from flash_vstream_tpu_torch.train import train as llava_train
+from flash_vstream_tpu_torch.eval import eval_any_dataset_features, model_video_qa
+from flash_vstream_tpu_torch.scripts import extract_features
+with tempfile.TemporaryDirectory() as d:
+    res = llava_train.run_training(llava_train.make_parser().parse_args(
+        ["--dry-run", "--synthetic-raw", "--device", "cpu", "--output-dir",
+         d + "/raw", "--max-steps", "3", "--frame-bucket", "4",
+         "--pre-len", "16", "--post-len", "32", "--text-len", "64"]))
+    assert set(res["modalities"]) == {"video", "image", "text"}
+    res = llava_train.run_training(llava_train.make_parser().parse_args(
+        ["--dry-run", "--device", "cpu", "--stage", "pretrain",
+         "--output-dir", d + "/feat", "--max-steps", "2", "--frame-bucket",
+         "8", "--pre-len", "16", "--post-len", "32"]))
+    assert len(res["losses"]) == 2
+    with contextlib.redirect_stdout(io.StringIO()):
+        assert extract_features.main(
+            ["--dry-run", "--device", "cpu", "--video_dir", d + "/raw/synthetic/media",
+             "--output_dir", d + "/eval/msvd/features"]) == ["v0", "v1", "v2", "v3"]
+    json.dump([{"id": 0, "video_id": "v1", "question": "What?"}],
+              open(d + "/eval/msvd/test_qa.json", "w"))
+    eval_any_dataset_features.main(
+        ["--dataset", "msvd", "--data-root", d + "/eval", "--output-dir",
+         d + "/out", "--dry-run", "--device", "cpu", "--skip-judge"])
+    assert len(open(d + "/out/pred.json").readlines()) == 1
 del sys.modules["PIL"]
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flash_vstream_tpu"))

@@ -32,6 +32,16 @@ Qwen2-VL-7B decoder at QWEN_LAYERS of its 28 layers, every width full):
 5. slice: the full-width Qwen2-VL-7B streaming session with random weights:
    21 clips ingested (one warm-up), memory saturated, 3 greedy answers,
    with the launch counts of both kernels during ingest and answering;
+   disaggregated (right after slice, on its weights at all 28 layers):
+   serving across devices on one card, its devices listed more than
+   once: a placed session (ingest on the card, the decoder split over
+   [card] * 2) against a one-device session over 16 clips of 8 frames
+   (snapshots bit-equal), two answers and a stream, ids by the near-tie
+   rule on teacher-forced logits within OFFLINE_LOGIT_TOL; the decoder at
+   tp 1, 2 and 4 (prefill ms, decode ms/token; busy with --profile), tp
+   4's ids and a planted fault (a partial left out of the all-reduce); an
+   answer on a thread while clips ingest; save / reset / load keep the
+   placement;
    serve_http: the port's HTTP server over the slice's weights, two
    streams (the second a clone) fed .npy frames, greedy, SSE, preemptible
    (decode chunks of 8, prefill chunks of 512), speculative (k 4) and
@@ -144,7 +154,9 @@ Qwen2-VL-7B decoder at QWEN_LAYERS of its 28 layers, every width full):
    equal to LLaVAPipeline's.
 
 `--profile DIR` also traces one training-slice step with torch.profiler and
-writes its kernel table there. The line before the last is one JSON object
+writes its kernel table there, and profiles the disaggregated phase's
+decode at tp 1, 2 and 4 (device busy a token; about 30 s a session).
+The line before the last is one JSON object
 with each kernel's launches (in the run of the path it was ported for, and
 per path under `launches_by_path`), error, times, bound and the unit they
 are per (`per`: one call, or K6's decode token); the last is the device
@@ -1416,6 +1428,265 @@ def run_slice(dev):
           f"max |logit| {logits.abs().max().item():.3f}; peak memory "
           f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB", flush=True)
     return k1_ingest + k1_answer, k2_ingest + k2_answer, params
+
+
+DIS_CLIPS = 16          # clips of 8 frames: 64 frame pairs, the 60 CSM
+#                         slots saturate
+# ids a question: a prefill and 11 decode steps (the script's time limit;
+# `_teacher_forced` times the steps before its last 8)
+DIS_TOKENS = 12
+DIS_TP = (2, 4)         # the decoder's shards, all on the one card
+
+
+def run_disaggregated(dev, smi, params, work, profile=False):
+    """Serving across devices (ROADMAP A16's serving half) at full width
+    on one card: the slice's Qwen2-VL-7B weights (all 28 layers), a
+    one-device session and a disaggregated one
+    (`make_serve_placement(1, 2, [card] * 3)`: ingest, two decode
+    shards). The placed session ingests DIS_CLIPS clips (its
+    snapshots bit-equal to the one-device session's) and answers two
+    questions and one `answer_stream`: the path's K1/K2 launches. Then the
+    checks: its ids against the one-device ids by the near-tie rule
+    (`_batched_rule`: teacher-forced logits within OFFLINE_LOGIT_TOL of max
+    |logit|, the shards' bf16 partial sums of wo and down rounding in
+    another order than one matmul; a parting only at a near tie); the
+    decoder at tp 1, 2 and
+    4 (prefill ms, decode ms/token, and with `profile` the device's busy
+    ms a token, a torch.profiler session each, about 30 s apiece: the
+    sharded code's cost on one card, not multi-card speed), tp 4's ids by
+    the same rule and a planted fault (one shard's partial left out of the
+    all-reduce) refused; an answer on a thread while two more clips
+    ingest equal to the same snapshot's answer; save / reset / load
+    keeping the placement. Returns the path's (K1, K2) launches."""
+    import threading
+    import numpy as np
+    import torch
+    from flash_vstream_tpu_torch.kernels.flash_attention import (
+        flash_attention_cuda)
+    from flash_vstream_tpu_torch.kernels.gather_rows import gather_rows_cuda
+    from flash_vstream_tpu_torch.models.vstream_qwen import (
+        VStreamQwen, VStreamQwenConfig)
+    from flash_vstream_tpu_torch.parallel import inference
+    from flash_vstream_tpu_torch.parallel.serve import make_serve_placement
+    from flash_vstream_tpu_torch.parallel.sharding import create_mesh
+    from flash_vstream_tpu_torch.preprocess.qwen_processor import (
+        make_byte_qwen_tokenizer)
+    from flash_vstream_tpu_torch.runtime.generation import (
+        GenerationConfig, Generator)
+    from flash_vstream_tpu_torch.runtime.streaming import QwenStreamSession
+
+    t_phase = time.perf_counter()
+    cfg = VStreamQwenConfig()
+    model = VStreamQwen(cfg, params)
+    tok = make_byte_qwen_tokenizer()
+    kw = dict(frame_hw=(224, 224), clip_size=8, bank_size=1024, max_len=4096)
+    rng = np.random.default_rng(SEED + 1)
+    clips = [_frames(rng, 8, (224, 224)) for _ in range(DIS_CLIPS + 2)]
+    gen = GenerationConfig(max_new_tokens=DIS_TOKENS)   # no EOS: whole rows
+
+    ref = QwenStreamSession(model, tok, **kw)
+    want = []
+    for c in clips[:DIS_CLIPS]:
+        ref.ingest_frames(c)
+        want.append(ref._published[0])
+    t0 = time.perf_counter()
+    pl = make_serve_placement(n_ingest=1, n_decode=2, devices=[dev] * 3)
+    dis = QwenStreamSession(model, tok, placement=pl, **kw)
+    torch.cuda.synchronize(dev)
+    place_s = time.perf_counter() - t0
+
+    # the path: ingest, two answers and a stream, their ids recorded
+    ids = []
+    generate, generate_stream = (dis.generator.generate,
+                                 dis.generator.generate_stream)
+
+    def recorded(*a, **k):
+        out = generate(*a, **k)
+        ids.append(list(out))
+        return out
+
+    def recorded_stream(*a, **k):
+        out = []
+        for t in generate_stream(*a, **k):
+            out.append(t)
+            yield t
+        ids.append(out)
+    dis.generator.generate = recorded
+    dis.generator.generate_stream = recorded_stream
+    flash_attention_cuda.launches = gather_rows_cuda.launches = 0
+    ms = []
+    for i, c in enumerate(clips[:DIS_CLIPS]):
+        t0 = time.perf_counter()
+        dis.ingest_frames(c)
+        dis.block_until_ingested()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        if not all(torch.equal(a, b) for a, b in zip(dis._published[0],
+                                                      want[i])):
+            raise AssertionError(f"disaggregated: ingest {i}'s snapshot is "
+                                 f"not the one-device session's")
+    t0 = time.perf_counter()
+    texts = [dis.answer(q, gen) for q in QUESTIONS[:2]]
+    texts.append("".join(dis.answer_stream(QUESTIONS[2], gen)))
+    torch.cuda.synchronize(dev)
+    answer_s = (time.perf_counter() - t0) / 3
+    k1, k2 = flash_attention_cuda.launches, gather_rows_cuda.launches
+    del dis.generator.generate, dis.generator.generate_stream
+    n = dis.n_frames
+    n_csm = int(dis.state.tem_valid.sum())
+    if (n_csm != cfg.flash_memory.csm_grid_len or len(ids) != 3
+            or dis.state.tem_x.device != pl.ingest_device
+            or min(k1, k2) == 0):
+        raise AssertionError(f"disaggregated: CSM {n_csm}, {len(ids)} "
+                             f"answers, state on {dis.state.tem_x.device}, "
+                             f"K1 {k1} K2 {k2}")
+    print(f"disaggregated: placement ingest {pl.ingest_device}, decode tp "
+          f"{pl.decode_mesh.shape['tp']} on "
+          f"{[str(d) for d in pl.decode_mesh.devices[0]]} "
+          f"(shards placed in {place_s:.3f} s); {DIS_CLIPS} clips ms/clip "
+          f"mean={np.mean(ms):.2f} median={np.median(ms):.2f}, snapshots "
+          f"bit-equal to the one-device session's at every ingest; frame "
+          f"pairs {n} CSM {n_csm}; 3 answers of {DIS_TOKENS} ids "
+          f"{answer_s:.3f} s each; texts {[t[:16] for t in texts]!r}; at "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+
+    # the one-device ids; the decoder at tp 1, 2 and 4 teacher-forced on
+    # the first question's, timed; a later question's logits only where
+    # its ids part
+    prompts, single = [], []
+    for q in QUESTIONS:
+        h = ref._prompt_host(q, n)
+        e, pos, start, seg = ref._prompt_inputs(ref._published[0], h)
+        de, dpos, _, _ = dis._prompt_inputs(dis._published[0], h)
+        if not (torch.equal(e, de) and torch.equal(pos, dpos)):
+            raise AssertionError("disaggregated: the placed session's "
+                                 "prompt embeddings are not the one-device "
+                                 "session's")
+        prompts.append((e, pos, seg, h["last_real"], [int(start)]))
+        single.append(ref.generator.generate(
+            e, pos, gen, decode_pos_start=start, segment_ids=seg,
+            last_real_idx=h["last_real"]))
+    print(f"disaggregated: one-device answers at "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    args = prompts[0]
+    S = args[0].shape[1]
+    gens = {1: ref.generator, 2: dis.generator}
+    timing, logits = {}, {}
+    for tp in (1,) + DIS_TP:
+        if tp not in gens:
+            tpd, _ = inference.shard_params_for_inference(
+                model.llm, mesh=create_mesh(dp=1, tp=tp, devices=[dev] * tp))
+            gens[tp] = Generator(tpd, max_len=4096)
+        g = gens[tp]
+        lg, host_ms, busy = _teacher_forced(g, *args, [single[0]],
+                                            profile=profile)
+        logits[tp] = lg[0]
+        pre = []
+        for _ in range(2):
+            cache = g.new_cache(1, g._active_len(S, DIS_TOKENS))
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            g.prefill(args[0], args[1], cache, args[2], args[3])
+            torch.cuda.synchronize(dev)
+            pre.append((time.perf_counter() - t0) * 1e3)
+        timing[tp] = (min(pre), host_ms, busy)
+    print(f"disaggregated [{smi}]: decoder over [card] * tp at S={S}, "
+          + "; ".join(f"tp {tp} prefill {p:.2f} ms, decode {h:.2f} ms/token"
+                      + (f" busy {b:.2f} (idle {1 - b / h:.2f})" if profile
+                         else "")
+                      for tp, (p, h, b) in timing.items())
+          + " (one card: the sharded code's cost, not multi-card speed); "
+          f"at {time.perf_counter() - t_phase:.1f} s", flush=True)
+    parted = [i for i in range(1, len(QUESTIONS)) if ids[i] != single[i]]
+    single_lg, tp_lg = [logits[1]], [logits[2]]
+    for i in parted:
+        single_lg.append(_teacher_forced(ref.generator, *prompts[i],
+                                         [single[i]])[0][0])
+        tp_lg.append(_teacher_forced(dis.generator, *prompts[i],
+                                     [single[i]])[0][0])
+    worst, parts, shifts = _batched_rule(
+        "disaggregated tp 2", [single[i] for i in [0] + parted], single_lg,
+        [ids[i] for i in [0] + parted], tp_lg)
+    print(f"disaggregated tp 2: teacher-forced logits {worst:.3e} of max "
+          f"from the one-device decoder's (limit {OFFLINE_LOGIT_TOL}); the "
+          f"placed session's ids {'equal' if ids == single else 'part'} "
+          f"(questions {[0] + parted} held to the rule; partings: "
+          f"(question, step, gap, shift in bf16 steps) {parts}; shift "
+          f"elsewhere median {shifts[0]:.3f} max {shifts[1]:.3f} bf16 "
+          f"steps)", flush=True)
+    # tp 4's ids: the argmax of its teacher-forced steps, which are its
+    # greedy decode's steps up to a first parting (the rule reads no
+    # further)
+    tp = DIS_TP[-1]
+    g = gens.pop(tp)
+    got = logits[tp].argmax(dim=-1).tolist()
+    w, p, _ = _batched_rule(f"disaggregated tp {tp}", single[:1],
+                            [logits[1]], [got], [logits[tp]])
+    # a planted fault: the all-reduce leaves the last shard's partial out
+    reduce = inference.TPGroup.all_reduce
+    inference.TPGroup.all_reduce = (
+        lambda self, parts: reduce(self, parts[:-1]))
+    try:
+        cache = g.new_cache(1, g._active_len(S, DIS_TOKENS))
+        bad = g.prefill(args[0], args[1], cache, args[2], args[3])
+    finally:
+        inference.TPGroup.all_reduce = reduce
+    fault = ((bad[0] - logits[1][0]).abs().max()
+             / logits[1][0].abs().max()).item()
+    if fault <= OFFLINE_LOGIT_TOL:
+        raise AssertionError(f"disaggregated tp {tp}: a dropped partial "
+                             f"reads {fault:.3e}, within the limit")
+    del g, tpd, cache, bad
+    print(f"disaggregated tp {tp}: teacher-forced logits {w:.3e} of max "
+          f"(limit {OFFLINE_LOGIT_TOL}); the argmax ids of its "
+          f"teacher-forced steps {'equal' if got == single[0] else 'part'} "
+          f"{p}; planted fault "
+          f"(one shard's partial left out of the all-reduce) {fault:.3e}, "
+          f"refused; at {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+    # an answer on a thread while two more clips ingest
+    snap, nf = dis._published
+    before = [x.clone() for x in snap]
+    gen8 = GenerationConfig(max_new_tokens=8)
+    baseline = dis.answer_snapshot(snap, nf, QUESTIONS[0], gen8)
+    out = {}
+    th = threading.Thread(target=lambda: out.setdefault(
+        "a", dis.answer_snapshot(snap, nf, QUESTIONS[0], gen8)))
+    th.start()
+    for c in clips[DIS_CLIPS:]:
+        dis.ingest_frames(c)
+    dis.block_until_ingested()
+    th.join(timeout=300)
+    if th.is_alive() or out.get("a") != baseline or dis.n_frames != n + 8:
+        raise AssertionError(f"disaggregated: the concurrent answer "
+                             f"{out.get('a')!r} against {baseline!r}, "
+                             f"frame pairs {dis.n_frames}")
+    if not all(torch.equal(a, b) for a, b in zip(snap, before)):
+        raise AssertionError("disaggregated: an ingest changed a published "
+                             "snapshot")
+    t_save = time.perf_counter()
+
+    # save / reset / load keep the placement
+    os.makedirs(work, exist_ok=True)
+    saved = dis._published
+    path = dis.save_session(os.path.join(work, "disaggregated.pt"))
+    dis.reset()
+    if dis.n_frames or dis.state.tem_x.device != pl.ingest_device:
+        raise AssertionError("disaggregated: reset lost the placement")
+    dis.load_session(path)
+    os.remove(path)
+    if not (dis.placement is pl and dis.state.tem_x.device == pl.ingest_device
+            and dis.n_frames == saved[1]
+            and all(torch.equal(a, b) for a, b in zip(dis._published[0],
+                                                      saved[0]))):
+        raise AssertionError("disaggregated: save / load lost the stream or "
+                             "the placement")
+    print(f"disaggregated: concurrent answer equal to its baseline while 2 "
+          f"clips ingest, the snapshot unchanged; save / reset / load keep "
+          f"the placement (state on {dis.state.tem_x.device}, "
+          f"{time.perf_counter() - t_save:.1f} s); launches of "
+          f"the path K1={k1} K2={k2}; phase "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return k1, k2
 
 
 SERVE_Q = "What is happening in the video?"
@@ -5917,8 +6188,8 @@ def run_llava_train(dev, smi, root, params=None, cfg=None):
 
 
 PHASES = ("kernels", "int4_kernel", "reference", "int4_reference", "slice",
-          "llava", "serve_http", "offline", "backward", "function", "train_reference", "dry_run_train",
-          "train_slice",
+          "disaggregated", "llava", "serve_http", "offline", "backward",
+          "function", "train_reference", "dry_run_train", "train_slice",
           "production", "finetune_ckpt", "serve_kv8", "serve4", "bank_gather",
           "vit_probe", "int4_probe", "multistream", "llava_train")
 
@@ -5927,13 +6198,16 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--only", default=",".join(PHASES),
                         help="comma-separated phases to run (default all; "
-                             "serve_http, offline, the training phases, "
+                             "disaggregated, serve_http, offline, the "
+                             "training phases, "
                              "finetune_ckpt, serve_kv8 and serve4 need "
                              "'slice'; llava runs after them, alone; "
                              "llava_train last, on llava's weights when "
                              "llava runs, else on its own)")
     parser.add_argument("--profile", default=None, metavar="DIR",
-                        help="also profile one training-slice step into DIR")
+                        help="also profile one training-slice step into DIR, "
+                             "and the disaggregated phase's decode at each "
+                             "tp (device busy a token)")
     opts = parser.parse_args()
     only = set(opts.only.split(","))
     import torch
@@ -6026,6 +6300,17 @@ def main() -> int:
         paths["slice"] = dict(flash_attention_fwd=k1, gather_rows=k2)
         mark("slice")
         work = os.path.join(root, "build", "chip_smoke_train")
+        if "disaggregated" in only:
+            dwork = os.path.join(root, "build", "chip_smoke_disaggregated")
+            try:
+                k1, k2 = run_disaggregated(dev, smi, params, dwork,
+                                           profile=bool(opts.profile))
+            finally:
+                shutil.rmtree(dwork, ignore_errors=True)
+            paths["disaggregated"] = dict(flash_attention_fwd=k1,
+                                          gather_rows=k2)
+            _release(dev)
+            mark("disaggregated")
         qparams = _qwen_cut(params)     # QWEN_LAYERS: the time limit
         try:
             if "serve_http" in only:

@@ -374,6 +374,72 @@ def cache_attention(q, kc, vc, ks=None, vs=None, *, q_offset, q_segment_ids,
     return out.reshape(B, Hq, Sq, D).to(q.dtype)
 
 
+def attend(
+    q: torch.Tensor,                     # [B, S, Hq * head_dim]
+    k: torch.Tensor,                     # [B, S, Hkv * head_dim]
+    v: torch.Tensor,
+    *,
+    head_dim: int,
+    rope: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    causal: bool = False,
+    q_segment_ids: Optional[torch.Tensor] = None,
+    kv_segment_ids: Optional[torch.Tensor] = None,
+    kv_cache: Optional[tuple] = None,
+    cache_len: int = 0,
+    cache_segments: Optional[torch.Tensor] = None,
+    decode_multi: bool = False,
+) -> torch.Tensor:
+    """The attention of `mha` between its projections: q, k, v split into
+    heads (their counts from the widths), RoPE, the cache write and the
+    attention; returns [B, S, Hq * head_dim], before the output projection.
+    A tensor-parallel shard (parallel/inference.py) calls it on its own
+    heads."""
+    B, S, _ = q.shape
+    q = q.reshape(B, S, -1, head_dim).transpose(1, 2)
+    k = k.reshape(B, S, -1, head_dim).transpose(1, 2)
+    v = v.reshape(B, S, -1, head_dim).transpose(1, 2)
+    if rope is not None:
+        q = apply_rope(q, *rope)
+        k = apply_rope(k, *rope)
+
+    if kv_cache is not None:
+        kc, vc = kv_cache[:2]
+        ks = vs = None
+        if len(kv_cache) == 4:           # int8: quantized k/v and scales
+            ks, vs = kv_cache[2:]
+            kq, ksn = quantize_kv(k)
+            vq, vsn = quantize_kv(v)
+            kc[:, :, cache_len:cache_len + S] = kq
+            vc[:, :, cache_len:cache_len + S] = vq
+            ks[:, :, cache_len:cache_len + S] = ksn
+            vs[:, :, cache_len:cache_len + S] = vsn
+        else:
+            kc[:, :, cache_len:cache_len + S] = k.to(kc.dtype)
+            vc[:, :, cache_len:cache_len + S] = v.to(vc.dtype)
+        if S > 1 and not decode_multi:
+            out = flash_attention(q, k, v, causal=True,
+                                  q_segment_ids=q_segment_ids,
+                                  kv_segment_ids=kv_segment_ids)
+        else:
+            # slots past the written prefix are masked either way; reading
+            # only the prefix saves the rest of the buffer's bytes
+            n = cache_len + S
+            q_seg = (torch.zeros((B, S), dtype=torch.int32, device=q.device)
+                     if cache_segments is not None else None)
+            out = cache_attention(
+                q, kc[:, :, :n], vc[:, :, :n],
+                None if ks is None else ks[:, :, :n],
+                None if vs is None else vs[:, :, :n], q_offset=cache_len,
+                q_segment_ids=q_seg,
+                kv_segment_ids=(cache_segments[:, :n].contiguous()
+                                if cache_segments is not None else None))
+    else:
+        out = flash_attention(q, k, v, causal=causal,
+                              q_segment_ids=q_segment_ids,
+                              kv_segment_ids=kv_segment_ids)
+    return out.transpose(1, 2).reshape(B, S, -1)
+
+
 def mha(
     params: dict,
     x: torch.Tensor,                     # [B, S, D]
@@ -402,53 +468,13 @@ def mha(
     with the queries in segment 0, the keys in the cache's segments (-1
     never attended) and q_offset = cache_len. That is a decode step (S 1),
     a speculative verify (k + 1 tokens) or a prefill chunk."""
-    B, S, _ = x.shape
     q = dense(x, params["wq"]["w"], params["wq"].get("b"))
     k = dense(x, params["wk"]["w"], params["wk"].get("b"))
     v = dense(x, params["wv"]["w"], params["wv"].get("b"))
-    q = q.reshape(B, S, num_heads, head_dim).transpose(1, 2)
-    k = k.reshape(B, S, num_kv_heads, head_dim).transpose(1, 2)
-    v = v.reshape(B, S, num_kv_heads, head_dim).transpose(1, 2)
-    if rope is not None:
-        q = apply_rope(q, *rope)
-        k = apply_rope(k, *rope)
-
-    if kv_cache is not None:
-        kc, vc = kv_cache[:2]
-        ks = vs = None
-        if len(kv_cache) == 4:           # int8: quantized k/v and scales
-            ks, vs = kv_cache[2:]
-            kq, ksn = quantize_kv(k)
-            vq, vsn = quantize_kv(v)
-            kc[:, :, cache_len:cache_len + S] = kq
-            vc[:, :, cache_len:cache_len + S] = vq
-            ks[:, :, cache_len:cache_len + S] = ksn
-            vs[:, :, cache_len:cache_len + S] = vsn
-        else:
-            kc[:, :, cache_len:cache_len + S] = k.to(kc.dtype)
-            vc[:, :, cache_len:cache_len + S] = v.to(vc.dtype)
-        if S > 1 and not decode_multi:
-            out = flash_attention(q, k, v, causal=True,
-                                  q_segment_ids=q_segment_ids,
-                                  kv_segment_ids=kv_segment_ids)
-        else:
-            # slots past the written prefix are masked either way; reading
-            # only the prefix saves the rest of the buffer's bytes
-            n = cache_len + S
-            q_seg = (torch.zeros((B, S), dtype=torch.int32, device=x.device)
-                     if cache_segments is not None else None)
-            out = cache_attention(
-                q, kc[:, :, :n], vc[:, :, :n],
-                None if ks is None else ks[:, :, :n],
-                None if vs is None else vs[:, :, :n], q_offset=cache_len,
-                q_segment_ids=q_seg,
-                kv_segment_ids=(cache_segments[:, :n].contiguous()
-                                if cache_segments is not None else None))
-    else:
-        out = flash_attention(q, k, v, causal=causal,
-                              q_segment_ids=q_segment_ids,
-                              kv_segment_ids=kv_segment_ids)
-    out = out.transpose(1, 2).reshape(B, S, num_heads * head_dim)
+    out = attend(q, k, v, head_dim=head_dim, rope=rope, causal=causal,
+                 q_segment_ids=q_segment_ids, kv_segment_ids=kv_segment_ids,
+                 kv_cache=kv_cache, cache_len=cache_len,
+                 cache_segments=cache_segments, decode_multi=decode_multi)
     return dense(out, params["wo"]["w"], params["wo"].get("b"))
 
 

@@ -156,6 +156,11 @@ class Generator:
         self.gumbel = gumbel or torch_gumbel
 
     def new_cache(self, batch: int = 1, length: Optional[int] = None) -> KVCache:
+        """An empty cache; a decoder that keeps its own kind (the
+        tensor-parallel decoder's cache a shard) makes it."""
+        make = getattr(self.llm, "new_cache", None)
+        if make is not None:
+            return make(batch, length or self.max_len, self.cache_dtype)
         return KVCache.create(self.cfg.num_layers, batch,
                               self.cfg.num_kv_heads, length or self.max_len,
                               self.cfg.head_dim, self.cache_dtype, self.device)

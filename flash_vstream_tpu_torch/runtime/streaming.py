@@ -37,8 +37,10 @@ of the prompt (`bucket_up`) are kept, because they decide the prompt. The
 model may be quantized (int8 or int4 decoder, int8 ViT blocks), and the
 answers' KV cache int8 (`kv_cache_dtype=torch.int8`). A saved session is a
 `torch.save` file, where JAX writes an orbax checkpoint (orbax imports
-jax); it holds no cache. Not ported yet: multi-stream and disaggregated
-serving (ROADMAP A15, A16).
+jax); it holds no cache. With a `placement` (parallel/serve.py) the
+session is disaggregated: ingest on one device, the merger and the
+tensor-parallel decoder on others, the snapshot handed across at answer
+time (JAX streaming.py:469-591).
 """
 from __future__ import annotations
 
@@ -389,11 +391,11 @@ class QwenStreamSession:
                  kv_cache_dtype=None, placement=None):
         """`model` may carry quantized weights (weights/quantize.py);
         `kv_cache_dtype` is the answers' cache (default bf16; torch.int8
-        quantizes k/v per position). A disaggregated placement is not
-        ported."""
-        if placement is not None:
-            raise NotImplementedError("disaggregated serving is not ported "
-                                      "yet: ROADMAP A16")
+        quantizes k/v per position). With a `placement`
+        (parallel/serve.py) the vision tower and the memory state live on
+        its ingest device and the merger and the tensor-parallel decoder on
+        its decode devices; the published snapshot moves across at answer
+        time."""
         if clip_size % 2:
             raise ValueError("Qwen streaming ingests temporal frame pairs; "
                              f"clip_size must be even (got {clip_size})")
@@ -402,8 +404,18 @@ class QwenStreamSession:
         self.tokenizer = tokenizer
         self.clip_size = clip_size
         self.metrics = MetricMeter()
-        self.device = model.llm.device
-        self.generator = Generator(model.llm, max_len=max_len,
+        self.placement = placement
+        if placement is not None:
+            from ..parallel.serve import place_qwen_serve_params
+            ingest, decode = place_qwen_serve_params(model, placement)
+            self.vit, self.llm = ingest["vit"], decode["llm"]
+            self.merger = decode["vit"]["merger"]
+            self.device = placement.ingest_device
+        else:
+            self.vit, self.merger, self.llm = (model.vit, model.vit.merger,
+                                               model.llm)
+            self.device = model.llm.device
+        self.generator = Generator(self.llm, max_len=max_len,
                                    cache_dtype=kv_cache_dtype or torch.bfloat16)
         self.resize_hw = smart_resize(*frame_hw, factor=56,
                                       max_pixels=max_pixels)
@@ -439,9 +451,9 @@ class QwenStreamSession:
         D = self.cfg.vit.hidden_size
         patches = qwen_device_preprocess(frames_u8)
         small, _ = qwen_temporal_pool(patches, (t_clip, gh, gw))
-        hidden = self.model.vit(torch.cat([patches, small]),
-                                t_full=t_clip, hw_full=(gh, gw),
-                                t_small=t_clip, hw_small=(gh // 2, gw // 2))
+        hidden = self.vit(torch.cat([patches, small]),
+                          t_full=t_clip, hw_full=(gh, gw),
+                          t_small=t_clip, hw_small=(gh // 2, gw // 2))
         x = hidden[:S].reshape(t_clip, self.p_full, D)
         sx = hidden[S:].reshape(t_clip, self.p_small, D)
         step = self._step
@@ -474,6 +486,7 @@ class QwenStreamSession:
         self.metrics.update("memory_latency_dispatch", time.perf_counter() - t0)
 
     def block_until_ingested(self):
+        """Wait for the ingest device."""
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
@@ -481,6 +494,16 @@ class QwenStreamSession:
     def n_frames(self) -> int:
         """Published frame-pair count (paired with the published snapshot)."""
         return self._published[1]
+
+    def _snapshot_to_decode(self, snapshot):
+        """The handover: the snapshot's tensors on the first decode device
+        (the same tensors without a placement, or where the two devices are
+        one). A snapshot's tensors are fresh outputs of its ingest, which
+        no later ingest writes in place, so an answer may hold them while
+        the stream goes on."""
+        if self.placement is None:
+            return snapshot
+        return tuple(x.to(self.llm.device) for x in snapshot)
 
     def prewarm_frame_counts(self) -> List[int]:
         """One frame count for each distinct (DAM, CSM) bucket pair of an
@@ -531,14 +554,15 @@ class QwenStreamSession:
     @torch.no_grad()
     def _prompt_inputs(self, snapshot, h: dict):
         """(embeds [1, S, D], positions [3, 1, S], decode_start, segment row
-        [1, S]) for one snapshot and its host-side prompt pieces."""
-        spa_pos, tem_pos, spa_x, tem_x = snapshot
+        [1, S]) for one snapshot and its host-side prompt pieces, built on
+        the decode side."""
+        spa_pos, tem_pos, spa_x, tem_x = self._snapshot_to_decode(snapshot)
         t_dam, t_csm, P, Qb = h["t_dam"], h["t_csm"], h["P"], h["Qb"]
         gh, gw = self.grid_hw
-        dev = self.device
-        llm = self.model.llm
+        llm = self.llm
+        dev = llm.device
         D = spa_x.shape[-1]
-        vis = self.model.vit.merger(torch.cat([
+        vis = self.merger(torch.cat([
             spa_x[:t_dam].reshape(-1, D),
             tem_x[:t_csm].to(spa_x.dtype).reshape(-1, D)]))
         vis_pos = am_rope_visual_positions(spa_pos[:t_dam], tem_pos[:t_csm],

@@ -32,8 +32,11 @@ session=...)` serves a session built by the caller instead.
 `--model-family llava` serves a Flash-VStream-LLaVA model (CLIP, STAR
 memory, projector, Vicuna): with --dry-run the tiny LLaVA config, else
 the checkpoint directory in bf16 with the full config (frames resize to
-CLIP's 224 px). Flags of features the port does not have yet raise
-NotImplementedError naming their ROADMAP item.
+CLIP's 224 px). `--ingest-devices N --decode-devices M` disaggregate a
+Qwen session (parallel/serve.py): the vision tower and the memory on the
+first visible card, the decoder tensor-parallel over the next M (with too
+few cards the server says so and serves on one; under --device cpu the
+devices are N + M CPU entries).
 
     python -m flash_vstream_tpu_torch.serve.cli_server --model-path DIR
     python -m flash_vstream_tpu_torch.serve.cli_server --model-family llava \
@@ -53,20 +56,6 @@ from ..preprocess.video import SyntheticSource, load_video
 from ..runtime.generation import GenerationConfig
 from ..runtime.metrics import MetricMeter, Timer
 from ..utils.logging import build_logger
-
-# flag (argparse attribute), its spelling, the ROADMAP item that ports it
-_NOT_PORTED = (
-    ("ingest_devices", "--ingest-devices", "A16"),
-    ("decode_devices", "--decode-devices", "A16"),
-)
-
-
-def _check_ported(args) -> None:
-    for attr, flag, item in _NOT_PORTED:
-        if getattr(args, attr, None):
-            raise NotImplementedError(f"{flag} is not ported yet: ROADMAP "
-                                      f"{item}")
-
 
 def _apply_quantization(params: dict, args) -> dict:
     """The reference's load_8bit / load_4bit loader options: the decoder's
@@ -88,11 +77,37 @@ def _apply_quantization(params: dict, args) -> dict:
     return params
 
 
+def _serve_placement(args):
+    """The disaggregated placement --ingest-devices / --decode-devices ask
+    for (JAX cli_server.py:77-94): over the visible cards, or under
+    --device cpu over n_ingest + n_decode CPU entries (the counterpart of
+    the JAX tests' virtual CPU devices). With too few cards it says so and
+    returns None: the session serves on one device, as JAX's does."""
+    from ..core.device import resolve_device
+    from ..parallel.serve import make_serve_placement
+    n_ingest = args.ingest_devices or 1
+    n_decode = args.decode_devices or None
+    device = resolve_device(args.device)
+    if device.type == "cpu":
+        devices = [device] * (n_ingest + (n_decode or 1))
+    else:
+        devices = [torch.device("cuda", i)
+                   for i in range(torch.cuda.device_count())]
+    if len(devices) < n_ingest + 1:
+        print(f"[serve] only {len(devices)} device(s) visible — "
+              "disaggregation needs >= 2; falling back to the single-chip "
+              "path (use --preempt so answers yield to clips)")
+        return None
+    return make_serve_placement(n_ingest=n_ingest, n_decode=n_decode,
+                                devices=devices)
+
+
 def build_session(args):
     """The server's session over `load_qwen_model`'s (or, for the LLaVA
     family, `load_llava_model`'s) model on --device (--dry-run or
-    --model-path), quantized as the flags ask."""
-    _check_ported(args)
+    --model-path), quantized as the flags ask; a Qwen session is
+    disaggregated when --ingest-devices or --decode-devices is given (the
+    weights quantized first, then placed)."""
     kv_dtype = torch.int8 if args.kv_int8 else None
     if args.model_family == "llava":
         from ..runtime.pipeline import load_llava_model
@@ -109,11 +124,13 @@ def build_session(args):
         args.model_path, args.device, dry_run=args.dry_run,
         flash_memory_dict=args.flash_memory_dict)
     params = _apply_quantization(params, args)
+    placement = (_serve_placement(args)
+                 if args.ingest_devices or args.decode_devices else None)
     side = _frame_side(args)
     return QwenStreamSession(VStreamQwen(cfg, params), tokenizer,
                              frame_hw=(side, side), clip_size=args.clip_size,
                              bank_size=args.video_max_frames,
-                             kv_cache_dtype=kv_dtype)
+                             kv_cache_dtype=kv_dtype, placement=placement)
 
 
 def _frame_side(args) -> int:
@@ -146,7 +163,6 @@ def run_server(args, session=None) -> dict:
     and answer the questions; returns {"frames_ingested", "answers",
     "metrics"} and writes it to --output-file."""
     logger = build_logger("cli_server", args.log_file)
-    _check_ported(args)
     if session is None:
         session = build_session(args)
     gen = GenerationConfig(max_new_tokens=args.max_new_tokens,
@@ -335,9 +351,12 @@ def make_parser():
                    help="decode answers in chunks of this many steps with "
                         "a host sync between chunks (0 = one loop)")
     p.add_argument("--ingest-devices", type=int, default=0,
-                   help="not ported yet (ROADMAP A16)")
+                   help="disaggregated serve: vision tower + memory on the "
+                        "first of this many devices (Qwen family)")
     p.add_argument("--decode-devices", type=int, default=0,
-                   help="not ported yet (ROADMAP A16)")
+                   help="disaggregated serve: decoder tensor-parallel over "
+                        "this many devices after the ingest ones (0 = the "
+                        "rest; one under --device cpu)")
     p.add_argument("--threaded-ingest", action="store_true",
                    help="ingest on a pacing thread while answering on this "
                         "one; the summary's metrics count "

@@ -336,9 +336,8 @@ def make_server(argv=None) -> ThreadingHTTPServer:
     from ..core.device import resolve_device
     from ..runtime.generation import GenerationConfig
     from ..utils.logging import build_logger
-    from .cli_server import _check_ported, build_session, prewarm_session
+    from .cli_server import build_session, prewarm_session
     args = make_parser().parse_args(argv)
-    _check_ported(args)
     resolve_device(args.device)
     httpd = serve_http(lambda: build_session(args), host=args.host,
                        port=args.port, max_streams=args.max_streams,

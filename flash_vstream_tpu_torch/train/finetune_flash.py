@@ -33,7 +33,7 @@ freezes the base quantized (QLoRA): packed int4 under the default
 `--base-bits 4`, weight-only int8 under 8; the optimizer holds the adapters
 only. `--export-merged` writes <output-dir>/model_merged.safetensors, the
 base with the adapters merged (a quantized leaf dequantized first).
---pp/--sp raise (ROADMAP A16).
+--pp/--sp raise (ROADMAP A16, training half).
 
 The k-means draws of Flash memory consolidation come from `kmeans_draws(step,
 micro, sample, n)`, by default a torch generator seeded from those indices;
@@ -523,13 +523,16 @@ def make_parser():
     p.add_argument("--learning-rate", type=float, default=8e-4)
     p.add_argument("--grad-accum", type=int, default=8)
     p.add_argument("--pp", type=int, default=1,
-                   help="pipeline stages (not ported: ROADMAP A16)")
+                   help="pipeline stages (not ported: ROADMAP A16, "
+                        "training half)")
     p.add_argument("--sp", type=int, default=1,
-                   help="sequence-parallel width (not ported: ROADMAP A16)")
+                   help="sequence-parallel width (not ported: ROADMAP A16, "
+                        "training half)")
     p.add_argument("--zero-stage", type=int, default=2, choices=(1, 2, 3),
-                   help="one device runs the default only (ROADMAP A16)")
+                   help="one device runs the default only (ROADMAP "
+                        "A16, training half)")
     p.add_argument("--offload-moments", action="store_true",
-                   help="not ported: ROADMAP A16")
+                   help="not ported: ROADMAP A16, training half")
     p.add_argument("--epochs", type=int, default=1)
     p.add_argument("--max-steps", type=int, default=None)
     p.add_argument("--max-frames", type=int, default=240)

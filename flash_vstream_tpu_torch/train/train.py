@@ -36,7 +36,7 @@ loads a Flash-VStream-LLaVA checkpoint directory in bf16
 (`weights/convert.load_llava_checkpoint`) with `VStreamLLaVAConfig()` and
 its HF tokenizer (`transformers`); a caller may hand `run_training` its own
 config, parameters and tokenizer. --tp > 1, --zero-stage other than 2 and
---offload-moments raise (ROADMAP A16).
+--offload-moments raise (ROADMAP A16, training half).
 
 The STAR draws (k-means init, drop coins) come from `draws(step, micro,
 sample, n)`, by default a torch generator seeded from those indices; the
@@ -430,11 +430,13 @@ def make_parser():
                    help="write a torch.profiler Chrome trace here")
     p.add_argument("--profile-steps", type=int, default=3)
     p.add_argument("--tp", type=int, default=1,
-                   help="tensor-parallel width (not ported: ROADMAP A16)")
+                   help="tensor-parallel width (not ported: ROADMAP A16, "
+                        "training half)")
     p.add_argument("--zero-stage", type=int, default=2, choices=(1, 2, 3),
-                   help="one device runs the default only (ROADMAP A16)")
+                   help="one device runs the default only (ROADMAP "
+                        "A16, training half)")
     p.add_argument("--offload-moments", action="store_true",
-                   help="not ported: ROADMAP A16")
+                   help="not ported: ROADMAP A16, training half")
     p.add_argument("--dry-run", action="store_true")
     p.add_argument("--synthetic-raw", action="store_true",
                    help="dry run on .npy frame directories, images and "

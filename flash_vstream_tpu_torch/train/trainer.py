@@ -32,7 +32,7 @@ the order of a leaf's f32 sum of squares. A
 parameter tree may hold dicts, lists and NamedTuples (the LLaVA tree's
 projector layers and NTM parameters), walked in JAX's order; quantized
 leaves are frozen. ZeRO stages other than the default, moment offload and
-data parallelism raise (ROADMAP A16).
+data parallelism raise (ROADMAP A16, training half).
 """
 from __future__ import annotations
 
@@ -46,7 +46,7 @@ from .lora import tree_leaves_with_path
 from .reporting import lr_at
 
 DP_TODO = ("ZeRO stages other than 2, moment offload and data parallelism "
-           "are not ported yet: ROADMAP A16")
+           "are not ported yet: ROADMAP A16, training half")
 
 
 @dataclasses.dataclass

@@ -117,8 +117,14 @@ def _run_both(monkeypatch, flags):
      "--question_interval", "0.0001", "--question", LONG_QUESTION],
     # the int8 KV cache: the answers' k/v quantized per position in both
     ["--kv-int8", "--question_interval", "0.0001"],
+    # disaggregated: the decoder split over two devices (JAX: virtual CPU
+    # devices 1 and 2; the port: CPU entries), an f32 and an int4 base
+    ["--ingest-devices", "1", "--decode-devices", "2",
+     "--question_interval", "0.0001"],
+    ["--load-4bit", "--ingest-devices", "1", "--decode-devices", "2",
+     "--question_interval", "1000"],
 ], ids=["load_4bit", "load_8bit_int8_vit", "load_8bit_int8_vit_w8a8",
-        "kv_int8"])
+        "kv_int8", "disaggregated", "disaggregated_load_4bit"])
 def test_dry_run_matches_jax_server(monkeypatch, flags):
     calls = {"jax": 0, "port": 0}        # w8a8 products taken (JAX: traced)
     for name, mod in (("jax", jlayers), ("port", tlayers)):
@@ -246,8 +252,73 @@ def test_frame_directory_source(tmp_path):
     (["--decode-devices", "1"], "A16"),
 ])
 def test_unported_flags_raise(flag, item):
-    with pytest.raises(NotImplementedError, match=item):
-        tcli.main(["--dry-run", "--device", "cpu", *flag])
+    """The two serving flags of ROADMAP `item` raised until its serving half
+    was ported (the test keeps its name): each alone now builds a
+    disaggregated session, under --device cpu over one ingest and one
+    decode CPU entry, and the server answers through it; the LLaVA family
+    ignores them, as the JAX server does."""
+    args = tcli.make_parser().parse_args(
+        ["--dry-run", "--device", "cpu", *flag])
+    sess = tcli.build_session(args)
+    assert sess.placement is not None
+    assert sess.placement.decode_mesh.shape == {"dp": 1, "tp": 1}
+    summary = tcli.main(BASE + ["--device", "cpu", *flag])
+    assert summary["frames_ingested"] == 8 and summary["answers"]
+    assert not hasattr(tcli.build_session(tcli.make_parser().parse_args(
+        ["--model-family", "llava", "--dry-run", "--device", "cpu", *flag])),
+        "placement")
+
+
+def test_disaggregated_dry_run_answers_as_one_device():
+    """--ingest-devices 1 --decode-devices 2 --dry-run --device cpu builds a
+    placed session (the decoder over two CPU shards) whose answers are the
+    one-device server's."""
+    from flash_vstream_tpu_torch.parallel.inference import TPDecoder
+    flags = ["--ingest-devices", "1", "--decode-devices", "2"]
+    sess = tcli.build_session(tcli.make_parser().parse_args(
+        ["--dry-run", "--device", "cpu", *flags]))
+    assert isinstance(sess.generator.llm, TPDecoder)
+    assert sess.placement.decode_mesh.shape == {"dp": 1, "tp": 2}
+    argv = BASE + ["--device", "cpu", "--question_interval", "0.0001"]
+    want = tcli.main(argv)
+    got = tcli.main(argv + flags)
+    assert [a["answer"] for a in got["answers"]] == [
+        a["answer"] for a in want["answers"]]
+    assert len(got["answers"]) == 5
+
+
+def test_too_few_cards_serve_on_one_device(monkeypatch, capsys):
+    """With one visible card, --ingest-devices 1 --decode-devices 2 prints
+    the JAX server's message and builds a one-device session (the model
+    here on the CPU, the card's count monkeypatched)."""
+    from flash_vstream_tpu_torch.runtime import pipeline
+    load = pipeline.load_qwen_model
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    monkeypatch.setattr(pipeline, "load_qwen_model",
+                        lambda path, device, **kw: load(path, "cpu", **kw))
+    sess = tcli.build_session(tcli.make_parser().parse_args(
+        ["--dry-run", "--ingest-devices", "1", "--decode-devices", "2"]))
+    assert sess.placement is None
+    assert ("[serve] only 1 device(s) visible — disaggregation needs >= 2; "
+            "falling back to the single-chip path (use --preempt so answers "
+            "yield to clips)") in capsys.readouterr().out
+
+
+def test_http_server_serves_placed_streams():
+    """The HTTP server takes the flags through build_session: its streams
+    are clones of one placed session, sharing its decoder."""
+    from flash_vstream_tpu_torch.serve import http_server
+    httpd = http_server.make_server(
+        ["--dry-run", "--device", "cpu", "--port", "0",
+         "--ingest-devices", "1", "--decode-devices", "2"])
+    try:
+        a = httpd.registry._new_session()
+        b = httpd.registry._new_session()
+        assert a.placement is not None and b.placement is a.placement
+        assert b.llm is a.llm and b.state is not a.state
+    finally:
+        httpd.server_close()
 
 
 def test_stream_output_same_answers(capsys):
@@ -361,10 +432,14 @@ def test_w8a8_flag_sets_the_switch():
 
 
 def test_session_refuses_unported_options():
-    """A disaggregated placement raises (ROADMAP A16); the int8 KV cache is
-    ported: --kv-int8 builds a session whose answers' cache is int8 with
+    """Both options this test once saw refused are ported (it keeps its
+    name): --kv-int8 builds a session whose answers' cache is int8 with
     its two scale buffers (its ids are held to JAX's in
-    test_dry_run_matches_jax_server and tests/test_torch_streaming.py)."""
+    test_dry_run_matches_jax_server and tests/test_torch_streaming.py), and
+    a placement builds a disaggregated session whose int8 cache is one a
+    decode shard (tests/test_torch_disaggregated_serve.py holds it to
+    JAX's)."""
+    from flash_vstream_tpu_torch.parallel.serve import make_serve_placement
     from flash_vstream_tpu_torch.runtime.streaming import QwenStreamSession
     sess = tcli.build_session(tcli.make_parser().parse_args(
         ["--dry-run", "--device", "cpu", "--kv-int8"]))
@@ -375,8 +450,12 @@ def test_session_refuses_unported_options():
     assert tcli.build_session(tcli.make_parser().parse_args(
         ["--dry-run", "--device", "cpu"])).generator.cache_dtype \
         == torch.bfloat16
-    with pytest.raises(NotImplementedError, match="A16"):
-        QwenStreamSession(sess.model, sess.tokenizer, placement=object())
+    placed = QwenStreamSession(
+        sess.model, sess.tokenizer, kv_cache_dtype=torch.int8,
+        placement=make_serve_placement(1, 2, ["cpu"] * 3))
+    cache = placed.generator.new_cache(1, 16)
+    assert [c.k.dtype for c in cache.shards] == [torch.int8] * 2
+    assert all(c.quantized for c in cache.shards)
 
 
 # ---------------------------------------------------------------------------

@@ -92,6 +92,18 @@ for _ in range(6):
 toks = sess.answer_tokens(*sess._published, "what?",
                           GenerationConfig(max_new_tokens=4))
 assert sess.n_frames == 6 and 1 <= len(toks) <= 4
+from flash_vstream_tpu_torch.parallel.serve import make_serve_placement
+from flash_vstream_tpu_torch.parallel.sharding import create_mesh, zero_shardings
+placed = QwenStreamSession(model, make_byte_qwen_tokenizer(), frame_hw=(56, 56),
+                           clip_size=2, bank_size=8, max_len=512,
+                           placement=make_serve_placement(1, 2, ["cpu"] * 3))
+placed.load_session(sess.save_session(tempfile.mkdtemp() + "/p.pt"))
+assert placed.answer_tokens(*placed._published, "what?",
+                            GenerationConfig(max_new_tokens=4)) == toks
+assert list(placed.answer_stream("what?", GenerationConfig(max_new_tokens=4))) \
+    == list(sess.answer_stream("what?", GenerationConfig(max_new_tokens=4)))
+assert zero_shardings(create_mesh(2, 1, ["cpu"] * 2),
+                      model.llm.tree())["embed"] == ("tp", "dp")
 sess8 = QwenStreamSession(model, make_byte_qwen_tokenizer(), frame_hw=(56, 56),
                           clip_size=2, bank_size=8, max_len=512,
                           kv_cache_dtype=torch.int8)
@@ -308,7 +320,10 @@ def test_port_sources_never_import_jax():
     files.append(ROOT / "chip_smoke.py")
     names = {f.relative_to(ROOT).as_posix() for f in files}
     assert {"flash_vstream_tpu_torch/kernels/int4_variants.py",
-            "flash_vstream_tpu_torch/scripts/probe_int4_variants.py"} <= names
+            "flash_vstream_tpu_torch/scripts/probe_int4_variants.py",
+            "flash_vstream_tpu_torch/parallel/sharding.py",
+            "flash_vstream_tpu_torch/parallel/inference.py",
+            "flash_vstream_tpu_torch/parallel/serve.py"} <= names
     for f in files:
         assert not pat.search(f.read_text()), f
     assert pat.search("from flash_vstream_tpu.core import config")

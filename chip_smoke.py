@@ -83,6 +83,17 @@ Qwen2-VL-7B decoder at QWEN_LAYERS of its 28 layers, every width full):
    point with no --device, then its inputs in bf16 through K3, K4, K5 at
    the tiny head dims (zero-padded to 64) against the CPU run, the
    adapters' updates after step 2 compared;
+   train_parallel: training across ranks at full width (QWEN_LAYERS
+   decoder layers), two ranks on the one card over gloo: sp 2 and pp 2
+   against one rank's decoder (hidden states, adapter and final_norm
+   gradients; a ring step that moves nothing and final_norm summed over pp
+   twice must fail), run_training --zero-stage 3 --offload-moments over 2
+   ranks against one rank at the global batch (first-step gradients, the
+   adapters after 2 steps, each rank's share of the base); finetune_flash
+   --dry-run --pp 2 and --sp 2 under torch.distributed.run; at world 1
+   --zero-stage 3 --offload-moments bit-equal to --zero-stage 2; the
+   path's K1/K3/K4/K5 launches summed over the ranks (--ranks 4 on a
+   four-card machine: a card a rank over NCCL);
 9. train_slice: `run_training` on Qwen2-VL-7B at full width (random bf16
    base, the serving slice's weights), 240 frames of 224 px, max_len 4096,
    grad_accum 2, 3 optimizer steps, with the launch counts of K1, K3, K4, K5;
@@ -2612,18 +2623,501 @@ def run_dry_run_train(dev, work):
     return k
 
 
+TPAR_B, TPAR_S = 2, 1024   # the pp and sp checks: 2 sequences of 1,024 ids
+TPAR_RANK = 16             # their adapters' rank (b != 0: a has a gradient)
+TPAR_H_TOL = 5e-2          # hidden states against one rank's, of max |h|
+TPAR_FRAMES = 16           # the dp run's videos: 8 frame pairs of 224 px
+TPAR_LEN = 1024            # its max_len (640 visual tokens)
+TPAR_STEPS = 2             # its steps (the first at lr 0)
+TPAR_DP_LAYERS = 4         # its decoder depth: ZeRO-3 gathers every layer
+                           # through host memory on a shared card
+TPAR_ARGS = ("--dry-run", "--max-steps", "2", "--max-frames", "8",
+             "--max-len", "128", "--grad-accum", "1")
+
+
+def _tpar_dp_args(out, data_path, batch, *extra):
+    """The dp run's run_training arguments: the Qwen LoRA loss over
+    TPAR_FRAMES-frame videos at TPAR_LEN, `batch` samples a rank."""
+    from flash_vstream_tpu_torch.train.finetune_flash import make_parser
+    return make_parser().parse_args([
+        "--device", "cuda", "--output-dir", out, "--data-path", data_path,
+        "--video-dir", os.path.dirname(data_path), "--max-steps",
+        str(TPAR_STEPS), "--grad-accum", "1", "--batch-size", str(batch),
+        "--max-frames", str(TPAR_FRAMES), "--frame-bucket", str(TPAR_FRAMES),
+        "--max-len", str(TPAR_LEN), "--save-steps", "1000", *extra])
+
+
+def _tpar_capture(store):
+    """Wrap Trainer._reduce so the first step's reduced gradients land in
+    `store` whole (a ZeRO shard all-gathered: every rank calls this in the
+    trainer's path order); returns the undo."""
+    from flash_vstream_tpu_torch.train import trainer as tr
+    real = tr.Trainer._reduce
+
+    def reduce(self, p, g):
+        g = real(self, p, g)
+        if p not in store and len(store) < len(self._leaf):
+            w = g
+            if p in self.sharded:
+                w = self.mesh.dp.all_gather(g, self.zero_dim[p])
+            store[p] = w.detach().float().cpu()
+        return g
+
+    tr.Trainer._reduce = reduce
+    return lambda: setattr(tr.Trainer, "_reduce", real)
+
+
+def _tpar_dp(cfg, params):
+    """The dp run's model: the phase's weights with the decoder's first
+    TPAR_DP_LAYERS layers (views)."""
+    import dataclasses
+    from flash_vstream_tpu_torch.models.layers import layer_slice
+    return (cfg.replace(llm=dataclasses.replace(
+        cfg.llm, num_layers=TPAR_DP_LAYERS)),
+        dict(params, llm=dict(params["llm"], layers=layer_slice(
+            params["llm"]["layers"], slice(0, TPAR_DP_LAYERS)))))
+
+
+def _tpar_params(dev):
+    """The phase's weights: VStreamQwenConfig() at QWEN_LAYERS decoder
+    layers, bf16 from the seed (every rank and the reference alike)."""
+    import torch
+    from flash_vstream_tpu_torch.models.vstream_qwen import init_qwen_params
+    cfg = _qwen_config()
+    return cfg, init_qwen_params(cfg, torch.Generator(device=dev).manual_seed(
+        SEED), dev, dtype=torch.bfloat16)
+
+
+def _tpar_case(llm, cfg, dev):
+    """The pp and sp checks' f32 adapters of rank TPAR_RANK over every
+    decoder projection (b != 0, so a has a gradient), ids, labels (with
+    ignored spans: the shards' valid counts differ) and positions, from the
+    seed."""
+    import torch
+    from flash_vstream_tpu_torch.train.lora import init_lora_params
+    g = torch.Generator(device=dev).manual_seed(SEED + 5)
+    lora = init_lora_params(g, llm, rank=TPAR_RANK)
+    for ab in lora.values():         # x a b small beside x W at 7B width
+        ab["b"] = torch.randn(ab["b"].shape, generator=g, device=dev) * 1e-3
+    V = cfg.llm.vocab_size
+    ids = torch.randint(0, V, (TPAR_B, TPAR_S), generator=g, device=dev)
+    labels = ids.clone()
+    labels[0, :300] = -100
+    labels[1, 700:800] = -100
+    pos = torch.arange(TPAR_S, device=dev)[None, None].expand(
+        3, TPAR_B, TPAR_S)
+    return lora, ids, labels, pos
+
+
+def _tpar_views(llm, lora, fnorm, lo=0, hi=None):
+    """The decoder tree the checks differentiate: bf16 views of the f32
+    adapters' layers [lo, hi) over `llm` (its layers already cut to them
+    when hi is given), final_norm the leaf `fnorm`."""
+    import torch
+    from flash_vstream_tpu_torch.train.lora import lora_views
+    lp = {p: {k: (v if hi is None else v[lo:hi]).to(torch.bfloat16)
+              for k, v in ab.items()} for p, ab in lora.items()}
+    eff = lora_views(llm, lp, alpha=TPAR_RANK, rank=TPAR_RANK)
+    eff["final_norm"] = fnorm
+    return eff
+
+
+def _tpar_grads(lora, fnorm):
+    """{leaf: its gradient, f32} of the adapters and final_norm (zeros
+    where this rank's run reached none: final_norm off the last stage);
+    resets them."""
+    import torch
+    leaves = {f"{p}.{k}": v for p, ab in sorted(lora.items())
+              for k, v in sorted(ab.items())}
+    leaves["final_norm"] = fnorm
+    out = {}
+    for n, v in leaves.items():
+        out[n] = (v.grad if v.grad is not None
+                  else torch.zeros_like(v)).float().clone()
+        v.grad = None
+    return out
+
+
+def _rel(got, want):
+    return float((got - want).norm() / want.norm().clamp_min(1e-30))
+
+
+def _tpar_rank(work, data_path, shared):
+    """One rank of the phase: the pp and sp checks on the decoder (pp or sp
+    2, dp the rest of the world, each dp rank its rows) against this rank's
+    own plain run of the whole batch, then the dp run of run_training at
+    ZeRO-3 with --offload-moments, then the entry point's main. `shared`
+    "1": every rank on the one card over gloo; "0": a card a rank over
+    NCCL. Writes its readings to <work>/rank<r>.pt."""
+    import torch
+    import flash_vstream_tpu_torch.parallel.sequence as seq
+    from flash_vstream_tpu_torch.models.llm import (decoder_forward,
+                                                    embed_tokens,
+                                                    nll_sum_chunked)
+    from flash_vstream_tpu_torch.parallel.collectives import (
+        init_distributed, token_mean)
+    from flash_vstream_tpu_torch.parallel.pipeline import (
+        last_stage_loss, pipeline_decoder_forward, stage_params)
+    from flash_vstream_tpu_torch.parallel.sharding import (ZeroShard,
+                                                           create_rank_mesh)
+    from flash_vstream_tpu_torch.preprocess.video import register_video_decoder
+    from flash_vstream_tpu_torch.train.finetune_flash import run_training
+    from flash_vstream_tpu_torch.train.lora import (QWEN_TARGETS,
+                                                    init_lora_params,
+                                                    tree_leaves_with_path)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    register_video_decoder("synth", _decode_synth)
+    shared = shared == "1"
+    info = init_distributed("cuda", shared_card=shared)
+    dev = info.device
+    card = ["--shared-card"] if shared else []
+    t0 = time.perf_counter()
+    cfg, params = _tpar_params(dev)
+    llm, L = params["llm"], cfg.llm
+    lora, ids, labels, pos = _tpar_case(llm, cfg, dev)
+    fnorm = llm["final_norm"].detach().clone()
+    for v in [fnorm] + [v for ab in lora.values() for v in ab.values()]:
+        v.requires_grad_(True)
+    with torch.no_grad():
+        embeds = embed_tokens(llm, ids)
+    out = dict(rank=info.rank, backend=info.backend)
+
+    def ce(eff, h, lab, group):
+        return token_mean(*nll_sum_chunked(eff, L, h[:, :-1], lab[:, 1:],
+                                           512), group)
+
+    # one rank's plain decoder: the reference (not counted)
+    from flash_vstream_tpu_torch.parallel.collectives import single_group
+    eff = _tpar_views(llm, lora, fnorm)
+    h_ref = decoder_forward(eff, L, embeds, pos, remat=True)
+    ce(eff, h_ref, labels, single_group()).backward()
+    g_ref = _tpar_grads(lora, fnorm)
+    h_ref = h_ref.detach()
+    scale = float(h_ref.abs().max())
+    out["ref_s"], out["h_max"] = time.perf_counter() - t0, scale
+
+    # sp 2: a ring of two ranks, each its 512 tokens of its dp rows
+    mesh = create_rank_mesh(sp=2, info=info)
+    r, Sl = mesh.inner.rank, TPAR_S // 2
+    Bl = TPAR_B // mesh.dp.size
+    rows = slice(mesh.dp.rank * Bl, (mesh.dp.rank + 1) * Bl)
+    _reset_launches()
+    t1 = time.perf_counter()
+    eff = _tpar_views(llm, lora, fnorm)
+    h = seq.sp_decoder_forward(eff, L, embeds[rows], pos[:, rows], mesh=mesh,
+                               remat=True)
+    token_mean(*seq.sp_nll(eff, L, h, labels[rows], mesh, 512),
+               mesh.dp).backward()
+    torch.cuda.synchronize(dev)
+    out["sp_s"] = time.perf_counter() - t1
+    out["sp_launches"] = _launches()
+    g = {n: mesh.dp.all_reduce(mesh.inner.all_reduce(x), "mean")
+         for n, x in _tpar_grads(lora, fnorm).items()}
+    out["sp_h"] = float((h.detach() - h_ref[rows, r * Sl:(r + 1) * Sl])
+                        .abs().max()) / scale
+    out["sp_g"] = {n: _rel(g[n], g_ref[n]) for n in g_ref}
+    real_shift = seq.ring_shift            # planted fault: a ring step
+    seq.ring_shift = lambda group, *t, offset=1: t if len(t) > 1 else t[0]
+    try:                                   # that moves nothing
+        with torch.no_grad():
+            h = seq.sp_decoder_forward(_tpar_views(llm, lora, fnorm), L,
+                                       embeds[rows], pos[:, rows], mesh=mesh)
+    finally:
+        seq.ring_shift = real_shift
+    out["sp_fault_h"] = float((h - h_ref[rows, r * Sl:(r + 1) * Sl]).abs()
+                              .max()) / scale
+    del h, eff
+
+    # pp 2: stage r holds layers [6 r, 6 r + 6) of its own copy; a
+    # micro-batch a row of its dp rows
+    mesh = create_rank_mesh(pp=2, info=info)
+    Bl = TPAR_B // mesh.dp.size
+    rows = slice(mesh.dp.rank * Bl, (mesh.dp.rank + 1) * Bl)
+    per = L.num_layers // 2
+    lo, hi = mesh.inner.rank * per, (mesh.inner.rank + 1) * per
+    stage = stage_params(llm, L, mesh)
+    out["bytes_whole"] = _tree_nbytes(llm)
+    out["bytes_stage"] = _tree_nbytes(stage["layers"]) + sum(
+        _nbytes(v) for k, v in llm.items() if k != "layers")
+    _reset_launches()
+    t1 = time.perf_counter()
+    eff = _tpar_views(stage, lora, fnorm, lo, hi)
+    r = mesh.inner.rank
+    h = pipeline_decoder_forward(eff, L, embeds[rows] if r == 0 else None,
+                                 pos[:, rows], mesh=mesh, n_micro=Bl,
+                                 remat=True)
+    last_stage_loss(h, mesh, lambda x: ce(eff, x, labels[rows],
+                                          mesh.dp)).backward()
+    torch.cuda.synchronize(dev)
+    out["pp_s"] = time.perf_counter() - t1
+    out["pp_launches"] = _launches()
+    g = {n: mesh.dp.all_reduce(mesh.inner.all_reduce(x), "mean")
+         for n, x in _tpar_grads(lora, fnorm).items()}
+    out["pp_h"] = (float((h.detach() - h_ref[rows]).abs().max()) / scale
+                   if r == 1 else None)
+    out["pp_g"] = {n: _rel(g[n], g_ref[n]) for n in g_ref}
+    # planted fault: the replicated leaf summed over pp once too often
+    out["pp_fault_g"] = _rel(mesh.inner.all_reduce(g["final_norm"].clone()),
+                             g_ref["final_norm"])
+    out["dp"] = mesh.dp.size
+    del h, eff, stage, g, g_ref, h_ref, lora, embeds
+    _release(dev)
+
+    # dp over every rank: run_training at ZeRO-3, the moments offloaded
+    cfg, params = _tpar_dp(cfg, params)
+    base_bytes = _tree_nbytes(params)
+    qlora = init_lora_params(torch.Generator(device=dev).manual_seed(
+        SEED + 1), params, rank=64, targets=QWEN_TARGETS)
+    grads, seen = {}, {}
+    undo = _tpar_capture(grads)
+
+    def on_step(step, trainer, rec):
+        seen.setdefault("steps", []).append(rec["step_time_s"])
+        if "base" not in seen:
+            seen["base"] = sum(
+                _nbytes(x.shard) if isinstance(x, ZeroShard) else
+                _nbytes(x) for _, x in tree_leaves_with_path(trainer.frozen)
+                if isinstance(x, (ZeroShard, torch.Tensor)))
+            seen["pinned"] = all(m.is_pinned() for m in
+                                 trainer.opt_state["mu"].values())
+            seen["stage3"] = trainer.stage3
+
+    _reset_launches()
+    t1 = time.perf_counter()
+    try:
+        res = run_training(_tpar_dp_args(
+            os.path.join(work, "dp"), data_path, 1, "--zero-stage", "3",
+            "--offload-moments", *card), cfg=cfg, params=params,
+            lora=qlora, on_step=on_step)
+    finally:
+        undo()
+    torch.cuda.synchronize(dev)
+    out["dp_s"] = time.perf_counter() - t1
+    out["dp_launches"] = _launches()
+    out.update(dp_losses=res["losses"], dp_base=seen["base"],
+               dp_steps=seen["steps"],
+               base_bytes=base_bytes, pinned=seen["pinned"],
+               stage3=seen["stage3"],
+               peak=torch.cuda.max_memory_allocated(dev))
+    if info.rank == 0:
+        out["dp_grads"] = grads
+        out["dp_lora"] = {f"{p}.{k}": v.float().cpu()
+                          for p, ab in res["lora"].items()
+                          for k, v in ab.items()}
+    del res, qlora, params, llm
+    _release(dev)
+
+    # the entry point's main on these ranks (torch.distributed.run started
+    # them), as `-m ...finetune_flash` runs it
+    from flash_vstream_tpu_torch.train import finetune_flash
+    _reset_launches()
+    for flag in ("--pp", "--sp"):
+        t1 = time.perf_counter()
+        finetune_flash.main([*TPAR_ARGS, "--output-dir",
+                             os.path.join(work, f"entry{flag}"), flag, "2",
+                             *card])
+        out[f"entry{flag}_s"] = time.perf_counter() - t1
+    out["entry_launches"] = _launches()
+    torch.save(out, os.path.join(work, f"rank{info.rank}.pt"))
+
+
+def run_train_parallel(dev, smi, root, n_ranks=2):
+    """Training across ranks (ROADMAP A16's training half) at the full width
+    of Qwen2-VL-7B (QWEN_LAYERS decoder layers, random bf16 weights from the
+    seed), two ranks on the one card over gloo (`--shared-card`; NCCL
+    refuses two ranks on one GPU), or `n_ranks` cards of a rank each over
+    NCCL where there are as many (`--ranks`), the kernels built here
+    first:
+    (a) one spawn: torch.distributed.run starts this script twice with
+        --train-parallel-rank (`_tpar_rank`), two ranks on the one card:
+        sp 2 and pp 2 (two micro-batches, each stage its own copy of its
+        6 layers) over a batch of 2 x 1,024 ids held to the rank's own
+        plain decoder_forward: each rank's hidden states within
+        TPAR_H_TOL of max |h|, each adapter's and final_norm's gradient
+        (summed over the group) within TRAIN_REF_LIMIT rel L2; a ring step
+        that moves nothing must fail the hidden limit, final_norm summed
+        over pp twice the gradient's; then run_training --zero-stage 3
+        --offload-moments (the decoder cut to TPAR_DP_LAYERS: ZeRO-3 moves
+        every layer through host memory on a shared card) over 2 ranks of
+        1 video each, its first step's
+        reduced gradients and its adapters after TPAR_STEPS steps held to
+        run_training in this process at the global batch (ZeRO-2, moments
+        resident): gradients within TRAIN_REF_LIMIT (the mean over dp
+        taken twice must fail it), adapter updates within DRY_RUN_LIMIT,
+        losses within 1e-2; each rank's base against the whole (1/2 where
+        ZeRO splits it);
+    (b) the entry point on those ranks: finetune_flash's main with
+        --dry-run --pp 2 and --sp 2 --shared-card (finite losses); at
+        world 1, --zero-stage 3 --offload-moments bit-equal to
+        --zero-stage 2.
+    Returns the path's K1/K3/K4/K5 launches (every rank's pp, dp and entry
+    runs)."""
+    import torch
+    from flash_vstream_tpu_torch.train.finetune_flash import run_training
+    from flash_vstream_tpu_torch.train.lora import (QWEN_TARGETS,
+                                                    init_lora_params)
+    t_phase = time.perf_counter()
+    work = os.path.join(root, "build", "chip_smoke_train_parallel")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    data = _synthetic_videos(os.path.join(work, "data"), 2, 224)
+    # one spawn: torch.distributed.run starts this script twice as ranks
+    # (the kernels are built: the ranks load the library)
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", str(n_ranks), os.path.abspath(__file__),
+         "--train-parallel-rank", work, data,
+         "1" if torch.cuda.device_count() < n_ranks else "0"],
+        cwd=root,
+        capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"train_parallel ranks exited "
+                             f"{proc.returncode}: {proc.stderr[-4000:]}")
+    ranks = [torch.load(os.path.join(work, f"rank{r}.pt"),
+                        weights_only=False) for r in range(n_ranks)]
+    t_ranks = time.perf_counter() - t_phase
+    for x in ranks:
+        print(f"train_parallel rank {x['rank']} [{x['backend']} on "
+              f"{smi}]: max |h| {x['h_max']:.3e}; dp {x['dp']} x sp 2 "
+              f"{x['sp_s']:.3f} s, "
+              f"hidden err/max "
+              f"{x['sp_h']:.3e} (fault {x['sp_fault_h']:.3e}), worst grad "
+              f"rel L2 {max(x['sp_g'].values()):.3e}; pp 2 {x['pp_s']:.3f} s"
+              + (f", hidden err/max {x['pp_h']:.3e}" if x["pp_h"] is not None
+                 else "")
+              + f", worst grad rel L2 {max(x['pp_g'].values()):.3e} (dp "
+              f"{x['dp']} x pp 2), "
+              f"final_norm summed twice {x['pp_fault_g']:.3e}; bytes whole "
+              f"{x['bytes_whole'] / 1e9:.2f} GB, pp stage "
+              f"{x['bytes_stage'] / 1e9:.2f} GB; limits h {TPAR_H_TOL:.0e} "
+              f"g {TRAIN_REF_LIMIT:.0e}", flush=True)
+        bad = [n for n, e in {**{f"sp {k}": v for k, v in x["sp_g"].items()},
+                              **{f"pp {k}": v for k, v in x["pp_g"].items()}
+                              }.items() if not e <= TRAIN_REF_LIMIT]
+        if bad or x["sp_h"] > TPAR_H_TOL or (x["pp_h"] or 0) > TPAR_H_TOL:
+            raise AssertionError(f"train_parallel rank {x['rank']}: "
+                                 f"{bad} {x['sp_h']} {x['pp_h']}")
+    # the faults fail over the whole run (rank 0's causal queries see no
+    # key of rank 1's chunk, so only rank 1 reads the skipped ring step)
+    if not (max(x["sp_fault_h"] for x in ranks) > TPAR_H_TOL
+            and max(x["pp_fault_g"] for x in ranks) > TRAIN_REF_LIMIT):
+        raise AssertionError("train_parallel: a planted fault passed")
+
+    # the dp run against one rank at the global batch
+    cfg, params = _tpar_dp(*_tpar_params(dev))
+    qlora = init_lora_params(torch.Generator(device=dev).manual_seed(
+        SEED + 1), params, rank=64, targets=QWEN_TARGETS)
+    lora0 = {f"{p}.{k}": v.detach().float().cpu().clone()
+             for p, ab in qlora.items() for k, v in ab.items()}
+    grads = {}
+    undo = _tpar_capture(grads)
+    _release(dev)
+    t1 = time.perf_counter()
+    try:
+        ref = run_training(_tpar_dp_args(os.path.join(work, "ref"), data,
+                                         n_ranks),
+                           cfg=cfg, params=params, lora=qlora)
+    finally:
+        undo()
+    ref_s = time.perf_counter() - t1
+    ref_peak = torch.cuda.max_memory_allocated(dev)
+    del params
+    r0 = ranks[0]
+    g_err = {p: _rel(r0["dp_grads"][p], g) for p, g in grads.items()}
+    g_fault = max(_rel(r0["dp_grads"][p] / 2, g) for p, g in grads.items())
+    ref_lora = {f"{p}.{k}": v.float().cpu() for p, ab in ref["lora"].items()
+                for k, v in ab.items()}
+    u_err = {n: _rel(r0["dp_lora"][n] - lora0[n], ref_lora[n] - lora0[n])
+             for n in ref_lora if (ref_lora[n] - lora0[n]).norm() > 0}
+    l_err = max(abs(a - b) / abs(b) for a, b in zip(r0["dp_losses"],
+                                                    ref["losses"]))
+    print(f"train_parallel dp {n_ranks} [{smi}]: run_training --zero-stage "
+          f"3 --offload-moments ({r0['backend']}), decoder depth "
+          f"{TPAR_DP_LAYERS}, {n_ranks} ranks x 1 video of "
+          f"{TPAR_FRAMES} frames, max_len {TPAR_LEN}, {TPAR_STEPS} steps in "
+          f"{r0['dp_s']:.2f} s (steps "
+          + " ".join(f"{t:.2f}" for t in r0["dp_steps"])
+          + f" s; rank 1 {ranks[1]['dp_s']:.2f} s; peak "
+          f"{r0['peak'] / 2**30:.2f} / {ranks[1]['peak'] / 2**30:.2f} GiB); "
+          f"one rank at the global batch (ZeRO-2, resident) {ref_s:.2f} s, "
+          f"peak {ref_peak / 2**30:.2f} GiB; losses "
+          + " ".join(f"{a:.5f}/{b:.5f}" for a, b in zip(r0["dp_losses"],
+                                                         ref["losses"]))
+          + f" (worst rel {l_err:.2e}); step 1 gradients worst rel L2 "
+          f"{max(g_err.values()):.3e} ({max(g_err, key=g_err.get)}), the dp "
+          f"mean taken twice {g_fault:.3e}, limit {TRAIN_REF_LIMIT:.0e}; "
+          f"adapter updates after step {TPAR_STEPS} worst rel L2 "
+          f"{max(u_err.values()):.3e} over {len(u_err)} moved leaves, limit "
+          f"{DRY_RUN_LIMIT:.1e} (Adam's first steps amplify rounding); base "
+          f"bytes "
+          + " / ".join(f"{x['dp_base'] / 1e9:.2f}" for x in ranks)
+          + f" GB a rank against {r0['base_bytes'] / 1e9:.2f} GB whole "
+          f"({ranks[0]['dp_base'] / r0['base_bytes']:.3f} against 1/"
+          f"{n_ranks}); moments pinned "
+          f"on the host {all(x['pinned'] for x in ranks)}", flush=True)
+    if (max(g_err.values()) > TRAIN_REF_LIMIT or g_fault <= TRAIN_REF_LIMIT
+            or not u_err or max(u_err.values()) > DRY_RUN_LIMIT
+            or l_err > 1e-2 or not all(x["pinned"] and x["stage3"]
+                                       for x in ranks)
+            or not all(x["dp_base"] < 1.2 / n_ranks * x["base_bytes"]
+                       for x in ranks)):
+        raise AssertionError("train_parallel dp: outside its limits")
+
+    # (b) the entry point's main on the two ranks, then world 1
+    for flag in ("--pp", "--sp"):
+        with open(os.path.join(work, f"entry{flag}", "scalars.jsonl")) as f:
+            losses = [json.loads(ln)["loss"] for ln in f if ln.strip()]
+        print(f"train_parallel entry: finetune_flash.main on the {n_ranks} "
+              f"ranks torch.distributed.run started: {' '.join(TPAR_ARGS)} "
+              f"{flag} 2 in {r0[f'entry{flag}_s']:.1f} s, losses "
+              + " ".join(f"{x:.5f}" for x in losses), flush=True)
+        if len(losses) != 2 or not all(map(math.isfinite, losses)):
+            raise AssertionError(f"train_parallel entry {flag}: {losses}")
+    from flash_vstream_tpu_torch.train.finetune_flash import make_parser
+    res = {}
+    for tag, extra in (("zero2", ()), ("zero3_offload", (
+            "--zero-stage", "3", "--offload-moments"))):
+        res[tag] = run_training(make_parser().parse_args(
+            [*TPAR_ARGS, "--output-dir", os.path.join(work, tag),
+             "--device", "cuda", *extra]))
+    same = all(torch.equal(res["zero2"]["lora"][p][k],
+                           res["zero3_offload"]["lora"][p][k])
+               for p in res["zero2"]["lora"] for k in ("a", "b"))
+    print(f"train_parallel world 1: --dry-run --zero-stage 3 "
+          f"--offload-moments against --zero-stage 2: losses "
+          f"{res['zero3_offload']['losses']} vs {res['zero2']['losses']}, "
+          f"adapters bit-equal {same}", flush=True)
+    if not same or res["zero2"]["losses"] != res["zero3_offload"]["losses"]:
+        raise AssertionError("train_parallel world 1: ZeRO-3 + offload "
+                             "differs from ZeRO-2")
+    k = {n: sum(x[f"{run}_launches"][n] for x in ranks
+                for run in ("pp", "dp", "entry"))
+         for n in ("K1", "K3", "K4", "K5")}
+    print(f"train_parallel: launches of the path (every rank's pp, dp and "
+          f"entry runs) K1={k['K1']} K3={k['K3']} K4={k['K4']} "
+          f"K5={k['K5']} "
+          f"(sp: the plain ring, K3={sum(x['sp_launches']['K3'] for x in ranks)}"
+          f"); ranks {t_ranks:.1f} s, phase "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    if not (k["K1"] and k["K3"] and k["K4"] and k["K5"]):
+        raise AssertionError(f"train_parallel: launches {k}")
+    shutil.rmtree(work, ignore_errors=True)
+    return k
+
+
+def _decode_synth(path, fps):
+    from flash_vstream_tpu_torch.preprocess.video import SyntheticSource
+    i, px = os.path.splitext(os.path.basename(path))[0][1:].split("-")
+    return list(SyntheticSource(240, int(px), int(px), seed=int(i)))
+
+
 def _synthetic_videos(root, n_items, side):
     """train.json naming n_items 240-frame videos `v<i>-<side>.synth`,
     decoded by a registered decoder into `SyntheticSource` frames seeded
-    per item (no files, no image library needed)."""
-    from flash_vstream_tpu_torch.preprocess.video import (
-        SyntheticSource, register_video_decoder)
-
-    def decode(path, fps):
-        i, px = os.path.splitext(os.path.basename(path))[0][1:].split("-")
-        return list(SyntheticSource(240, int(px), int(px), seed=int(i)))
-
-    register_video_decoder("synth", decode)
+    per item (no files, no image library needed; a rank process registers
+    `_decode_synth` itself)."""
+    from flash_vstream_tpu_torch.preprocess.video import register_video_decoder
+    register_video_decoder("synth", _decode_synth)
     os.makedirs(root, exist_ok=True)
     items = [{"id": i, "video": f"v{i}-{side}.synth", "conversations": [
         {"from": "human", "value": f"<video>\nDescribe video {i}."},
@@ -3577,22 +4071,24 @@ def run_serve4(dev, params, work):
     # decoders in turn on the same synthetic prompt, then free the bf16 one
     decoders = {"bf16": Qwen2Decoder(cfg.llm, bf16_llm), "int4": sess.model.llm}
     timed = {"bf16": [], "int4": []}
-    for name in ("bf16", "int4", "int4", "bf16"):
-        timed[name].append(_time_decoder(decoders[name], dev))
+    for i, name in enumerate(("bf16", "int4", "int4", "bf16")):
+        # one profiled window a decoder (its second pass): a profiler
+        # session costs seconds of the script
+        timed[name].append(_time_decoder(decoders[name], dev,
+                                         profile=i >= 2))
     del decoders, bf16_llm
     _release(dev)
     for name, (a, b) in timed.items():
         print(f"serve4: {name} decoder at S=2989 (bf16, int4, int4, bf16 in "
               f"turn, this card): prefill {a[0]:.1f} {b[0]:.1f} ms, decode "
               f"{a[1]:.2f} {b[1]:.2f} ms/token (32 steps, synchronized); "
-              f"profiled decode step: device busy {a[2]:.2f} {b[2]:.2f} "
-              f"ms/token, idle share {1 - a[2] / a[1]:.3f} "
-              f"{1 - b[2] / b[1]:.3f}, {a[3]} device events (kernels, "
-              f"copies) per token, K6 {a[4]:.2f} ms/token", flush=True)
-    print(f"serve4: int4 decode, device busy per token {timed['int4'][0][2]:.2f}"
-          f" {timed['int4'][1][2]:.2f} ms, K6 {timed['int4'][0][4]:.2f} "
-          f"{timed['int4'][1][4]:.2f} ms of it (K6's previous form read "
-          f"9.8-9.9 busy, K6 4.6 of it; PERF.md)", flush=True)
+              f"profiled decode step (the second pass): device busy "
+              f"{b[2]:.2f} ms/token, idle share {1 - b[2] / b[1]:.3f}, "
+              f"{b[3]} device events (kernels, copies) per token, K6 "
+              f"{b[4]:.2f} ms/token", flush=True)
+    print(f"serve4: int4 decode, device busy per token {timed['int4'][1][2]:.2f}"
+          f" ms, K6 {timed['int4'][1][4]:.2f} ms of it (K6's previous form "
+          f"read 9.8-9.9 busy, K6 4.6 of it; PERF.md)", flush=True)
     print(f"serve4: --load-4bit on the 7B decoder in {quant_s:.2f} s: the "
           f"7 projections of each layer and lm_head int4; decoder tree "
           f"{int4_bytes / 2**30:.3f} GiB against {bf16_bytes / 2**30:.3f} "
@@ -3707,14 +4203,18 @@ def run_serve4(dev, params, work):
     return k6, k["K1"], k2
 
 
-def _time_decoder(llm, dev, S=2989, steps=32, cache_dtype=None):
+def _time_decoder(llm, dev, S=2989, steps=32, cache_dtype=None,
+                  profile=True):
     """(prefill ms, decode ms/token, profiled device-busy ms/token, kernel
     launches/token, K6 device ms/token, KV cache bytes) of a decoder on a
     synthetic prompt of S random embeddings (1-D positions, no padding),
     over a bf16 cache or `cache_dtype`'s: host clock around
     synchronized work, after one warm-up prefill and 4 decode steps; then
     torch.profiler over 8 more steps for the device's busy time (kernels
-    and copies; one stream, so they do not overlap)."""
+    and copies; one stream, so they do not overlap), the device's activity
+    alone (the CPU's adds no device row, and most of a session's seconds in
+    key_averages). profile=False leaves the profiler out (a session still
+    costs seconds of the script): busy, launches and K6 are then None."""
     import torch
     from torch.autograd import DeviceType
     from flash_vstream_tpu_torch.runtime.generation import Generator
@@ -3742,8 +4242,10 @@ def _time_decoder(llm, dev, S=2989, steps=32, cache_dtype=None):
             gen.step(tok, S + 4 + i, cache)
         torch.cuda.synchronize(dev)
         decode_ms = (time.perf_counter() - t0) / steps * 1e3
+    cache_bytes = _nbytes(cache.k, cache.v, cache.k_scale, cache.v_scale)
+    if not profile:
+        return prefill_ms, decode_ms, None, None, None, cache_bytes
     with torch.profiler.profile(activities=[
-            torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]) as prof:
         for i in range(8):
             gen.step(tok, S + 4 + steps + i, cache)
@@ -3754,7 +4256,6 @@ def _time_decoder(llm, dev, S=2989, steps=32, cache_dtype=None):
     launches = sum(e.count for e in dev_rows) // 8
     k6 = sum(e.self_device_time_total for e in dev_rows
              if "int4" in e.key) / 1e3 / 8
-    cache_bytes = _nbytes(cache.k, cache.v, cache.k_scale, cache.v_scale)
     return prefill_ms, decode_ms, busy, launches, k6, cache_bytes
 
 
@@ -4163,17 +4664,19 @@ def run_serve_kv8(dev, params, work):
     # the teacher-forced prefill run K1 on no chunk / every layer: counted
     # above with the one-shot ones)
     times = {"bf16": [], "int8": []}
-    for name in ("bf16", "int8", "int8", "bf16"):
+    for i, name in enumerate(("bf16", "int8", "int8", "bf16")):
+        # one profiled window a cache (its second pass): a profiler
+        # session costs seconds of the script
         times[name].append(_time_decoder(
             model.llm, dev, cache_dtype=torch.int8 if name == "int8"
-            else None))
+            else None, profile=i >= 2))
     for name, (a, b) in times.items():
         print(f"serve_kv8: {name} cache at S=2989 (bf16, int8, int8, bf16 "
               f"in turn): cache {a[5] / 2**20:.1f} MiB, prefill {a[0]:.1f} "
               f"{b[0]:.1f} ms, decode {a[1]:.2f} {b[1]:.2f} ms/token, device"
-              f" busy {a[2]:.2f} {b[2]:.2f} ms/token, idle share "
-              f"{1 - a[2] / a[1]:.3f} {1 - b[2] / b[1]:.3f}, {a[3]} device "
-              f"events per token", flush=True)
+              f" busy (the second pass profiled) {b[2]:.2f} ms/token, idle "
+              f"share {1 - b[2] / b[1]:.3f}, {b[3]} device events per token",
+              flush=True)
     ratio = times["int8"][0][5] / times["bf16"][0][5]
     D = cfg.llm.head_dim                   # int8 k, v and two f32 scales
     print(f"serve_kv8: int8 cache bytes / bf16 = {ratio:.4f} "
@@ -4266,7 +4769,6 @@ def _llava_answer_timed(sess, snap, n, q, steps=LLAVA_TOKENS):
     torch.cuda.synchronize(dev)
     decode_ms = (time.perf_counter() - t0) / (steps - 1) * 1e3
     with torch.profiler.profile(activities=[
-            torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]) as prof:
         for i in range(8):
             tok = g.step(tok, start + steps - 1 + i, cache).argmax(dim=-1)
@@ -4738,7 +5240,6 @@ def _teacher_forced(gen, embeds, pos, seg, last, start, ids, profile=False):
     torch.cuda.synchronize(dev)
     host = (time.perf_counter() - t0) / (T - 9)
     prof = (torch.profiler.profile(activities=[
-        torch.profiler.ProfilerActivity.CPU,
         torch.profiler.ProfilerActivity.CUDA]) if profile
         else contextlib.nullcontext())
     with prof:
@@ -6138,6 +6639,22 @@ def run_llava_train(dev, smi, root, params=None, cfg=None):
                                       feats, work)
             print(f"llava_train: {stage} done at "
                   f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+        B = dict(LT_STAGES)["finetune"]
+        _, recs, peak, _ = _lt_run(
+            dev, cfg, params, tok, _lt_args(
+                dev, os.path.join(work, "offload"), "--stage", "finetune",
+                "--batch-size", str(B), "--max-steps", "1", "--save-steps",
+                "0", "--data-path", feats[0], "--feature-dir", feats[1],
+                "--offload-moments"), "offload")
+        resident = stages["finetune"]["peak"]
+        print(f"llava_train offload [{smi}]: one finetune step at "
+              f"micro-batch {B} with --offload-moments (mu and nu in pinned "
+              f"host memory, each update slice streamed through the card): "
+              f"{recs[0][0]['step_time_s']:.3f} s, loss "
+              f"{recs[0][0]['loss']:.4f}, peak {peak / 2**30:.2f} GiB beside "
+              f"the resident steps' {resident / 2**30:.2f} GiB", flush=True)
+        if not (math.isfinite(recs[0][0]["loss"]) and peak < resident):
+            raise AssertionError("llava_train offload: the peak did not drop")
         _, recs, peak, _ = _lt_run(
             dev, cfg, params, tok, _lt_args(
                 dev, os.path.join(work, "raw"), "--stage", "finetune",
@@ -6189,7 +6706,8 @@ def run_llava_train(dev, smi, root, params=None, cfg=None):
 
 PHASES = ("kernels", "int4_kernel", "reference", "int4_reference", "slice",
           "disaggregated", "llava", "serve_http", "offline", "backward",
-          "function", "train_reference", "dry_run_train", "train_slice",
+          "function", "train_reference", "dry_run_train", "train_parallel",
+          "train_slice",
           "production", "finetune_ckpt", "serve_kv8", "serve4", "bank_gather",
           "vit_probe", "int4_probe", "multistream", "llava_train")
 
@@ -6198,17 +6716,28 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--only", default=",".join(PHASES),
                         help="comma-separated phases to run (default all; "
+                             "train_parallel builds its own weights; "
                              "disaggregated, serve_http, offline, the "
                              "training phases, "
                              "finetune_ckpt, serve_kv8 and serve4 need "
                              "'slice'; llava runs after them, alone; "
                              "llava_train last, on llava's weights when "
                              "llava runs, else on its own)")
+    parser.add_argument("--train-parallel-rank", nargs=3, default=None,
+                        metavar=("WORK", "DATA", "SHARED"),
+                        help=argparse.SUPPRESS)
+    parser.add_argument("--ranks", type=int, default=2,
+                        help="train_parallel's ranks: 2 share the one card "
+                             "over gloo; with as many cards, a card a rank "
+                             "over NCCL (4 on a four-card machine)")
     parser.add_argument("--profile", default=None, metavar="DIR",
                         help="also profile one training-slice step into DIR, "
                              "and the disaggregated phase's decode at each "
                              "tp (device busy a token)")
     opts = parser.parse_args()
+    if opts.train_parallel_rank:       # a rank of the train_parallel phase
+        _tpar_rank(*opts.train_parallel_rank)
+        return 0
     only = set(opts.only.split(","))
     import torch
     if not torch.cuda.is_available():
@@ -6275,6 +6804,14 @@ def main() -> int:
             flash_attention_bwd_dq=k["K4"], flash_attention_bwd_dkv=k["K5"])
         _release(dev)
         mark("dry_run_train")
+    if "train_parallel" in only:
+        _release(dev)
+        k = run_train_parallel(dev, smi, root, opts.ranks)
+        paths["train_parallel"] = dict(
+            flash_attention_fwd=k["K1"], flash_attention_fwd_lse=k["K3"],
+            flash_attention_bwd_dq=k["K4"], flash_attention_bwd_dkv=k["K5"])
+        _release(dev)
+        mark("train_parallel")
     if "bank_gather" in only:
         row, paths["probe_bank_gather"] = check_bank_gather(dev)
         rows.update(row)

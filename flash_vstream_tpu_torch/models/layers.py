@@ -491,6 +491,8 @@ def gelu_mlp(params: dict, x: torch.Tensor,
 
 
 def _index(v, i):
+    if hasattr(v, "zero_index"):         # a ZeRO-3 shard: gathered on use
+        return v.zero_index(i)
     if hasattr(v, "_fields"):            # a LoRA view or a quantized leaf:
         return type(v)(*(_index(f, i) for f in v))   # slice every field
     return v[i]
@@ -499,7 +501,8 @@ def _index(v, i):
 def layer_slice(tree: dict, i) -> dict:
     """One layer's parameters (`i` an int), or a run of layers (`i` a
     slice), out of a tree stacked on a leading [L] axis (views, no
-    copy)."""
+    copy). A ZeRO-3 leaf (parallel/sharding.ZeroShard) gathers one layer
+    here, on use, and keeps a run of layers sharded."""
     return {k: layer_slice(v, i) if isinstance(v, dict) else _index(v, i)
             for k, v in tree.items()}
 

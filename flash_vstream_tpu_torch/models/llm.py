@@ -92,6 +92,22 @@ def _checkpoint(fn, *args):
     return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
 
 
+def decoder_block(lp: dict, cfg: LLMConfig, x: torch.Tensor, rope,
+                  segment_ids: Optional[torch.Tensor] = None,
+                  **cache_kw) -> torch.Tensor:
+    """One pre-norm decoder layer (`lp`: one layer's parameters): causal,
+    segmented attention with rope (cos, sin), then the SwiGLU MLP, each
+    added to the residual (JAX llm.py `decoder_block`). `cache_kw` are
+    `mha`'s cache arguments."""
+    h = rms_norm(x, lp["attn_norm"], cfg.rms_norm_eps)
+    x = x + mha(lp["attn"], h, num_heads=cfg.num_heads,
+                num_kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim,
+                rope=rope, causal=True, q_segment_ids=segment_ids,
+                kv_segment_ids=segment_ids, **cache_kw)
+    h = rms_norm(x, lp["mlp_norm"], cfg.rms_norm_eps)
+    return x + swiglu_mlp(lp["mlp"], h)
+
+
 def decoder_forward(
     params: dict,
     cfg: LLMConfig,
@@ -134,19 +150,13 @@ def decoder_forward(
             else torch.zeros((B, S), dtype=torch.int32, device=x.device))
 
     def layer(x, i):
-        lp = layer_slice(params["layers"], i)
-        h = rms_norm(x, lp["attn_norm"], cfg.rms_norm_eps)
         kw = {}
         if cache is not None:
             kw = dict(kv_cache=cache.layer(i), cache_len=cache_len,
                       cache_segments=cache.segments,
                       decode_multi=decode_multi)
-        x = x + mha(lp["attn"], h, num_heads=cfg.num_heads,
-                    num_kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim,
-                    rope=(cos, sin), causal=True, q_segment_ids=segment_ids,
-                    kv_segment_ids=segment_ids, **kw)
-        h = rms_norm(x, lp["mlp_norm"], cfg.rms_norm_eps)
-        return x + swiglu_mlp(lp["mlp"], h)
+        return decoder_block(layer_slice(params["layers"], i), cfg, x,
+                             (cos, sin), segment_ids, **kw)
 
     L = cfg.num_layers
     if cache is None and remat:
@@ -274,9 +284,25 @@ def cross_entropy_loss_chunked(params: dict, cfg: LLMConfig,
     or int4 head never materializes its bf16 copy; each tile is its own
     checkpoint. A quantized head tiles by 8,192 unless told otherwise; the
     tile is the largest divisor of the vocabulary at most that size."""
+    total, count = nll_sum_chunked(params, cfg, hidden[:, :-1],
+                                   labels[:, 1:], chunk, ignore_index,
+                                   vocab_tile)
+    return total / torch.clamp_min(count, 1)
+
+
+def nll_sum_chunked(params: dict, cfg: LLMConfig,
+                    hidden: torch.Tensor,      # [B, S, D]
+                    targets: torch.Tensor,     # [B, S], aligned with hidden
+                    chunk: int = 2048, ignore_index: int = -100,
+                    vocab_tile: int = 0):
+    """(the f32 sum of the negative log-likelihoods, the count of
+    targets) of hidden row t predicting targets[t], ignored targets left
+    out, in `cross_entropy_loss_chunked`'s chunks and tiles: its shifted
+    loss is this sum over the count, and a loss split over ranks (a
+    sequence-parallel shard, a data-parallel share) sums the ranks' parts
+    of both."""
     B, S, D = hidden.shape
-    h = hidden[:, :-1]
-    lab = labels[:, 1:]
+    h, lab = hidden, targets
     w = params.get("lm_head")
     if vocab_tile == 0 and w is not None and (hasattr(w, "q")
                                               or hasattr(w, "q4")):
@@ -305,11 +331,10 @@ def cross_entropy_loss_chunked(params: dict, cfg: LLMConfig,
 
     body = one_tiled if vt else one
     total = hidden.new_zeros((), dtype=torch.float32)
-    for c0 in range(0, S - 1, chunk):
+    for c0 in range(0, S, chunk):
         total = total + _checkpoint(body, h[:, c0:c0 + chunk],
                                     lab[:, c0:c0 + chunk])
-    count = (lab != ignore_index).sum()
-    return total / torch.clamp_min(count, 1)
+    return total, (lab != ignore_index).sum()
 
 
 class Qwen2Decoder(ParamTree):

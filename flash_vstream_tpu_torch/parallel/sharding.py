@@ -11,8 +11,17 @@ that dim is split over (None: whole on every device).
 The rules are a regex on the leaf's '/'-joined key path -> a spec, applied
 to the stacked parameter trees of models/*: pure functions of paths and
 shapes. The serving half of the port applies them (parallel/inference.py:
-tensor-parallel decode over the 'tp' axis); the ZeRO and batch specs wait
-for the training half (ROADMAP A16).
+tensor-parallel decode over the 'tp' axis), the training half the ZeRO
+specs (train/trainer.py).
+
+Training runs one process a rank (parallel/collectives.py): `RankMesh` is
+this rank's place in the dp x (pp | sp) grid, laid out as JAX's
+`devices.reshape(dp, inner)`, rank = d * inner + i, so the pp or sp groups
+are contiguous ranks and the dp groups strided. A ZeRO-3 leaf rests as a
+`ZeroShard`, this rank's part of it; under a stacked "layers" subtree it is
+gathered a layer at a time where `models.layers.layer_slice` takes the
+layer out (`zero_index`), the rest of a tree at a loss's start
+(`zero_use`).
 """
 from __future__ import annotations
 
@@ -24,6 +33,7 @@ import torch
 
 from ..core.device import default_device
 from ..weights.quantize import path_str
+from .collectives import DistInfo, Group, gather_on_use, init_distributed
 
 
 class PartitionSpec(tuple):
@@ -173,25 +183,26 @@ def param_shardings(mesh: Mesh, params,
                                   mesh), params)
 
 
+def _zero_spec(path, x, mesh, rules) -> PartitionSpec:
+    dp = mesh.shape["dp"]
+    spec = list(_fit_mesh(param_pspec(path_str(path), x.dim(), rules), mesh))
+    spec += [None] * (x.dim() - len(spec))
+    if dp > 1:
+        free = [(d, x.shape[d]) for d in range(x.dim())
+                if spec[d] is None and x.shape[d] % dp == 0
+                and x.shape[d] >= dp]
+        if free:
+            spec[max(free, key=lambda t: t[1])[0]] = "dp"
+    return P(*spec)
+
+
 def zero_shardings(mesh: Mesh, params,
                    rules: Sequence[Tuple[str, PartitionSpec]] = LLM_RULES):
     """ZeRO specs: the param spec plus the largest free dim (not split, and
     divisible by dp) split over 'dp'. The optimizer moments' layout at
     ZeRO stage 1/2, and the parameters' own at stage 3."""
-    dp = mesh.shape["dp"]
-
-    def one(path, x):
-        spec = list(_fit_mesh(param_pspec(path_str(path), x.dim(), rules),
-                              mesh))
-        spec += [None] * (x.dim() - len(spec))
-        if dp > 1:
-            free = [(d, x.shape[d]) for d in range(x.dim())
-                    if spec[d] is None and x.shape[d] % dp == 0
-                    and x.shape[d] >= dp]
-            if free:
-                spec[max(free, key=lambda t: t[1])[0]] = "dp"
-        return P(*spec)
-    return map_with_path(one, params)
+    return map_with_path(lambda path, x: _zero_spec(path, x, mesh, rules),
+                         params)
 
 
 def batch_sharding(mesh: Mesh) -> PartitionSpec:
@@ -202,3 +213,153 @@ def batch_sharding(mesh: Mesh) -> PartitionSpec:
 def replicated(mesh: Mesh) -> PartitionSpec:
     """Whole on every device of the mesh."""
     return P()
+
+
+# -- training across ranks ---------------------------------------------------
+
+class RankMesh:
+    """This rank's place in a dp x inner grid of ranks (inner: the pp or sp
+    width; 1 for data parallelism alone): `dp` and `inner` are its groups,
+    `kind` "pp", "sp" or None, `shape` {"dp": dp, kind or "tp": inner} as
+    `create_train_mesh` names the axes."""
+
+    def __init__(self, info: DistInfo, dp: Group, inner: Group,
+                 kind: Optional[str]):
+        self.info, self.dp, self.inner, self.kind = info, dp, inner, kind
+        self.axis_names = ("dp", kind or "tp")
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return {"dp": self.dp.size, self.axis_names[1]: self.inner.size}
+
+    def __repr__(self) -> str:
+        return (f"RankMesh({self.shape}, rank {self.info.rank}: dp "
+                f"{self.dp.ranks}, {self.axis_names[1]} {self.inner.ranks})")
+
+
+def create_rank_mesh(pp: int = 1, sp: int = 1, info: Optional[DistInfo] = None,
+                     device=None) -> RankMesh:
+    """The dp x (pp | sp) grid over the world of ranks (joined through
+    `init_distributed(device)` unless `info` is given): dp = world / inner.
+    Every rank makes every group, in one order, as torch.distributed
+    requires."""
+    import torch.distributed as dist
+    if pp > 1 and sp > 1:
+        raise ValueError("pick one of pp/sp per run")
+    info = info or init_distributed(device)
+    inner = max(pp, sp)
+    kind = "pp" if pp > 1 else "sp" if sp > 1 else None
+    if info.world % inner:
+        raise ValueError(f"world({info.world}) is not a multiple of "
+                         f"{kind}({inner})")
+    dp = info.world // inner
+    grid = np.arange(info.world).reshape(dp, inner)
+    if info.world == 1:
+        return RankMesh(info, Group([0]), Group([0]), kind)
+    mine = {}
+    for ranks in [list(r) for r in grid] + [list(c) for c in grid.T]:
+        pg = dist.new_group([int(r) for r in ranks])
+        if info.rank in ranks:
+            mine[len(mine)] = Group([int(r) for r in ranks], pg,
+                                    info.backend)
+    # this rank's row (its inner group) comes first, its column (dp) next
+    return RankMesh(info, mine[1], mine[0], kind)
+
+
+def _stacked(path: tuple) -> bool:
+    """A leaf of a stacked "layers" subtree (key path `path`), which
+    models.layers.layer_slice takes layers out of; "projector/layers/0/w"
+    is a list item, and an adapter tree's flat key ("llm/layers/attn/wq/w")
+    no "layers" key."""
+    return any(k == "layers" and i + 1 < len(path)
+               and isinstance(path[i + 1], str)
+               for i, k in enumerate(path))
+
+
+class ZeroShard:
+    """A ZeRO-3 leaf at rest: `shard`, this rank's part of a tensor of
+    `shape` split along `dim` over the dp `group`. It is no tensor: a model
+    function reaches it only through `layer_slice` (`zero_index`: a layer
+    gathered on use, or a run of layers kept sharded) or after `zero_use`
+    gathered it; the gather's backward reduce-scatters the gradient to
+    `shard`, the leaf the optimizer updates."""
+
+    def __init__(self, shard: torch.Tensor, dim: int, group: Group,
+                 shape: Sequence[int]):
+        self.shard, self.dim, self.group = shard, dim, group
+        self.shape = torch.Size(shape)
+
+    @classmethod
+    def split(cls, x: torch.Tensor, dim: int, group: Group) -> "ZeroShard":
+        n = x.shape[dim] // group.size
+        shard = x.detach().narrow(dim, group.rank * n, n).clone(
+            memory_format=torch.contiguous_format)
+        return cls(shard.requires_grad_(x.requires_grad), dim, group,
+                   x.shape)
+
+    @property
+    def dtype(self):
+        return self.shard.dtype
+
+    @property
+    def device(self):
+        return self.shard.device
+
+    @property
+    def requires_grad(self) -> bool:
+        return self.shard.requires_grad
+
+    def whole(self) -> torch.Tensor:
+        """The whole tensor, gathered on use (differentiable)."""
+        return gather_on_use(self.shard, self.group, self.dim)
+
+    def zero_index(self, i):
+        """Layer `i` (an int: gathered) or a run of layers (a slice: still
+        sharded) of a stacked [L, ...] leaf."""
+        if self.dim == 0:
+            return self.whole()[i]
+        part = self.shard[i]
+        if isinstance(i, slice):
+            shape = (part.shape[0], *self.shape[1:])
+            return ZeroShard(part, self.dim, self.group, shape)
+        return gather_on_use(part, self.group, self.dim - 1)
+
+    def detach(self) -> "ZeroShard":
+        return ZeroShard(self.shard.detach(), self.dim, self.group,
+                         self.shape)
+
+    def __repr__(self) -> str:
+        return (f"ZeroShard({tuple(self.shape)}, dim={self.dim}, "
+                f"shard={tuple(self.shard.shape)})")
+
+
+def zero_use(tree):
+    """The tree a loss computes with: every `ZeroShard` gathered whole
+    (differentiably), except those of stacked "layers" subtrees, which
+    `layer_slice` gathers a layer at a time."""
+    return map_with_path(
+        lambda p, x: x.whole() if isinstance(x, ZeroShard)
+        and not _stacked(p) else x, tree)
+
+
+def zero_shard_tree(tree, mesh: RankMesh,
+                    rules: Sequence[Tuple[str, PartitionSpec]] = LLM_RULES):
+    """`tree` with every tensor leaf that `zero_shardings` splits over 'dp'
+    replaced by this rank's `ZeroShard` of it (ZeRO stage 3)."""
+    def one(path, x):
+        if not isinstance(x, torch.Tensor):
+            return x
+        spec = _zero_spec(path, x, mesh, rules)
+        if "dp" not in spec:
+            return x
+        return ZeroShard.split(x, list(spec).index("dp"), mesh.dp)
+    return map_with_path(one, tree)
+
+
+def zero_gather_tree(tree):
+    """A tree of `ZeroShard`s gathered whole, without a graph (for a
+    checkpoint or a caller); every rank of the dp group calls it."""
+    with torch.no_grad():
+        return map_with_path(lambda p, x: x.whole() if isinstance(
+            x, ZeroShard) else x, tree)
+

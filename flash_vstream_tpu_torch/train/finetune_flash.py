@@ -1,7 +1,7 @@
 """Qwen-family LoRA fine-tuning entry.
 
 Port of flash_vstream_tpu/train/finetune_flash.py (the rebuild of
-Flash-VStream-Qwen/finetune_flash.py) for one device: ChatML supervision with
+Flash-VStream-Qwen/finetune_flash.py): ChatML supervision with
 the video block expanded to the Flash memory's token count (a still image's
 block to its merged patch grid), LoRA over the decoder's projections and
 the merger, per-sample micro-batches with gradient accumulation,
@@ -33,7 +33,21 @@ freezes the base quantized (QLoRA): packed int4 under the default
 `--base-bits 4`, weight-only int8 under 8; the optimizer holds the adapters
 only. `--export-merged` writes <output-dir>/model_merged.safetensors, the
 base with the adapters merged (a quantized leaf dequantized first).
---pp/--sp raise (ROADMAP A16, training half).
+
+Across ranks (one process a rank, started by torch.distributed.run; gloo
+on the CPU, NCCL with a card a rank, gloo over one card with
+`--shared-card`): data parallelism over world / (pp or sp) ranks, each
+rank loading only its share of a step's items (the JAX batch dim split over
+dp, the draws keyed by the global sample index), ZeRO stages 1-3
+(`--zero-stage`) and `--offload-moments` in the Trainer; `--pp S` runs the
+decoder as a GPipe pipeline of S stages (stage 0 encodes the visual input;
+n_micro = the micro-batch), `--sp S` over a ring of S ranks (every rank
+encodes, each runs its S/sp tokens), JAX's `loss_fn_mp`. Only rank 0
+logs, writes scalars, checkpoints and the merged export:
+
+    python -m torch.distributed.run --nproc-per-node 2 \
+        -m flash_vstream_tpu_torch.train.finetune_flash --dry-run \
+        --device cpu --output-dir /tmp/ft --pp 2
 
 The k-means draws of Flash memory consolidation come from `kmeans_draws(step,
 micro, sample, n)`, by default a torch generator seeded from those indices;
@@ -176,6 +190,39 @@ def default_kmeans_draws(step: int, micro: int, sample: int, n: int
     return torch.rand(n, generator=g)
 
 
+def sample_embeds(cfg, eff: dict, patches: torch.Tensor, grid,
+                  ids: torch.Tensor, vis_start: int, n_vis: int, draws, *,
+                  vit_chunk: int = 8, kind: str = "video"):
+    """One sample's decoder input (JAX `encode_one`): the video encoded (ViT
+    and Flash memory without a graph; `draws`, a function n -> [n] uniforms,
+    seeds the memory's k-means or drop coins; kind="image": `encode_image`
+    of the (1, h, w) grid, no draws) and spliced into the embedded ids at
+    `vis_start`, with the AM-RoPE positions: ([1, S, D], [3, 1, S])."""
+    from ..models.llm import embed_tokens
+    from ..models.vstream_qwen import (build_qwen_positions_dynamic,
+                                       encode_image, encode_video,
+                                       splice_embeds_dynamic)
+    with torch.profiler.record_function("train/encode_video"):
+        if kind == "image":
+            vis = encode_image(eff, cfg, patches, (grid[1], grid[2]))
+        else:
+            vis = encode_video(eff, cfg, patches, grid, draws=draws,
+                               vit_chunk=vit_chunk)
+    positions, _ = build_qwen_positions_dynamic(ids.shape[0], vis_start,
+                                                n_vis, vis.visual_positions)
+    embeds = embed_tokens(eff["llm"], ids[None])
+    return splice_embeds_dynamic(embeds, vis.video_embeds, vis_start), \
+        positions
+
+
+def _bf16_views(base: dict, lora_params: dict, alpha: float, rank: int):
+    """The f32 adapters cast to bf16 and viewed over the detached base."""
+    from .lora import lora_views
+    lp16 = {p: {k: v.to(torch.bfloat16) for k, v in ab.items()}
+            for p, ab in lora_params.items()}
+    return lora_views(base, lp16, alpha=alpha, rank=rank)
+
+
 def sample_loss(cfg, base: dict, lora_params: dict, patches: torch.Tensor,
                 grid, ids: torch.Tensor, labels: torch.Tensor,
                 seg: torch.Tensor, vis_start: int, n_vis: int,
@@ -183,35 +230,18 @@ def sample_loss(cfg, base: dict, lora_params: dict, patches: torch.Tensor,
                 vit_chunk: int = 8, kind: str = "video") -> torch.Tensor:
     """One sample's LoRA loss (JAX `one_sample`): the f32 adapters cast to
     bf16 and viewed over the detached base (bf16, f32 or quantized), the
-    video encoded (ViT and Flash memory without a graph; `draws`, a function
-    n -> [n] uniforms, seeds the memory's k-means
-    or drop coins; kind="image": `encode_image` of the (1, h, w) grid, no
-    draws)
-    and spliced at `vis_start`, the decoder checkpointed per layer (per
-    group of 4 from max_len 8192 on), then cross entropy, chunked over the
-    sequence when max_len * vocab > 2**26 (a quantized head also over the
-    vocabulary). ids, labels, seg: [max_len]."""
+    decoder input of `sample_embeds`, the decoder checkpointed per layer
+    (per group of 4 from max_len 8192 on), then cross entropy, chunked over
+    the sequence when max_len * vocab > 2**26 (a quantized head also over
+    the vocabulary). ids, labels, seg: [max_len]."""
     from ..models.llm import (cross_entropy_loss, cross_entropy_loss_chunked,
-                              decoder_forward, embed_tokens, lm_head)
-    from ..models.vstream_qwen import (build_qwen_positions_dynamic,
-                                       encode_image, encode_video,
-                                       splice_embeds_dynamic)
-    from .lora import lora_views
+                              decoder_forward, lm_head)
     span = torch.profiler.record_function      # named spans for a trace
     max_len = ids.shape[0]
-    lp16 = {p: {k: v.to(torch.bfloat16) for k, v in ab.items()}
-            for p, ab in lora_params.items()}
-    eff = lora_views(base, lp16, alpha=alpha, rank=rank)
-    with span("train/encode_video"):
-        if kind == "image":
-            vis = encode_image(eff, cfg, patches, (grid[1], grid[2]))
-        else:
-            vis = encode_video(eff, cfg, patches, grid, draws=draws,
-                               vit_chunk=vit_chunk)
-    positions, _ = build_qwen_positions_dynamic(max_len, vis_start, n_vis,
-                                                vis.visual_positions)
-    embeds = embed_tokens(eff["llm"], ids[None])
-    embeds = splice_embeds_dynamic(embeds, vis.video_embeds, vis_start)
+    eff = _bf16_views(base, lora_params, alpha, rank)
+    embeds, positions = sample_embeds(cfg, eff, patches, grid, ids,
+                                      vis_start, n_vis, draws,
+                                      vit_chunk=vit_chunk, kind=kind)
     with span("train/decoder_forward"):
         h = decoder_forward(eff["llm"], cfg.llm, embeds, positions,
                             segment_ids=seg[None], remat=True,
@@ -222,6 +252,53 @@ def sample_loss(cfg, base: dict, lora_params: dict, patches: torch.Tensor,
                                               labels[None], chunk=512)
         return cross_entropy_loss(lm_head(eff["llm"], cfg.llm, h),
                                   labels[None])
+
+
+def batch_loss_mp(cfg, base: dict, lora_params: dict, mesh, samples: list,
+                  labels: torch.Tensor, seg: torch.Tensor, *, alpha: float,
+                  rank: int, vit_chunk: int = 8, kind: str = "video"
+                  ) -> torch.Tensor:
+    """JAX `loss_fn_mp`: this rank's micro-batch through one batched
+    decoder over the pp stages (`pipeline_decoder_forward`, n_micro = its
+    size) or the sp ring (`sp_decoder_forward`), then the shifted cross
+    entropy as a token mean over the whole batch (every rank of the ring
+    and of dp), chunked over 512 tokens when max_len * vocab > 2**26.
+    `samples`: (patches, grid, ids, vis_start, n_vis, draws) per sample;
+    under pp only stage 0 encodes them, and broadcasts the positions.
+    labels, seg: [B, max_len]."""
+    from ..models.llm import nll_sum_chunked
+    from ..parallel.collectives import token_mean
+    from ..parallel.pipeline import last_stage_loss, pipeline_decoder_forward
+    from ..parallel.sequence import sp_decoder_forward, sp_nll
+    B, max_len = labels.shape
+    chunk = 512 if max_len * cfg.llm.vocab_size > 1 << 26 else max_len
+    eff = _bf16_views(base, lora_params, alpha, rank)
+    encode = mesh.kind == "sp" or mesh.inner.rank == 0
+    embeds = None
+    if encode:
+        parts = [sample_embeds(cfg, eff, *sm, vit_chunk=vit_chunk, kind=kind)
+                 for sm in samples]
+        embeds = torch.cat([e for e, _ in parts])
+        pos = torch.cat([q for _, q in parts], dim=1)            # [3, B, S]
+    else:
+        pos = torch.empty((3, B, max_len), dtype=torch.long,
+                          device=labels.device)
+    with torch.profiler.record_function("train/decoder_forward"):
+        if mesh.kind == "pp":
+            mesh.inner.broadcast(pos, src=0)
+            out = pipeline_decoder_forward(
+                eff["llm"], cfg.llm, embeds, pos, mesh=mesh, n_micro=B,
+                segment_ids=seg, remat=True)
+
+            def ce(h):
+                return token_mean(*nll_sum_chunked(
+                    eff["llm"], cfg.llm, h[:, :-1], labels[:, 1:], chunk),
+                    mesh.dp)
+            return last_stage_loss(out, mesh, ce)
+        h = sp_decoder_forward(eff["llm"], cfg.llm, embeds, pos, mesh=mesh,
+                               segment_ids=seg, remat=True)
+    return token_mean(*sp_nll(eff["llm"], cfg.llm, h, labels, mesh, chunk),
+                      mesh.dp)
 
 
 def run_training(args, *, cfg=None, params: Optional[dict] = None,
@@ -237,9 +314,11 @@ def run_training(args, *, cfg=None, params: Optional[dict] = None,
     checkpoint model, and `tokenizer` the byte tokenizer or the
     checkpoint's; --int8-base quantizes whichever base the run has.
     `on_step(step, trainer, record)` runs after every optimizer step with
-    the record written to the scalars file."""
+    the record written to the scalars file. Under torch.distributed.run
+    every rank calls this; rank 0 alone writes, and every rank returns the
+    whole adapters."""
     from ..core.config import FlashMemoryConfig, tiny_qwen_config
-    from ..core.device import dry_run_dtype, resolve_device
+    from ..core.device import dry_run_dtype
     from ..models.vstream_qwen import init_qwen_params
     from ..preprocess.image import (_resize_bilinear, _to_float_chw,
                                     qwen_preprocess, smart_resize)
@@ -253,11 +332,17 @@ def run_training(args, *, cfg=None, params: Optional[dict] = None,
     from .data import proportional_schedule
     from .lora import QWEN_TARGETS, init_lora_params, merge_lora
     from .reporting import ScalarsWriter, StepProfiler, lr_at
-    from .trainer import DP_TODO, Trainer
+    from ..parallel.collectives import init_distributed
+    from ..parallel.sharding import create_rank_mesh
+    from .trainer import Trainer
 
-    if args.pp > 1 or args.sp > 1:
-        raise NotImplementedError(DP_TODO)
-    device = resolve_device(args.device)
+    info = init_distributed(args.device, shared_card=args.shared_card)
+    mesh = create_rank_mesh(pp=args.pp, sp=args.sp, info=info)
+    device, lead = info.device, info.rank == 0
+    dp, d = mesh.dp.size, mesh.dp.rank
+    B_rank = args.batch_size                   # this rank's share of a step
+    if mesh.kind is not None:
+        logger.info(f"rank {info.rank}: {mesh}")
     if params is None:
         if args.dry_run:
             # bf16 on the card (the kernels' type), f32 on the CPU; the
@@ -267,8 +352,12 @@ def run_training(args, *, cfg=None, params: Optional[dict] = None,
                 cfg, torch.Generator(device=device).manual_seed(0), device,
                 dtype=dry_run_dtype(device))
             if not args.data_path:
+                # each rank writes its own copy (the same draws): no rank
+                # reads a file another is still writing
                 args.data_path, args.video_dir = build_synthetic_dataset(
-                    os.path.join(args.output_dir, "synthetic"))
+                    os.path.join(args.output_dir, "synthetic",
+                                 *([f"rank{info.rank}"] if info.world > 1
+                                   else [])))
         elif args.model_path:
             from ..weights.convert import (load_qwen_checkpoint,
                                            qwen_config_from_hf)
@@ -309,6 +398,8 @@ def run_training(args, *, cfg=None, params: Optional[dict] = None,
             rank=args.lora_rank, targets=QWEN_TARGETS)
     alpha, rank = args.lora_alpha, args.lora_rank
     max_len = args.max_len or (512 if args.dry_run else 14000)
+    if args.sp > 1 and max_len % args.sp:
+        raise ValueError(f"--max-len {max_len} % --sp {args.sp} != 0")
 
     def frame_rung(n: int) -> int:
         if args.frame_bucket:
@@ -386,21 +477,38 @@ def run_training(args, *, cfg=None, params: Optional[dict] = None,
                                alpha=alpha, rank=rank,
                                vit_chunk=args.vit_chunk, kind=kind)
 
+        def draws_of(step, micro, b):
+            # keyed by the sample's index in the step's global batch
+            return (None if kind == "image" else
+                    lambda n: kmeans_draws(step, micro, d * B_rank + b, n)
+                    .to(device))
+
         def loss_fn(lora_params, batch, key, base):
             (step, micro), B = key, batch["ids"].shape[0]
             losses = []
             for b in range(B):
                 def dev(name, dtype=None):
                     return torch.from_numpy(batch[name][b]).to(device, dtype)
-                draws = (None if kind == "image" else
-                         lambda n, b=b: kmeans_draws(step, micro, b, n)
-                         .to(device))
                 losses.append(one_sample(
                     lora_params, base, dev("patches"), dev("ids"),
                     dev("labels"), dev("seg"), int(batch["vis_start"][b]),
-                    draws))
+                    draws_of(step, micro, b)))
             return torch.stack(losses).mean()
-        return loss_fn
+
+        def loss_fn_mp(lora_params, batch, key, base):
+            (step, micro), B = key, batch["ids"].shape[0]
+
+            def dev(name, b):
+                return torch.from_numpy(batch[name][b]).to(device)
+            samples = [(dev("patches", b), grid, dev("ids", b),
+                        int(batch["vis_start"][b]), span[1],
+                        draws_of(step, micro, b)) for b in range(B)]
+            return batch_loss_mp(
+                cfg, base, lora_params, mesh, samples,
+                torch.from_numpy(batch["labels"]).to(device),
+                torch.from_numpy(batch["seg"]).to(device), alpha=alpha,
+                rank=rank, vit_chunk=args.vit_chunk, kind=kind)
+        return loss_fn_mp if mesh.kind is not None else loss_fn
 
     order = sorted(buckets, key=lambda hw: -len(buckets[hw]))
     first_hw = order[0]
@@ -409,7 +517,9 @@ def run_training(args, *, cfg=None, params: Optional[dict] = None,
         return "image" if bk[1] == 0 else "video"
 
     trainer = Trainer(make_loss(first[1], first[4], kind_of(first_hw)), lora,
-                      tcfg, frozen=params)
+                      tcfg, frozen=params, mesh=mesh)
+    if trainer.stage3:
+        params = None        # the base rests sharded in the trainer
     step_fns = {first_hw: trainer._train_step}
 
     def step_fn_for(hw):
@@ -427,7 +537,7 @@ def run_training(args, *, cfg=None, params: Optional[dict] = None,
         start_step = step
         logger.info(f"resumed from checkpoint-{step}")
 
-    B = args.batch_size
+    B = args.batch_size * dp                   # the step's global batch
     cursors = {hw: 0 for hw in order}
     schedule = proportional_schedule({hw: len(buckets[hw]) for hw in order},
                                      total_steps)
@@ -440,11 +550,11 @@ def run_training(args, *, cfg=None, params: Optional[dict] = None,
         bucket_items = buckets[hw]
         micro = []
         for _ in range(args.grad_accum):
-            rows = []
-            for _ in range(B):
-                rows.append(prepare(
-                    bucket_items[cursors[hw] % len(bucket_items)], hw))
-                cursors[hw] += 1
+            # this rank's rows of the global micro-batch, JAX's dp split
+            rows = [prepare(bucket_items[(cursors[hw] + j)
+                                         % len(bucket_items)], hw)
+                    for j in range(d * B_rank, (d + 1) * B_rank)]
+            cursors[hw] += B
             micro.append(tuple(np.stack([r[i] for r in rows])
                                for i in (0, 2, 3, 5))
                          + (np.asarray([r[4][0] for r in rows], np.int32),))
@@ -453,9 +563,11 @@ def run_training(args, *, cfg=None, params: Optional[dict] = None,
                                            "vis_start"))}
         return hw, batch
 
-    scalars = ScalarsWriter(args.scalars_file or
-                            os.path.join(args.output_dir, "scalars.jsonl"))
-    profiler = StepProfiler(args.profile_dir, start_step, args.profile_steps)
+    scalars = (ScalarsWriter(args.scalars_file or
+                             os.path.join(args.output_dir, "scalars.jsonl"))
+               if lead else None)
+    profiler = StepProfiler(args.profile_dir if lead else None, start_step,
+                            args.profile_steps)
     prefetch = BackgroundPrefetcher(make_step_batch, start_step, total_steps)
     losses = []
     try:
@@ -473,30 +585,38 @@ def run_training(args, *, cfg=None, params: Optional[dict] = None,
                           bucket=f"{hw[0][0]}x{hw[0][1]}x{hw[1]}f",
                           tokens_per_s=B * args.grad_accum * max_len
                           / max(dt, 1e-9))
-            scalars.write(step + 1, **record)
-            logger.info(f"step {step + 1}/{total_steps} loss={loss:.4f} "
-                        f"bucket={hw} B={B}")
+            if lead:
+                scalars.write(step + 1, **record)
+                logger.info(f"step {step + 1}/{total_steps} loss={loss:.4f} "
+                            f"bucket={hw} B={B}")
             if on_step is not None:
                 on_step(step, trainer, record)
             if (step + 1) % args.save_steps == 0 or step + 1 == total_steps:
-                save_checkpoint(args.output_dir, step + 1, trainer.params,
-                                trainer.opt_state)
+                whole, state = trainer.gathered_state()
+                if lead:
+                    save_checkpoint(args.output_dir, step + 1, whole, state)
+                del whole, state
     finally:
         prefetch.close()
         profiler.close()
-        scalars.close()
+        if scalars is not None:
+            scalars.close()
     merged_path = export_s = None
+    adapters = trainer.gathered_params()
     if args.export_merged:
+        from ..parallel.sharding import zero_gather_tree
+        base = zero_gather_tree(trainer.frozen) if params is None else params
+    if args.export_merged and lead:
         t0 = time.perf_counter()
         merged_path = os.path.join(args.output_dir, "model_merged.safetensors")
         with torch.no_grad():
             export_safetensors(merged_path, merge_lora(
-                params, trainer.params, alpha=alpha, rank=rank))
+                base, adapters, alpha=alpha, rank=rank))
         export_s = time.perf_counter() - t0
         logger.info(f"merged weights written to {merged_path} in "
                     f"{export_s:.1f} s")
     return {"final_loss": losses[-1] if losses else None, "losses": losses,
-            "lora": trainer.params, "merged_path": merged_path,
+            "lora": adapters, "merged_path": merged_path,
             "export_s": export_s,
             "profile": getattr(profiler, "profile", None)}
 
@@ -523,16 +643,26 @@ def make_parser():
     p.add_argument("--learning-rate", type=float, default=8e-4)
     p.add_argument("--grad-accum", type=int, default=8)
     p.add_argument("--pp", type=int, default=1,
-                   help="pipeline stages (not ported: ROADMAP A16, "
-                        "training half)")
+                   help="pipeline stages (GPipe over the ranks of a pp "
+                        "group; layers split across stages, micro-batches "
+                        "flow by point-to-point sends). dp = world / pp. "
+                        "Requires num_layers %% pp == 0")
     p.add_argument("--sp", type=int, default=1,
-                   help="sequence-parallel width (not ported: ROADMAP A16, "
-                        "training half)")
+                   help="sequence-parallel width (ring attention over the "
+                        "ranks of an sp group; each holds max_len / sp "
+                        "tokens). dp = world / sp. Requires max_len %% sp "
+                        "== 0")
     p.add_argument("--zero-stage", type=int, default=2, choices=(1, 2, 3),
-                   help="one device runs the default only (ROADMAP "
-                        "A16, training half)")
+                   help="ZeRO stage over the dp ranks: 1/2 shard the Adam "
+                        "moments, 3 the adapters and the frozen base too "
+                        "(each layer gathered on use)")
     p.add_argument("--offload-moments", action="store_true",
-                   help="not ported: ROADMAP A16, training half")
+                   help="rest the Adam moments in pinned host memory "
+                        "between steps (streamed through the card a slice "
+                        "at a time in the update)")
+    p.add_argument("--shared-card", action="store_true",
+                   help="the ranks share one card (gloo over it; NCCL "
+                        "refuses two ranks on one GPU)")
     p.add_argument("--epochs", type=int, default=1)
     p.add_argument("--max-steps", type=int, default=None)
     p.add_argument("--max-frames", type=int, default=240)

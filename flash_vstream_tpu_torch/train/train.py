@@ -2,7 +2,7 @@
 finetune.
 
 Port of flash_vstream_tpu/train/train.py:26-402, the CLI rebuild of
-Flash-VStream-LLaVA/flash_vstream/train/train.py, on one device: two
+Flash-VStream-LLaVA/flash_vstream/train/train.py: two
 stages (`--stage pretrain`: the projector and the NTM train, the `plain`
 template, `recipes.llava_pretrain`; `--stage finetune`: everything but the
 vision tower, `vicuna_v1`, `recipes.llava_finetune`), length-grouped order
@@ -35,8 +35,15 @@ items (JAX writes JPEGs; the card's machine has no PIL). `--model-path`
 loads a Flash-VStream-LLaVA checkpoint directory in bf16
 (`weights/convert.load_llava_checkpoint`) with `VStreamLLaVAConfig()` and
 its HF tokenizer (`transformers`); a caller may hand `run_training` its own
-config, parameters and tokenizer. --tp > 1, --zero-stage other than 2 and
---offload-moments raise (ROADMAP A16, training half).
+config, parameters and tokenizer.
+
+Across ranks (torch.distributed.run, one process a rank): data parallelism
+over the world, each rank collating its share of a step's samples (the
+global batch is --batch-size x world, JAX's bsz x dp, and the length
+grouping runs over megabatches of that dp), the loss a token mean over the
+global batch, ZeRO stages 1-3 (`--zero-stage`) and `--offload-moments`
+in the Trainer; rank 0 alone logs and writes. --tp > 1 raises (ROADMAP
+A16, tensor-parallel training).
 
 The STAR draws (k-means init, drop coins) come from `draws(step, micro,
 sample, n)`, by default a torch generator seeded from those indices; the
@@ -128,12 +135,15 @@ def build_synthetic_raw_dataset(path: str, n_videos: int = 4,
 
 
 def make_losses(cfg, device, image_slot: int, n_mem: int,
-                draws: Callable) -> dict:
+                draws: Callable, dp=None) -> dict:
     """{"video", "image", "text"} -> loss_fn(params, micro_batch, (step,
     micro)) over numpy batches (JAX `video_loss`, `image_loss`,
     `text_loss`); `draws(step, micro, sample, n)` seeds each sample's
-    consolidation."""
-    from ..models.llm import cross_entropy_loss_chunked, embed_tokens
+    consolidation. The cross entropy is a token mean over the micro-batch
+    of every rank of the dp group `dp` (a `parallel.collectives.Group`;
+    None: this rank alone)."""
+    from ..models.llm import embed_tokens, nll_sum_chunked
+    from ..parallel.collectives import single_group, token_mean
     from ..models.projector import project
     from ..models.vstream_llava import (clip_train, decode_train,
                                         encode_frames_train, memory_embeds,
@@ -141,6 +151,8 @@ def make_losses(cfg, device, image_slot: int, n_mem: int,
     from ..ops.pooling import merge_2x2_tokens
     from ..preprocess.image import clip_device_preprocess
     span = torch.profiler.record_function      # named spans for a trace
+
+    group = dp or single_group()
 
     def dev(x, dtype=None):
         return torch.from_numpy(np.ascontiguousarray(x)).to(device, dtype)
@@ -150,8 +162,9 @@ def make_losses(cfg, device, image_slot: int, n_mem: int,
             h = decode_train(params, cfg, embeds, dev(batch["segments"]))
         labels = dev(batch["labels"])
         with span("train/cross_entropy"):
-            return cross_entropy_loss_chunked(params["llm"], cfg.llm, h,
-                                              labels, chunk=CE_CHUNK)
+            return token_mean(*nll_sum_chunked(
+                params["llm"], cfg.llm, h[:, :-1], labels[:, 1:],
+                chunk=CE_CHUNK), group)
 
     def splice(params, batch, visual):
         ids = dev(batch["input_ids"]).clamp_min(0)   # the slot's id is -200
@@ -199,7 +212,7 @@ def run_training(args, *, cfg=None, params: Optional[dict] = None,
     after every optimizer step with the record written to the scalars
     file."""
     from ..core.config import VStreamLLaVAConfig, tiny_llava_config
-    from ..core.device import dry_run_dtype, resolve_device
+    from ..core.device import dry_run_dtype
     from ..models.vstream_llava import init_llava_params, star_valid_counts
     from ..preprocess.tokenizer import ByteTokenizer
     from ..utils.prefetch import BackgroundPrefetcher
@@ -212,11 +225,16 @@ def run_training(args, *, cfg=None, params: Optional[dict] = None,
                        spliced_segments)
     from .finetune_flash import default_kmeans_draws
     from .reporting import ScalarsWriter, StepProfiler, lr_at
+    from ..parallel.collectives import init_distributed
+    from ..parallel.sharding import create_rank_mesh
     from .trainer import DP_TODO, Trainer
 
-    if args.tp > 1 or args.zero_stage != 2 or args.offload_moments:
+    if args.tp > 1:
         raise NotImplementedError(DP_TODO)
-    device = resolve_device(args.device)
+    info = init_distributed(args.device, shared_card=args.shared_card)
+    mesh = create_rank_mesh(info=info)
+    device, lead = info.device, info.rank == 0
+    dp, d = mesh.dp.size, mesh.dp.rank
     if params is None:
         if args.dry_run:
             cfg = tiny_llava_config()
@@ -241,14 +259,19 @@ def run_training(args, *, cfg=None, params: Optional[dict] = None,
         raise ValueError("run_training(params=...) needs its cfg")
     tokenizer = tokenizer or ByteTokenizer()
     draws = draws or default_kmeans_draws
+    bsz = args.batch_size                      # this rank's share of a step
+    global_draws = (lambda step, micro, b, n:  # keyed by the global sample
+                    draws(step, micro, d * bsz + b, n))
     if args.dry_run and not args.data_path:
+        # each rank writes its own copy (the same draws)
+        own = [f"rank{info.rank}"] if info.world > 1 else []
         if args.synthetic_raw:
             args.data_path, args.video_dir = build_synthetic_raw_dataset(
-                os.path.join(args.output_dir, "synthetic"),
+                os.path.join(args.output_dir, "synthetic", *own),
                 side=cfg.vit.image_size)
         else:
             args.data_path, args.feature_dir = build_synthetic_dataset(
-                os.path.join(args.output_dir, "synthetic"))
+                os.path.join(args.output_dir, "synthetic", *own))
 
     dcfg = DataConfig(
         data_path=args.data_path, video_dir=args.video_dir,
@@ -267,8 +290,8 @@ def run_training(args, *, cfg=None, params: Optional[dict] = None,
         groups[m].append(i)
     groups = {m: idxs for m, idxs in groups.items() if idxs}
 
-    bsz = args.batch_size
-    steps_per_epoch = max(len(dataset) // (bsz * args.grad_accum), 1)
+    B = bsz * dp                               # the step's global batch
+    steps_per_epoch = max(len(dataset) // (B * args.grad_accum), 1)
     total_steps = args.max_steps or steps_per_epoch * args.epochs
     tcfg = (recipes.llava_pretrain if args.stage == "pretrain"
             else recipes.llava_finetune)(total_steps, args.grad_accum)
@@ -285,9 +308,11 @@ def run_training(args, *, cfg=None, params: Optional[dict] = None,
     seq_len = {"video": pre_len + n_mem + post_len,
                "image": pre_len + n_img + post_len, "text": args.text_len}
 
-    losses_by_modality = make_losses(cfg, device, pre_len, n_mem, draws)
+    losses_by_modality = make_losses(cfg, device, pre_len, n_mem,
+                                     global_draws, mesh.dp)
     main_modality = next(iter(groups))
-    trainer = Trainer(losses_by_modality[main_modality], params, tcfg)
+    trainer = Trainer(losses_by_modality[main_modality], params, tcfg,
+                      mesh=mesh)
     step_fns = {main_modality: trainer._train_step}
     for m in groups:
         if m not in step_fns:
@@ -308,15 +333,16 @@ def run_training(args, *, cfg=None, params: Optional[dict] = None,
     orders = {}
     for m, idxs in groups.items():
         sub = length_grouped_indices([abs(all_lengths[i]) for i in idxs],
-                                     args.batch_size, 1)
+                                     args.batch_size, dp)
         orders[m] = [idxs[j] for j in sub]
 
     def make_group(modality: str, idx0: int):
         group, idx, order = [], idx0, orders[modality]
         for _ in range(args.grad_accum):
+            # this rank's samples of the global micro-batch
             samples = [dataset[order[(idx + j) % len(order)]]
-                       for j in range(bsz)]
-            idx += bsz
+                       for j in range(d * bsz, (d + 1) * bsz)]
+            idx += B
             if modality == "text":
                 group.append(collate_text(samples, pad_id,
                                           fixed_len=args.text_len))
@@ -345,16 +371,18 @@ def run_training(args, *, cfg=None, params: Optional[dict] = None,
         {m: len(groups[m]) for m in modalities}, total_steps)
     cursors = {m: 0 for m in modalities}
     for s in range(start_step):                  # checkpoint-stable resume
-        cursors[schedule[s]] += bsz * args.grad_accum
+        cursors[schedule[s]] += B * args.grad_accum
 
     def make_step_batch(step: int):
         m = schedule[step]
         batch, cursors[m] = make_group(m, cursors[m])
         return m, batch
 
-    scalars = ScalarsWriter(args.scalars_file or
-                            os.path.join(args.output_dir, "scalars.jsonl"))
-    profiler = StepProfiler(args.profile_dir, start_step, args.profile_steps)
+    scalars = (ScalarsWriter(args.scalars_file or
+                             os.path.join(args.output_dir, "scalars.jsonl"))
+               if lead else None)
+    profiler = StepProfiler(args.profile_dir if lead else None, start_step,
+                            args.profile_steps)
     prefetch = BackgroundPrefetcher(make_step_batch, start_step, total_steps)
     losses, kinds = [], []
     try:
@@ -369,27 +397,31 @@ def run_training(args, *, cfg=None, params: Optional[dict] = None,
             dt = time.perf_counter() - t0
             losses.append(loss)
             kinds.append(m)
-            n = bsz * args.grad_accum
+            n = B * args.grad_accum
             record = dict(loss=loss, lr=lr_at(tcfg, step), step_time_s=dt,
                           modality=m, samples_per_s=n / max(dt, 1e-9),
                           tokens_per_s=n * seq_len[m] / max(dt, 1e-9))
-            scalars.write(step + 1, **record)
-            logger.info(f"step {step + 1}/{total_steps} [{m}] "
-                        f"loss={loss:.4f} ({dt:.2f}s)")
+            if lead:
+                scalars.write(step + 1, **record)
+                logger.info(f"step {step + 1}/{total_steps} [{m}] "
+                            f"loss={loss:.4f} ({dt:.2f}s)")
             if on_step is not None:
                 on_step(step, trainer, record)
             if args.save_steps and ((step + 1) % args.save_steps == 0
                                     or step + 1 == total_steps):
-                save_checkpoint(args.output_dir, step + 1, trainer.params,
-                                trainer.opt_state)
+                whole, state = trainer.gathered_state()
+                if lead:
+                    save_checkpoint(args.output_dir, step + 1, whole, state)
+                del whole, state
     finally:
         # unblock the producer if the loop exits early
         prefetch.close()
         profiler.close()
-        scalars.close()
+        if scalars is not None:
+            scalars.close()
     return {"final_loss": losses[-1] if losses else None, "losses": losses,
             "steps": total_steps, "modalities": kinds,
-            "params": trainer.params,
+            "params": trainer.gathered_params(),
             "profile": getattr(profiler, "profile", None)}
 
 
@@ -431,12 +463,18 @@ def make_parser():
     p.add_argument("--profile-steps", type=int, default=3)
     p.add_argument("--tp", type=int, default=1,
                    help="tensor-parallel width (not ported: ROADMAP A16, "
-                        "training half)")
+                        "tensor-parallel training)")
     p.add_argument("--zero-stage", type=int, default=2, choices=(1, 2, 3),
-                   help="one device runs the default only (ROADMAP "
-                        "A16, training half)")
+                   help="ZeRO stage over the ranks: 1/2 shard the Adam "
+                        "moments, 3 the parameters too (each layer "
+                        "gathered on use)")
     p.add_argument("--offload-moments", action="store_true",
-                   help="not ported: ROADMAP A16, training half")
+                   help="rest the Adam moments in pinned host memory "
+                        "between steps (streamed through the card a slice "
+                        "at a time in the update)")
+    p.add_argument("--shared-card", action="store_true",
+                   help="the ranks share one card (gloo over it; NCCL "
+                        "refuses two ranks on one GPU)")
     p.add_argument("--dry-run", action="store_true")
     p.add_argument("--synthetic-raw", action="store_true",
                    help="dry run on .npy frame directories, images and "

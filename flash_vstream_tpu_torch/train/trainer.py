@@ -1,9 +1,11 @@
-"""Single-device trainer: gradient accumulation, global-norm clipping, AdamW
-with warmup + cosine decay, parameter groups, checkpointable state.
+"""Trainer: gradient accumulation, global-norm clipping, AdamW with warmup
++ cosine decay, parameter groups, checkpointable state, and data
+parallelism with ZeRO stages 1, 2 and 3 and Adam moments offloaded to the
+host.
 
-Port of flash_vstream_tpu/train/trainer.py for one device (dp = 1). The
-optimizer is written out rather than taken from torch.optim, because the
-JAX trainer's optax chain has semantics the stock classes do not share:
+Port of flash_vstream_tpu/train/trainer.py. The optimizer is written out
+rather than taken from torch.optim, because the JAX trainer's optax chain
+has semantics the stock classes do not share:
 
 - the learning rate of optimizer step n is the schedule at n, the count
   before the increment, so the first step runs at lr 0 (reporting.lr_at);
@@ -17,7 +19,8 @@ JAX trainer's optax chain has semantics the stock classes do not share:
 - a bf16 tree rounds as optax's does: a Python constant (b1, b2, eps, the
   step size) takes the array's dtype before the op (JAX's weak typing), and
   the global norm sums each leaf's squares in f32, rounds that sum to the
-  leaf's dtype and adds the leaves' sums in it.
+  leaf's dtype and adds the leaves' sums in it (a leaf split over ranks
+  sums its parts in f32 first).
 
 Gradient accumulation takes the mean of the micro-batch gradients, each
 divided by accum and summed in place, as the JAX scan adds g / accum to its
@@ -31,8 +34,27 @@ moments; the arithmetic is elementwise, so slicing changes no value but
 the order of a leaf's f32 sum of squares. A
 parameter tree may hold dicts, lists and NamedTuples (the LLaVA tree's
 projector layers and NTM parameters), walked in JAX's order; quantized
-leaves are frozen. ZeRO stages other than the default, moment offload and
-data parallelism raise (ROADMAP A16, training half).
+leaves are frozen.
+
+Across ranks (one process a rank, `parallel.sharding.RankMesh`): each rank
+runs its share of the step's global batch, and the gradients are averaged
+over dp, which is JAX's mean over the global batch of bsz x dp. A leaf's
+ZeRO dim is the one `zero_shardings` picks (none: the leaf and its moments
+stay whole on every rank, its gradient all-reduced). Stages 1 and 2 keep
+the parameters whole and the Adam moments only for this rank's shard: the
+gradient is all-reduced (1) or reduce-scattered (2) to the shard, the rank
+updates its shard and the parameters are all-gathered. Stage 3 rests the
+parameters and the `frozen` tree sharded too (`ZeroShard`): a layer's
+weights are gathered on use and freed after, their gradients
+reduce-scattered in the backward. With a pp or sp group, every gradient is
+first summed over it (a pipeline stage's gradients are zero outside what
+it ran). `offload_moments` rests mu and nu in pinned host memory between
+steps (on the CPU they stay put, as JAX's host kind equals its device
+kind there); the sliced update streams a slice's moments to the device and
+back, so they are never whole on the card. A checkpoint holds the whole,
+gathered state (`gathered_state`), and `load_state` takes a whole state at
+any world size. Tensor-parallel training (a 'tp' axis) raises (ROADMAP
+A16, tensor-parallel training).
 """
 from __future__ import annotations
 
@@ -45,8 +67,9 @@ import torch
 from .lora import tree_leaves_with_path
 from .reporting import lr_at
 
-DP_TODO = ("ZeRO stages other than 2, moment offload and data parallelism "
-           "are not ported yet: ROADMAP A16, training half")
+DP_TODO = ("tensor-parallel training (the Trainer's 'tp' axis, LLaVA "
+           "train.py --tp) is not ported yet: ROADMAP A16, tensor-parallel "
+           "training")
 
 
 @dataclasses.dataclass
@@ -67,8 +90,10 @@ class TrainConfig:
     frozen: Sequence[str] = ()
     # dtype of Adam's first moments (None = the parameter's); nu stays f32
     mu_dtype: Optional[str] = None
-    # ZeRO stage of the JAX trainer; one device runs the default (2) only
+    # ZeRO stage across ranks: 1/2 shard the Adam moments over dp (2 also
+    # reduce-scatters the gradients), 3 the parameters and the frozen tree
     zero_stage: int = 2
+    # rest the Adam moments in pinned host memory between steps
     offload_moments: bool = False
 
 
@@ -114,7 +139,10 @@ def label_params(params: dict, cfg: TrainConfig) -> Dict[str, str]:
 
 class AdamW:
     """optax.multi_transform of chain(clip_by_global_norm, adamw(schedule))
-    per label group, and set_to_zero for "frozen" (see the module note)."""
+    per label group, and set_to_zero for "frozen" (see the module note).
+    `group` and `sharded` (set by a Trainer across ranks): the paths whose
+    gradients and parameters are this rank's shard, their squares summed
+    over `group` for the norm."""
 
     def __init__(self, cfg: TrainConfig, params: dict):
         self.cfg = cfg
@@ -123,20 +151,38 @@ class AdamW:
                    "projector": cfg.projector_lr or cfg.learning_rate}
         self.mu_dtype = (getattr(torch, cfg.mu_dtype) if cfg.mu_dtype
                          else None)
+        self.group = None
+        self.sharded = frozenset()
+
+    def _zeros(self, x: torch.Tensor, dtype) -> torch.Tensor:
+        """A moment for `x`: in pinned host memory when offloaded from a
+        card, else beside x."""
+        if self.cfg.offload_moments and x.is_cuda:
+            return torch.zeros(x.shape, dtype=dtype, pin_memory=True)
+        return torch.zeros(x.shape, dtype=dtype, device=x.device)
 
     def init(self, params: dict) -> dict:
         mu, nu = {}, {}
         for p, x in tree_leaves_with_path(params):
             if self.labels[p] != "frozen":
-                mu[p] = torch.zeros_like(x, dtype=self.mu_dtype or x.dtype)
-                nu[p] = torch.zeros_like(x)
+                mu[p] = self._zeros(x, self.mu_dtype or x.dtype)
+                nu[p] = self._zeros(x, x.dtype)
         return {"count": 0, "mu": mu, "nu": nu}
+
+    def _sq(self, p: str, g: torch.Tensor) -> torch.Tensor:
+        """optax.global_norm's term of leaf p: its squares summed in f32
+        (over the ranks' parts of a sharded leaf), rounded to its dtype."""
+        sq = sum((g[sl] * g[sl]).float().sum() for sl in _slices(g))
+        if p in self.sharded:
+            sq = self.group.all_reduce(sq)
+        return sq.to(g.dtype)
 
     @torch.no_grad()
     def update(self, grads: Dict[str, torch.Tensor], state: dict,
                params: dict) -> dict:
-        """Apply one step to `params` in place, the moments updated in
-        place too; returns the state."""
+        """Apply one step to `params` (a tree, or {path: tensor}) in place,
+        the moments updated in place too (an offloaded moment a slice at a
+        time through the device); returns the state."""
         cfg = self.cfg
         leaves = dict(tree_leaves_with_path(params))
         count = state["count"]
@@ -149,8 +195,7 @@ class AdamW:
                 continue
             g_norm = None                  # optax.global_norm, leaf by leaf
             for p in paths:
-                sq = sum((grads[p][sl] * grads[p][sl]).float().sum()
-                         for sl in _slices(grads[p])).to(grads[p].dtype)
+                sq = self._sq(p, grads[p])
                 g_norm = sq if g_norm is None else g_norm + sq
             g_norm = torch.sqrt(g_norm)
             keep = g_norm < cfg.max_grad_norm
@@ -159,11 +204,13 @@ class AdamW:
                 for sl in _slices(leaves[p]):
                     x, gp = leaves[p][sl], grads[p][sl]
                     mu_s, nu_s = state["mu"][p][sl], state["nu"][p][sl]
+                    mu_d = mu_s.to(x.device, non_blocking=True)
+                    nu_d = nu_s.to(x.device, non_blocking=True)
                     g = torch.where(keep, gp, gp / g_norm.to(gp.dtype)
                                     * _weak(cfg.max_grad_norm, gp))
-                    mu = _weak(1 - cfg.b1, g) * g + _weak(cfg.b1, mu_s) * mu_s
+                    mu = _weak(1 - cfg.b1, g) * g + _weak(cfg.b1, mu_d) * mu_d
                     nu = (_weak(1 - cfg.b2, g) * (g * g)
-                          + _weak(cfg.b2, nu_s) * nu_s)
+                          + _weak(cfg.b2, nu_d) * nu_d)
                     u = (mu / bc1.to(mu.dtype)) / (
                         torch.sqrt(nu / bc2.to(nu.dtype))
                         + _weak(cfg.eps, nu))
@@ -192,88 +239,193 @@ def _micro(batch, i: int):
     return batch[i]
 
 
+def _part(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """This rank's part of x along dim (a view)."""
+    n = x.shape[dim] // group.size
+    return x.narrow(dim, group.rank * n, n)
+
+
 class Trainer:
     """`loss_fn(params, micro_batch, key) -> scalar loss`, or
     `loss_fn(params, micro_batch, key, frozen)` when a `frozen` tree (the
     base under LoRA) is given. Batch leaves are [grad_accum, micro_batch,
-    ...]; the key handed to loss_fn for micro-batch i is (key, i), which a
-    loss may use to seed its draws."""
+    ...], the micro-batch this rank's share of the step's; the key handed to
+    loss_fn for micro-batch i is (key, i), which a loss may use to seed its
+    draws. `mesh` (a `parallel.sharding.RankMesh`) trains across ranks;
+    None: this process alone. At ZeRO stage 3 the trees a loss gets hold
+    `ZeroShard`s under their stacked "layers" subtrees (gathered a layer at
+    a time by `layer_slice`), the rest gathered whole."""
 
     def __init__(self, loss_fn: Callable, params: dict, cfg: TrainConfig,
-                 frozen: Optional[dict] = None):
-        if cfg.zero_stage != 2 or cfg.offload_moments:
+                 frozen: Optional[dict] = None, mesh=None):
+        from ..parallel.collectives import single_group
+        from ..parallel.sharding import (LLM_RULES, RankMesh, _zero_spec,
+                                         zero_shard_tree)
+        if mesh is not None and mesh.shape.get("tp", 1) > 1:
             raise NotImplementedError(DP_TODO)
         self.cfg = cfg
-        self.frozen = frozen
-        self.params = params
+        self.mesh = mesh or RankMesh(None, single_group(), single_group(),
+                                     None)
+        dp = self.mesh.dp
         self.optimizer = make_optimizer(cfg, params)
+        labels = self.optimizer.labels
+        # each trained leaf's ZeRO dim (None: whole on every rank)
+        self.zero_dim = {
+            p: _dp_dim(_zero_spec((p,), x, self.mesh, LLM_RULES))
+            if dp.size > 1 else None
+            for p, x in _tensor_leaves(params)}
+        self.stage3 = cfg.zero_stage >= 3 and dp.size > 1
+        if self.stage3:
+            params = zero_shard_tree(params, self.mesh)
+            frozen = (zero_shard_tree(frozen, self.mesh)
+                      if frozen is not None else None)
+        self.params, self.frozen = params, frozen
         # gradients only where the update reads them
-        for p, x in _tensor_leaves(params):
-            x.requires_grad_(self.optimizer.labels[p] != "frozen")
-        self.opt_state = self.optimizer.init(params)
+        self._leaf = {}
+        for p, x in tree_leaves_with_path(params):
+            x = getattr(x, "shard", x)
+            if isinstance(x, torch.Tensor):
+                x.requires_grad_(labels[p] != "frozen")
+                if labels[p] != "frozen":
+                    self._leaf[p] = x
+        self.sharded = frozenset(p for p in self._leaf
+                                 if self.zero_dim[p] is not None)
+        self.optimizer.group, self.optimizer.sharded = dp, self.sharded
+        self.opt_state = self.optimizer.init(self._views())
         self.step = 0
         self._train_step = self.compile_step(loss_fn)
+
+    def _views(self) -> Dict[str, torch.Tensor]:
+        """What the optimizer updates of each trained leaf: the leaf, its
+        shard (stage 3), or this rank's part of the whole leaf (stages 1
+        and 2, a view)."""
+        return {p: _part(x, self.zero_dim[p], self.mesh.dp)
+                if p in self.sharded and not self.stage3 else x
+                for p, x in self._leaf.items()}
+
+    def _reduce(self, p: str, g: torch.Tensor) -> torch.Tensor:
+        """Leaf p's accumulated gradient summed over the pp/sp group, then
+        averaged over dp, as the optimizer takes it."""
+        dp, dim = self.mesh.dp, self.zero_dim[p]
+        self.mesh.inner.all_reduce(g)
+        if p not in self.sharded:
+            return dp.all_reduce(g, "mean")
+        if self.stage3:                  # the gather's backward summed it
+            return g.div_(dp.size)
+        if self.cfg.zero_stage == 1:
+            return _part(dp.all_reduce(g, "mean"), dim, dp)
+        return dp.reduce_scatter(g, dim).div_(dp.size)
 
     def compile_step(self, loss_fn: Callable) -> Callable:
         """The step for `loss_fn` on this trainer's state (the JAX trainer
         compiles one per shape bucket; eager PyTorch has nothing to
         compile)."""
+        from ..parallel.sharding import zero_use
         accum = self.cfg.grad_accum
 
         def step(batch, key):
-            paths = [p for p, lab in self.optimizer.labels.items()
-                     if lab != "frozen"]
-            leaves = dict(_tensor_leaves(self.params))
+            paths = list(self._leaf)
             acc, losses = [None] * len(paths), []
             span = torch.profiler.record_function  # named spans for a trace
             for i in range(accum):
-                args = (self.params, _micro(batch, i), (key, i))
+                params = zero_use(self.params) if self.stage3 else self.params
+                args = (params, _micro(batch, i), (key, i))
                 if self.frozen is not None:
-                    args += (self.frozen,)
+                    args += (zero_use(self.frozen) if self.stage3
+                             else self.frozen,)
                 with span("train/forward"):
                     loss = loss_fn(*args)
+                del args, params
                 with span("train/backward"):
                     # a loss that reaches no trained leaf (a text step of
-                    # the pretrain stage) has zero gradients, as in JAX
-                    grads = (list(torch.autograd.grad(
-                        loss, [leaves[p] for p in paths], allow_unused=True))
-                        if loss.requires_grad else [None] * len(paths))
+                    # the pretrain stage) has zero gradients, as in JAX;
+                    # backward() (not autograd.grad) so that a pipeline
+                    # stage's receive, which leads to no trained leaf,
+                    # still sends its gradient back
+                    if loss.requires_grad:
+                        loss.backward()
                 losses.append(loss.detach().float())
                 del loss
                 for j, p in enumerate(paths):
-                    g = grads[j]
-                    grads[j] = None              # one leaf's temporaries
+                    leaf = self._leaf[p]
+                    g, leaf.grad = leaf.grad, None
                     if g is None:
-                        g = torch.zeros_like(leaves[p])
+                        g = torch.zeros_like(leaf)
                     if accum == 1:
                         acc[j] = g
                     elif acc[j] is None:
                         acc[j] = g / accum
                     else:
                         acc[j].add_(g / accum)
+            with span("train/reduce"):
+                for j, p in enumerate(paths):
+                    acc[j] = self._reduce(p, acc[j])
             with span("train/optimizer"):
+                views = self._views()
                 self.opt_state = self.optimizer.update(
-                    dict(zip(paths, acc)), self.opt_state, self.params)
-            return torch.stack(losses).mean()
+                    dict(zip(paths, acc)), self.opt_state, views)
+                del acc
+                if not self.stage3:
+                    for p in paths:              # stages 1/2: regather
+                        if p not in self.sharded:
+                            continue
+                        whole = self._leaf[p]
+                        with torch.no_grad():
+                            whole.copy_(self.mesh.dp.all_gather(
+                                views[p], self.zero_dim[p]))
+            loss = torch.stack(losses).mean()
+            return self.mesh.dp.all_reduce(loss, "mean")
 
         return step
 
+    def gathered_params(self) -> dict:
+        """The parameters whole (stage 3 gathers them: every rank of the dp
+        group calls this)."""
+        from ..parallel.sharding import zero_gather_tree
+        return zero_gather_tree(self.params) if self.stage3 else self.params
+
+    def gathered_state(self):
+        """(params, opt_state) whole, as a checkpoint holds them: every rank
+        calls this, rank 0 writes it."""
+        dp = self.mesh.dp
+        moments = {}
+        for k in ("mu", "nu"):
+            moments[k] = {}
+            for p, m in self.opt_state[k].items():
+                if p in self.sharded:
+                    m = dp.all_gather(m.to(self._leaf[p].device),
+                                      self.zero_dim[p])
+                moments[k][p] = m
+        return self.gathered_params(), {"count": self.opt_state["count"],
+                                        **moments}
+
     def load_state(self, params: dict, opt_state: dict) -> None:
-        """Install restored state (copied into this trainer's tensors, on
-        their devices)."""
-        mine = dict(_tensor_leaves(self.params))
+        """Install a restored whole state (from any world size), each leaf
+        and moment copied into this rank's tensors (its part where they are
+        sharded), on their devices."""
+        from ..parallel.sharding import ZeroShard
+        dp = self.mesh.dp
+        mine = dict(tree_leaves_with_path(self.params))
         with torch.no_grad():
             for p, x in _tensor_leaves(params):
-                mine[p].copy_(x)
-        dev = {p: x.device for p, x in mine.items()}
-        self.opt_state = {
-            "count": int(opt_state["count"]),
-            "mu": {p: x.to(dev[p]) for p, x in opt_state["mu"].items()},
-            "nu": {p: x.to(dev[p]) for p, x in opt_state["nu"].items()},
-        }
+                dst = mine[p]
+                if isinstance(dst, ZeroShard):
+                    dst.shard.copy_(_part(x, dst.dim, dp))
+                else:
+                    dst.copy_(x)
+            for k in ("mu", "nu"):
+                for p, x in opt_state[k].items():
+                    if p in self.sharded:
+                        x = _part(x, self.zero_dim[p], dp)
+                    self.opt_state[k][p].copy_(x)
+        self.opt_state["count"] = int(opt_state["count"])
 
     def run_step(self, batch, key, step_fn: Optional[Callable] = None
                  ) -> float:
         loss = (step_fn or self._train_step)(batch, key)
         self.step += 1
         return float(loss)
+
+
+def _dp_dim(spec) -> Optional[int]:
+    return list(spec).index("dp") if "dp" in spec else None

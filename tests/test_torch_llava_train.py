@@ -646,10 +646,10 @@ def test_unported_options_raise(tmp_path):
         ["--device", "cpu", "--output-dir", str(tmp_path), *a])
     with pytest.raises(ValueError, match="--model-path"):
         ttrain.run_training(parse())
-    for flags in (("--tp", "2"), ("--zero-stage", "3"),
-                  ("--offload-moments",)):
-        with pytest.raises(NotImplementedError, match="A16"):
-            ttrain.run_training(parse("--dry-run", *flags))
+    # --zero-stage and --offload-moments train (test_torch_finetune_parallel
+    # .py); tensor-parallel training is the next item of ROADMAP A16
+    with pytest.raises(NotImplementedError, match="A16, tensor-parallel"):
+        ttrain.run_training(parse("--dry-run", "--tp", "2"))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             ttrain.run_training(ttrain.make_parser().parse_args(

@@ -20,9 +20,11 @@ LLaVAPipeline, a stream answered speculatively, the --model-family llava
 resampling; the LLaVA trainer's raw-media and feature dry runs,
 extract_features over `.npy` frame directories and the feature eval
 launcher over what it wrote), both multi-stream engines, the threaded ingest and the gmm
-consolidation on the CPU in a fresh interpreter leave
+consolidation, the training-across-ranks modules and a ZeRO-3 offload
+Trainer step at world 1 on the CPU in a fresh interpreter leave
 `jax` and `flash_vstream_tpu` out of sys.modules (the tests' own conftest
-imports jax, hence the subprocess); no source file of the port imports
+imports jax, hence the subprocess), nor does a spawned gloo rank; no
+source file of the port imports
 either; and the port's copy of the config dataclasses equals the JAX
 package's field for field."""
 import dataclasses
@@ -295,6 +297,12 @@ with tempfile.TemporaryDirectory() as d:
          d + "/out", "--dry-run", "--device", "cpu", "--skip-judge"])
     assert len(open(d + "/out/pred.json").readlines()) == 1
 del sys.modules["PIL"]
+from flash_vstream_tpu_torch.parallel import collectives, pipeline, sequence
+from flash_vstream_tpu_torch.train.trainer import TrainConfig, Trainer
+tr = Trainer(lambda p, b, k: (p["w"] * b).sum(), {"w": torch.ones(4)},
+             TrainConfig(zero_stage=3, offload_moments=True, total_steps=2,
+                         warmup_ratio=0.5))
+assert tr.run_step(torch.ones(1, 4), 0) == 4.0
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flash_vstream_tpu"))
 assert not bad, bad
@@ -307,6 +315,19 @@ def test_port_runs_without_jax():
                           capture_output=True, text=True, timeout=180)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "OK"
+
+
+def test_ranks_run_without_jax(tmp_path):
+    """A rank that the training-across-ranks tests spawn (gloo on the CPU,
+    tests/torch_ranks.py) joins its group and runs a collective with
+    neither `jax` nor the JAX package in sys.modules."""
+    import torch
+    import torch_ranks
+    from flash_vstream_tpu_torch.parallel.collectives import spawn
+    spawn(torch_ranks.modules_seen, 2, str(tmp_path),
+          init_file=str(tmp_path / "init"))
+    for r in range(2):
+        assert torch.load(tmp_path / f"rank{r}.pt") == []
 
 
 def test_port_sources_never_import_jax():
@@ -323,7 +344,10 @@ def test_port_sources_never_import_jax():
             "flash_vstream_tpu_torch/scripts/probe_int4_variants.py",
             "flash_vstream_tpu_torch/parallel/sharding.py",
             "flash_vstream_tpu_torch/parallel/inference.py",
-            "flash_vstream_tpu_torch/parallel/serve.py"} <= names
+            "flash_vstream_tpu_torch/parallel/serve.py",
+            "flash_vstream_tpu_torch/parallel/collectives.py",
+            "flash_vstream_tpu_torch/parallel/pipeline.py",
+            "flash_vstream_tpu_torch/parallel/sequence.py"} <= names
     for f in files:
         assert not pat.search(f.read_text()), f
     assert pat.search("from flash_vstream_tpu.core import config")

@@ -455,11 +455,15 @@ def test_unported_paths_raise(tmp_path):
         ["--device", "cpu", "--output-dir", str(tmp_path), *a])
     with pytest.raises(ValueError, match="--model-path"):
         tft.run_training(parse())              # neither a model nor --dry-run
-    with pytest.raises(NotImplementedError, match="A16"):
+    # --pp and --sp take as many ranks (test_torch_finetune_parallel.py)
+    with pytest.raises(ValueError, match="multiple of pp"):
         tft.run_training(parse("--dry-run", "--pp", "2"))
-    with pytest.raises(NotImplementedError, match="A16"):
+    # tensor-parallel training is the next item of ROADMAP A16
+    from flash_vstream_tpu_torch.parallel.sharding import create_mesh
+    with pytest.raises(NotImplementedError, match="A16, tensor-parallel"):
         ttrainer.Trainer(lambda p, b, k: 0, {"w": torch.zeros(2)},
-                         ttrainer.TrainConfig(zero_stage=3))
+                         ttrainer.TrainConfig(),
+                         mesh=create_mesh(1, 2, ["cpu"] * 2))
     assert QWEN_TARGETS[-1] == r"merger/fc[12]/w$"
 
 

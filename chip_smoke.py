@@ -78,7 +78,9 @@ Qwen2-VL-7B decoder at QWEN_LAYERS of its 28 layers, every width full):
 7. function: FlashAttentionFunction on the card against autograd of the
    plain attention;
 8. train_reference: one LoRA loss + backward of the small model on the card
-   (kernels) and on the CPU (plain versions), compared;
+   (kernels, bf16) and on the CPU (plain versions, f32 on the same bf16
+   weights), compared; two faults planted in the card's attention
+   backward, dk x 0.9 and a misrouted dq, must fail;
    dry_run_train: the trainer's --dry-run on the card (C1): the entry
    point with no --device, then its inputs in bf16 through K3, K4, K5 at
    the tiny head dims (zero-padded to 64) against the CPU run, the
@@ -91,9 +93,13 @@ Qwen2-VL-7B decoder at QWEN_LAYERS of its 28 layers, every width full):
    ranks against one rank at the global batch (first-step gradients, the
    adapters after 2 steps, each rank's share of the base); finetune_flash
    --dry-run --pp 2 and --sp 2 under torch.distributed.run; at world 1
-   --zero-stage 3 --offload-moments bit-equal to --zero-stage 2; the
+   --zero-stage 3 --offload-moments bit-equal to --zero-stage 2; tp 2:
+   LLaVA stage 2 at full width (Vicuna-7B at 4 layers, CLIP at 2) through
+   train.run_training --tp 2 against one rank at the global batch (losses,
+   first-step gradients gathered over tp, updates after 2 steps, CLIP's
+   split features; a row product left unsummed on one rank must fail); the
    path's K1/K3/K4/K5 launches summed over the ranks (--ranks 4 on a
-   four-card machine: a card a rank over NCCL);
+   four-card machine: a card a rank over NCCL, dp 2 x tp 2);
 9. train_slice: `run_training` on Qwen2-VL-7B at full width (random bf16
    base, the serving slice's weights), 240 frames of 224 px, max_len 4096,
    grad_accum 2, 3 optimizer steps, with the launch counts of K1, K3, K4, K5;
@@ -2378,12 +2384,40 @@ def _scene_frames(rng, n_scenes, side):
     return frames
 
 
-# The training reference holds each adapter leaf's gradient on the card to
-# this relative L2 error against the CPU's. bf16 sets the floor: on the CPU
-# alone, two bf16 runs that differ only in summation order differ by up to
-# ~4e-2 in a leaf, while dk scaled by 0.9 in the attention backward moves
-# wk's leaves by ~1e-1 (tests/test_torch_train_reference.py reads both).
+# Card against card (train_parallel) holds each adapter leaf's gradient to
+# this relative L2 error. bf16 sets the floor: on the CPU alone, two bf16
+# runs that differ only in summation order differ by up to ~4e-2 in a leaf,
+# while dk scaled by 0.9 in the attention backward moves wk's leaves by
+# ~1e-1 (tests/test_torch_train_reference.py reads both).
 TRAIN_REF_LIMIT = 8e-2
+# The training reference holds each adapter leaf's bf16 gradient on the
+# card to the CPU's f32 gradient on the same bf16 weights upcast (a bf16
+# reference on the CPU moved with the host: 1.286e-1 and 6.822e-2 on two
+# hosts at one card loss). Two limits a leaf. Its relative L2 error: bf16
+# takes it to 1.084e-1 on an H100 (a merger leaf, the same run to run;
+# 7.46e-2 with K1's plain version in the frozen ViT, whose output the
+# merger takes) and to 7.2e-2-1.35e-1 on CPUs; a misrouted dq reads
+# 2.24e-1 on the card (TRAIN_REF_FAULTS). Its gain,
+# |<g, ref> / <ref, ref> - 1|, the error along the reference, which bf16
+# keeps at 4.83e-2 on the card and 3.8e-2 on the CPU while dk x 0.9 in the
+# attention backward reads 1.26e-1-1.32e-1 in wk's leaves on the card and
+# 1.09e-1-1.12e-1 on the CPU: a scaled gradient fails the gain where its
+# L2 error (1.44e-1-1.46e-1 on the card) sits near bf16's
+# (tests/test_torch_train_reference.py reads both on the CPU, and the
+# card's gap to f32 kernel by kernel).
+TRAIN_REF_F32_LIMIT = 1.5e-1
+TRAIN_REF_GAIN_LIMIT = 8e-2
+# The faults train_reference plants in the card's attention backward (K4
+# + K5's dq, dk, dv), each with the limit it must fail: dk x 0.9 keeps the
+# gradient's direction, so the gain sees it where the rel L2 hardly does;
+# a fifth of each query's dq added to the next query's (a misrouted
+# gradient, nearly orthogonal to the reference) moves the rel L2 past its
+# limit (2.76e-1 on the CPU) while the gain stays under its own (4.35e-2).
+TRAIN_REF_FAULTS = {
+    "dk x 0.9": ("gain", lambda dq, dk, dv: (dq, dk * 0.9, dv)),
+    "dq + 0.2 x the query before's": (
+        "rel L2", lambda dq, dk, dv: (dq + 0.2 * dq.roll(1, dims=2), dk, dv)),
+}
 
 
 def train_reference_case():
@@ -2458,37 +2492,84 @@ def leaf_errors(got, want):
             for n, w in want.items()}
 
 
-def check_train_reference(dev):
-    """One LoRA loss + backward of the small model on the card (K1, K3, K4,
-    K5) and on the CPU (plain versions), from the same bf16 inputs. The loss
-    agrees within 1e-2 relative, and every adapter leaf's gradient within
-    TRAIN_REF_LIMIT in relative L2 norm (see there for why this limit)."""
+def leaf_gains(got, want):
+    """{leaf: |<got, want> / <want, want> - 1|}: the error along the
+    reference, which a scaled gradient moves in full and rounding noise,
+    nearly orthogonal to it, hardly at all."""
+    return {n: abs(((got[n] * w).sum() / (w * w).sum().clamp_min(1e-60)
+                    ).item() - 1) for n, w in want.items()}
+
+
+def _train_reference_reading(case, dev, g_cpu, l_cpu, tag):
+    """The card's bf16 LoRA step of `case` against the CPU's f32 one:
+    {"sound": the loss within 1e-2 relative and every value finite,
+    "rel L2": the worst leaf's, "gain": the worst leaf's}; prints the
+    readings."""
     import numpy as np
     import torch
-
-    case = train_reference_case()
     _reset_launches()
     l_card, g_card = lora_leaf_grads(case, dev, torch.bfloat16)
     if not all(_launches()[k] for k in ("K1", "K3", "K4", "K5")):
         raise AssertionError(f"train_reference: the card's LoRA step "
                              f"launched {_launches()}")
-    l_cpu, g_cpu = lora_leaf_grads(case, torch.device("cpu"), torch.bfloat16)
     errs = leaf_errors(g_card, g_cpu)
+    gains = leaf_gains(g_card, g_cpu)
     worst = max(errs, key=errs.get)
+    steep = max(gains, key=gains.get)
     flat = [torch.cat([g[n].flatten() for n in sorted(g)])
             for g in (g_card, g_cpu)]
     vs_cpu = ((flat[0] - flat[1]).abs().max() / flat[1].abs().max()).item()
-    print(f"train_reference: small model LoRA loss card {l_card:.5f} CPU "
-          f"bf16 {l_cpu:.5f}; adapter grads, card vs CPU bf16, rel L2 per "
-          f"leaf: max {errs[worst]:.3e} ({worst}) limit {TRAIN_REF_LIMIT:.0e}"
-          f"; all leaves max err / max |grad| {vs_cpu:.3e}", flush=True)
-    print("train_reference: per leaf " + " ".join(
-        f"{n}={e:.3e}" for n, e in sorted(errs.items())), flush=True)
-    if (not np.isfinite(l_card) or abs(l_card - l_cpu) > 1e-2 * abs(l_cpu)
-            or not all(torch.isfinite(g).all() for g in g_card.values())
-            or errs[worst] > TRAIN_REF_LIMIT):
+    print(f"train_reference{tag}: small model LoRA loss card {l_card:.5f} "
+          f"CPU f32 {l_cpu:.5f}; adapter grads, card bf16 vs CPU f32 on the "
+          f"bf16 weights, per leaf: rel L2 max {errs[worst]:.3e} ({worst}) "
+          f"limit {TRAIN_REF_F32_LIMIT:.1e}, gain max {gains[steep]:.3e} "
+          f"({steep}) limit {TRAIN_REF_GAIN_LIMIT:.0e}; all leaves max err / "
+          f"max |grad| {vs_cpu:.3e}", flush=True)
+    print(f"train_reference{tag}: per leaf (rel L2, gain) " + " ".join(
+        f"{n}={e:.3e},{gains[n]:.3e}" for n, e in sorted(errs.items())),
+        flush=True)
+    sound = bool(np.isfinite(l_card)
+                 and abs(l_card - l_cpu) <= 1e-2 * abs(l_cpu)
+                 and all(torch.isfinite(g).all() for g in g_card.values()))
+    return {"sound": sound, "rel L2": errs[worst], "gain": gains[steep]}
+
+
+def check_train_reference(dev):
+    """One LoRA loss + backward of the small model on the card (K1, K3, K4,
+    K5) in bf16, against the CPU's (plain versions) in f32 on the same bf16
+    weights upcast. The loss agrees within 1e-2 relative, and every adapter
+    leaf's gradient within TRAIN_REF_F32_LIMIT in relative L2 norm (see
+    there for why this limit) and its gain within TRAIN_REF_GAIN_LIMIT.
+    Then each of TRAIN_REF_FAULTS in the card's attention backward must
+    fail the limit named beside it."""
+    import torch
+    from flash_vstream_tpu_torch.kernels import flash_attention as fa
+
+    case = train_reference_case()
+    l_cpu, g_cpu = lora_leaf_grads(case, torch.device("cpu"), torch.float32)
+    limits = {"rel L2": TRAIN_REF_F32_LIMIT, "gain": TRAIN_REF_GAIN_LIMIT}
+    r = _train_reference_reading(case, dev, g_cpu, l_cpu, "")
+    if not (r["sound"] and all(r[k] <= v for k, v in limits.items())):
         raise AssertionError("train_reference: the card's loss or adapter "
                              "gradients are off")
+    real = fa.flash_attention_bwd_cuda
+    for name, (limit, fault) in TRAIN_REF_FAULTS.items():
+        fa.flash_attention_bwd_cuda = (
+            lambda *a, fault=fault, **kw: fault(*real(*a, **kw)))
+        try:
+            r = _train_reference_reading(case, dev, g_cpu, l_cpu,
+                                         f" (planted {name})")
+        finally:
+            fa.flash_attention_bwd_cuda = real
+        failed = r[limit] > limits[limit]
+        print(f"train_reference: the planted {name} reads rel L2 "
+              f"{r['rel L2']:.3e}, gain {r['gain']:.3e}; its {limit} limit "
+              f"{limits[limit]:.1e}: "
+              f"{'failed, as it must' if failed else 'passed (wrong)'}",
+              flush=True)
+        if not failed:
+            raise AssertionError(f"train_reference: a planted {name} passed "
+                                 f"its {limit} limit")
 
 
 def _train_args(dev, out_dir, data_path, max_len, steps, grad_accum,
@@ -2629,10 +2710,24 @@ TPAR_H_TOL = 5e-2          # hidden states against one rank's, of max |h|
 TPAR_FRAMES = 16           # the dp run's videos: 8 frame pairs of 224 px
 TPAR_LEN = 1024            # its max_len (640 visual tokens)
 TPAR_STEPS = 2             # its steps (the first at lr 0)
-TPAR_DP_LAYERS = 4         # its decoder depth: ZeRO-3 gathers every layer
+TPAR_DP_LAYERS = 2         # its decoder depth: ZeRO-3 gathers every layer
                            # through host memory on a shared card
 TPAR_ARGS = ("--dry-run", "--max-steps", "2", "--max-frames", "8",
              "--max-len", "128", "--grad-accum", "1")
+# the tp run: LLaVA stage 2 (the llava_train phase's feature branch at S
+# 937) with Vicuna-7B cut to TPAR_TP_LAYERS decoder layers and CLIP
+# ViT-L/14 to TPAR_TP_VIT_LAYERS, tp 2 against one rank at the global batch
+TPAR_TP_LAYERS = 4
+TPAR_TP_VIT_LAYERS = 2
+TPAR_TP_BATCH = 2          # a dp row's micro-batch (the feature branch)
+TPAR_TP_LR = 1e-3          # updates of ~16 bf16 ulps of a 7B weight
+TPAR_CLIP_FRAMES = 8       # the raw-frame micro-batch through CLIP, 224 px
+TPAR_SAMPLE = 61           # a leaf over 2**20 elements: every 61st compared
+# printed, not held: the NTM's key bias shifts every score of a query alike,
+# which the softmax ignores, so its exact gradient is 0 and both runs read
+# rounding (1.4e-12 against 2.6 for embed in f32), which Adam then scales
+# to a full-size update
+TPAR_ZERO_GRAD = ("ntm/.bk",)
 
 
 def _tpar_dp_args(out, data_path, batch, *extra):
@@ -2740,6 +2835,195 @@ def _tpar_grads(lora, fnorm):
 
 def _rel(got, want):
     return float((got - want).norm() / want.norm().clamp_min(1e-30))
+
+
+def _tpar_llava(dev):
+    """The tp run's model: VStreamLLaVAConfig() with the decoder and the
+    tower cut, bf16 from the seed (every rank and the reference alike)."""
+    import dataclasses
+    import torch
+    from flash_vstream_tpu_torch.core.config import VStreamLLaVAConfig
+    from flash_vstream_tpu_torch.models.vstream_llava import init_llava_params
+    full = VStreamLLaVAConfig()
+    cfg = full.replace(
+        llm=dataclasses.replace(full.llm, num_layers=TPAR_TP_LAYERS),
+        vit=dataclasses.replace(full.vit, num_layers=TPAR_TP_VIT_LAYERS))
+    return cfg, init_llava_params(cfg, torch.Generator(device=dev).manual_seed(
+        SEED + 7), dev, dtype=torch.bfloat16)
+
+
+def _tpar_tp_args(work, out, batch, *extra):
+    """The tp run's train.run_training arguments: the finetune stage over
+    the phase's feature items, `batch` samples a dp row."""
+    data = os.path.join(work, "llava")
+    return _lt_args("cuda", os.path.join(work, out), "--stage", "finetune",
+                    "--batch-size", str(batch), "--max-steps",
+                    str(TPAR_STEPS), "--save-steps", "0", "--learning-rate",
+                    str(TPAR_TP_LR), "--data-path",
+                    os.path.join(data, "train.json"), "--feature-dir",
+                    os.path.join(data, "feats"), *extra)
+
+
+def _tpar_sample(x):
+    """What the tp check compares of a tensor: its elements, every
+    TPAR_SAMPLE-th of them past 2**20 (an f32 copy on the host)."""
+    import torch
+    x = x.detach().flatten()
+    x = x if x.numel() <= 1 << 20 else x[::TPAR_SAMPLE]
+    return x.to("cpu", torch.float32, copy=True)
+
+
+def _tpar_trained(tree):
+    """{path: tensor} of the stage's trained leaves (all but the tower)."""
+    import torch
+    from flash_vstream_tpu_torch.train.lora import tree_leaves_with_path
+    return {p: x for p, x in tree_leaves_with_path(tree)
+            if isinstance(x, torch.Tensor) and not p.startswith("vit")}
+
+
+def _tpar_tp_capture(store, parts=1):
+    """Wrap Trainer._reduce so that the first step's reduced gradients
+    land in `store` sampled: a tp rank's its part of each split leaf
+    ({path: (rank, sample)}); with `parts` n, a run at tp 1 each leaf that
+    tp n splits cut as the ranks hold it ({path: [sample a part]}). Every
+    rank calls it in the trainer's path order; returns the undo."""
+    import types
+    from flash_vstream_tpu_torch.parallel.tensor import tp_spec
+    from flash_vstream_tpu_torch.train import trainer as tr
+    real = tr.Trainer._reduce
+    mesh_n = types.SimpleNamespace(axis_names=("dp", "tp"))
+
+    def reduce(self, p, g):
+        g = real(self, p, g)
+        if p not in store and len(store) < len(self._leaf):
+            w = g
+            if p in self.sharded:
+                w = self.mesh.dp.all_gather(g, self.zero_dim[p])
+            d = tp_spec(p, w.shape, mesh_n) if parts > 1 else None
+            if self.mesh.tp.size > 1:
+                store[p] = (self.mesh.tp.rank, _tpar_sample(w))
+            elif d is None:
+                store[p] = [_tpar_sample(w)]
+            else:
+                store[p] = [_tpar_sample(c) for c in w.chunk(parts, d)]
+        return g
+
+    tr.Trainer._reduce = reduce
+    return lambda: setattr(tr.Trainer, "_reduce", real)
+
+
+def _tpar_tp_rank(work, info, card):
+    """The tp run on this rank (the world a dp x tp 2 grid): run_training
+    of the LLaVA finetune stage over the phase's features at tp 2, then a
+    raw-frame micro-batch through the split CLIP tower against the whole
+    one, and the planted fault (rank 1's row products not summed). Returns
+    its readings."""
+    import numpy as np
+    import torch
+    from flash_vstream_tpu_torch.kernels import flash_attention as fa
+    from flash_vstream_tpu_torch.models import layers
+    from flash_vstream_tpu_torch.models.clip_vit import clip_encode
+    from flash_vstream_tpu_torch.preprocess.image import clip_device_preprocess
+    from flash_vstream_tpu_torch.preprocess.tokenizer import ByteTokenizer
+    from flash_vstream_tpu_torch.train import train as lt
+    from flash_vstream_tpu_torch.train.lora import tree_leaves_with_path
+    from flash_vstream_tpu_torch.train.trainer import Trainer, _micro, _tensor
+    dev = info.device
+    cfg, params = _tpar_llava(dev)
+    whole = {p: _nbytes(x) for p, x in tree_leaves_with_path(params)
+             if isinstance(x, torch.Tensor)}
+    before = {p: _tpar_sample(x) for p, x in _tpar_trained(params).items()}
+    grads, seen, heads = {}, {}, {}
+    real_f, real_b = fa._launch_fwd, fa._launch_bwd
+    real_compile, real_run = Trainer.compile_step, Trainer.run_step
+
+    def launch_fwd(q, k, v, lse, *a, **kw):
+        heads.setdefault("K1" if lse is None else "K3", set()).add(q.shape[1])
+        return real_f(q, k, v, lse, *a, **kw)
+
+    def launch_bwd(kernel, q, *a, **kw):
+        heads.setdefault("K4" if kernel == "dq" else "K5", set()).add(
+            q.shape[1])
+        return real_b(kernel, q, *a, **kw)
+
+    def compile_step(self, loss_fn):
+        seen.setdefault("loss_fn", loss_fn)
+        return real_compile(self, loss_fn)
+
+    def run_step(self, batch, key, step_fn=None):
+        seen.setdefault("batch", batch)
+        return real_run(self, batch, key, step_fn)
+
+    def on_step(step, trainer, rec):
+        seen.setdefault("steps", []).append(rec["step_time_s"])
+        seen["trainer"] = trainer
+
+    undo = _tpar_tp_capture(grads)
+    fa._launch_fwd, fa._launch_bwd = launch_fwd, launch_bwd
+    Trainer.compile_step, Trainer.run_step = compile_step, run_step
+    _release(dev)
+    _reset_launches()
+    t1 = time.perf_counter()
+    try:
+        res = lt.run_training(_tpar_tp_args(work, "tp", TPAR_TP_BATCH, "--tp",
+                                            "2", *card),
+                              cfg=cfg, params=params,
+                              tokenizer=ByteTokenizer(), on_step=on_step)
+        torch.cuda.synchronize(dev)
+        out = dict(tp_s=time.perf_counter() - t1, tp_launches=_launches(),
+                   tp_steps=seen["steps"], tp_losses=res["losses"],
+                   tp_peak=torch.cuda.max_memory_allocated(dev),
+                   tp_heads={k: sorted(v) for k, v in heads.items()})
+        tr = seen["trainer"]
+        held = {p: _nbytes(_tensor(x)) for p, x in
+                tree_leaves_with_path(tr.params) if p in whole}
+        split = [p for p in held if tr.tp_dim.get(p) is not None]
+        out["tp_bytes"] = dict(
+            held=sum(held.values()), whole=sum(whole.values()),
+            split=sum(held[p] for p in split) / sum(whole[p] for p in split),
+            embed=held["llm/embed"] / whole["llm/embed"],
+            lm_head=held["llm/lm_head"] / whole["llm/lm_head"],
+            n_split=len(split))
+        # planted fault: rank 1's row products enter the all-reduce (the
+        # ranks keep one sequence of collectives) but it keeps its own term
+        micro = _micro(seen["batch"], 0)
+        with torch.no_grad():
+            good = float(seen["loss_fn"](tr.params, micro, (0, 0)))
+            real_reduce = layers.reduce_from
+            if tr.mesh.tp.rank == 1:
+                layers.reduce_from = (
+                    lambda x, g: (g.all_reduce(x.clone()), x)[1])
+            try:
+                bad = float(seen["loss_fn"](tr.params, micro, (0, 0)))
+            finally:
+                layers.reduce_from = real_reduce
+        out["tp_fault"] = abs(bad - good) / abs(good)
+        # a raw-frame micro-batch through the split tower and the whole one
+        rng = np.random.default_rng(SEED + 8)
+        u8 = torch.from_numpy(np.stack(_offline_frames(
+            rng, TPAR_CLIP_FRAMES, cfg.vit.image_size))).to(dev)
+        images = clip_device_preprocess(u8)
+        _reset_launches()
+        heads.clear()
+        with torch.no_grad():
+            f_tp = clip_encode(tr.params["vit"], cfg.vit, images)
+            out["clip_launches"] = _launches()
+            out["clip_heads"] = sorted(heads.get("K1", ()))
+            f_whole = clip_encode(params["vit"], cfg.vit, images)
+        out["clip_err"] = float((f_tp - f_whole).abs().max()
+                                / f_whole.abs().max())
+    finally:
+        undo()
+        fa._launch_fwd, fa._launch_bwd = real_f, real_b
+        Trainer.compile_step, Trainer.run_step = real_compile, real_run
+    out["tp_grads"] = grads
+    if info.rank == 0:
+        out["tp_updates"] = {
+            p: _tpar_sample(x) - before[p]
+            for p, x in _tpar_trained(res["params"]).items()}
+    del res, tr, params, seen
+    _release(dev)
+    return out
 
 
 def _tpar_rank(work, data_path, shared):
@@ -2918,7 +3202,109 @@ def _tpar_rank(work, data_path, shared):
                              *card])
         out[f"entry{flag}_s"] = time.perf_counter() - t1
     out["entry_launches"] = _launches()
+    out.update(_tpar_tp_rank(work, info, card))
     torch.save(out, os.path.join(work, f"rank{info.rank}.pt"))
+
+
+def check_tpar_tp(dev, smi, work, ranks, n_ranks):
+    """The tp run of the ranks (dp = n_ranks / 2 x tp 2) against one rank
+    at the global batch in this process: the losses within 1e-2 relative on
+    every rank, each trained leaf's first-step gradient (the ranks' parts
+    together: gathered over tp) within TRAIN_REF_LIMIT relative L2, the
+    updates after TPAR_STEPS steps within DRY_RUN_LIMIT, CLIP's split
+    features within TPAR_H_TOL of max; each rank holds about half of each
+    split leaf and all of embed and lm_head; rank 1's row products left
+    unsummed (the planted fault) must move the loss past 1e-2."""
+    import torch
+    from flash_vstream_tpu_torch.models.vstream_llava import star_valid_counts
+    from flash_vstream_tpu_torch.preprocess.tokenizer import ByteTokenizer
+    from flash_vstream_tpu_torch.train import train as lt
+    dp = n_ranks // 2
+    cfg, params = _tpar_llava(dev)
+    before = {p: _tpar_sample(x) for p, x in _tpar_trained(params).items()}
+    grads = {}
+    undo = _tpar_tp_capture(grads, parts=2)
+    _release(dev)
+    t1 = time.perf_counter()
+    try:
+        ref = lt.run_training(_tpar_tp_args(work, "tp_ref",
+                                            TPAR_TP_BATCH * dp),
+                              cfg=cfg, params=params,
+                              tokenizer=ByteTokenizer())
+    finally:
+        undo()
+    ref_s = time.perf_counter() - t1
+    upd = {p: _tpar_sample(x) - before[p]
+           for p, x in _tpar_trained(ref["params"]).items()}
+    del params, ref["params"]
+    _release(dev)
+    r0 = ranks[0]
+    l_err = max(abs(a - b) / abs(b) for x in ranks
+                for a, b in zip(x["tp_losses"], ref["losses"]))
+    g_err = {}
+    for p, want in grads.items():
+        if len(want) == 1:                      # whole: rank 0's
+            g_err[p] = _rel(r0["tp_grads"][p][1], want[0])
+            continue
+        num = den = 0.0
+        for x in ranks[:2]:                     # the first dp row's tp pair
+            r, got = x["tp_grads"][p]
+            num += float((got - want[r]).norm() ** 2)
+            den += float(want[r].norm() ** 2)
+        g_err[p] = (num / max(den, 1e-60)) ** 0.5
+    u_err = {p: _rel(r0["tp_updates"][p], u) for p, u in upd.items()
+             if u.norm() > 0}
+    print("train_parallel tp per leaf (gradient, update): " + " ".join(
+        f"{p}={g_err[p]:.2e},{u_err.get(p, 0):.2e}" for p in sorted(g_err)),
+        flush=True)
+    for p in TPAR_ZERO_GRAD:
+        g_err.pop(p, None)
+        u_err.pop(p, None)
+    b = r0["tp_bytes"]
+    heads = r0["tp_heads"]
+    g_worst = max(g_err, key=g_err.get)
+    u_worst = max(u_err, key=u_err.get)
+    print(f"train_parallel tp 2 x dp {dp} [{r0['backend']} on {smi}]: "
+          f"LLaVA stage 2, Vicuna-7B at full width cut to {TPAR_TP_LAYERS} "
+          f"layers and CLIP ViT-L/14 to {TPAR_TP_VIT_LAYERS}, feature branch "
+          f"at micro-batch {TPAR_TP_BATCH} a dp row, S "
+          f"{LT_PRE + LT_POST + sum(star_valid_counts(cfg, LT_FRAMES))}, "
+          f"{TPAR_STEPS} steps in "
+          f"{r0['tp_s']:.2f} s (steps "
+          + " ".join(f"{t:.2f}" for t in r0["tp_steps"])
+          + f" s, no speed claim), peak "
+          + " / ".join(f"{x['tp_peak'] / 2**30:.2f}" for x in ranks)
+          + f" GiB; one rank at the global batch {ref_s:.2f} s; losses "
+          + " ".join(f"{a:.5f}/{b:.5f}" for a, b in zip(r0["tp_losses"],
+                                                         ref["losses"]))
+          + f" (worst rel {l_err:.2e} over the ranks); step 1 gradients, "
+          f"gathered over tp, worst rel L2 {g_err[g_worst]:.3e} ({g_worst}) "
+          f"limit {TRAIN_REF_LIMIT:.0e}; updates after step {TPAR_STEPS} "
+          f"worst rel L2 {u_err[u_worst]:.3e} ({u_worst}) over {len(u_err)} "
+          f"moved leaves, limit {DRY_RUN_LIMIT:.1e}; CLIP split features "
+          f"err/max " + " / ".join(f"{x['clip_err']:.3e}" for x in ranks)
+          + f" limit {TPAR_H_TOL:.0e}; rank 0 holds "
+          f"{b['held'] / 1e9:.2f} of {b['whole'] / 1e9:.2f} GB whole: "
+          f"{b['n_split']} split leaves {b['split']:.3f}, embed "
+          f"{b['embed']:.3f}, lm_head {b['lm_head']:.3f}; heads a launch "
+          + " ".join(f"{k}={v}" for k, v in sorted(heads.items()))
+          + f", CLIP K1={r0['clip_heads']} (Vicuna 32, CLIP 16 whole); "
+          f"launches rank 0 "
+          + " ".join(f"{k}={v}" for k, v in r0["tp_launches"].items())
+          + f", CLIP K1={r0['clip_launches']['K1']}; planted fault (rank 1 "
+          f"keeps its own row product) moves the loss "
+          + " / ".join(f"{x['tp_fault']:.3e}" for x in ranks)
+          + ", limit 1e-02", flush=True)
+    if (l_err > 1e-2 or g_err[g_worst] > TRAIN_REF_LIMIT
+            or u_err[u_worst] > DRY_RUN_LIMIT or not u_err
+            or max(x["clip_err"] for x in ranks) > TPAR_H_TOL
+            or not 0.45 < b["split"] < 0.55 or b["embed"] != 1
+            or b["lm_head"] != 1
+            or any(heads.get(k) != [16] for k in ("K3", "K4", "K5"))
+            or r0["clip_heads"] != [8]):
+        raise AssertionError("train_parallel tp: outside its limits")
+    if not max(x["tp_fault"] for x in ranks) > 1e-2:
+        raise AssertionError("train_parallel tp: the planted fault passed")
 
 
 def run_train_parallel(dev, smi, root, n_ranks=2):
@@ -2949,7 +3335,13 @@ def run_train_parallel(dev, smi, root, n_ranks=2):
     (b) the entry point on those ranks: finetune_flash's main with
         --dry-run --pp 2 and --sp 2 --shared-card (finite losses); at
         world 1, --zero-stage 3 --offload-moments bit-equal to
-        --zero-stage 2.
+        --zero-stage 2;
+    (c) on those ranks, tp 2 (dp the rest): the LLaVA finetune stage at
+        full width, Vicuna-7B cut to TPAR_TP_LAYERS and CLIP to
+        TPAR_TP_VIT_LAYERS, train.run_training --tp 2 over the feature
+        branch at micro-batch TPAR_TP_BATCH (S 937), then a raw-frame
+        micro-batch through the split CLIP tower, held to one rank in this
+        process (`check_tpar_tp`).
     Returns the path's K1/K3/K4/K5 launches (every rank's pp, dp and entry
     runs)."""
     import torch
@@ -2961,6 +3353,11 @@ def run_train_parallel(dev, smi, root, n_ranks=2):
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
     data = _synthetic_videos(os.path.join(work, "data"), 2, 224)
+    import numpy as np
+    from flash_vstream_tpu_torch.core.config import VStreamLLaVAConfig
+    _lt_feature_set(os.path.join(work, "llava"), np.random.default_rng(SEED),
+                    VStreamLLaVAConfig(),
+                    n_items=TPAR_TP_BATCH * TPAR_STEPS * (n_ranks // 2))
     # one spawn: torch.distributed.run starts this script twice as ranks
     # (the kernels are built: the ranks load the library)
     proc = subprocess.run(
@@ -3090,11 +3487,12 @@ def run_train_parallel(dev, smi, root, n_ranks=2):
     if not same or res["zero2"]["losses"] != res["zero3_offload"]["losses"]:
         raise AssertionError("train_parallel world 1: ZeRO-3 + offload "
                              "differs from ZeRO-2")
+    check_tpar_tp(dev, smi, work, ranks, n_ranks)
     k = {n: sum(x[f"{run}_launches"][n] for x in ranks
-                for run in ("pp", "dp", "entry"))
+                for run in ("pp", "dp", "entry", "tp", "clip"))
          for n in ("K1", "K3", "K4", "K5")}
-    print(f"train_parallel: launches of the path (every rank's pp, dp and "
-          f"entry runs) K1={k['K1']} K3={k['K3']} K4={k['K4']} "
+    print(f"train_parallel: launches of the path (every rank's pp, dp, "
+          f"entry, tp and tp CLIP runs) K1={k['K1']} K3={k['K3']} K4={k['K4']} "
           f"K5={k['K5']} "
           f"(sp: the plain ring, K3={sum(x['sp_launches']['K3'] for x in ranks)}"
           f"); ranks {t_ranks:.1f} s, phase "
@@ -3558,17 +3956,24 @@ def check_fold_build(lib_path):
 
 def _device_kernels(fn):
     """{device kernel: launches} in one call of fn, by torch.profiler (not
-    the wrappers' counts)."""
+    the wrappers' counts). A session after earlier ones in the process
+    can record no device event at all (PERF.md section 7): then fn runs
+    again in a new session, up to three in all; a session that recorded
+    any device event is the answer."""
     import torch
     from torch.autograd import DeviceType
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[
-            torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]) as prof:
-        fn()
+    for _ in range(3):
         torch.cuda.synchronize()
-    return {e.key: e.count for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA}
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        ran = {e.key: e.count for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA}
+        if ran:
+            return ran
+    return ran
 
 
 def _p2_instance(name):
@@ -5960,8 +6365,9 @@ def _lt_conv(i, n_words):
                 range(n_words))}]
 
 
-def _lt_feature_set(root, rng, cfg):
-    """LT_ITEMS `.npy` feature files at the real shape, f32 [T, 64, 1024]
+def _lt_feature_set(root, rng, cfg, n_items=None):
+    """LT_ITEMS (or `n_items`) `.npy` feature files at the real shape, f32
+    [T, 64, 1024]
     (CLIP-L's 1,024 channels pooled to 8 x 8): most of 50 frames, some of
     20 or 35, every eighth a 70-frame feature with a breakpoint `time` key
     (a 30-frame window), written in one pass from one normal draw."""
@@ -5972,7 +6378,7 @@ def _lt_feature_set(root, rng, cfg):
                                 cfg.projector.effective_input_dim),
                                dtype=np.float32)
     items = []
-    for i in range(LT_ITEMS):
+    for i in range(n_items or LT_ITEMS):
         T = {7: 70, 3: 20, 5: 35}.get(i % 8, 50) * LT_FRAMES // 50
         np.save(os.path.join(fdir, f"f{i}.npy"),
                 np.roll(base[:T], i, axis=0) * (1 + 0.01 * i))

@@ -15,6 +15,10 @@ prefill rows once `weights/quantize.enable_w8a8_prefill` is on), packed int4
 frozen base (QLoRA): `dense` then takes `_QuantDense`, whose backward
 dequantizes again instead of keeping the dequantized copy. The KV cache is
 bf16/f32, or int8 with per-position f32 scales (`quantize_kv`).
+
+In tensor-parallel training a weight may be a `parallel.tensor.TPShard`:
+`dense` then computes this rank's part, Megatron's column or row product
+with its copy-to or reduce-from region, and `mha` runs on the local heads.
 """
 from __future__ import annotations
 
@@ -27,6 +31,8 @@ import torch.nn.functional as F
 
 from ..kernels.flash_attention import DEFAULT_MASK_VALUE, flash_attention
 from ..kernels.int4_matmul import int4_matmul_cuda, int4_matmul_supported
+from ..parallel.collectives import copy_to, gather_on_use, reduce_from
+from ..parallel.tensor import TP_TODO, TPShard
 from ..weights.quantize import dequantize_weight4
 
 
@@ -137,6 +143,23 @@ class _QuantDense(torch.autograd.Function):
         return (gx, None, *(None for _ in ctx.fields))
 
 
+def _tp_dense(x: torch.Tensor, w: TPShard, b, entered: bool) -> torch.Tensor:
+    """A split `dense`. A column split: x through `copy_to` (unless the
+    caller `entered` the region already, for several products of one
+    input), this rank's output columns, its part of the bias. A row split:
+    x's part (the previous column product's) @ this rank's rows, the sum
+    over tp (`reduce_from`), then the whole bias once."""
+    if w.kind == "column":
+        if not entered:
+            x = copy_to(x, w.group)
+        out = torch.matmul(x, w.local().to(x.dtype))
+        return out if b is None else out + b.local().to(out.dtype)
+    out = reduce_from(torch.matmul(x, w.local().to(x.dtype)), w.group)
+    if b is not None:
+        out = out + b.to(out.dtype)
+    return out
+
+
 def dense(x: torch.Tensor, w, b: Optional[torch.Tensor] = None) -> torch.Tensor:
     """x @ w in x's dtype (the weight is cast to it, as in JAX), then the bias
     in the output's dtype. A LoRA view (w, a, b) computes x @ w + (x @ a) @ b
@@ -151,8 +174,14 @@ def dense(x: torch.Tensor, w, b: Optional[torch.Tensor] = None) -> torch.Tensor:
     x's dtype and multiplies, the JAX package's own path (layers.py:95-116),
     so on the CPU the port matches JAX op for op. When x requires a
     gradient, either quantized kind takes `_QuantDense` (the same
-    arithmetic; a backward that keeps no dequantized copy)."""
+    arithmetic; a backward that keeps no dequantized copy).
+
+    A `TPShard` takes `_tp_dense`; a LoRA view of one raises (`TP_TODO`)."""
+    if isinstance(w, TPShard):
+        return _tp_dense(x, w, b, False)
     if hasattr(w, "a"):                  # train/lora.LoRAWeight
+        if isinstance(w.w, TPShard):
+            raise NotImplementedError(TP_TODO)
         out = dense(x, w.w)
         lora = torch.matmul(torch.matmul(x, w.a.to(x.dtype)), w.b.to(x.dtype))
         out = out + lora.to(out.dtype)
@@ -468,9 +497,16 @@ def mha(
     with the queries in segment 0, the keys in the cache's segments (-1
     never attended) and q_offset = cache_len. That is a decode step (S 1),
     a speculative verify (k + 1 tokens) or a prefill chunk."""
-    q = dense(x, params["wq"]["w"], params["wq"].get("b"))
-    k = dense(x, params["wk"]["w"], params["wk"].get("b"))
-    v = dense(x, params["wv"]["w"], params["wv"].get("b"))
+    wq = params["wq"]["w"]
+    if isinstance(wq, TPShard):
+        if kv_cache is not None:
+            raise ValueError("tensor-parallel training runs without a KV "
+                             "cache (parallel/inference.py decodes split)")
+        q, k, v = _tp_qkv(params, x, wq, num_heads, num_kv_heads)
+    else:
+        q = dense(x, wq, params["wq"].get("b"))
+        k = dense(x, params["wk"]["w"], params["wk"].get("b"))
+        v = dense(x, params["wv"]["w"], params["wv"].get("b"))
     out = attend(q, k, v, head_dim=head_dim, rope=rope, causal=causal,
                  q_segment_ids=q_segment_ids, kv_segment_ids=kv_segment_ids,
                  kv_cache=kv_cache, cache_len=cache_len,
@@ -478,9 +514,42 @@ def mha(
     return dense(out, params["wo"]["w"], params["wo"].get("b"))
 
 
+def _tp_qkv(params: dict, x: torch.Tensor, wq: TPShard, num_heads: int,
+            num_kv_heads: int):
+    """The local q, k, v of a split attention: x enters the column region
+    once; rank r's q heads are the r-th tp part of them. Where tp divides
+    the kv heads, its k and v heads are the r-th part too; where the kv
+    heads divide tp, the rep = tp / kv consecutive ranks whose q heads read
+    one kv head each hold 1/rep of its columns (JAX's layout), gather it
+    on use, and the gather's backward sums their gradients to it."""
+    tp = wq.group.size
+    if num_heads % tp or (num_kv_heads % tp and tp % num_kv_heads):
+        raise ValueError(f"{num_heads} q and {num_kv_heads} kv heads do not "
+                         f"split over tp {tp}")
+    x = copy_to(x, wq.group)
+    q = _tp_dense(x, wq, params["wq"].get("b"), True)
+    if num_kv_heads % tp == 0:
+        return (q, *(_tp_dense(x, params[n]["w"], params[n].get("b"), True)
+                     for n in ("wk", "wv")))
+    sub = wq.group.part(tp // num_kv_heads)
+    kv = []
+    for n in ("wk", "wv"):
+        w, b = params[n]["w"], params[n].get("b")
+        out = torch.matmul(x, gather_on_use(w.local(), sub, -1).to(x.dtype))
+        if b is not None:
+            out = out + gather_on_use(b.local(), sub, -1).to(out.dtype)
+        kv.append(out)
+    return (q, *kv)
+
+
 def swiglu_mlp(params: dict, x: torch.Tensor) -> torch.Tensor:
-    gate = dense(x, params["gate"]["w"])
-    up = dense(x, params["up"]["w"])
+    if isinstance(params["gate"]["w"], TPShard):   # one column region
+        x = copy_to(x, params["gate"]["w"].group)
+        gate, up = (_tp_dense(x, params[n]["w"], None, True)
+                    for n in ("gate", "up"))
+    else:
+        gate = dense(x, params["gate"]["w"])
+        up = dense(x, params["up"]["w"])
     return dense(F.silu(gate) * up, params["down"]["w"])
 
 
@@ -491,6 +560,8 @@ def gelu_mlp(params: dict, x: torch.Tensor,
 
 
 def _index(v, i):
+    if hasattr(v, "tp_index"):           # a tensor-parallel part
+        return v.tp_index(i)
     if hasattr(v, "zero_index"):         # a ZeRO-3 shard: gathered on use
         return v.zero_index(i)
     if hasattr(v, "_fields"):            # a LoRA view or a quantized leaf:
@@ -502,7 +573,8 @@ def layer_slice(tree: dict, i) -> dict:
     """One layer's parameters (`i` an int), or a run of layers (`i` a
     slice), out of a tree stacked on a leading [L] axis (views, no
     copy). A ZeRO-3 leaf (parallel/sharding.ZeroShard) gathers one layer
-    here, on use, and keeps a run of layers sharded."""
+    here, on use, and keeps a run of layers sharded; a tensor-parallel
+    leaf (parallel/tensor.TPShard) gives its layer as a TPShard."""
     return {k: layer_slice(v, i) if isinstance(v, dict) else _index(v, i)
             for k, v in tree.items()}
 

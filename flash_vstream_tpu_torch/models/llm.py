@@ -22,6 +22,8 @@ from torch.utils.checkpoint import checkpoint
 from ..core.config import LLMConfig
 from ..core.device import resolve_device
 
+from ..parallel.collectives import copy_to, gather_from, reduce_from
+from ..parallel.tensor import TP_CHUNKED_TODO, TPShard
 from ..weights.quantize import dequantize_weight4
 from .layers import (
     KVCache,
@@ -180,17 +182,37 @@ def decoder_forward(
 
 
 def lm_head(params: dict, cfg: LLMConfig, hidden: torch.Tensor) -> torch.Tensor:
-    """Logits in f32."""
+    """Logits in f32. A split head (a column `TPShard`, or a tied
+    vocab-split embed) computes this rank's vocab columns and gathers the
+    logits whole (`gather_from`), so the cross entropy is unchanged."""
     w = params.get("lm_head")
     if w is None:
-        w = params["embed"].T
+        w = params["embed"]
+        if isinstance(w, TPShard):
+            h = copy_to(hidden, w.group)
+            out = torch.matmul(h, w.local().T.to(h.dtype)).float()
+            return gather_from(out, w.group)
+        w = w.T
+    if isinstance(w, TPShard):
+        return gather_from(dense(hidden, w).float(), w.group)
     return dense(hidden, w).float()
 
 
 def embed_tokens(params: dict, input_ids: torch.Tensor) -> torch.Tensor:
     """Embedding rows; a quantized table (custom quantization targets) is
-    dequantized at gather time, in bf16, as in JAX (llm.py:268-286)."""
+    dequantized at gather time, in bf16, as in JAX (llm.py:268-286). A
+    vocab-split table (`TPShard`) gathers the ids in this rank's rows,
+    zeroes the others and sums the ranks' rows (`reduce_from`): each id's
+    row comes from one rank, so the sum is exact."""
     w = params["embed"]
+    if isinstance(w, TPShard):
+        rows = w.local()
+        n = rows.shape[0]
+        local = input_ids - w.group.rank * n
+        inside = (local >= 0) & (local < n)
+        got = rows[local.clamp(0, n - 1)]
+        return reduce_from(torch.where(inside[..., None], got,
+                                       got.new_zeros(())), w.group)
     if hasattr(w, "q"):            # int8: gather rows, then scale
         return (w.q[input_ids].to(torch.bfloat16)
                 * w.scale[0].to(torch.bfloat16))
@@ -304,6 +326,8 @@ def nll_sum_chunked(params: dict, cfg: LLMConfig,
     B, S, D = hidden.shape
     h, lab = hidden, targets
     w = params.get("lm_head")
+    if isinstance(w if w is not None else params["embed"], TPShard):
+        raise NotImplementedError(TP_CHUNKED_TODO)
     if vocab_tile == 0 and w is not None and (hasattr(w, "q")
                                               or hasattr(w, "q4")):
         vocab_tile = 8192

@@ -152,17 +152,20 @@ def _frame_rope(hw: Tuple[int, int], head_dim: int, device):
 def _attn_stream(lp: dict, cfg: VitConfig, h: torch.Tensor, rope):
     """h [T, P, D], frames as batch. The projections run over the flattened
     [T*P, D] token stream; attention runs per frame through K1 on strided
-    [T, H, P, Dh] views (no copies)."""
+    [T, H, P, Dh] views (no copies). The head count comes from the
+    projections' widths, as `attend` takes it, so a tensor-parallel rank
+    runs its local heads."""
     T, P, D = h.shape
     hf = h.reshape(T * P, D)
     a = lp["attn"]
-    q, k, v = (dense(hf, a[n]["w"], a[n].get("b"))
-               .reshape(T, P, cfg.num_heads, cfg.head_dim).transpose(1, 2)
-               for n in ("wq", "wk", "wv"))
+    q, k, v = (dense(hf, a[n]["w"], a[n].get("b")) for n in ("wq", "wk", "wv"))
+    H = q.shape[-1] // cfg.head_dim
+    q, k, v = (t.reshape(T, P, H, cfg.head_dim).transpose(1, 2)
+               for t in (q, k, v))
     q = apply_rope(q, *rope)
     k = apply_rope(k, *rope)
     out = flash_attention(q, k, v)
-    out = out.transpose(1, 2).reshape(T * P, D)
+    out = out.transpose(1, 2).reshape(T * P, H * cfg.head_dim)
     return dense(out, a["wo"]["w"], a["wo"].get("b")).reshape(T, P, D)
 
 

@@ -126,9 +126,12 @@ def splice_image(llm: dict, pre_ids, post_ids,
 
 
 def _tree_trains(tree) -> bool:
-    """Whether any tensor of a parameter subtree requires a gradient."""
+    """Whether any tensor of a parameter subtree requires a gradient (a
+    split leaf's: its shard's)."""
     if isinstance(tree, torch.Tensor):
         return tree.requires_grad
+    if hasattr(tree, "shard"):                      # TPShard, ZeroShard
+        return _tree_trains(tree.shard)
     if isinstance(tree, dict):
         return any(_tree_trains(v) for v in tree.values())
     if isinstance(tree, (list, tuple)):             # NamedTuples too

@@ -26,7 +26,9 @@ on a peer that died.
 
 The differentiable pieces: `ring_shift` (JAX's `ppermute` on a ring; its
 backward is the reverse shift), `gather_on_use` (a ZeRO-3 shard's
-all-gather; its backward reduce-scatters the gradient), `send_forward` /
+all-gather; its backward reduce-scatters the gradient), Megatron's
+tensor-parallel regions `copy_to`, `reduce_from` and `gather_from` (what
+GSPMD inserts around a split product in JAX), `send_forward` /
 `recv_forward` (a pipeline stage's activations; their backward carries the
 gradient the other way).
 """
@@ -106,7 +108,9 @@ def _pinned_empty(shape, dtype) -> torch.Tensor:
 class Group:
     """The collectives of a group of ranks (`ranks`, global; this rank is
     `rank` within it). A group of one rank (`pg` None) returns its inputs.
-    The sum over a group is in the tensor's dtype, as JAX's psum."""
+    The sum over a group is in the tensor's dtype, as JAX's psum.
+    `parts` maps n to the group of the n consecutive ranks of this one
+    that hold this rank (a tp group's kv-head blocks), where made."""
 
     def __init__(self, ranks: Sequence[int], pg=None,
                  backend: Optional[str] = None):
@@ -116,6 +120,16 @@ class Group:
         self.backend = backend
         me = dist.get_rank() if dist.is_initialized() else self.ranks[0]
         self.rank = self.ranks.index(me)
+        self.parts = {}
+
+    def part(self, n: int) -> "Group":
+        """The group of the n consecutive ranks of this group that hold
+        this rank (`create_rank_mesh` makes them for a tp group)."""
+        if n == self.size:
+            return self
+        if n == 1:
+            return Group([self.ranks[self.rank]])
+        return self.parts[n]
 
     def __repr__(self) -> str:
         return f"Group(ranks={self.ranks}, rank={self.rank})"
@@ -281,12 +295,60 @@ def gather_on_use(shard: torch.Tensor, group: Group, dim: int
     return _GatherOnUse.apply(shard, group, dim)
 
 
+class _ReduceFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return group.all_reduce(x.clone())
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
 def reduce_from(x: torch.Tensor, group: Group) -> torch.Tensor:
     """The sum of `x` over the group, differentiated as this rank's own
-    term (Megatron's reduce-from-region): the gradient reaches this rank's
-    `x` once, where a differentiable all-reduce would sum it again."""
-    total = group.all_reduce(x.detach().clone())
-    return x + (total - x.detach())
+    term (Megatron's reduce-from region): the gradient reaches this rank's
+    `x` once, where a differentiable all-reduce would sum it again. The
+    forward is the all-reduce's own result, equal on every rank."""
+    return _ReduceFrom.apply(x, group)
+
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.group.all_reduce(grad.clone()), None
+
+
+def copy_to(x: torch.Tensor, group: Group) -> torch.Tensor:
+    """`x` as it is (Megatron's copy-to region, the counterpart of
+    `reduce_from`): a replicated input entering this rank's part of a
+    split product, whose gradient is the sum of the ranks' parts, so the
+    backward all-reduces it over the group."""
+    return _CopyTo.apply(x, group)
+
+
+class _GatherFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group, ctx.n = group, x.shape[-1]
+        return group.all_gather(x, -1)
+
+    @staticmethod
+    def backward(ctx, grad):
+        r = ctx.group.rank
+        return grad[..., r * ctx.n:(r + 1) * ctx.n].contiguous(), None
+
+
+def gather_from(x: torch.Tensor, group: Group) -> torch.Tensor:
+    """The ranks' `x` concatenated on the last dim in rank order (a split
+    product's columns made whole); the backward keeps this rank's slice of
+    the gradient, which every rank computed whole and alike."""
+    return _GatherFrom.apply(x, group)
 
 
 def token_mean(total: torch.Tensor, count: torch.Tensor, group: Group

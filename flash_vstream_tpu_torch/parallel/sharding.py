@@ -15,13 +15,15 @@ tensor-parallel decode over the 'tp' axis), the training half the ZeRO
 specs (train/trainer.py).
 
 Training runs one process a rank (parallel/collectives.py): `RankMesh` is
-this rank's place in the dp x (pp | sp) grid, laid out as JAX's
-`devices.reshape(dp, inner)`, rank = d * inner + i, so the pp or sp groups
-are contiguous ranks and the dp groups strided. A ZeRO-3 leaf rests as a
-`ZeroShard`, this rank's part of it; under a stacked "layers" subtree it is
-gathered a layer at a time where `models.layers.layer_slice` takes the
-layer out (`zero_index`), the rest of a tree at a loss's start
-(`zero_use`).
+this rank's place in the dp x (tp | pp | sp) grid, laid out as JAX's
+`devices.reshape(dp, inner)`, rank = d * inner + i, so the tp, pp or sp
+groups are contiguous ranks and the dp groups strided. A tensor-parallel
+leaf rests as a `parallel.tensor.TPShard`, this rank's part of it along
+its 'tp' dim. A ZeRO-3 leaf rests as a `ZeroShard`, this rank's part of it
+(of its tp part, where it has one: dp takes the largest free dim not split
+over tp, as JAX's rule); under a stacked "layers" subtree it is gathered a
+layer at a time where `models.layers.layer_slice` takes the layer out
+(`zero_index`), the rest of a tree at a loss's start (`zero_use`).
 """
 from __future__ import annotations
 
@@ -184,11 +186,13 @@ def param_shardings(mesh: Mesh, params,
 
 
 def _zero_spec(path, x, mesh, rules) -> PartitionSpec:
-    dp = mesh.shape["dp"]
-    spec = list(_fit_mesh(param_pspec(path_str(path), x.dim(), rules), mesh))
-    spec += [None] * (x.dim() - len(spec))
+    """`zero_shardings`'s spec of one leaf (a tensor, or anything with the
+    whole leaf's `shape`)."""
+    dp, ndim = mesh.shape["dp"], len(x.shape)
+    spec = list(_fit_mesh(param_pspec(path_str(path), ndim, rules), mesh))
+    spec += [None] * (ndim - len(spec))
     if dp > 1:
-        free = [(d, x.shape[d]) for d in range(x.dim())
+        free = [(d, x.shape[d]) for d in range(ndim)
                 if spec[d] is None and x.shape[d] % dp == 0
                 and x.shape[d] >= dp]
         if free:
@@ -218,15 +222,18 @@ def replicated(mesh: Mesh) -> PartitionSpec:
 # -- training across ranks ---------------------------------------------------
 
 class RankMesh:
-    """This rank's place in a dp x inner grid of ranks (inner: the pp or sp
-    width; 1 for data parallelism alone): `dp` and `inner` are its groups,
-    `kind` "pp", "sp" or None, `shape` {"dp": dp, kind or "tp": inner} as
-    `create_train_mesh` names the axes."""
+    """This rank's place in a dp x inner grid of ranks (inner: the tp, pp
+    or sp width; 1 for data parallelism alone): `dp` and `inner` are its
+    groups, `kind` "pp", "sp" or None (the inner axis is 'tp'), `shape`
+    {"dp": dp, kind or "tp": inner} as `create_mesh` and
+    `create_train_mesh` name the axes; `tp` the tp group (this rank alone
+    beside pp or sp)."""
 
     def __init__(self, info: DistInfo, dp: Group, inner: Group,
                  kind: Optional[str]):
         self.info, self.dp, self.inner, self.kind = info, dp, inner, kind
         self.axis_names = ("dp", kind or "tp")
+        self.tp = inner if kind is None else inner.part(1)
 
     @property
     def shape(self) -> Dict[str, int]:
@@ -238,32 +245,49 @@ class RankMesh:
 
 
 def create_rank_mesh(pp: int = 1, sp: int = 1, info: Optional[DistInfo] = None,
-                     device=None) -> RankMesh:
-    """The dp x (pp | sp) grid over the world of ranks (joined through
-    `init_distributed(device)` unless `info` is given): dp = world / inner.
-    Every rank makes every group, in one order, as torch.distributed
-    requires."""
+                     device=None, tp: int = 1) -> RankMesh:
+    """The dp x (tp | pp | sp) grid over the world of ranks (joined
+    through `init_distributed(device)` unless `info` is given): dp = world
+    / inner. A tp group also makes, for each divisor n of tp between 1 and
+    tp, its blocks of n consecutive ranks (`Group.part`: the ranks that
+    share a kv head when tp exceeds the kv heads). Every rank makes every
+    group, in one order, as torch.distributed requires. tp beside pp or sp
+    raises: JAX's `create_train_mesh` has no such mesh."""
     import torch.distributed as dist
-    if pp > 1 and sp > 1:
-        raise ValueError("pick one of pp/sp per run")
+    if sum(w > 1 for w in (tp, pp, sp)) > 1:
+        raise ValueError(f"pick one of tp/pp/sp per run, got tp {tp}, "
+                         f"pp {pp}, sp {sp}")
     info = info or init_distributed(device)
-    inner = max(pp, sp)
+    inner = max(tp, pp, sp)
     kind = "pp" if pp > 1 else "sp" if sp > 1 else None
     if info.world % inner:
         raise ValueError(f"world({info.world}) is not a multiple of "
-                         f"{kind}({inner})")
+                         f"{kind or 'tp'}({inner})")
     dp = info.world // inner
     grid = np.arange(info.world).reshape(dp, inner)
     if info.world == 1:
         return RankMesh(info, Group([0]), Group([0]), kind)
-    mine = {}
-    for ranks in [list(r) for r in grid] + [list(c) for c in grid.T]:
-        pg = dist.new_group([int(r) for r in ranks])
-        if info.rank in ranks:
-            mine[len(mine)] = Group([int(r) for r in ranks], pg,
-                                    info.backend)
-    # this rank's row (its inner group) comes first, its column (dp) next
-    return RankMesh(info, mine[1], mine[0], kind)
+
+    def group(ranks):
+        ranks = [int(r) for r in ranks]
+        pg = dist.new_group(ranks)
+        return Group(ranks, pg, info.backend) if info.rank in ranks else None
+
+    rows = [group(r) for r in grid]
+    cols = [group(c) for c in grid.T]
+    row = next(g for g in rows if g is not None)
+    col = next(g for g in cols if g is not None)
+    if kind is None:
+        for n in range(2, inner):
+            if inner % n:
+                continue
+            for r in grid:
+                for b in range(0, inner, n):
+                    g = group(r[b:b + n])
+                    if g is not None:
+                        row.parts[n] = g
+    # this rank's row is its inner group, its column the dp group
+    return RankMesh(info, col, row, kind)
 
 
 def _stacked(path: tuple) -> bool:
@@ -333,33 +357,49 @@ class ZeroShard:
                 f"shard={tuple(self.shard.shape)})")
 
 
+def _on_zero(x, fn):
+    """fn of a `ZeroShard` leaf, or of a `TPShard`'s `ZeroShard` (a TPShard
+    of the result); other leaves as they are."""
+    from .tensor import TPShard
+    if isinstance(x, TPShard) and isinstance(x.shard, ZeroShard):
+        return x.with_shard(fn(x.shard))
+    return fn(x) if isinstance(x, ZeroShard) else x
+
+
 def zero_use(tree):
     """The tree a loss computes with: every `ZeroShard` gathered whole
-    (differentiably), except those of stacked "layers" subtrees, which
-    `layer_slice` gathers a layer at a time."""
+    (differentiably; a `TPShard`'s to its tp part), except those of stacked
+    "layers" subtrees, which `layer_slice` gathers a layer at a time."""
     return map_with_path(
-        lambda p, x: x.whole() if isinstance(x, ZeroShard)
-        and not _stacked(p) else x, tree)
+        lambda p, x: x if _stacked(p) else _on_zero(x, ZeroShard.whole),
+        tree)
 
 
 def zero_shard_tree(tree, mesh: RankMesh,
                     rules: Sequence[Tuple[str, PartitionSpec]] = LLM_RULES):
-    """`tree` with every tensor leaf that `zero_shardings` splits over 'dp'
-    replaced by this rank's `ZeroShard` of it (ZeRO stage 3)."""
+    """`tree` with every leaf that `zero_shardings` splits over 'dp'
+    replaced by this rank's `ZeroShard` of it (ZeRO stage 3); a `TPShard`'s
+    tp part is what splits, on the dim the whole leaf's spec names."""
+    from .tensor import TPShard
+
     def one(path, x):
-        if not isinstance(x, torch.Tensor):
+        if not isinstance(x, (torch.Tensor, TPShard)):
             return x
         spec = _zero_spec(path, x, mesh, rules)
         if "dp" not in spec:
             return x
-        return ZeroShard.split(x, list(spec).index("dp"), mesh.dp)
+        d = list(spec).index("dp")
+        if isinstance(x, TPShard):
+            return x.with_shard(ZeroShard.split(x.shard, d, mesh.dp))
+        return ZeroShard.split(x, d, mesh.dp)
     return map_with_path(one, tree)
 
 
 def zero_gather_tree(tree):
-    """A tree of `ZeroShard`s gathered whole, without a graph (for a
-    checkpoint or a caller); every rank of the dp group calls it."""
+    """A tree of `ZeroShard`s gathered whole (a `TPShard`'s to its tp
+    part), without a graph (for a checkpoint or a caller); every rank of
+    the dp group calls it."""
     with torch.no_grad():
-        return map_with_path(lambda p, x: x.whole() if isinstance(
-            x, ZeroShard) else x, tree)
+        return map_with_path(lambda p, x: _on_zero(x, ZeroShard.whole),
+                             tree)
 

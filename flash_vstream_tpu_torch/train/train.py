@@ -37,13 +37,18 @@ loads a Flash-VStream-LLaVA checkpoint directory in bf16
 its HF tokenizer (`transformers`); a caller may hand `run_training` its own
 config, parameters and tokenizer.
 
-Across ranks (torch.distributed.run, one process a rank): data parallelism
-over the world, each rank collating its share of a step's samples (the
-global batch is --batch-size x world, JAX's bsz x dp, and the length
-grouping runs over megabatches of that dp), the loss a token mean over the
-global batch, ZeRO stages 1-3 (`--zero-stage`) and `--offload-moments`
-in the Trainer; rank 0 alone logs and writes. --tp > 1 raises (ROADMAP
-A16, tensor-parallel training).
+Across ranks (torch.distributed.run, one process a rank): a dp x tp grid
+of ranks, world = dp x `--tp` (JAX's create_mesh(dp=devices // tp, tp)).
+Data parallelism runs over dp, each dp row collating its share of a step's
+samples (the global batch is --batch-size x dp, JAX's bsz x dp, and the
+length grouping runs over megabatches of that dp), the loss a token mean
+over the global batch, ZeRO stages 1-3 (`--zero-stage`) and
+`--offload-moments` in the Trainer. Every tp rank of a dp row reads the
+same samples and draws the same STAR uniforms (keyed by step, micro-batch
+and global sample), so the replicated parts (the consolidation, the
+projector, the whole embed and lm_head) agree across the tp group, while
+the split leaves (parallel/tensor.py) run the local heads and columns.
+Rank 0 alone logs and writes, after the gather.
 
 The STAR draws (k-means init, drop coins) come from `draws(step, micro,
 sample, n)`, by default a torch generator seeded from those indices; the
@@ -227,12 +232,10 @@ def run_training(args, *, cfg=None, params: Optional[dict] = None,
     from .reporting import ScalarsWriter, StepProfiler, lr_at
     from ..parallel.collectives import init_distributed
     from ..parallel.sharding import create_rank_mesh
-    from .trainer import DP_TODO, Trainer
+    from .trainer import Trainer
 
-    if args.tp > 1:
-        raise NotImplementedError(DP_TODO)
     info = init_distributed(args.device, shared_card=args.shared_card)
-    mesh = create_rank_mesh(info=info)
+    mesh = create_rank_mesh(info=info, tp=args.tp)
     device, lead = info.device, info.rank == 0
     dp, d = mesh.dp.size, mesh.dp.rank
     if params is None:
@@ -462,8 +465,9 @@ def make_parser():
                    help="write a torch.profiler Chrome trace here")
     p.add_argument("--profile-steps", type=int, default=3)
     p.add_argument("--tp", type=int, default=1,
-                   help="tensor-parallel width (not ported: ROADMAP A16, "
-                        "tensor-parallel training)")
+                   help="tensor-parallel width: the world is dp x tp ranks, "
+                        "the decoder's and the ViT's projections split over "
+                        "each tp group (contiguous ranks)")
     p.add_argument("--zero-stage", type=int, default=2, choices=(1, 2, 3),
                    help="ZeRO stage over the ranks: 1/2 shard the Adam "
                         "moments, 3 the parameters too (each layer "

@@ -53,8 +53,20 @@ steps (on the CPU they stay put, as JAX's host kind equals its device
 kind there); the sliced update streams a slice's moments to the device and
 back, so they are never whole on the card. A checkpoint holds the whole,
 gathered state (`gathered_state`), and `load_state` takes a whole state at
-any world size. Tensor-parallel training (a 'tp' axis) raises (ROADMAP
-A16, tensor-parallel training).
+any world size.
+
+With a tp group (a dp x tp `RankMesh`), `params` and `frozen` split by
+`LLM_RULES` over it (`parallel.tensor.TPShard`; the model functions run
+this rank's part, parallel/tensor.py) before ZeRO splits each tp part over
+dp, so at stage 3 a rank holds 1/(dp x tp) of a split leaf, and the
+moments of stages 1-2 take dp's part of the tp part. A split leaf's
+gradient is its own part's; a whole leaf's is equal on every tp rank (the
+copy-to regions all-reduce what flows into a replicated input), so no
+gradient is reduced over tp. The global norm sums a split leaf's squares
+in f32 over tp (and over dp where ZeRO splits it) before the rounding; a
+whole leaf is counted once. A checkpoint gathers over dp, then over tp,
+and `load_state` splits a whole state at any dp x tp. LoRA views and
+quantized bases under tp raise (`parallel.tensor.TP_TODO`).
 """
 from __future__ import annotations
 
@@ -66,10 +78,6 @@ import torch
 
 from .lora import tree_leaves_with_path
 from .reporting import lr_at
-
-DP_TODO = ("tensor-parallel training (the Trainer's 'tp' axis, LLaVA "
-           "train.py --tp) is not ported yet: ROADMAP A16, tensor-parallel "
-           "training")
 
 
 @dataclasses.dataclass
@@ -140,9 +148,9 @@ def label_params(params: dict, cfg: TrainConfig) -> Dict[str, str]:
 class AdamW:
     """optax.multi_transform of chain(clip_by_global_norm, adamw(schedule))
     per label group, and set_to_zero for "frozen" (see the module note).
-    `group` and `sharded` (set by a Trainer across ranks): the paths whose
-    gradients and parameters are this rank's shard, their squares summed
-    over `group` for the norm."""
+    `split` (set by a Trainer across ranks): path -> the groups (dp, tp)
+    over which that leaf's gradient and parameter are this rank's part,
+    its squares summed over each for the norm."""
 
     def __init__(self, cfg: TrainConfig, params: dict):
         self.cfg = cfg
@@ -151,8 +159,7 @@ class AdamW:
                    "projector": cfg.projector_lr or cfg.learning_rate}
         self.mu_dtype = (getattr(torch, cfg.mu_dtype) if cfg.mu_dtype
                          else None)
-        self.group = None
-        self.sharded = frozenset()
+        self.split = {}
 
     def _zeros(self, x: torch.Tensor, dtype) -> torch.Tensor:
         """A moment for `x`: in pinned host memory when offloaded from a
@@ -171,10 +178,10 @@ class AdamW:
 
     def _sq(self, p: str, g: torch.Tensor) -> torch.Tensor:
         """optax.global_norm's term of leaf p: its squares summed in f32
-        (over the ranks' parts of a sharded leaf), rounded to its dtype."""
+        (over the ranks' parts of a split leaf), rounded to its dtype."""
         sq = sum((g[sl] * g[sl]).float().sum() for sl in _slices(g))
-        if p in self.sharded:
-            sq = self.group.all_reduce(sq)
+        for group in self.split.get(p, ()):
+            sq = group.all_reduce(sq)
         return sq.to(g.dtype)
 
     @torch.no_grad()
@@ -245,6 +252,13 @@ def _part(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     return x.narrow(dim, group.rank * n, n)
 
 
+def _tensor(x):
+    """The tensor under a leaf's TPShard and ZeroShard wrappers."""
+    while hasattr(x, "shard"):
+        x = x.shard
+    return x
+
+
 class Trainer:
     """`loss_fn(params, micro_batch, key) -> scalar loss`, or
     `loss_fn(params, micro_batch, key, frozen)` when a `frozen` tree (the
@@ -252,7 +266,8 @@ class Trainer:
     ...], the micro-batch this rank's share of the step's; the key handed to
     loss_fn for micro-batch i is (key, i), which a loss may use to seed its
     draws. `mesh` (a `parallel.sharding.RankMesh`) trains across ranks;
-    None: this process alone. At ZeRO stage 3 the trees a loss gets hold
+    None: this process alone. With a tp group the trees a loss gets hold
+    `TPShard`s where `LLM_RULES` split a leaf. At ZeRO stage 3 they hold
     `ZeroShard`s under their stacked "layers" subtrees (gathered a layer at
     a time by `layer_slice`), the rest gathered whole."""
 
@@ -261,19 +276,25 @@ class Trainer:
         from ..parallel.collectives import single_group
         from ..parallel.sharding import (LLM_RULES, RankMesh, _zero_spec,
                                          zero_shard_tree)
-        if mesh is not None and mesh.shape.get("tp", 1) > 1:
-            raise NotImplementedError(DP_TODO)
+        from ..parallel.tensor import tp_shard_tree, tp_spec
         self.cfg = cfg
         self.mesh = mesh or RankMesh(None, single_group(), single_group(),
                                      None)
-        dp = self.mesh.dp
+        dp, tp = self.mesh.dp, self.mesh.tp
         self.optimizer = make_optimizer(cfg, params)
         labels = self.optimizer.labels
-        # each trained leaf's ZeRO dim (None: whole on every rank)
+        # each leaf's ZeRO dim (None: whole on every rank) and tp dim (None:
+        # not split), from the whole leaf's spec
         self.zero_dim = {
             p: _dp_dim(_zero_spec((p,), x, self.mesh, LLM_RULES))
             if dp.size > 1 else None
             for p, x in _tensor_leaves(params)}
+        self.tp_dim = {p: tp_spec(p, x.shape, self.mesh) if tp.size > 1
+                       else None for p, x in _tensor_leaves(params)}
+        if tp.size > 1:
+            params = tp_shard_tree(params, self.mesh)
+            frozen = (tp_shard_tree(frozen, self.mesh)
+                      if frozen is not None else None)
         self.stage3 = cfg.zero_stage >= 3 and dp.size > 1
         if self.stage3:
             params = zero_shard_tree(params, self.mesh)
@@ -283,14 +304,16 @@ class Trainer:
         # gradients only where the update reads them
         self._leaf = {}
         for p, x in tree_leaves_with_path(params):
-            x = getattr(x, "shard", x)
+            x = _tensor(x)
             if isinstance(x, torch.Tensor):
                 x.requires_grad_(labels[p] != "frozen")
                 if labels[p] != "frozen":
                     self._leaf[p] = x
         self.sharded = frozenset(p for p in self._leaf
                                  if self.zero_dim[p] is not None)
-        self.optimizer.group, self.optimizer.sharded = dp, self.sharded
+        self.optimizer.split = {
+            p: [g for g, d in ((dp, self.zero_dim[p]), (tp, self.tp_dim[p]))
+                if d is not None] for p in self._leaf}
         self.opt_state = self.optimizer.init(self._views())
         self.step = 0
         self._train_step = self.compile_step(loss_fn)
@@ -304,10 +327,12 @@ class Trainer:
                 for p, x in self._leaf.items()}
 
     def _reduce(self, p: str, g: torch.Tensor) -> torch.Tensor:
-        """Leaf p's accumulated gradient summed over the pp/sp group, then
-        averaged over dp, as the optimizer takes it."""
+        """Leaf p's accumulated gradient summed over the pp/sp group (not
+        over tp: see the module note), then averaged over dp, as the
+        optimizer takes it."""
         dp, dim = self.mesh.dp, self.zero_dim[p]
-        self.mesh.inner.all_reduce(g)
+        if self.mesh.kind is not None:
+            self.mesh.inner.all_reduce(g)
         if p not in self.sharded:
             return dp.all_reduce(g, "mean")
         if self.stage3:                  # the gather's backward summed it
@@ -379,15 +404,17 @@ class Trainer:
         return step
 
     def gathered_params(self) -> dict:
-        """The parameters whole (stage 3 gathers them: every rank of the dp
-        group calls this)."""
+        """The parameters whole (stage 3 gathers them over dp, tp over tp:
+        every rank calls this)."""
         from ..parallel.sharding import zero_gather_tree
-        return zero_gather_tree(self.params) if self.stage3 else self.params
+        from ..parallel.tensor import tp_gather_tree
+        params = zero_gather_tree(self.params) if self.stage3 else self.params
+        return tp_gather_tree(params) if self.mesh.tp.size > 1 else params
 
     def gathered_state(self):
         """(params, opt_state) whole, as a checkpoint holds them: every rank
         calls this, rank 0 writes it."""
-        dp = self.mesh.dp
+        dp, tp = self.mesh.dp, self.mesh.tp
         moments = {}
         for k in ("mu", "nu"):
             moments[k] = {}
@@ -395,26 +422,34 @@ class Trainer:
                 if p in self.sharded:
                     m = dp.all_gather(m.to(self._leaf[p].device),
                                       self.zero_dim[p])
+                if self.tp_dim[p] is not None:
+                    m = tp.all_gather(m.to(self._leaf[p].device),
+                                      self.tp_dim[p])
                 moments[k][p] = m
         return self.gathered_params(), {"count": self.opt_state["count"],
                                         **moments}
 
     def load_state(self, params: dict, opt_state: dict) -> None:
         """Install a restored whole state (from any world size), each leaf
-        and moment copied into this rank's tensors (its part where they are
-        sharded), on their devices."""
+        and moment copied into this rank's tensors (its tp part, then its
+        dp part where they are split), on their devices."""
         from ..parallel.sharding import ZeroShard
+        from ..parallel.tensor import TPShard, tp_part
         dp = self.mesh.dp
         mine = dict(tree_leaves_with_path(self.params))
         with torch.no_grad():
             for p, x in _tensor_leaves(params):
                 dst = mine[p]
+                if isinstance(dst, TPShard):
+                    dst = dst.shard
+                x = tp_part(x, p, self.mesh)
                 if isinstance(dst, ZeroShard):
                     dst.shard.copy_(_part(x, dst.dim, dp))
                 else:
                     dst.copy_(x)
             for k in ("mu", "nu"):
                 for p, x in opt_state[k].items():
+                    x = tp_part(x, p, self.mesh)
                     if p in self.sharded:
                         x = _part(x, self.zero_dim[p], dp)
                     self.opt_state[k][p].copy_(x)

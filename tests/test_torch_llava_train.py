@@ -647,8 +647,9 @@ def test_unported_options_raise(tmp_path):
     with pytest.raises(ValueError, match="--model-path"):
         ttrain.run_training(parse())
     # --zero-stage and --offload-moments train (test_torch_finetune_parallel
-    # .py); tensor-parallel training is the next item of ROADMAP A16
-    with pytest.raises(NotImplementedError, match="A16, tensor-parallel"):
+    # .py), and --tp over as many ranks (test_torch_llava_tp.py); one rank
+    # cannot hold a tp group of two
+    with pytest.raises(ValueError, match=r"multiple of tp\(2\)"):
         ttrain.run_training(parse("--dry-run", "--tp", "2"))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):

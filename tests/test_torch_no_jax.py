@@ -20,7 +20,8 @@ LLaVAPipeline, a stream answered speculatively, the --model-family llava
 resampling; the LLaVA trainer's raw-media and feature dry runs,
 extract_features over `.npy` frame directories and the feature eval
 launcher over what it wrote), both multi-stream engines, the threaded ingest and the gmm
-consolidation, the training-across-ranks modules and a ZeRO-3 offload
+consolidation, the training-across-ranks modules (tensor parallelism's
+too), the memory plan at --tiny and a ZeRO-3 offload
 Trainer step at world 1 on the CPU in a fresh interpreter leave
 `jax` and `flash_vstream_tpu` out of sys.modules (the tests' own conftest
 imports jax, hence the subprocess), nor does a spawned gloo rank; no
@@ -297,7 +298,9 @@ with tempfile.TemporaryDirectory() as d:
          d + "/out", "--dry-run", "--device", "cpu", "--skip-judge"])
     assert len(open(d + "/out/pred.json").readlines()) == 1
 del sys.modules["PIL"]
-from flash_vstream_tpu_torch.parallel import collectives, pipeline, sequence
+from flash_vstream_tpu_torch.parallel import collectives, pipeline, sequence, tensor
+from flash_vstream_tpu_torch.scripts import plan_full7b_memory
+assert plan_full7b_memory.plan(tiny_llava_config(), 2, 2, seq=128, frames=8)["fits_80gb"]
 from flash_vstream_tpu_torch.train.trainer import TrainConfig, Trainer
 tr = Trainer(lambda p, b, k: (p["w"] * b).sum(), {"w": torch.ones(4)},
              TrainConfig(zero_stage=3, offload_moments=True, total_steps=2,
@@ -347,7 +350,9 @@ def test_port_sources_never_import_jax():
             "flash_vstream_tpu_torch/parallel/serve.py",
             "flash_vstream_tpu_torch/parallel/collectives.py",
             "flash_vstream_tpu_torch/parallel/pipeline.py",
-            "flash_vstream_tpu_torch/parallel/sequence.py"} <= names
+            "flash_vstream_tpu_torch/parallel/sequence.py",
+            "flash_vstream_tpu_torch/parallel/tensor.py",
+            "flash_vstream_tpu_torch/scripts/plan_full7b_memory.py"} <= names
     for f in files:
         assert not pat.search(f.read_text()), f
     assert pat.search("from flash_vstream_tpu.core import config")

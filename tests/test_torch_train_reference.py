@@ -1,9 +1,14 @@
-"""Where chip_smoke.py's training-reference limit sits. On the card the
-check holds each adapter leaf's bf16 gradient to TRAIN_REF_LIMIT in
-relative L2 norm against the CPU's. Here, on the CPU alone, the limit must
-lie above what bf16 summation order moves (the same step at 8 threads and at
-1 thread) and below what a planted fault moves (dk scaled by 0.9 in the
-attention backward). Run with `-s` to print the readings per leaf.
+"""Where chip_smoke.py's training-reference limits sit. On the card the
+train_reference check holds each adapter leaf's bf16 gradient to
+TRAIN_REF_F32_LIMIT in relative L2 norm and to TRAIN_REF_GAIN_LIMIT in
+gain (the error along the reference) against the CPU's f32 gradient on
+the same bf16 weights; card-against-card checks (train_parallel) use
+TRAIN_REF_LIMIT. Here, on the CPU alone, each limit must lie above what
+bf16 moves (summation order: the same step at 8 threads and at 1 thread;
+against f32: the CPU's own bf16 step) and below what a planted fault moves
+(dk scaled by 0.9 in the attention backward; against f32 also a misrouted
+dq, chip_smoke's TRAIN_REF_FAULTS). Run with `-s` to print the readings
+per leaf.
 """
 import pytest
 import torch
@@ -56,6 +61,62 @@ def test_limit_lies_below_a_planted_dk_fault(case, monkeypatch):
     _show("dk x 0.9 vs the plain backward", errs)
     wk = {n: e for n, e in errs.items() if "/wk/" in n}
     assert wk and min(wk.values()) > cs.TRAIN_REF_LIMIT
+
+
+@pytest.fixture(scope="module")
+def f32_grads(case):
+    return cs.lora_leaf_grads(case, CPU, torch.float32)[1]
+
+
+def test_f32_limit_lies_above_bf16_against_f32(case, f32_grads):
+    """The CPU's bf16 step, at 8 threads and at 1, against the f32 step on
+    the same bf16 weights: every leaf's relative L2 error below
+    TRAIN_REF_F32_LIMIT and its gain below TRAIN_REF_GAIN_LIMIT."""
+    for threads in (8, 1):
+        _, g = _grads(case, threads)
+        errs, gains = cs.leaf_errors(g, f32_grads), cs.leaf_gains(g, f32_grads)
+        _show(f"bf16 at {threads} threads vs f32, rel L2", errs)
+        _show(f"bf16 at {threads} threads vs f32, gain", gains)
+        assert max(errs.values()) < cs.TRAIN_REF_F32_LIMIT
+        assert max(gains.values()) < cs.TRAIN_REF_GAIN_LIMIT
+
+
+def _planted(case, f32_grads, monkeypatch, name):
+    """The CPU's bf16 step with chip_smoke's planted fault `name` in the
+    attention backward, against the f32 step: (rel L2, gain) a leaf."""
+    plain = fa.flash_attention_bwd_reference
+    fault = cs.TRAIN_REF_FAULTS[name][1]
+    monkeypatch.setattr(fa, "flash_attention_bwd_reference",
+                        lambda *a, **kw: fault(*plain(*a, **kw)))
+    _, bad = _grads(case, 8)
+    errs, gains = cs.leaf_errors(bad, f32_grads), cs.leaf_gains(bad, f32_grads)
+    _show(f"bf16 with {name} vs f32, rel L2", errs)
+    _show(f"bf16 with {name} vs f32, gain", gains)
+    return errs, gains
+
+
+def test_f32_limit_lies_below_a_planted_dk_fault(case, f32_grads,
+                                                 monkeypatch):
+    """dk scaled by 0.9 in the bf16 step's attention backward moves the gain
+    of each of wk's adapter leaves past TRAIN_REF_GAIN_LIMIT against the
+    f32 step (chip_smoke.py's train_reference does the same on the card)."""
+    _, gains = _planted(case, f32_grads, monkeypatch, "dk x 0.9")
+    wk = {n: e for n, e in gains.items() if "/wk/" in n}
+    assert wk and min(wk.values()) > cs.TRAIN_REF_GAIN_LIMIT
+
+
+def test_f32_limit_lies_below_a_planted_dq_leak(case, f32_grads,
+                                                monkeypatch):
+    """A fifth of each query's dq added to the next query's in the bf16
+    step's attention backward (a misrouted gradient, nearly orthogonal to
+    the reference) moves the worst leaf's relative L2 error past
+    TRAIN_REF_F32_LIMIT while every gain stays under TRAIN_REF_GAIN_LIMIT:
+    the fault the rel L2 limit is there for (chip_smoke.py's
+    train_reference plants it on the card too)."""
+    errs, gains = _planted(case, f32_grads, monkeypatch,
+                           "dq + 0.2 x the query before's")
+    assert max(errs.values()) > cs.TRAIN_REF_F32_LIMIT
+    assert max(gains.values()) < cs.TRAIN_REF_GAIN_LIMIT
 
 
 # --- the card dry run's limit (DRY_RUN_LIMIT) -------------------------------
@@ -122,3 +183,47 @@ def test_dry_run_on_card_holds_to_the_cpu_run(cuda, tmp_path):
     the CPU run within DRY_RUN_LIMIT."""
     k = cs.run_dry_run_train(cuda, str(tmp_path))
     assert k["K3"] and k["K4"] and k["K5"]
+
+
+@pytest.mark.gpu
+def test_card_gap_to_f32_comes_from_the_attention_kernels(cuda, case,
+                                                          f32_grads,
+                                                          monkeypatch):
+    """Why the card's bf16 step reads further from the f32 step than the
+    plain attention does (the worst leaf, a merger leaf, 1.08e-1; PERF.md
+    section 7). Readings of the card's step against the f32 step: as
+    train_reference runs it (K1 for the frozen ViT, K3, K4 and K5 for the
+    decoder); with cuBLAS's bf16 reduced-precision reductions off; with
+    the plain attention on the card in place of K1 alone, of K3-K5 alone,
+    and of all four; and the CPU's own bf16 step. The reductions' setting
+    changes nothing; the plain K1 alone, in the ViT whose output is the
+    merger's input, takes the merger's leaves to under three quarters of
+    the kernels' error, as the plain attention does."""
+    plain = {"K1": {"flash_attention_cuda": fa.flash_attention_reference},
+             "K3-K5": {"flash_attention_fwd_lse_cuda":
+                           fa.flash_attention_fwd_lse_reference,
+                       "flash_attention_bwd_cuda":
+                           fa.flash_attention_bwd_reference}}
+    runs = {"kernels": ((), True), "reductions off": ((), False),
+            "plain K1": (("K1",), True), "plain K3-K5": (("K3-K5",), True),
+            "plain attention": (("K1", "K3-K5"), True)}
+    errs = {"CPU bf16": cs.leaf_errors(_grads(case, 8)[1], f32_grads)}
+    for what, (swapped, reduced) in runs.items():
+        with monkeypatch.context() as m:
+            m.setattr(torch.backends.cuda.matmul,
+                      "allow_bf16_reduced_precision_reduction", reduced)
+            for group in swapped:
+                for name, fn in plain[group].items():
+                    m.setattr(fa, name, fn)
+            _, g = cs.lora_leaf_grads(case, cuda, torch.bfloat16)
+        errs[what] = cs.leaf_errors(g, f32_grads)
+        _show(f"card, {what}", errs[what])
+    merger = {what: max(e[n] for n in e if n.startswith("vit/merger"))
+              for what, e in errs.items()}
+    print("\nagainst f32, worst leaf / worst merger leaf: " + "; ".join(
+        f"{w} {max(e.values()):.3e} / {merger[w]:.3e}"
+        for w, e in errs.items()))
+    assert all(abs(e - errs["kernels"][n]) <= 1e-3 * errs["kernels"][n]
+               for n, e in errs["reductions off"].items())
+    assert merger["plain K1"] < 0.75 * merger["kernels"]
+    assert merger["plain attention"] < 0.75 * merger["kernels"]

@@ -23,6 +23,7 @@ from flash_vstream_tpu_torch.parallel.collectives import init_distributed
 from flash_vstream_tpu_torch.parallel.sharding import (ZeroShard,
                                                        create_rank_mesh)
 from flash_vstream_tpu_torch.train.lora import tree_leaves_with_path
+from flash_vstream_tpu_torch.train.trainer import _tensor as _local
 from flash_vstream_tpu_torch.weights.from_jax import params_from_numpy
 
 
@@ -231,3 +232,162 @@ def llava_run(out: str, argv: list, params: dict):
                params={p: x.detach().numpy().copy()
                        for p, x in tree_leaves_with_path(r["params"])
                        if isinstance(x, torch.Tensor)}))
+
+
+def tp_lm_loss_fn(cfg: LLMConfig):
+    """`lm_loss_fn` whose frozen term reads this rank's part of a split
+    gate (0 x a leaf either way)."""
+    def loss(params, batch, key, frozen=None):
+        ids = torch.from_numpy(np.asarray(batch["ids"]))
+        labels = torch.from_numpy(np.asarray(batch["labels"]))
+        pos = torch.arange(ids.shape[1])[None].expand(ids.shape)
+        h = decoder_forward(params, cfg, embed_tokens(params, ids), pos)
+        out = cross_entropy_loss(lm_head(params, cfg, h), labels)
+        if frozen is not None:
+            gate = layer_slice(frozen["layers"], 0)["mlp"]["gate"]["w"]
+            out = out + 0.0 * _local(gate)[0, 0]
+        return out
+    return loss
+
+
+def tp_train_cases(out: str, cfg_kw: dict, params_np: dict, batches: list,
+                   runs: list, ckpt_dir: str = None, ckpt_after: int = 0):
+    """For each run (tp, cases) of `runs`, a dp x tp mesh over the world
+    and Trainer steps of each case (zero_stage, offload, TrainConfig
+    kwargs, with a frozen tree) over `batches` (global [accum, B, ...]
+    numpy), each dp row its share of B. Writes per case the losses, the
+    whole parameters after the steps (rank 0), each rank's resting shapes
+    of the parameters, the moments and the frozen gate, and the first
+    step's reduced gradient of every leaf left whole over tp. With
+    `ckpt_dir`, the last case of the last run saves its gathered state
+    after `ckpt_after` steps (rank 0 writes)."""
+    from flash_vstream_tpu_torch.train.checkpoint import save_checkpoint
+    from flash_vstream_tpu_torch.train.trainer import TrainConfig, Trainer
+    info = init_distributed("cpu")
+    cfg = LLMConfig(**cfg_kw)
+    res = []
+    for tp, cases in runs:
+        mesh = create_rank_mesh(info=info, tp=tp)
+        dp, d = mesh.dp.size, mesh.dp.rank
+        for case in cases:
+            stage, offload, kw, with_frozen = case
+            params = params_from_numpy(params_np, "cpu")
+            frozen = (params_from_numpy(params_np, "cpu") if with_frozen
+                      else None)
+            tr = Trainer(tp_lm_loss_fn(cfg), params,
+                         TrainConfig(zero_stage=stage,
+                                     offload_moments=offload, **kw),
+                         frozen=frozen, mesh=mesh)
+            whole_g = {}
+            real = tr._reduce
+
+            def reduce(p, g, tr=tr, real=real, whole_g=whole_g):
+                g = real(p, g)
+                if tr.tp_dim[p] is None and p not in whole_g:
+                    w = (tr.mesh.dp.all_gather(g, tr.zero_dim[p])
+                         if p in tr.sharded else g)
+                    whole_g[p] = w.detach().numpy().copy()
+                return g
+            tr._reduce = reduce
+            losses = []
+            last = (tp, case) == (runs[-1][0], runs[-1][1][-1])
+            for s, b in enumerate(batches):
+                Bl = b["ids"].shape[1] // dp
+                local = {k: v[:, d * Bl:(d + 1) * Bl] for k, v in b.items()}
+                losses.append(tr.run_step(local, s))
+                if ckpt_dir is not None and last and s + 1 == ckpt_after:
+                    p_whole, state = tr.gathered_state()
+                    if info.rank == 0:
+                        save_checkpoint(ckpt_dir, s + 1, p_whole, state)
+            whole = tr.gathered_params()
+            res.append(dict(
+                tp=tp, dp=dp, case=case, losses=losses, whole_grads=whole_g,
+                shards={p: tuple(_local(x).shape)
+                        for p, x in tree_leaves_with_path(tr.params)},
+                mu={p: tuple(x.shape) for p, x in tr.opt_state["mu"].items()},
+                frozen_gate=(None if frozen is None else tuple(_local(
+                    tr.frozen["layers"]["mlp"]["gate"]["w"]).shape)),
+                params=_np_tree(whole) if info.rank == 0 else None))
+    _save(out, info.rank, res)
+
+
+def tp_tower_forwards(out: str, clip_kw: dict, clip_np: dict, images,
+                      qvit_kw: dict, qvit_np: dict, patches, grid):
+    """The CLIP tower and the Qwen2-VL ViT (both its varlen blocks and its
+    frame-batched blocks) whole and split over tp = world, under the
+    trees' 'vit' key as LLM_RULES name it; writes each pair."""
+    from flash_vstream_tpu_torch.core.config import VitConfig
+    from flash_vstream_tpu_torch.models.clip_vit import clip_encode
+    from flash_vstream_tpu_torch.models.qwen2_vit import (
+        prepare_vit_inputs, qwen_vit_blocks, qwen_vit_blocks_frames)
+    from flash_vstream_tpu_torch.parallel.tensor import TPShard, tp_shard_tree
+    info = init_distributed("cpu")
+    mesh = create_rank_mesh(info=info, tp=info.world)
+    whole = {"vit": params_from_numpy(clip_np, "cpu")}
+    split = tp_shard_tree(whole, mesh)
+    n_split = sum(isinstance(x, TPShard)
+                  for _, x in tree_leaves_with_path(split))
+    ccfg = VitConfig(**clip_kw)
+    x = torch.from_numpy(images)
+    with torch.no_grad():
+        clip = (clip_encode(whole["vit"], ccfg, x).numpy(),
+                clip_encode(split["vit"], ccfg, x).numpy())
+    qcfg = VitConfig(**qvit_kw)
+    qw = {"vit": params_from_numpy(qvit_np, "cpu")}
+    qs = tp_shard_tree(qw, mesh)
+    p = torch.from_numpy(patches)
+    pos, seg = prepare_vit_inputs([grid], patches.shape[0])
+    t, h, w = grid
+    kw = dict(t_full=t, hw_full=(h, w), t_small=0, hw_small=(h, w))
+    with torch.no_grad():
+        blocks = (qwen_vit_blocks(qw["vit"], qcfg, p, pos, seg).numpy(),
+                  qwen_vit_blocks(qs["vit"], qcfg, p, pos, seg).numpy())
+        frames = (qwen_vit_blocks_frames(qw["vit"], qcfg, p, **kw).numpy(),
+                  qwen_vit_blocks_frames(qs["vit"], qcfg, p, **kw).numpy())
+    _save(out, info.rank, dict(clip=clip, blocks=blocks, frames=frames,
+                               n_split=n_split))
+
+
+def llava_main(out: str, argvs: list):
+    """The LLaVA `train.run_training` once per argv (its dry-run model and
+    data, its default draws), all in one process group; each rank writes
+    the losses, the modalities and the gathered parameters."""
+    from flash_vstream_tpu_torch.train import train as ttrain
+    res = []
+    for argv in argvs:
+        r = ttrain.run_training(ttrain.make_parser().parse_args(argv))
+        res.append(dict(losses=r["losses"], modalities=r["modalities"],
+                        params={p: x.detach().numpy().copy()
+                                for p, x in tree_leaves_with_path(
+                                    r["params"])
+                                if isinstance(x, torch.Tensor)}))
+    _save(out, int(os.environ["RANK"]), res)
+
+
+def trainer_bytes(out: str, tps: list):
+    """For each tp of `tps`, a dp x tp mesh over the world and a Trainer
+    of the stage-2 recipe (scripts/plan_full7b_memory.py) over the tiny
+    LLaVA model in bf16; writes this rank's resting bytes of the
+    parameters, mu and nu, as the plan names them."""
+    from flash_vstream_tpu_torch.core.config import tiny_llava_config
+    from flash_vstream_tpu_torch.models.vstream_llava import init_llava_params
+    from flash_vstream_tpu_torch.scripts.plan_full7b_memory import (
+        stage2_config)
+    from flash_vstream_tpu_torch.train.trainer import Trainer
+    info = init_distributed("cpu")
+    res = []
+    for tp in tps:
+        mesh = create_rank_mesh(info=info, tp=tp)
+        params = init_llava_params(tiny_llava_config(),
+                                   torch.Generator().manual_seed(0), "cpu",
+                                   dtype=torch.bfloat16)
+        tr = Trainer(lambda *a: None, params, stage2_config(), mesh=mesh)
+        held = dict(params_bytes=sum(
+            _local(x).numel() * _local(x).element_size()
+            for _, x in tree_leaves_with_path(tr.params)
+            if isinstance(_local(x), torch.Tensor)))
+        for k in ("mu", "nu"):
+            held[f"{k}_bytes"] = sum(m.numel() * m.element_size()
+                                     for m in tr.opt_state[k].values())
+        res.append(dict(dp=mesh.dp.size, tp=tp, **held))
+    _save(out, info.rank, res)

@@ -29,6 +29,14 @@ Qwen2-VL-7B decoder at QWEN_LAYERS of its 28 layers, every width full):
    through the port on the card and on the CPU (plain versions), compared;
    int4_reference: that model's decoder quantized to int4, card (K6) vs
    CPU (dequantize path), prefill and 8 teacher-forced decode steps;
+   entry: the driver-entry forward (flash_vstream_tpu_torch/entry.py) at
+   its real scale: the 32-layer Qwen2-VL vision tower, Flash memory, the
+   merger and a Qwen2-VL-2B-shaped decoder (28 layers, width 1,536) in
+   bf16 over 16 frames of 224 px: finite logits, ms a forward, the peak
+   memory, held to the same forward with K1's plain version within 5e-2
+   of each logit row's max, and against the same weights in f32 no
+   further than 1.05 times the plain bf16 forward (a planted fault, K1's
+   output x 0.95, must fail both);
 5. slice: the full-width Qwen2-VL-7B streaming session with random weights:
    21 clips ingested (one warm-up), memory saturated, 3 greedy answers,
    with the launch counts of both kernels during ingest and answering;
@@ -42,6 +50,16 @@ Qwen2-VL-7B decoder at QWEN_LAYERS of its 28 layers, every width full):
    4's ids and a planted fault (a partial left out of the all-reduce); an
    answer on a thread while clips ingest; save / reset / load keep the
    placement;
+   video_io (right after disaggregated, on the slice's weights at
+   QWEN_LAYERS): real video in: the host I/O library built from its C++
+   source with the host compiler, the committed MJPEG mp4 fixture
+   (tests/data/video) demuxed and decoded by the port's own JPEG decoder
+   bit-equal to its JPEG frame directory and to the expected frames, the
+   load_video chain as the machine has it, decode ms a frame at 224 and
+   448 px; cli_server's --video_file path in process over the mp4 (16
+   frames of 224 px in clips of 8, one answer of up to 17 ids) with the
+   answer's ids equal to the same session fed the frames as arrays; ingest
+   ms/clip with the decode inline and through PrefetchLoader;
    serve_http: the port's HTTP server over the slice's weights, two
    streams (the second a clone) fed .npy frames, greedy, SSE, preemptible
    (decode chunks of 8, prefill chunks of 512), speculative (k 4) and
@@ -189,6 +207,7 @@ import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 SEED = 0
@@ -265,6 +284,18 @@ def _visible_pairs(q, k, causal, q_seg, kv_seg):
 
 def _nbytes(*xs):
     return sum(x.numel() * x.element_size() for x in xs if x is not None)
+
+
+def _tree_float(tree):
+    """A nested dict (or list) of tensors with its floating leaves in
+    f32."""
+    if isinstance(tree, dict):
+        return {k: _tree_float(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tree_float(v) for v in tree)
+    if hasattr(tree, "is_floating_point") and tree.is_floating_point():
+        return tree.float()
+    return tree
 
 
 def _tree_nbytes(tree):
@@ -1704,6 +1735,318 @@ def run_disaggregated(dev, smi, params, work, profile=False):
           f"the path K1={k1} K2={k2}; phase "
           f"{time.perf_counter() - t_phase:.1f} s", flush=True)
     return k1, k2
+
+
+VIDEO_DIR = os.path.join("tests", "data", "video")   # the committed fixture
+VIDEO_FPS = 8.0           # the fixture's rate: all 16 frames, clips of 8
+VIDEO_TOKENS = 17         # the answer's new ids at most
+VIDEO_Q = "What is happening in the video?"
+# cv2's FFmpeg decoder parts from libjpeg's (its own IDCT and chroma
+# upsampling): read 6 levels max, 0.76 mean on the fixture on the CPU
+VIDEO_CV2_MAX, VIDEO_CV2_MEAN = 12, 1.5
+
+
+def _per_frame_ms(fn, n_frames, reps=5):
+    """Host ms a frame of `fn` (a decode of n_frames), after one warm-up."""
+    fn()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    return (time.perf_counter() - t0) * 1e3 / (reps * n_frames)
+
+
+def run_video_io(dev, params, root):
+    """Real video in (ROADMAP A1) on the slice's weights (the decoder at
+    QWEN_LAYERS): the port's I/O library built from its source with the
+    host C++ compiler; the committed MJPEG mp4 fixture demuxed and decoded
+    (preprocess/mp4.py, the port's own JPEG decoder) and its JPEG frame
+    directory loaded, bit-equal to each other and to the fixture's expected
+    frames (PIL's decode, the CPU test's limit: 0); load_video's chain as
+    this machine has it (cv2 first when importable) within VIDEO_CV2_MAX;
+    decode ms a frame at 224 px (the frames' size) and 448 px (decode +
+    bilinear), from files and from memory; then cli_server's --video_file
+    path in process (`run_server` over a session at VStreamQwenConfig()'s
+    width, 16 frames of 224 px in clips of 8, one answer of up to
+    VIDEO_TOKENS ids) with cv2 hidden, so that the chain reaches the
+    demuxer: its ids must equal those of the same session fed the
+    fixture's frames as arrays; and once more with the chain as it stands
+    (cv2's frames: ids printed). Ingest ms/clip with the decode inline and
+    through PrefetchLoader, in turns. Returns the K1/K2 launches of the
+    demuxer run of cli_server."""
+    import numpy as np
+    import torch
+    from flash_vstream_tpu_torch.kernels.flash_attention import (
+        flash_attention_cuda)
+    from flash_vstream_tpu_torch.kernels.gather_rows import gather_rows_cuda
+    from flash_vstream_tpu_torch.models.vstream_qwen import VStreamQwen
+    from flash_vstream_tpu_torch.native import io as vio
+    from flash_vstream_tpu_torch.preprocess import video as video_mod
+    from flash_vstream_tpu_torch.preprocess.mp4 import (decode_mjpeg,
+                                                        demux_mjpeg)
+    from flash_vstream_tpu_torch.preprocess.qwen_processor import (
+        make_byte_qwen_tokenizer)
+    from flash_vstream_tpu_torch.runtime.generation import GenerationConfig
+    from flash_vstream_tpu_torch.runtime.streaming import QwenStreamSession
+    from flash_vstream_tpu_torch.serve.cli_server import (make_parser,
+                                                          run_server)
+
+    t_phase = time.perf_counter()
+    vdir = os.path.join(root, VIDEO_DIR)
+    mp4 = os.path.join(vdir, "scene.mp4")
+    fdir = os.path.join(vdir, "scene_frames")
+    cxx = vio._compiler()
+    with tempfile.TemporaryDirectory() as tmp:   # a build of its own
+        t0 = time.perf_counter()
+        vio.build(vio.SOURCE, tmp)
+        build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    lib = vio.build()
+    vio.library()
+    print(f"video_io: the I/O library built from its source with {cxx} in "
+          f"{build_s:.2f} s; {os.path.relpath(lib, root)} ready in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+
+    want = np.load(os.path.join(vdir, "scene_expected.npz"))["frames"]
+    mj = np.stack(decode_mjpeg(mp4, fps=VIDEO_FPS))
+    fd = np.stack(list(video_mod.load_frame_dir(fdir, fps=VIDEO_FPS,
+                                                source_fps=VIDEO_FPS)))
+    if not (mj.shape == fd.shape == want.shape == (16, 224, 224, 3)
+            and np.array_equal(mj, fd) and np.array_equal(mj, want)):
+        raise AssertionError("video_io: the mp4's frames, the directory's "
+                             "and the expected frames are not bit-equal")
+    try:
+        import cv2  # noqa: F401
+        chain = "cv2"
+    except ImportError:
+        chain = "demuxer"
+    lv = np.stack(list(video_mod.load_video(mp4, fps=VIDEO_FPS)))
+    err = np.abs(lv.astype(np.int32) - want)
+    print(f"video_io: MJPEG mp4 (16 frames, 224 px) demuxed and decoded == "
+          f"its JPEG directory == the expected frames, bit for bit; "
+          f"load_video's chain here ({chain} first): max |diff| "
+          f"{int(err.max())}, mean {err.mean():.4f}", flush=True)
+    if lv.shape != want.shape or err.max() > VIDEO_CV2_MAX or (
+            err.mean() > VIDEO_CV2_MEAN):
+        raise AssertionError("video_io: load_video's frames are off")
+
+    paths = [os.path.join(fdir, n) for n in sorted(os.listdir(fdir))]
+    blobs, _ = demux_mjpeg(mp4)
+    ms = {
+        "file 224": _per_frame_ms(
+            lambda: vio.decode_batch(paths, 224, 224), len(paths)),
+        "file 448": _per_frame_ms(
+            lambda: vio.decode_batch(paths, 448, 448), len(paths)),
+        "memory 224": _per_frame_ms(
+            lambda: [vio.decode_bytes(b) for b in blobs], len(blobs)),
+        "loader 224": _per_frame_ms(
+            lambda: list(vio.PrefetchLoader(paths, 224, 224)), len(paths)),
+    }
+    print("video_io: decode ms a frame (host, one thread; 224 px JPEGs "
+          "of the fixture): " + ", ".join(
+              f"{k} {v:.4f}" for k, v in ms.items()), flush=True)
+
+    cfg = _qwen_config()
+    tok = make_byte_qwen_tokenizer()
+    sess = QwenStreamSession(VStreamQwen(cfg, params), tok,
+                             frame_hw=(224, 224), clip_size=8,
+                             bank_size=1024, max_len=4096)
+    captured = []
+    real = sess.answer_tokens
+
+    def answer_tokens(*a, **k):
+        ids = real(*a, **k)
+        captured.append([int(i) for i in ids])
+        return ids
+    sess.answer_tokens = answer_tokens
+    args = make_parser().parse_args([
+        "--device", str(dev), "--video_file", mp4, "--fps", str(VIDEO_FPS),
+        "--clip-size", "8", "--frame-size", "224", "--play_speed", "0",
+        "--question", VIDEO_Q, "--question_interval", "1e9",
+        "--max-new-tokens", str(VIDEO_TOKENS)])
+    gen = GenerationConfig(max_new_tokens=VIDEO_TOKENS,
+                           eos_token_ids=(tok.eos_token_id,),
+                           preemptible_chunk=args.preempt,
+                           prefill_chunk=args.prefill_chunk)
+
+    def reset():
+        sess.reset()
+        sess.metrics = type(sess.metrics)()
+
+    # the session fed the fixture's frames as arrays
+    reset()
+    for c in range(0, 16, 8):
+        sess.ingest_frames(list(want[c:c + 8]))
+    sess.block_until_ingested()
+    ref = [int(i) for i in real(*sess._published, VIDEO_Q, gen)]
+
+    reset()
+    _reset_launches()
+    saved = sys.modules.get("cv2", None)
+    sys.modules["cv2"] = None          # the chain as on a machine without
+    try:                               # OpenCV: the MJPEG demuxer
+        t0 = time.perf_counter()
+        summary = run_server(args, session=sess)
+        torch.cuda.synchronize(dev)
+        cli_s = time.perf_counter() - t0
+    finally:
+        if saved is None:
+            del sys.modules["cv2"]
+        else:
+            sys.modules["cv2"] = saved
+    k1, k2 = flash_attention_cuda.launches, gather_rows_cuda.launches
+    got = captured[-1]
+    print(f"video_io: cli_server --video_file {VIDEO_DIR}/scene.mp4 (the "
+          f"demuxer branch): {summary['frames_ingested']} frames, "
+          f"{len(summary['answers'])} answer of {len(got)} ids in "
+          f"{cli_s:.3f} s; ids == the array-fed session's: {got == ref} "
+          f"({got[:8]}...); launches K1={k1} K2={k2}", flush=True)
+    if summary["frames_ingested"] != 16 or got != ref or not got:
+        raise AssertionError("video_io: the --video_file answer parts from "
+                             "the array-fed session's")
+    if min(k1, k2) == 0:
+        raise AssertionError("video_io: a kernel of the path was never "
+                             "launched")
+
+    reset()
+    run_server(args, session=sess)
+    print(f"video_io: cli_server --video_file with the chain as it stands "
+          f"({chain} first): ids == the array-fed session's: "
+          f"{captured[-1] == ref}", flush=True)
+
+    def ingest(prefetch):
+        reset()
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        loader = (vio.PrefetchLoader(paths, 224, 224, prefetch_depth=16)
+                  if prefetch else None)
+        for c in range(0, 16, 8):
+            frames = ([next(loader) for _ in range(8)] if prefetch
+                      else list(vio.decode_batch(paths[c:c + 8], 224, 224)))
+            sess.ingest_frames(frames)
+            sess.block_until_ingested()
+        torch.cuda.synchronize(dev)
+        if loader is not None:
+            loader.close()
+        return (time.perf_counter() - t0) * 1e3 / 2
+    ingest(False)                              # warm-up
+    turns = {False: [], True: []}
+    for prefetch in (False, True, True, False, False, True):
+        turns[prefetch].append(ingest(prefetch))
+    print(f"video_io: ingest ms/clip (8 frames of 224 px from JPEG files, "
+          f"in turns): decode inline {np.mean(turns[False]):.3f} "
+          f"{[round(x, 3) for x in turns[False]]}, PrefetchLoader "
+          f"{np.mean(turns[True]):.3f} {[round(x, 3) for x in turns[True]]};"
+          f" phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return k1, k2
+
+
+# the forward against the same forward with K1's plain version, of each
+# logit row's max: K1's own card limit (2e-2) holds one call; over the 32
+# ViT and 28 decoder layers in bf16 the rows read 2.679e-2 (NVIDIA H100
+# 80GB HBM3, 700 W). The witness is the same weights in f32: there K1's
+# forward reads 2.322e-2 and the plain bf16 forward 2.302e-2, so each bf16
+# forward is already past 2e-2 from the truth and the two may part by
+# about their sum; the limit is the full-width logit limit the offline and
+# reference checks use. K1's forward may sit at most ENTRY_F32_RATIO times
+# the plain bf16 forward's distance from f32 (read 1.009). A planted fault
+# (K1's output x 0.95 in every call) must fail both.
+ENTRY_ROW_TOL = 5e-2
+ENTRY_F32_RATIO = 1.05
+ENTRY_FAULT = 0.95
+
+
+def run_entry(dev):
+    """The driver-entry forward (flash_vstream_tpu_torch/entry.py) at its
+    real scale: the 32-layer Qwen2-VL vision tower, Flash memory, the
+    merger and a Qwen2-VL-2B-shaped decoder (28 layers, width 1,536) in
+    bf16 over 16 frames of 224 px; one forward (the path's run, K1's
+    launches counted), finite logits; then timed (CUDA events, 3 runs) and
+    held to the same forward with K1's plain version on the card, at
+    ENTRY_ROW_TOL of each logit row's max, which K1's output scaled by
+    ENTRY_FAULT must exceed. The witness of that limit: the same weights
+    in f32 (plain attention, no TF32) give the truth, and K1's forward
+    and the plain bf16 forward are each read against it. Returns K1's
+    launches."""
+    import torch
+    from flash_vstream_tpu_torch.entry import entry
+    from flash_vstream_tpu_torch.kernels import flash_attention as fa
+
+    t0 = time.perf_counter()
+    fn, args = entry(device=dev)
+    torch.cuda.synchronize(dev)
+    init_s = time.perf_counter() - t0
+    gb = _tree_nbytes(args[0]) / 1e9
+    _reset_launches()
+    torch.cuda.reset_peak_memory_stats(dev)
+    out = fn(*args)
+    torch.cuda.synchronize(dev)
+    k1 = fa.flash_attention_cuda.launches
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    if not torch.isfinite(out).all():
+        raise AssertionError("entry: logits are not finite")
+
+    def timed(n=3):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(n):
+            fn(*args)
+        end.record()
+        torch.cuda.synchronize(dev)
+        return start.elapsed_time(end) / n
+
+    ms = timed()
+    real = fa.flash_attention_cuda
+    fa.flash_attention_cuda = (
+        lambda q, k, v, **kw: fa.flash_attention_reference(q, k, v, **kw))
+    try:
+        want = fn(*args)
+        plain_ms = timed()
+    finally:
+        fa.flash_attention_cuda = real
+    def faulty(*a, **kw):
+        return real(*a, **kw) * ENTRY_FAULT
+    faulty.launches = 0              # the kernel's wrapper counts on it
+    fa.flash_attention_cuda = faulty
+    try:
+        fault = fn(*args)
+    finally:
+        fa.flash_attention_cuda = real
+    errs = logit_errors(out[0].float(), want[0].float())
+    fault_err = max(logit_errors(fault[0].float(), want[0].float()))
+    # the f32 truth of these weights: plain attention, f32 products
+    params32 = _tree_float(args[0])
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    fa.flash_attention_cuda = (
+        lambda q, k, v, **kw: fa.flash_attention_reference(q, k, v, **kw))
+    try:
+        truth = fn(params32, *args[1:])[0].float()
+    finally:
+        fa.flash_attention_cuda = real
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    del params32
+    k1_f32 = max(logit_errors(out[0].float(), truth))
+    plain_f32 = max(logit_errors(want[0].float(), truth))
+    fault_f32 = max(logit_errors(fault[0].float(), truth))
+    print(f"entry: Qwen2-VL ViT (32 layers) + Flash memory + merger + "
+          f"2B-shaped decoder (28 layers, 1536) in bf16, {gb:.3f} GB of "
+          f"weights (init {init_s:.2f} s), 16 frames of 224 px: logits "
+          f"{tuple(out.shape)} finite; {ms:.3f} ms a forward (plain K1 "
+          f"{plain_ms:.3f} ms); peak {peak:.3f} GiB; K1 launches {k1}; "
+          f"worst row err vs plain K1 {max(errs):.5f}, with K1's output x "
+          f"{ENTRY_FAULT} {fault_err:.5f} (limit {ENTRY_ROW_TOL}); against "
+          f"the f32 forward: K1's {k1_f32:.5f}, the plain bf16 "
+          f"{plain_f32:.5f}, the fault's {fault_f32:.5f} (limit "
+          f"{ENTRY_F32_RATIO} x the plain bf16's)", flush=True)
+    f32_limit = ENTRY_F32_RATIO * plain_f32
+    if (max(errs) > ENTRY_ROW_TOL or k1_f32 > f32_limit
+            or fault_err <= ENTRY_ROW_TOL or fault_f32 <= f32_limit
+            or k1 == 0):
+        raise AssertionError("entry: the forward parts from the plain "
+                             "version's or sits further from f32, the "
+                             "fault passes, or K1 never launched")
+    return k1
 
 
 SERVE_Q = "What is happening in the video?"
@@ -7110,8 +7453,9 @@ def run_llava_train(dev, smi, root, params=None, cfg=None):
     return got, rows, stages
 
 
-PHASES = ("kernels", "int4_kernel", "reference", "int4_reference", "slice",
-          "disaggregated", "llava", "serve_http", "offline", "backward",
+PHASES = ("kernels", "int4_kernel", "reference", "int4_reference", "entry",
+          "slice", "disaggregated", "video_io", "llava", "serve_http",
+          "offline", "backward",
           "function", "train_reference", "dry_run_train", "train_parallel",
           "train_slice",
           "production", "finetune_ckpt", "serve_kv8", "serve4", "bank_gather",
@@ -7122,9 +7466,9 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--only", default=",".join(PHASES),
                         help="comma-separated phases to run (default all; "
-                             "train_parallel builds its own weights; "
-                             "disaggregated, serve_http, offline, the "
-                             "training phases, "
+                             "train_parallel and entry build their own "
+                             "weights; disaggregated, video_io, serve_http, "
+                             "offline, the training phases, "
                              "finetune_ckpt, serve_kv8 and serve4 need "
                              "'slice'; llava runs after them, alone; "
                              "llava_train last, on llava's weights when "
@@ -7237,6 +7581,10 @@ def main() -> int:
         rows.update(row)
         _release(dev)
         mark("int4_probe")
+    if "entry" in only:
+        paths["entry"] = dict(flash_attention_fwd=run_entry(dev))
+        _release(dev)
+        mark("entry")
     if "slice" in only:
         _reset_launches()
         k1, k2, params = run_slice(dev)
@@ -7255,6 +7603,11 @@ def main() -> int:
             _release(dev)
             mark("disaggregated")
         qparams = _qwen_cut(params)     # QWEN_LAYERS: the time limit
+        if "video_io" in only:
+            k1, k2 = run_video_io(dev, qparams, root)
+            paths["video_io"] = dict(flash_attention_fwd=k1, gather_rows=k2)
+            _release(dev)
+            mark("video_io")
         try:
             if "serve_http" in only:
                 k1, k2 = run_serve_http(dev, qparams, work)

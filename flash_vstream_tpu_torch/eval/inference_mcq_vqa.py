@@ -18,8 +18,9 @@ directory (`--model-path`: the weights in bf16, the config from its
 config.json, the HF tokenizer, which needs `transformers`), or the tiny
 config with random weights and the byte tokenizer (`--dry-run`). It runs
 on the card unless `--device cpu` is given. Frames load from `.npy` files
-(one uint8 [H, W, 3] array each) with numpy, and from any image file with
-PIL, imported only then.
+(one uint8 [H, W, 3] array each) with numpy, from JPEG files through the
+port's decoder (native/io.py) and from any other image file with PIL,
+imported only then.
 
     python -m flash_vstream_tpu_torch.eval.inference_mcq_vqa --dry-run \\
         --dataset mvbench --video-dir DIR --data-file QA.json \\
@@ -98,16 +99,11 @@ def sample_frame_paths(video_dir: str, fps: Optional[float],
 
 
 def load_frames(paths: List[str]) -> List[np.ndarray]:
-    """uint8 [H, W, 3] frames: `.npy` files with numpy, other image files
-    through PIL (imported only for them) as RGB."""
-    frames = []
-    for p in paths:
-        if p.endswith(".npy"):
-            frames.append(np.load(p))
-        else:
-            from PIL import Image
-            frames.append(np.asarray(Image.open(p).convert("RGB")))
-    return frames
+    """uint8 [H, W, 3] frames at their own size (preprocess/video.py
+    `read_frame`: `.npy` with numpy, JPEG through the port's decoder, other
+    images through PIL)."""
+    from ..preprocess.video import read_frame
+    return [read_frame(p) for p in paths]
 
 
 def build_question(sample: dict, dataset: str, subtitle: str = "",

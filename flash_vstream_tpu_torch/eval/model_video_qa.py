@@ -18,10 +18,10 @@ Features load from `<video_dir>/<id>.safetensors` through the port's own
 reader (key "feature", else the first) or `<id>.npy`; they go through
 `LLaVAPipeline.answer(..., features=...)` as f32 on the pipeline's device.
 `--raw-frames` reads `<video_dir>/<id>/` frame directories (`.npy` frames
-with numpy, JPEG/PNG with PIL). The model is `load_llava_model`'s:
-`--dry-run` the tiny config with random weights and the byte tokenizer,
-else `--model-path` in bf16 with its HF tokenizer (`transformers`), on the
-card unless `--device` says otherwise.
+with numpy, JPEG through the port's decoder, PNG with PIL). The model is
+`load_llava_model`'s: `--dry-run` the tiny config with random weights and
+the byte tokenizer, else `--model-path` in bf16 with its HF tokenizer
+(`transformers`), on the card unless `--device` says otherwise.
 
     python -m flash_vstream_tpu_torch.eval.model_video_qa --dry-run \\
         --device cpu --video_dir FEATS --gt_file QA.json --output_dir OUT

@@ -5,10 +5,11 @@ Port of the repo's scripts/extract_features.py, the extractor of the
 features that the LLaVA family's feature-mode training
 (train/train.py --feature-dir) and eval (eval/model_video_qa.py) read (the
 reference's feature mode, train.py:700-760, model_msvd_qa_featuresloader.py):
-each frame directory under --video_dir (`.npy` frames with numpy,
-JPEG/PNG with PIL) -> CLIP preprocessing on the host -> `encode_frames`
-(CLIP ViT, K1 on the card; the 2x2 merge when configured; `spatial_pool`
-to the current memory's grid), --batch-frames frames a call -> f16,
+each frame directory under --video_dir (`.npy` frames with numpy, JPEG
+through the port's decoder, PNG with PIL) -> CLIP preprocessing on the
+host -> `encode_frames` (CLIP ViT, K1 on the card; the 2x2 merge when
+configured; `spatial_pool` to the current memory's grid), --batch-frames
+frames a call -> f16,
 written with the port's own safetensors writer. An output that already
 exists is skipped; a video that fails is reported and the run goes on.
 JAX pads the last batch to a fixed shape for its jit; frames encode

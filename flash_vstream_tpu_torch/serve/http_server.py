@@ -122,8 +122,12 @@ class StreamServer:
 
 
 def _decode_body(body: bytes, content_type: str) -> List[np.ndarray]:
-    """JPEG bytes (PIL, imported for image bodies only) or a serialized
-    .npy ([H,W,3] or [N,H,W,3] uint8) -> frames."""
+    """An image body (JPEG through the port's decoder; another image type
+    through PIL, imported for it only) or a serialized .npy ([H,W,3] or
+    [N,H,W,3] uint8) -> frames."""
+    if content_type.startswith(("image/jpeg", "image/jpg")):
+        from ..native.io import decode_bytes
+        return [decode_bytes(body, name="image body")]
     if content_type.startswith("image/"):
         from PIL import Image
         return [np.asarray(Image.open(io.BytesIO(body)).convert("RGB"))]

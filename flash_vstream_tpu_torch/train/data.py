@@ -12,9 +12,8 @@ LengthGroupedSampler). Everything here is numpy on the host, as in JAX:
   conversations: [{from: human|gpt, value}]});
 - video features load from `.safetensors` through the port's own reader
   (key `feature`, else the first) or from `.npy`; raw frame directories
-  (`.npy` frames with numpy, JPEG/PNG with PIL) through preprocess/video;
-  a single image `.npy` with numpy, any other file with PIL, imported
-  only then;
+  (`.npy` frames with numpy, JPEG through the port's decoder, PNG with
+  PIL) through preprocess/video; a single image likewise (`read_frame`);
 - every batch is padded to a fixed (frame bucket, pre-image length,
   post-image length), so the spliced sequence has one shape and the image
   splice slot is the same for the whole batch (the pre-image segment is

@@ -323,7 +323,8 @@ def run_training(args, *, cfg=None, params: Optional[dict] = None,
     from ..preprocess.image import (_resize_bilinear, _to_float_chw,
                                     qwen_preprocess, smart_resize)
     from ..preprocess.qwen_processor import make_byte_qwen_tokenizer
-    from ..preprocess.video import load_video, probe_video_hw, probe_video_len
+    from ..preprocess.video import (image_hw, load_video, probe_video_hw,
+                                    probe_video_len, read_frame)
     from ..utils.prefetch import BackgroundPrefetcher
     from ..weights.quantize import quantize_params, quantize_params4
     from . import recipes
@@ -414,9 +415,7 @@ def run_training(args, *, cfg=None, params: Optional[dict] = None,
     def bucket_of(item):
         if "image" in item:
             # a still image: frame rung 0 marks the modality
-            from PIL import Image
-            with Image.open(os.path.join(args.video_dir, item["image"])) as f:
-                w, h = f.size
+            h, w = image_hw(os.path.join(args.video_dir, item["image"]))
             return (smart_resize(h, w, factor=56,
                                  max_pixels=args.max_pixels), 0)
         path = os.path.join(args.video_dir, item["video"])
@@ -444,10 +443,7 @@ def run_training(args, *, cfg=None, params: Optional[dict] = None,
     def prepare(item, bk):
         train_hw, target = bk
         if target == 0:                            # the image bucket
-            from PIL import Image
-            with Image.open(os.path.join(args.video_dir,
-                                         item["image"])) as f:
-                img = np.asarray(f.convert("RGB"))
+            img = read_frame(os.path.join(args.video_dir, item["image"]))
             if img.shape[:2] != train_hw:
                 img = np.clip(_resize_bilinear(_to_float_chw(img), train_hw)
                               * 255, 0, 255).transpose(1, 2, 0).astype(

@@ -31,7 +31,7 @@ over chunks of 512 tokens (one [B, 512, vocab] f32 block live at a time).
 `--dry-run` trains `tiny_llava_config()` (f32 on the CPU, bf16 on the
 card) with the byte tokenizer on synthetic features, or with
 `--synthetic-raw` on `.npy` frame directories, `.npy` images and text-only
-items (JAX writes JPEGs; the card's machine has no PIL). `--model-path`
+items (JAX writes JPEGs). `--model-path`
 loads a Flash-VStream-LLaVA checkpoint directory in bf16
 (`weights/convert.load_llava_checkpoint`) with `VStreamLLaVAConfig()` and
 its HF tokenizer (`transformers`); a caller may hand `run_training` its own

@@ -20,8 +20,10 @@ LLaVAPipeline, a stream answered speculatively, the --model-family llava
 resampling; the LLaVA trainer's raw-media and feature dry runs,
 extract_features over `.npy` frame directories and the feature eval
 launcher over what it wrote), both multi-stream engines, the threaded ingest and the gmm
-consolidation, the training-across-ranks modules (tensor parallelism's
-too), the memory plan at --tiny and a ZeRO-3 offload
+consolidation, the video I/O library (the fixture's MJPEG mp4 and its JPEG
+directory decoded, the prefetch loader, extract_frames --format npy) and
+the driver-entry forward at the tiny config, the training-across-ranks
+modules (tensor parallelism's too), the memory plan at --tiny and a ZeRO-3 offload
 Trainer step at world 1 on the CPU in a fresh interpreter leave
 `jax` and `flash_vstream_tpu` out of sys.modules (the tests' own conftest
 imports jax, hence the subprocess), nor does a spawned gloo rank; no
@@ -297,6 +299,27 @@ with tempfile.TemporaryDirectory() as d:
         ["--dataset", "msvd", "--data-root", d + "/eval", "--output-dir",
          d + "/out", "--dry-run", "--device", "cpu", "--skip-judge"])
     assert len(open(d + "/out/pred.json").readlines()) == 1
+import shutil
+from flash_vstream_tpu_torch.native.io import PrefetchLoader
+from flash_vstream_tpu_torch.preprocess.mp4 import decode_mjpeg
+from flash_vstream_tpu_torch.preprocess.video import load_frame_dir
+from flash_vstream_tpu_torch.scripts import extract_frames
+vd = "tests/data/video"
+mj = decode_mjpeg(vd + "/scene.mp4", max_frames=4)
+fd = list(load_frame_dir(vd + "/scene_frames", max_frames=4))
+assert len(fd) == 4 and all(np.array_equal(a, b) for a, b in zip(mj, fd))
+jpgs = [vd + "/scene_frames/" + n for n in sorted(os.listdir(vd + "/scene_frames"))]
+assert len(list(PrefetchLoader(jpgs[:3], 56, 56))) == 3
+with tempfile.TemporaryDirectory() as d:
+    os.makedirs(d + "/v")
+    shutil.copy(vd + "/scene.mp4", d + "/v/a.mp4")
+    with contextlib.redirect_stdout(io.StringIO()):
+        assert extract_frames.main(["--video_dir", d + "/v", "--frame_dir",
+                                    d + "/f", "--format", "npy", "--fps", "8"]) == 1
+    assert len(os.listdir(d + "/f/a")) == 16
+from flash_vstream_tpu_torch.entry import entry
+fn, args = entry(tiny_qwen_config(), device="cpu")
+assert torch.isfinite(fn(*args).float()).all()
 del sys.modules["PIL"]
 from flash_vstream_tpu_torch.parallel import collectives, pipeline, sequence, tensor
 from flash_vstream_tpu_torch.scripts import plan_full7b_memory
@@ -352,7 +375,12 @@ def test_port_sources_never_import_jax():
             "flash_vstream_tpu_torch/parallel/pipeline.py",
             "flash_vstream_tpu_torch/parallel/sequence.py",
             "flash_vstream_tpu_torch/parallel/tensor.py",
-            "flash_vstream_tpu_torch/scripts/plan_full7b_memory.py"} <= names
+            "flash_vstream_tpu_torch/scripts/plan_full7b_memory.py",
+            "flash_vstream_tpu_torch/native/io.py",
+            "flash_vstream_tpu_torch/preprocess/mp4.py",
+            "flash_vstream_tpu_torch/scripts/extract_frames.py",
+            "flash_vstream_tpu_torch/scripts/make_video_fixture.py",
+            "flash_vstream_tpu_torch/entry.py"} <= names
     for f in files:
         assert not pat.search(f.read_text()), f
     assert pat.search("from flash_vstream_tpu.core import config")

@@ -402,9 +402,11 @@ def test_resume_from_checkpoint(tmp_path):
             _close(resumed["lora"][p][k], x.detach().numpy(), 1e-6, p)
 
 
-def test_video_sources(tmp_path):
+def test_video_sources(tmp_path, monkeypatch):
     """SyntheticSource equals JAX's frames; registered decoders, frame
-    directories and the probes; containers raise (ROADMAP A1)."""
+    directories and the probes; an MJPEG mp4 that JAX's muxer wrote loads
+    as in JAX (both through cv2 here, and through the demuxer without
+    it)."""
     j, t = jvideo.SyntheticSource(5, 16, 24, seed=3), tvideo.SyntheticSource(
         5, 16, 24, seed=3)
     assert len(t) == 5 and all(np.array_equal(a, b) for a, b in zip(t, j))
@@ -422,8 +424,18 @@ def test_video_sources(tmp_path):
     frames = tvideo.load_video(d, max_frames=3)
     want = jvideo.load_video(d, max_frames=3)
     assert all(np.array_equal(a, b) for a, b in zip(frames, want))
-    with pytest.raises(NotImplementedError, match="A1"):
-        tvideo.load_video(str(tmp_path / "clip.mp4"))
+    from flash_vstream_tpu.preprocess.mp4 import mux_mjpeg
+    clip = str(tmp_path / "clip.mp4")
+    mux_mjpeg(clip, list(jvideo.SyntheticSource(6, 32, 48, seed=1)), fps=2.0)
+    for cv2_branch in (True, False):
+        if not cv2_branch:
+            monkeypatch.setattr(jvideo, "_decode_cv2", lambda *a, **k: None)
+            monkeypatch.setattr(tvideo, "_decode_cv2", lambda *a, **k: None)
+        got = tvideo.load_video(clip, fps=2.0, max_frames=4)
+        want = jvideo.load_video(clip, fps=2.0, max_frames=4)
+        assert len(got) == len(want) == 4
+        assert all(np.array_equal(a, b) for a, b in zip(got, want))
+    assert tvideo.probe_video_len(clip) == jvideo.probe_video_len(clip) == 6
 
 
 def test_schedules_match_jax():

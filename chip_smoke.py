@@ -2049,6 +2049,136 @@ def run_entry(dev):
     return k1
 
 
+# C2: K1's distance from f32 attention against the Pallas arithmetic it
+# keeps. At each K1 shape of the entry forward (the ViT's full and small
+# frames, the decoder's prefill) and of train_reference's frozen ViT,
+# C2_SEEDS draws of bf16 q/k/v at the path's own inputs' scale (each
+# tensor's std), with the call's segment ids and causal flag, go through
+# K1, the plain version (`xla_attention`'s arithmetic: p normalised in f32,
+# then rounded) and the emulation of the Pallas forward
+# (`flash_attention_pallas_emulation`: p unnormalised, rounded, l from
+# the unrounded p), each read against f32 attention on the same inputs
+# widened (no TF32): the worst row's max error over that row's max |f32|.
+# K1 is at fault where its mean over the draws exceeds the emulation's by
+# more than the draws' spread (the larger of the two's max - min); a
+# planted fault (K1's output x C2_FAULT) must read as one. The path's own
+# captured inputs are read once beside them.
+C2_SEEDS = 5
+C2_FAULT = 0.99
+
+
+def _c2_capture(store):
+    """A stand-in for K1's wrapper that keeps the first call's inputs of
+    each (q shape, k shape, causal, segments) in `store`, then launches."""
+    import torch
+    from flash_vstream_tpu_torch.kernels import flash_attention as fa
+    real = fa.flash_attention_cuda
+
+    def rec(q, k, v, **kw):
+        key = (tuple(q.shape), tuple(k.shape), bool(kw.get("causal")),
+               kw.get("q_segment_ids") is not None)
+        if key not in store:
+            store[key] = (q.clone(), k.clone(), v.clone(), {
+                n: x.clone() if torch.is_tensor(x) else x
+                for n, x in kw.items()})
+        return real(q, k, v, **kw)
+    rec.launches = 0                 # the kernel's wrapper counts on it
+    return real, rec
+
+
+def _c2_readings(dev, q, k, v, kw, real):
+    """{form: [distance per draw]} over C2_SEEDS draws at the scale of
+    (q, k, v), and {form: distance} on (q, k, v) themselves."""
+    import torch
+    from flash_vstream_tpu_torch.kernels import flash_attention as fa
+    forms = {"K1": lambda *a: real(*a, **kw),
+             "plain": lambda *a: fa.flash_attention_reference(*a, **kw),
+             "emulation": lambda *a: fa.flash_attention_pallas_emulation(
+                 *a, **kw)}
+
+    def read(qb, kb, vb):
+        truth = fa.flash_attention_reference(qb.float(), kb.float(),
+                                             vb.float(), **kw)
+        rows = truth.abs().amax(-1) > 0
+        out = {n: _row_err(f(qb, kb, vb), truth, rows)
+               for n, f in forms.items()}
+        out["fault"] = _row_err(real(qb, kb, vb, **kw).float() * C2_FAULT,
+                                truth, rows)
+        return out
+    draws = []
+    for seed in range(C2_SEEDS):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        qb, kb, vb = ((torch.randn(x.shape, generator=g, device=dev)
+                       * x.float().std()).to(torch.bfloat16).contiguous()
+                      for x in (q, k, v))
+        draws.append(read(qb, kb, vb))
+    return ({n: [d[n] for d in draws] for n in draws[0]}, read(q, k, v))
+
+
+def check_c2(dev):
+    """C2's readings (see C2_SEEDS) at the K1 shapes of the entry forward
+    and of train_reference's frozen ViT; prints a line a shape and fails
+    if K1 sits further from f32 than the emulation beyond the draws'
+    spread at any shape, or if the planted fault does not."""
+    import torch
+    from flash_vstream_tpu_torch.entry import entry
+    from flash_vstream_tpu_torch.kernels import flash_attention as fa
+
+    t0 = time.perf_counter()
+    shapes = {}
+    fn, args = entry(device=dev)
+    store = {}
+    real, rec = _c2_capture(store)
+    fa.flash_attention_cuda = rec
+    try:
+        fn(*args)
+    finally:
+        fa.flash_attention_cuda = real
+    del fn, args
+    _release(dev)
+    for key, val in store.items():
+        shapes[("entry decoder" if key[0][-1] == 128 else "entry vit")
+               + f" {list(key[0])}"] = val
+    store = {}
+    real, rec = _c2_capture(store)
+    fa.flash_attention_cuda = rec
+    try:
+        lora_leaf_grads(train_reference_case(), dev, torch.bfloat16)
+    finally:
+        fa.flash_attention_cuda = real
+    for key, val in store.items():
+        shapes[f"train_reference vit {list(key[0])}"] = val
+    faults = []
+    for name, (q, k, v, kw) in shapes.items():
+        draws, own = _c2_readings(dev, q, k, v, kw, real)
+        mean = {n: sum(x) / len(x) for n, x in draws.items()}
+        spread = max(max(draws[n]) - min(draws[n]) for n in ("K1",
+                                                               "emulation"))
+        k1_fault = mean["K1"] - mean["emulation"] > spread
+        caught = mean["fault"] - mean["emulation"] > spread
+        print(f"c2 {name} causal={bool(kw.get('causal'))} "
+              f"segments={kw.get('q_segment_ids') is not None}: distance "
+              f"from f32 (worst row, of its max) over {C2_SEEDS} draws, "
+              + ", ".join(f"{n} mean {mean[n]:.4e} (min {min(draws[n]):.4e} "
+                          f"max {max(draws[n]):.4e})"
+                          for n in ("K1", "plain", "emulation"))
+              + f"; spread {spread:.4e}; the path's own inputs: "
+              + ", ".join(f"{n} {own[n]:.4e}"
+                          for n in ("K1", "plain", "emulation"))
+              + f"; K1 x {C2_FAULT} mean {mean['fault']:.4e} "
+              f"({'caught' if caught else 'NOT caught'}); K1 "
+              f"{'FURTHER than its emulation' if k1_fault else 'as close as its emulation'}",
+              flush=True)
+        if k1_fault or not caught:
+            faults.append(name)
+    print(f"c2: {len(shapes)} shapes in {time.perf_counter() - t0:.1f} s; "
+          + (f"K1 at fault or the planted fault missed at {faults}" if faults
+             else "K1 is as close to f32 as the Pallas arithmetic at every "
+                  "shape, and the planted fault reads as one"), flush=True)
+    if faults or len(shapes) < 3:
+        raise AssertionError(f"c2: {faults or 'too few shapes captured'}")
+
+
 SERVE_Q = "What is happening in the video?"
 
 
@@ -3369,6 +3499,226 @@ def _tpar_tp_rank(work, info, card):
     return out
 
 
+TPAR_QL_LAYERS = 2         # the tp LoRA/QLoRA runs: the 7B decoder cut
+TPAR_QL_S = 1024           # ids a dp row
+TPAR_QL_RANK, TPAR_QL_ALPHA = 64, 32.0   # finetune_flash's adapters
+TPAR_QL_BASES = ("bf16", "int8", "int4")
+TPAR_CE_TOL = 1e-4         # the split chunked loss against the gathered
+
+
+def _tpar_ql_case(dev, base):
+    """The tp LoRA/QLoRA runs' model: the slice config's decoder at full
+    width cut to TPAR_QL_LAYERS, bf16 from the seed, its projections and
+    lm_head quantized for `base` int8/int4 (`--int8-base`'s targets); the
+    adapters as finetune_flash builds them (b made nonzero, so a has a
+    gradient at step 1); the global batch's ids and labels (an ignored
+    span)."""
+    import dataclasses
+    import torch
+    from flash_vstream_tpu_torch.models.llm import init_llm_params
+    from flash_vstream_tpu_torch.train.lora import (QWEN_TARGETS,
+                                                    init_lora_params)
+    from flash_vstream_tpu_torch.weights.quantize import (quantize_params,
+                                                          quantize_params4)
+    cfg = dataclasses.replace(_qwen_config().llm, num_layers=TPAR_QL_LAYERS)
+    g = torch.Generator(device=dev).manual_seed(SEED + 11)
+    llm = init_llm_params(cfg, g, dev, dtype=torch.bfloat16)
+    lora = init_lora_params(g, llm, rank=TPAR_QL_RANK, targets=QWEN_TARGETS)
+    for ab in lora.values():
+        ab["b"] = torch.randn(ab["b"].shape, generator=g, device=dev) * 1e-3
+    if base != "bf16":
+        llm = (quantize_params if base == "int8" else quantize_params4)(llm)
+    return cfg, llm, lora, g
+
+
+def _tpar_ql_batch(cfg, g, dev, dp):
+    """[accum 1, dp rows, S] ids and labels from the seed."""
+    import torch
+    ids = torch.randint(0, cfg.vocab_size, (1, dp, TPAR_QL_S), generator=g,
+                        device=dev)
+    labels = ids.clone()
+    labels[..., :100] = -100
+    return {"ids": ids, "labels": labels}
+
+
+def _tpar_ql_loss(cfg):
+    """The LoRA step's loss: bf16 views of the f32 adapters over the
+    frozen base, the decoder with remat, the chunked cross entropy (over
+    a split lm_head vocab-parallel; over a whole quantized one tiled)."""
+    import torch
+    from flash_vstream_tpu_torch.models.llm import (cross_entropy_loss_chunked,
+                                                    decoder_forward,
+                                                    embed_tokens)
+    from flash_vstream_tpu_torch.train.lora import lora_views
+
+    def loss(lp, batch, key, base):
+        lp = {p: {k: v.to(torch.bfloat16) for k, v in ab.items()}
+              for p, ab in lp.items()}
+        eff = lora_views(base, lp, alpha=TPAR_QL_ALPHA, rank=TPAR_QL_RANK)
+        ids = batch["ids"]
+        pos = torch.arange(ids.shape[1], device=ids.device)[None].expand(
+            ids.shape)
+        h = decoder_forward(eff, cfg, embed_tokens(eff, ids), pos,
+                            remat=True)
+        return cross_entropy_loss_chunked(eff, cfg, h, batch["labels"],
+                                          chunk=512)
+    return loss
+
+
+def _tpar_ql_run(cfg, llm, lora, batch, mesh):
+    """Two Trainer steps of the LoRA loss (lr 1e-3, no warm-up) on `mesh`
+    (None: this process alone): (losses, the first step's reduced
+    gradient of every adapter leaf, whole and f32 on the host, the
+    trainer)."""
+    from flash_vstream_tpu_torch.train.trainer import TrainConfig, Trainer
+    tr = Trainer(_tpar_ql_loss(cfg), lora, TrainConfig(
+        learning_rate=1e-3, total_steps=TPAR_STEPS, warmup_ratio=0.0),
+        frozen=llm, mesh=mesh)
+    grads = {}
+    real = tr._reduce
+
+    def reduce(p, g):
+        g = real(p, g)
+        if p not in grads:           # a ZeRO shard gathered over dp
+            w = (tr.mesh.dp.all_gather(g, tr.zero_dim[p])
+                 if p in tr.sharded else g)
+            grads[p] = w.detach().float().cpu().clone()
+        return g
+    tr._reduce = reduce
+    losses = [tr.run_step(batch, s) for s in range(TPAR_STEPS)]
+    return losses, grads, tr
+
+
+def _tpar_qlora_rank(info):
+    """The tp LoRA/QLoRA runs on this rank (dp = world / 2 x tp 2): for
+    each of TPAR_QL_BASES, TPAR_STEPS Trainer steps of the rank-64
+    adapters over the base laid out as JAX's rules leave it (bf16
+    projections and lm_head split, quantized ones whole, the adapters
+    whole), each dp row its rows; rank 0 also runs the same steps alone
+    over the global batch. Then the chunked cross entropy over the
+    bf16 base's vocab-split lm_head against the same loss over the lm_head
+    gathered whole, on one hidden state. Returns the readings."""
+    import torch
+    from flash_vstream_tpu_torch.models.llm import cross_entropy_loss_chunked
+    from flash_vstream_tpu_torch.parallel.sharding import create_rank_mesh
+    from flash_vstream_tpu_torch.parallel.tensor import TPShard, tp_shard_tree
+    from flash_vstream_tpu_torch.train.lora import tree_leaves_with_path
+    dev = info.device
+    mesh = create_rank_mesh(tp=2, info=info)
+    dp, d = mesh.dp.size, mesh.dp.rank
+    out = {"ql": {}}
+    _reset_launches()
+    t0 = time.perf_counter()
+    for base in TPAR_QL_BASES:
+        cfg, llm, lora, g = _tpar_ql_case(dev, base)
+        batch = _tpar_ql_batch(cfg, g, dev, dp)
+        whole = sum(_nbytes(*x) if isinstance(x, tuple) else _nbytes(x)
+                    for _, x in tree_leaves_with_path(llm))
+        t1 = time.perf_counter()
+        losses, grads, tr = _tpar_ql_run(
+            cfg, llm, {p: {k: v.clone() for k, v in ab.items()}
+                       for p, ab in lora.items()},
+            {k: v[:, d:d + 1] for k, v in batch.items()}, mesh)
+        torch.cuda.synchronize(dev)
+        run_s = time.perf_counter() - t1
+        held = {"split": 0, "quantized": 0, "whole": 0}
+        for _, x in tree_leaves_with_path(tr.frozen):
+            if isinstance(x, TPShard):
+                held["split"] += _nbytes(x.local())
+            elif isinstance(x, tuple):
+                held["quantized"] += _nbytes(*x)
+            else:
+                held["whole"] += _nbytes(x)
+        rec = dict(losses=losses, grads=grads, s=run_s, bytes=held,
+                   bytes_whole=whole,
+                   n_split=sum(isinstance(x, TPShard) for _, x in
+                               tree_leaves_with_path(tr.frozen)))
+        del tr
+        if info.rank == 0:               # one rank over the global batch
+            rec["ref_losses"], rec["ref_grads"], tr = _tpar_ql_run(
+                cfg, llm, lora, batch, None)
+            del tr
+        out["ql"][base] = rec
+        if base == "bf16":
+            tree = tp_shard_tree(llm, mesh)
+            assert isinstance(tree["lm_head"], TPShard)
+            h = (torch.randn((1, TPAR_QL_S, cfg.hidden_size), generator=g,
+                             device=dev) * 2).to(torch.bfloat16)
+            lab = batch["labels"][0, :1]
+            got = []
+            for t in (tree, llm):
+                hh = h.clone().requires_grad_()
+                loss = cross_entropy_loss_chunked(t, cfg, hh, lab, chunk=512)
+                loss.backward()
+                got.append((loss.item(), hh.grad.float()))
+            out["ce"] = dict(split=got[0][0], whole=got[1][0],
+                             dh=_rel(got[0][1], got[1][1]))
+        del llm, lora
+        _release(dev)
+    out["ql_s"] = time.perf_counter() - t0
+    out["qlora_launches"] = _launches()
+    return out
+
+
+def check_tpar_qlora(smi, ranks, n_ranks):
+    """The tp LoRA/QLoRA runs of the ranks against rank 0's run alone at
+    the global batch: per base the losses within 1e-2 relative and each
+    adapter leaf's first-step gradient within TRAIN_REF_LIMIT relative L2,
+    equal bit for bit on the two ranks of a tp group; the quantized base
+    whole on both ranks (bytes), the bf16 one about half; the chunked loss
+    over the vocab-split lm_head within TPAR_CE_TOL of the gathered
+    head's, the hidden state's gradient within 1e-2 relative L2."""
+    import torch
+    r0, r1 = ranks[0], ranks[1]
+    bad = []
+    for base in TPAR_QL_BASES:
+        a, b = r0["ql"][base], r1["ql"][base]
+        l_err = max(abs(x - y) / abs(y) for x, y in zip(a["losses"],
+                                                        a["ref_losses"]))
+        g_err = {p: _rel(g, a["ref_grads"][p]) for p, g in a["grads"].items()}
+        worst = max(g_err, key=g_err.get)
+        same = all(torch.equal(a["grads"][p], b["grads"][p])
+                   for p in a["grads"])
+        held = [x["ql"][base]["bytes"] for x in (r0, r1)]
+        share = [(h["split"] + h["quantized"] + h["whole"]) / a["bytes_whole"]
+                 for h in held]
+        print(f"train_parallel qlora {base} tp 2 x dp {n_ranks // 2} "
+              f"[{r0['backend']} on {smi}]: the slice decoder at full width "
+              f"cut to {TPAR_QL_LAYERS} layers, rank-{TPAR_QL_RANK} adapters, "
+              f"S {TPAR_QL_S} a dp row (the first 100 ignored), {TPAR_STEPS} steps in {a['s']:.2f} s; "
+              f"losses " + " ".join(f"{x:.5f}/{y:.5f}" for x, y in
+                                    zip(a["losses"], a["ref_losses"]))
+              + f" (one rank; worst rel {l_err:.2e}); step 1 adapter "
+              f"gradients worst rel L2 {g_err[worst]:.3e} ({worst}) over "
+              f"{len(g_err)} leaves, limit {TRAIN_REF_LIMIT:.0e}; equal bit "
+              f"for bit on both tp ranks {same}; resting bytes a rank "
+              + " / ".join(f"{(h['split'] + h['quantized'] + h['whole']) / 1e9:.3f}"
+                           for h in held)
+              + f" GB of {a['bytes_whole'] / 1e9:.3f} GB whole ("
+              + " / ".join(f"{x:.3f}" for x in share)
+              + f"): split {held[0]['split'] / 1e9:.3f}, quantized (whole "
+              f"on each rank) {held[0]['quantized'] / 1e9:.3f} / "
+              f"{held[1]['quantized'] / 1e9:.3f}, other whole "
+              f"{held[0]['whole'] / 1e9:.3f} GB; {a['n_split']} split leaves",
+              flush=True)
+        quant_whole = (held[0]["quantized"] == held[1]["quantized"] > 0
+                       if base != "bf16" else held[0]["quantized"] == 0)
+        if (l_err > 1e-2 or g_err[worst] > TRAIN_REF_LIMIT or not same
+                or not quant_whole or len(g_err) != 14):
+            bad.append(base)
+    ce = r0["ce"]
+    ce_err = abs(ce["split"] - ce["whole"]) / abs(ce["whole"])
+    print(f"train_parallel qlora: the chunked cross entropy over the "
+          f"vocab-split lm_head ({_qwen_config().llm.vocab_size} / 2 columns a "
+          f"rank, chunks of 512) {ce['split']:.6f} against the gathered "
+          f"head's {ce['whole']:.6f} (rel {ce_err:.2e}, limit "
+          f"{TPAR_CE_TOL:.0e}), the hidden state's gradient rel L2 "
+          f"{ce['dh']:.2e} (limit 1e-2); the runs "
+          f"{r0['ql_s']:.1f} s a rank", flush=True)
+    if bad or ce_err > TPAR_CE_TOL or ce["dh"] > 1e-2:
+        raise AssertionError(f"train_parallel qlora: {bad or 'chunked loss'}")
+
+
 def _tpar_rank(work, data_path, shared):
     """One rank of the phase: the pp and sp checks on the decoder (pp or sp
     2, dp the rest of the world, each dp rank its rows) against this rank's
@@ -3546,6 +3896,7 @@ def _tpar_rank(work, data_path, shared):
         out[f"entry{flag}_s"] = time.perf_counter() - t1
     out["entry_launches"] = _launches()
     out.update(_tpar_tp_rank(work, info, card))
+    out.update(_tpar_qlora_rank(info))
     torch.save(out, os.path.join(work, f"rank{info.rank}.pt"))
 
 
@@ -3831,11 +4182,12 @@ def run_train_parallel(dev, smi, root, n_ranks=2):
         raise AssertionError("train_parallel world 1: ZeRO-3 + offload "
                              "differs from ZeRO-2")
     check_tpar_tp(dev, smi, work, ranks, n_ranks)
+    check_tpar_qlora(smi, ranks, n_ranks)
     k = {n: sum(x[f"{run}_launches"][n] for x in ranks
-                for run in ("pp", "dp", "entry", "tp", "clip"))
+                for run in ("pp", "dp", "entry", "tp", "clip", "qlora"))
          for n in ("K1", "K3", "K4", "K5")}
     print(f"train_parallel: launches of the path (every rank's pp, dp, "
-          f"entry, tp and tp CLIP runs) K1={k['K1']} K3={k['K3']} K4={k['K4']} "
+          f"entry, tp, tp CLIP and tp LoRA/QLoRA runs) K1={k['K1']} K3={k['K3']} K4={k['K4']} "
           f"K5={k['K5']} "
           f"(sp: the plain ring, K3={sum(x['sp_launches']['K3'] for x in ranks)}"
           f"); ranks {t_ranks:.1f} s, phase "
@@ -7454,6 +7806,7 @@ def run_llava_train(dev, smi, root, params=None, cfg=None):
 
 
 PHASES = ("kernels", "int4_kernel", "reference", "int4_reference", "entry",
+          "c2",
           "slice", "disaggregated", "video_io", "llava", "serve_http",
           "offline", "backward",
           "function", "train_reference", "dry_run_train", "train_parallel",
@@ -7585,6 +7938,10 @@ def main() -> int:
         paths["entry"] = dict(flash_attention_fwd=run_entry(dev))
         _release(dev)
         mark("entry")
+    if "c2" in only:
+        check_c2(dev)
+        _release(dev)
+        mark("c2")
     if "slice" in only:
         _reset_launches()
         k1, k2, params = run_slice(dev)

@@ -157,6 +157,56 @@ def flash_attention_reference(
     return out.reshape(B, Hq, Sq, D).to(q.dtype)
 
 
+def flash_attention_pallas_emulation(
+    q: torch.Tensor,                   # [B, Hq, Sq, D]
+    k: torch.Tensor,                   # [B, Hkv, Skv, D]
+    v: torch.Tensor,                   # [B, Hkv, Skv, D]
+    *,
+    causal: bool = False,
+    q_segment_ids: Optional[torch.Tensor] = None,
+    kv_segment_ids: Optional[torch.Tensor] = None,
+    scale: Optional[float] = None,
+    block_kv: int = BLOCK_N,
+) -> torch.Tensor:
+    """The Pallas forward's arithmetic (flash_vstream_tpu/kernels/
+    flash_attention.py:135-154), which K1 keeps, in plain torch over tiles
+    of `block_kv` keys (K1's 64): f32 scores from the exactly widened
+    inputs times the scale, masked at DEFAULT_MASK_VALUE; the online max
+    m; p = exp(s - m) unnormalised (exact exp), 0 where masked; l summed
+    from the unrounded p; acc rescaled by exp(m_old - m) and p rounded to
+    v's dtype for P V; the output acc / l, 0 for a row with l = 0, in q's
+    dtype. A plain version for the tests and chip_smoke.py, never on the
+    main path: `flash_attention_reference` normalises p in f32 before its
+    rounding (`xla_attention`'s arithmetic), this one rounds p before
+    dividing by l."""
+    B, Hq, Sq, D = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    g = Hq // Hkv
+    if scale is None:
+        scale = 1.0 / math.sqrt(D)
+    qg = q.reshape(B, Hkv, g, Sq, D).float()
+    kf, vf = k.float(), v.float()
+    mask = _visible(q, k, causal, q_segment_ids, kv_segment_ids)
+    m = torch.full((B, Hkv, g, Sq, 1), float("-inf"), device=q.device)
+    l = torch.zeros((B, Hkv, g, Sq, 1), device=q.device)
+    acc = torch.zeros((B, Hkv, g, Sq, D), device=q.device)
+    for t0 in range(0, Skv, block_kv):
+        kt = kf[:, :, t0:t0 + block_kv]
+        s = torch.einsum("bhgqd,bhkd->bhgqk", qg, kt) * scale
+        mt = mask[..., t0:t0 + block_kv]
+        s = torch.where(mt, s, DEFAULT_MASK_VALUE)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        p = torch.where(mt, torch.exp(s - m_new), 0.0)
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        acc = acc * alpha + torch.einsum(
+            "bhgqk,bhkd->bhgqd", p.to(v.dtype).float(),
+            vf[:, :, t0:t0 + block_kv])
+        m = m_new
+    out = torch.where(l > 0, acc / torch.where(l > 0, l, 1.0), 0.0)
+    return out.reshape(B, Hq, Sq, D).to(q.dtype)
+
+
 def flash_attention_fwd_lse_reference(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     causal: bool = False,

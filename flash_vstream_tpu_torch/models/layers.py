@@ -32,8 +32,8 @@ import torch.nn.functional as F
 from ..kernels.flash_attention import DEFAULT_MASK_VALUE, flash_attention
 from ..kernels.int4_matmul import int4_matmul_cuda, int4_matmul_supported
 from ..parallel.collectives import copy_to, gather_on_use, reduce_from
-from ..parallel.tensor import TP_TODO, TPShard
-from ..weights.quantize import dequantize_weight4
+from ..parallel.tensor import TPShard
+from ..weights.quantize import dequantize_weight4, weight_shape
 
 
 # ---------------------------------------------------------------------------
@@ -143,21 +143,139 @@ class _QuantDense(torch.autograd.Function):
         return (gx, None, *(None for _ in ctx.fields))
 
 
-def _tp_dense(x: torch.Tensor, w: TPShard, b, entered: bool) -> torch.Tensor:
-    """A split `dense`. A column split: x through `copy_to` (unless the
-    caller `entered` the region already, for several products of one
-    input), this rank's output columns, its part of the bias. A row split:
-    x's part (the previous column product's) @ this rank's rows, the sum
-    over tp (`reduce_from`), then the whole bias once."""
-    if w.kind == "column":
-        if not entered:
-            x = copy_to(x, w.group)
-        out = torch.matmul(x, w.local().to(x.dtype))
-        return out if b is None else out + b.local().to(out.dtype)
-    out = reduce_from(torch.matmul(x, w.local().to(x.dtype)), w.group)
-    if b is not None:
-        out = out + b.to(out.dtype)
+def _base(w):
+    """The base weight under a LoRA view (the weight itself otherwise)."""
+    return w.w if hasattr(w, "a") else w
+
+
+def tp_group(*ws):
+    """The tp group of the first of `ws` whose base is a `TPShard`, or None
+    where every base is whole (the layer then runs whole)."""
+    for w in ws:
+        if isinstance(_base(w), TPShard):
+            return _base(w).group
+    return None
+
+
+def _rank_range(size: int, group, rep: int = 1) -> Tuple[int, int]:
+    """[lo, hi) of a dim of `size` that this rank of `group` uses: its tp
+    part, or with `rep` > 1 the parts of the `rep` consecutive ranks that
+    hold its kv head (gathered on use)."""
+    n = size // group.size
+    lo = (group.rank // rep) * rep * n
+    return lo, lo + rep * n
+
+
+def _int4_rows(w, lo: int, hi: int):
+    """Rows [lo, hi) of a `QuantWeight4` as one of their own: the nibbles
+    read from the split-half packing (row i low in byte row i, row
+    i + din/2 high) and packed split-half again, under their blocks'
+    scales. Where the part holds whole input blocks they stay as they
+    are; otherwise each block is cut into gcd(block, rows) rows, every
+    piece under its block's scale, so the values are the same."""
+    from ..weights.quantize import QuantWeight4
+    half = w.q4.shape[-2]
+    bs = 2 * half // w.scale.shape[-2]
+    n = hi - lo
+    if n % 2:
+        raise ValueError(f"int4 rows [{lo}, {hi}): an odd count does not "
+                         f"pack")
+    rows = torch.arange(lo, hi, device=w.q4.device)
+    byte = w.q4.index_select(-2, rows % half)
+    nib = torch.where((rows < half)[:, None], byte & 0xF, byte >> 4)
+    piece = math.gcd(bs, n, lo) if lo else math.gcd(bs, n)
+    scale = w.scale.repeat_interleave(bs // piece, dim=-2)
+    return QuantWeight4(nib[..., :n // 2, :] | (nib[..., n // 2:, :] << 4),
+                        scale[..., lo // piece:hi // piece, :])
+
+
+def _whole_part(w, kind: str, lo: int, hi: int):
+    """This rank's part of a quantized base left whole beside split
+    neighbours (it rests whole, as JAX's `LLM_RULES` leave its `.q`, `.q4`
+    and `.scale` paths): a column part takes q's (q4's) and the scale's
+    columns; a row part q's rows under the whole per-channel scale, or an
+    int4 weight's rows (`_int4_rows`)."""
+    from ..weights.quantize import QuantWeight
+    if kind == "column":
+        return type(w)(*(f[..., lo:hi] for f in w))
+    if hasattr(w, "q"):
+        return QuantWeight(w.q[..., lo:hi, :], w.scale)
+    return _int4_rows(w, lo, hi)
+
+
+def _part_matmul(x: torch.Tensor, w, kind: str, group, rep: int = 1
+                 ) -> torch.Tensor:
+    """x @ this rank's part of `w` in a split layer: for a column part its
+    output columns, for a row part its input rows (the product left
+    unsummed). `w` is a `TPShard` (its own part; with `rep` > 1 gathered
+    over the ranks that share its kv head), a whole quantized base (its
+    part taken on use) or a LoRA view of either. A LoRA view's factors
+    rest whole, as in JAX: beside a column base b's columns are used,
+    beside a row base a's rows. Each factor enters a copy-to region first,
+    whose backward sums the ranks' partial gradients over tp, so a factor's
+    gradient is whole and equal on every rank, as a whole leaf's is."""
+    lora = None
+    if hasattr(w, "a"):
+        w, lora = w.w, (copy_to(w.a, group), copy_to(w.b, group))
+    if isinstance(w, TPShard):
+        wl = w.local()
+        if rep > 1:
+            wl = gather_on_use(wl, group.part(rep), -1)
+        out = torch.matmul(x, wl.to(x.dtype))
+        size = w.shape[-1] if kind == "column" else w.shape[-2]
+    else:
+        size = weight_shape(w)[-1 if kind == "column" else -2]
+        lo, hi = _rank_range(size, group, rep)
+        out = dense(x, _whole_part(w, kind, lo, hi))
+    if lora is not None:
+        a, b = lora
+        lo, hi = _rank_range(size, group, rep)
+        if kind == "column":
+            b = b[..., lo:hi]
+        else:
+            a = a[..., lo:hi, :]
+        lora_out = torch.matmul(torch.matmul(x, a.to(x.dtype)), b.to(x.dtype))
+        out = out + lora_out.to(out.dtype)
     return out
+
+
+def _column_bias(b, group, rep: int = 1):
+    """A column part's bias (split, as the rules split every one beside a
+    column base): this rank's part, gathered over the kv head's ranks with
+    `rep` > 1."""
+    if b is None:
+        return None
+    return gather_on_use(b.local(), group.part(rep), -1) if rep > 1 \
+        else b.local()
+
+
+def _tp_column(x, w, b, group, rep: int = 1) -> torch.Tensor:
+    """A column part in a split layer whose input entered the copy-to region
+    already: this rank's output columns and bias."""
+    out = _part_matmul(x, w, "column", group, rep)
+    b = _column_bias(b, group, rep)
+    return out if b is None else out + b.to(out.dtype)
+
+
+def _tp_row(x, w, b, group) -> torch.Tensor:
+    """A row part in a split layer: x's part (the previous column product's)
+    @ this rank's rows, the sum over tp (`reduce_from`), then the whole
+    bias once."""
+    out = reduce_from(_part_matmul(x, w, "row", group), group)
+    return out if b is None else out + b.to(out.dtype)
+
+
+def _tp_dense(x: torch.Tensor, w, b, entered: bool) -> torch.Tensor:
+    """A split `dense` (w a `TPShard` or a LoRA view of one). A column
+    split: x through `copy_to` (unless the caller `entered` the region
+    already, for several products of one input), this rank's output
+    columns, its part of the bias. A row split: `_tp_row`."""
+    base = _base(w)
+    if base.kind == "column":
+        if not entered:
+            x = copy_to(x, base.group)
+        return _tp_column(x, w, b, base.group)
+    return _tp_row(x, w, b, base.group)
 
 
 def dense(x: torch.Tensor, w, b: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -176,12 +294,12 @@ def dense(x: torch.Tensor, w, b: Optional[torch.Tensor] = None) -> torch.Tensor:
     gradient, either quantized kind takes `_QuantDense` (the same
     arithmetic; a backward that keeps no dequantized copy).
 
-    A `TPShard` takes `_tp_dense`; a LoRA view of one raises (`TP_TODO`)."""
-    if isinstance(w, TPShard):
+    A `TPShard`, or a LoRA view of one, takes `_tp_dense`. A split bias
+    beside a whole base (a quantized layer under tp, whose `w[qkv]/b` the
+    rules still split) is gathered whole on use: such a layer runs whole."""
+    if isinstance(_base(w), TPShard):
         return _tp_dense(x, w, b, False)
     if hasattr(w, "a"):                  # train/lora.LoRAWeight
-        if isinstance(w.w, TPShard):
-            raise NotImplementedError(TP_TODO)
         out = dense(x, w.w)
         lora = torch.matmul(torch.matmul(x, w.a.to(x.dtype)), w.b.to(x.dtype))
         out = out + lora.to(out.dtype)
@@ -208,6 +326,8 @@ def dense(x: torch.Tensor, w, b: Optional[torch.Tensor] = None) -> torch.Tensor:
     else:
         raise TypeError(f"dense takes a tensor, a QuantWeight, a QuantWeight4 "
                         f"or a LoRA view, not {type(w).__name__}")
+    if isinstance(b, TPShard):           # a split bias beside a whole base
+        b = gather_on_use(b.local(), b.group, b.dim)
     if b is not None:
         out = out + b.to(out.dtype)
     return out
@@ -498,11 +618,12 @@ def mha(
     never attended) and q_offset = cache_len. That is a decode step (S 1),
     a speculative verify (k + 1 tokens) or a prefill chunk."""
     wq = params["wq"]["w"]
-    if isinstance(wq, TPShard):
+    group = tp_group(*(params[n]["w"] for n in ("wq", "wk", "wv", "wo")))
+    if group is not None:
         if kv_cache is not None:
             raise ValueError("tensor-parallel training runs without a KV "
                              "cache (parallel/inference.py decodes split)")
-        q, k, v = _tp_qkv(params, x, wq, num_heads, num_kv_heads)
+        q, k, v = _tp_qkv(params, x, group, num_heads, num_kv_heads)
     else:
         q = dense(x, wq, params["wq"].get("b"))
         k = dense(x, params["wk"]["w"], params["wk"].get("b"))
@@ -511,50 +632,79 @@ def mha(
                  q_segment_ids=q_segment_ids, kv_segment_ids=kv_segment_ids,
                  kv_cache=kv_cache, cache_len=cache_len,
                  cache_segments=cache_segments, decode_multi=decode_multi)
+    if group is not None:
+        return _tp_row(out, params["wo"]["w"], params["wo"].get("b"), group)
     return dense(out, params["wo"]["w"], params["wo"].get("b"))
 
 
-def _tp_qkv(params: dict, x: torch.Tensor, wq: TPShard, num_heads: int,
+def _tp_qkv(params: dict, x: torch.Tensor, group, num_heads: int,
             num_kv_heads: int):
     """The local q, k, v of a split attention: x enters the column region
     once; rank r's q heads are the r-th tp part of them. Where tp divides
     the kv heads, its k and v heads are the r-th part too; where the kv
     heads divide tp, the rep = tp / kv consecutive ranks whose q heads read
     one kv head each hold 1/rep of its columns (JAX's layout), gather it
-    on use, and the gather's backward sums their gradients to it."""
-    tp = wq.group.size
+    on use, and the gather's backward sums their gradients to it. A base
+    left whole (quantized) gives the same columns, taken on use."""
+    tp = group.size
     if num_heads % tp or (num_kv_heads % tp and tp % num_kv_heads):
         raise ValueError(f"{num_heads} q and {num_kv_heads} kv heads do not "
                          f"split over tp {tp}")
-    x = copy_to(x, wq.group)
-    q = _tp_dense(x, wq, params["wq"].get("b"), True)
-    if num_kv_heads % tp == 0:
-        return (q, *(_tp_dense(x, params[n]["w"], params[n].get("b"), True)
-                     for n in ("wk", "wv")))
-    sub = wq.group.part(tp // num_kv_heads)
-    kv = []
-    for n in ("wk", "wv"):
-        w, b = params[n]["w"], params[n].get("b")
-        out = torch.matmul(x, gather_on_use(w.local(), sub, -1).to(x.dtype))
-        if b is not None:
-            out = out + gather_on_use(b.local(), sub, -1).to(out.dtype)
-        kv.append(out)
-    return (q, *kv)
+    x = copy_to(x, group)
+    rep = 1 if num_kv_heads % tp == 0 else tp // num_kv_heads
+    q = _tp_column(x, params["wq"]["w"], params["wq"].get("b"), group)
+    return (q, *(_tp_column(x, params[n]["w"], params[n].get("b"), group,
+                            rep) for n in ("wk", "wv")))
 
 
-def swiglu_mlp(params: dict, x: torch.Tensor) -> torch.Tensor:
-    if isinstance(params["gate"]["w"], TPShard):   # one column region
-        x = copy_to(x, params["gate"]["w"].group)
-        gate, up = (_tp_dense(x, params[n]["w"], None, True)
-                    for n in ("gate", "up"))
-    else:
-        gate = dense(x, params["gate"]["w"])
-        up = dense(x, params["up"]["w"])
-    return dense(F.silu(gate) * up, params["down"]["w"])
+def _mlp_chunks(fn, x: torch.Tensor, seq_chunk: int) -> torch.Tensor:
+    """fn over x [B, S, D] in sequence chunks of the largest divisor of S
+    at most `seq_chunk`, each under a non-reentrant checkpoint (JAX
+    layers.py:444-462): exact, as the MLP is per token. No chunking where
+    seq_chunk is 0, S fits one chunk, or that divisor is 1."""
+    if not seq_chunk or x.dim() != 3 or x.shape[1] <= seq_chunk:
+        return fn(x)
+    S = x.shape[1]
+    c = seq_chunk
+    while S % c:
+        c -= 1
+    if c == 1:
+        return fn(x)
+    from torch.utils.checkpoint import checkpoint
+    return torch.cat([checkpoint(fn, x[:, i:i + c], use_reentrant=False,
+                                 preserve_rng_state=False)
+                      for i in range(0, S, c)], dim=1)
+
+
+def swiglu_mlp(params: dict, x: torch.Tensor,
+               seq_chunk: int = 0) -> torch.Tensor:
+    """SwiGLU MLP; seq_chunk > 0 runs the sequence in checkpointed chunks
+    (`_mlp_chunks`), which caps the backward's [S, I] intermediates at
+    [chunk, I]. In a split layer (any base a `TPShard`) gate and up are one
+    column region and down a row product."""
+    group = tp_group(*(params[n]["w"] for n in ("gate", "up", "down")))
+
+    def one(h):
+        if group is not None:
+            h = copy_to(h, group)
+            gate, up = (_tp_column(h, params[n]["w"], None, group)
+                        for n in ("gate", "up"))
+            return _tp_row(F.silu(gate) * up, params["down"]["w"], None,
+                           group)
+        gate = dense(h, params["gate"]["w"])
+        up = dense(h, params["up"]["w"])
+        return dense(F.silu(gate) * up, params["down"]["w"])
+    return _mlp_chunks(one, x, seq_chunk)
 
 
 def gelu_mlp(params: dict, x: torch.Tensor,
              act: str = "quick_gelu") -> torch.Tensor:
+    group = tp_group(params["fc1"]["w"], params["fc2"]["w"])
+    if group is not None:                # fc1 by columns, fc2 by rows
+        h = _tp_column(copy_to(x, group), params["fc1"]["w"],
+                       params["fc1"].get("b"), group)
+        return _tp_row(ACTIVATIONS[act](h), params["fc2"]["w"],
+                       params["fc2"].get("b"), group)
     h = ACTIVATIONS[act](dense(x, params["fc1"]["w"], params["fc1"].get("b")))
     return dense(h, params["fc2"]["w"], params["fc2"].get("b"))
 

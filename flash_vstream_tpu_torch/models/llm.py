@@ -7,7 +7,7 @@ decode step of one or more tokens against the cache (`decode_multi`: a
 speculative verify or a prefill chunk), and the no-cache training path
 with gradient checkpointing (`remat`, `remat_group`); `lm_head`,
 `embed_tokens`, `cross_entropy_loss` and `cross_entropy_loss_chunked`
-(vocab-tiled for quantized heads).
+(vocab-tiled for quantized heads, vocab-parallel over a split head).
 Layers run in a Python loop over the stacked [L, ...] parameters. The
 projections and the lm_head may be quantized (weights/quantize.py): `dense`
 dispatches, and a decode step over an int4 base runs K6 in each of them.
@@ -23,7 +23,7 @@ from ..core.config import LLMConfig
 from ..core.device import resolve_device
 
 from ..parallel.collectives import copy_to, gather_from, reduce_from
-from ..parallel.tensor import TP_CHUNKED_TODO, TPShard
+from ..parallel.tensor import TPShard
 from ..weights.quantize import dequantize_weight4
 from .layers import (
     KVCache,
@@ -96,18 +96,19 @@ def _checkpoint(fn, *args):
 
 def decoder_block(lp: dict, cfg: LLMConfig, x: torch.Tensor, rope,
                   segment_ids: Optional[torch.Tensor] = None,
-                  **cache_kw) -> torch.Tensor:
+                  mlp_seq_chunk: int = 0, **cache_kw) -> torch.Tensor:
     """One pre-norm decoder layer (`lp`: one layer's parameters): causal,
-    segmented attention with rope (cos, sin), then the SwiGLU MLP, each
-    added to the residual (JAX llm.py `decoder_block`). `cache_kw` are
-    `mha`'s cache arguments."""
+    segmented attention with rope (cos, sin), then the SwiGLU MLP (in
+    checkpointed sequence chunks with `mlp_seq_chunk`), each added to the
+    residual (JAX llm.py `decoder_block`). `cache_kw` are `mha`'s cache
+    arguments."""
     h = rms_norm(x, lp["attn_norm"], cfg.rms_norm_eps)
     x = x + mha(lp["attn"], h, num_heads=cfg.num_heads,
                 num_kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim,
                 rope=rope, causal=True, q_segment_ids=segment_ids,
                 kv_segment_ids=segment_ids, **cache_kw)
     h = rms_norm(x, lp["mlp_norm"], cfg.rms_norm_eps)
-    return x + swiglu_mlp(lp["mlp"], h)
+    return x + swiglu_mlp(lp["mlp"], h, seq_chunk=mlp_seq_chunk)
 
 
 def decoder_forward(
@@ -121,6 +122,7 @@ def decoder_forward(
     remat: bool = False,
     remat_group: int = 1,
     decode_multi: bool = False,
+    mlp_seq_chunk: int = 0,
 ) -> torch.Tensor:
     """Run the decoder stack and return the final hidden states [B, S, D].
 
@@ -136,7 +138,10 @@ def decoder_forward(
     `remat_group` g > 1 dividing the layer count, each group of g layers is
     one checkpoint holding the g per-layer checkpoints (the JAX nested
     checkpoint, llm.py:158-172): only every g-th layer input stays resident,
-    at the cost of running each layer's forward once more."""
+    at the cost of running each layer's forward once more.
+
+    `mlp_seq_chunk` > 0 runs every layer's MLP in checkpointed sequence
+    chunks (`layers.swiglu_mlp`'s `seq_chunk`; exact), as JAX's does."""
     cos, sin = _rope_for(cfg, positions)
     x = input_embeds
     B, S, _ = x.shape
@@ -158,7 +163,7 @@ def decoder_forward(
                       cache_segments=cache.segments,
                       decode_multi=decode_multi)
         return decoder_block(layer_slice(params["layers"], i), cfg, x,
-                             (cos, sin), segment_ids, **kw)
+                             (cos, sin), segment_ids, mlp_seq_chunk, **kw)
 
     L = cfg.num_layers
     if cache is None and remat:
@@ -258,12 +263,16 @@ def _tile_logits(params: dict, hh: torch.Tensor, t: int, vt: int
     [D, vt] slice of its values and scales the product by the slice's
     scales; an int4 head dequantizes only that slice (its scales are per
     input block, so a column slice is whole); a tied head takes embed rows
-    (JAX llm.py:356-381)."""
+    (JAX llm.py:356-381). A vocab-split head (`TPShard`) tiles this rank's
+    part of the vocabulary."""
     from ..weights.quantize import QuantWeight4
     w = params.get("lm_head")
     cols = slice(t * vt, (t + 1) * vt)
     if w is None:
-        wt = params["embed"][cols].T
+        e = params["embed"]
+        wt = (e.local() if isinstance(e, TPShard) else e)[cols].T
+    elif isinstance(w, TPShard):
+        wt = w.local()[:, cols]
     elif hasattr(w, "q"):
         lg = torch.matmul(hh, w.q[:, cols].to(hh.dtype)).float()
         return lg * w.scale[0, cols].float()
@@ -326,8 +335,10 @@ def nll_sum_chunked(params: dict, cfg: LLMConfig,
     B, S, D = hidden.shape
     h, lab = hidden, targets
     w = params.get("lm_head")
-    if isinstance(w if w is not None else params["embed"], TPShard):
-        raise NotImplementedError(TP_CHUNKED_TODO)
+    head = w if w is not None else params["embed"]
+    if isinstance(head, TPShard):
+        return _nll_sum_split(params, cfg, head.group, hidden, targets,
+                              chunk, ignore_index, vocab_tile)
     if vocab_tile == 0 and w is not None and (hasattr(w, "q")
                                               or hasattr(w, "q4")):
         vocab_tile = 8192
@@ -359,6 +370,46 @@ def nll_sum_chunked(params: dict, cfg: LLMConfig,
         total = total + _checkpoint(body, h[:, c0:c0 + chunk],
                                     lab[:, c0:c0 + chunk])
     return total, (lab != ignore_index).sum()
+
+
+def _nll_sum_split(params: dict, cfg: LLMConfig, group,
+                   hidden: torch.Tensor, targets: torch.Tensor, chunk: int,
+                   ignore_index: int, vocab_tile: int):
+    """`nll_sum_chunked` over a vocab-split head (a column `lm_head` or a
+    tied vocab `embed`, `TPShard`s of `group`): Megatron's vocab-parallel
+    cross entropy in the same sequence chunks. Each rank runs the online
+    log-sum-exp over its V/tp columns (in tiles of the largest divisor of
+    V/tp at most `vocab_tile`, each its own checkpoint), then the max is
+    taken over tp (a constant of the gradient), each rank's sum of
+    exp(logit - max) and the target's logit, from the rank that holds it
+    (0 on the others), are summed over tp (`reduce_from`), and the hidden
+    states enter through `copy_to`, whose backward sums their gradient.
+    No [chunk, V] block is gathered whole."""
+    S = hidden.shape[1]
+    V = cfg.vocab_size // group.size
+    vt = _largest_divisor_le(V, vocab_tile) if vocab_tile else V
+
+    def body(hh, ll):
+        valid = ll != ignore_index
+        safe = torch.where(valid, ll, 0) - group.rank * V
+        hh = copy_to(hh, group)
+        m = torch.full(ll.shape, float("-inf"), device=hh.device)
+        s = torch.zeros(ll.shape, device=hh.device)
+        got = torch.zeros(ll.shape, device=hh.device)
+        for t in range(V // vt):
+            m, s, got = (_tile_step(params, hh, safe, m, s, got, t, vt)
+                         if vt == V else _checkpoint(_tile_step, params, hh,
+                                                     safe, m, s, got, t, vt))
+        mg = group.all_gather(m.detach()[..., None], -1).amax(-1)
+        s = reduce_from(s * torch.exp(m - mg), group)
+        nll = mg + torch.log(s) - reduce_from(got, group)
+        return torch.where(valid, nll, 0.0).sum()
+
+    total = hidden.new_zeros((), dtype=torch.float32)
+    for c0 in range(0, S, chunk):
+        total = total + _checkpoint(body, hidden[:, c0:c0 + chunk],
+                                    targets[:, c0:c0 + chunk])
+    return total, (targets != ignore_index).sum()
 
 
 class Qwen2Decoder(ParamTree):

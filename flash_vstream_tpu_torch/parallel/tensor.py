@@ -17,7 +17,10 @@ them (models/layers.py `dense`, `mha`; models/llm.py `embed_tokens`,
   is added once, after the sum;
 - a vocab split (a bare LLM's embed) gathers this rank's rows, zeroes the
   ids outside them and sums with `reduce_from`; a split lm_head's logits
-  are gathered whole (`gather_from`), so the cross entropy is unchanged.
+  are gathered whole (`gather_from`), so the cross entropy is unchanged,
+  and the chunked cross entropy runs vocab-parallel (models/llm.py
+  `nll_sum_chunked`: the max and the sum over tp, the target's logit from
+  the rank that holds it).
 
 The regexes are matched as they are: in the LLaVA tree the paths are
 "llm/embed" and "llm/lm_head", which `^embed$` and `^lm_head$` do not
@@ -25,6 +28,17 @@ match, so there both stay whole. A split rests as JAX's layout: rank r of
 tp holds the r-th of tp equal parts of the split dim, even where that cuts
 a kv head (tp above the kv heads); `mha` then gathers the head on use over
 the ranks that share it, and the gather's backward sums their gradients.
+
+Leaves the rules do not name rest whole on every rank, as in JAX: a LoRA
+factor (its path ends in "/a" or "/b") and a quantized base (`QuantWeight`,
+`QuantWeight4`: JAX's paths end in ".q", ".q4" and ".scale", which `w$`
+does not match). A layer whose bases are all whole runs whole on every
+rank. In a layer with a split base (models/layers.py `tp_group`), a whole
+quantized base is cut on use to the part its split neighbours would hold
+(q's and the scale's columns, or q's rows; an int4 base's whole input
+blocks), and a LoRA view's factors are too (b's columns beside a column
+base, a's rows beside a row base), each through a copy-to region whose
+backward sums the ranks' partial gradients.
 
 Every leaf left whole gets equal gradients on every tp rank (the copy-to
 regions all-reduce the gradient of each replicated input), so the Trainer
@@ -40,16 +54,6 @@ from ..weights.quantize import path_str
 from .collectives import Group
 from .sharding import (LLM_RULES, PartitionSpec, _fit_mesh, map_with_path,
                        param_pspec)
-
-TP_TODO = ("LoRA views and quantized bases under tensor parallelism (a 'tp' "
-           "axis) are not ported: ROADMAP A11, tensor-parallel LoRA (no JAX "
-           "entry point trains them under tp: finetune_flash builds "
-           "create_mesh(tp=1))")
-TP_CHUNKED_TODO = ("a split lm_head in the chunked cross entropy is not "
-                   "ported: ROADMAP A11, tensor-parallel chunked losses (only "
-                   "a bare Qwen tree under tp reaches it, and no JAX entry "
-                   "point builds one)")
-
 
 class TPShard:
     """A tensor-parallel leaf at rest: `shard`, this rank's part of a leaf
@@ -75,6 +79,10 @@ class TPShard:
 
     def with_shard(self, shard) -> "TPShard":
         return TPShard(shard, self.dim, self.group, self.shape, self.kind)
+
+    def detach(self) -> "TPShard":
+        """The same part, out of any graph (a LoRA view's base)."""
+        return self.with_shard(self.shard.detach())
 
     @property
     def dtype(self):
@@ -130,9 +138,9 @@ def tp_spec(path: str, shape: Sequence[int], mesh,
 def tp_shard_tree(tree, mesh,
                   rules: Sequence[Tuple[str, PartitionSpec]] = LLM_RULES):
     """`tree` with every tensor leaf that `rules` split over 'tp' replaced
-    by this rank's `TPShard` of it (`mesh.tp`'s rank). A quantized leaf on
-    a split path raises (`TP_TODO`); a dim the tp width does not divide
-    raises ValueError."""
+    by this rank's `TPShard` of it (`mesh.tp`'s rank). A quantized leaf
+    stays whole, as JAX's rules leave it (its paths end in `.q`/`.scale`);
+    a dim the tp width does not divide raises ValueError."""
     group = mesh.tp
 
     def walk(tree, prefix):
@@ -140,8 +148,6 @@ def tp_shard_tree(tree, mesh,
             return {k: walk(v, prefix + (k,)) for k, v in tree.items()}
         path = path_str(prefix)
         if _is_quantized(tree):
-            if tp_spec(path, tree[0].shape, mesh, rules) is not None:
-                raise NotImplementedError(f"{path}: {TP_TODO}")
             return tree
         if isinstance(tree, (list, tuple)) and not hasattr(tree, "_fields"):
             return type(tree)(walk(v, prefix + (i,))

@@ -8,7 +8,8 @@ between CUDA events: device time, without the host's launch cost, as the
 compiled scan gives it on the TPU. `eager_seconds` times the same loop run
 eagerly between CUDA events, where the host's launch rate shows. On the
 CPU both run eagerly under the host clock. Every timing forces completion
-by reading the carried state.
+by reading the carried state. `card_line` names what a figure was
+measured on.
 """
 from __future__ import annotations
 
@@ -62,3 +63,22 @@ def eager_seconds(loop: Callable[[], torch.Tensor], device: torch.device,
             float(loop())
             best = min(best, time.perf_counter() - t0)
     return best
+
+
+def card_line(device: torch.device) -> str:
+    """What a figure was measured on: the card's name and power limit as
+    `nvidia-smi --query-gpu=name,power.limit --format=csv,noheader` gives
+    them (a card below its 700 W limit runs slower under load), or the CPU,
+    whose times are the host's and no device's."""
+    if device.type != "cuda":
+        return "cpu (no card: every time below is the host's)"
+    import subprocess
+    idx = device.index if device.index is not None else 0
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", f"--id={idx}",
+             "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=30).stdout.strip()
+    except (OSError, subprocess.TimeoutExpired):
+        out = ""
+    return out or f"{torch.cuda.get_device_name(device)}, power limit unread"

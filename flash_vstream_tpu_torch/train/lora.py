@@ -21,6 +21,8 @@ from typing import Dict, Iterator, NamedTuple, Sequence, Tuple
 
 import torch
 
+from ..weights.quantize import weight_shape
+
 # default targets: every attention/MLP projection of the DECODER only,
 # anchored so "vit/layers/attn/..." never matches (the reference excludes the
 # vision tower from LoRA)
@@ -70,14 +72,6 @@ def _map_with_path(fn, tree: dict, prefix: str = "") -> dict:
     return out
 
 
-def _weight_shape(x) -> tuple:
-    """A leaf's logical shape: an int4 leaf packs input pairs into a byte."""
-    if hasattr(x, "q4"):
-        *lead, half, dout = x.q4.shape
-        return (*lead, half * 2, dout)
-    return tuple(x.q.shape if hasattr(x, "q") else x.shape)
-
-
 def _detach(x):
     if hasattr(x, "_fields"):            # a quantized leaf: every field
         return type(x)(*(f.detach() for f in x))
@@ -94,7 +88,7 @@ def init_lora_params(generator: torch.Generator, params: dict, rank: int,
     gets no gradient at step 1)."""
     out = {}
     for path, x in tree_leaves_with_path(params):
-        shape = _weight_shape(x)
+        shape = weight_shape(x)
         if not is_lora_target(path, targets) or len(shape) < 2:
             continue
         *lead, din, dout = shape

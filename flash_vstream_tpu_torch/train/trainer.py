@@ -65,8 +65,11 @@ copy-to regions all-reduce what flows into a replicated input), so no
 gradient is reduced over tp. The global norm sums a split leaf's squares
 in f32 over tp (and over dp where ZeRO splits it) before the rounding; a
 whole leaf is counted once. A checkpoint gathers over dp, then over tp,
-and `load_state` splits a whole state at any dp x tp. LoRA views and
-quantized bases under tp raise (`parallel.tensor.TP_TODO`).
+and `load_state` splits a whole state at any dp x tp. LoRA factors and
+quantized bases rest whole, as JAX's rules leave them; a factor of a split
+base is cut on use through a copy-to region, so its gradient is summed
+over tp there and is whole and equal on every rank like any whole leaf's
+(parallel/tensor.py).
 """
 from __future__ import annotations
 

@@ -121,6 +121,15 @@ def dequantize_weight4(qw: QuantWeight4, dtype=torch.bfloat16) -> torch.Tensor:
     return w.reshape(*lead, din, dout).to(dtype)
 
 
+def weight_shape(w) -> tuple:
+    """A weight's logical [..., din, dout]: a tensor's shape, an int8
+    leaf's values', an int4 leaf's with its packed input pairs unpacked."""
+    if hasattr(w, "q4"):
+        *lead, half, dout = w.q4.shape
+        return (*lead, half * 2, dout)
+    return tuple(w.q.shape if hasattr(w, "q") else w.shape)
+
+
 def _map_with_path(tree: dict, fn, prefix=()) -> dict:
     return {k: _map_with_path(v, fn, prefix + (k,)) if isinstance(v, dict)
             else fn(prefix + (k,), v) for k, v in tree.items()}

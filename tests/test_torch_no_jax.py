@@ -343,6 +343,39 @@ def test_port_runs_without_jax():
     assert proc.stdout.strip() == "OK"
 
 
+SCRIPTS = """
+import sys
+from flash_vstream_tpu_torch.scripts import (
+    bench_attention, bench_int8_matvec, bench_train_step, probe_attn_crossover,
+    probe_ingest_fusion, probe_int4_matvec, profile_ingest,
+    sweep_attention_blocks)
+bench_train_step.main(["--tiny", "--device", "cpu", "--steps", "1",
+                       "--seq", "96", "--frames", "4", "--accum", "1",
+                       "--lora-rank", "4"])
+profile_ingest.main(["--device", "cpu", "--side", "56", "--layers", "1",
+                     "--iters", "1", "--trials", "1", "--stages", "vit,mem"])
+bench_attention.main(["--device", "cpu", "--seq", "32", "--heads", "2",
+                      "--dim", "64", "--iters", "1", "--trials", "1",
+                      "--calib-size", "32"])
+probe_int4_matvec.main(["--device", "cpu", "--din", "256", "--dout", "384",
+                        "--layers", "1", "--iters", "1", "--trials", "1"])
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flash_vstream_tpu"))
+assert not bad, bad
+print("OK")
+"""
+
+
+def test_new_scripts_run_without_jax():
+    """The developers' instruments and bench_train_step (imported all,
+    four run at tiny sizes on the CPU) leave `jax` and the JAX package out
+    of sys.modules in a fresh interpreter."""
+    proc = subprocess.run([sys.executable, "-c", SCRIPTS], cwd=ROOT,
+                          capture_output=True, text=True, timeout=180)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().splitlines()[-1] == "OK"
+
+
 def test_ranks_run_without_jax(tmp_path):
     """A rank that the training-across-ranks tests spawn (gloo on the CPU,
     tests/torch_ranks.py) joins its group and runs a collective with
@@ -380,7 +413,15 @@ def test_port_sources_never_import_jax():
             "flash_vstream_tpu_torch/preprocess/mp4.py",
             "flash_vstream_tpu_torch/scripts/extract_frames.py",
             "flash_vstream_tpu_torch/scripts/make_video_fixture.py",
-            "flash_vstream_tpu_torch/entry.py"} <= names
+            "flash_vstream_tpu_torch/entry.py",
+            "flash_vstream_tpu_torch/scripts/bench_train_step.py",
+            "flash_vstream_tpu_torch/scripts/profile_ingest.py",
+            "flash_vstream_tpu_torch/scripts/probe_ingest_fusion.py",
+            "flash_vstream_tpu_torch/scripts/bench_attention.py",
+            "flash_vstream_tpu_torch/scripts/sweep_attention_blocks.py",
+            "flash_vstream_tpu_torch/scripts/probe_attn_crossover.py",
+            "flash_vstream_tpu_torch/scripts/bench_int8_matvec.py",
+            "flash_vstream_tpu_torch/scripts/probe_int4_matvec.py"} <= names
     for f in files:
         assert not pat.search(f.read_text()), f
     assert pat.search("from flash_vstream_tpu.core import config")

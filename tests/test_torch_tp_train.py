@@ -283,25 +283,37 @@ def _fake_tp(n):
 
 @pytest.mark.parametrize("what", ["chunked", "lora", "heads"])
 def test_unported_tp_paths_raise(what):
-    """What a tp mesh still refuses: the chunked cross entropy over a split
-    lm_head and a LoRA view of a split base (ROADMAP A11's), and head
-    counts that tp does not divide (ValueError)."""
+    """What a tp mesh refuses: head counts that tp does not divide
+    (ValueError). The two paths that refused before run: the chunked cross
+    entropy over a split lm_head (vocab-parallel; at a one-rank group it is
+    the whole tree's loss) and a LoRA view of a split base (a column part:
+    this rank's columns of x @ w + (x @ a) @ b, b's columns cut on use).
+    Both are held to JAX across ranks in test_torch_tp_lora.py."""
     from flash_vstream_tpu_torch.models.layers import dense, layer_slice, mha
     from flash_vstream_tpu_torch.models.llm import nll_sum_chunked
-    from flash_vstream_tpu_torch.parallel.tensor import tp_shard_tree
+    from flash_vstream_tpu_torch.parallel.collectives import single_group
+    from flash_vstream_tpu_torch.parallel.tensor import TPShard, tp_shard_tree
     from flash_vstream_tpu_torch.train.lora import LoRAWeight
-    params = tp_shard_tree(params_from_numpy(_params(), "cpu"),
-                           _fake_tp(8 if what == "heads" else 2))
-    h = torch.zeros(1, 4, 32)
+    whole = params_from_numpy(_params(), "cpu")
+    params = tp_shard_tree(whole, _fake_tp(8 if what == "heads" else 2))
+    h = torch.randn(1, 4, 32, generator=torch.Generator().manual_seed(0))
     if what == "chunked":
-        with pytest.raises(NotImplementedError, match="A11, tensor-parallel"):
-            nll_sum_chunked(params, TLLMConfig(**CFG_KW), h,
-                            torch.zeros(1, 4, dtype=torch.long))
+        one = dict(whole, lm_head=TPShard(whole["lm_head"], 1, single_group(),
+                                          whole["lm_head"].shape, "column"))
+        ids = torch.tensor([[3, 77, -100, 120]])
+        got = nll_sum_chunked(one, TLLMConfig(**CFG_KW), h, ids, chunk=3,
+                              vocab_tile=32)
+        want = nll_sum_chunked(whole, TLLMConfig(**CFG_KW), h, ids, chunk=3)
+        torch.testing.assert_close(got[0], want[0], rtol=1e-6, atol=1e-6)
+        assert got[1] == want[1] == 3
     elif what == "lora":
         w = layer_slice(params["layers"], 0)["attn"]["wq"]["w"]
-        view = LoRAWeight(w, torch.zeros(32, 2), torch.zeros(2, 32))
-        with pytest.raises(NotImplementedError, match="A11, tensor-parallel"):
-            dense(h, view)
+        w0 = layer_slice(whole["layers"], 0)["attn"]["wq"]["w"]
+        g = torch.Generator().manual_seed(1)
+        a, b = torch.randn(32, 2, generator=g), torch.randn(2, 32, generator=g)
+        got = dense(h, LoRAWeight(w, a, b))
+        want = dense(h, LoRAWeight(w0, a, b))[..., :16]
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
     else:
         with pytest.raises(ValueError, match="heads do not split over tp 8"):
             mha(layer_slice(params["layers"], 0)["attn"], h, num_heads=4,

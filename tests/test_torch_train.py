@@ -470,21 +470,22 @@ def test_unported_paths_raise(tmp_path):
     # --pp and --sp take as many ranks (test_torch_finetune_parallel.py)
     with pytest.raises(ValueError, match="multiple of pp"):
         tft.run_training(parse("--dry-run", "--pp", "2"))
-    # tensor-parallel training runs (test_torch_tp_train.py); a quantized
-    # base on a split path under tp is ROADMAP A11's (a tp group of two
-    # ranks, of which this process is rank 0: the split raises before any
-    # collective)
+    # tensor-parallel training runs (test_torch_tp_train.py), over quantized
+    # bases too (test_torch_tp_lora.py): a quantized base rests whole on
+    # every tp rank, as JAX's rules leave its `.q`/`.scale` paths (a tp
+    # group of two ranks, of which this process is rank 0: building the
+    # trainer runs no collective)
     from flash_vstream_tpu_torch.parallel.collectives import Group
     from flash_vstream_tpu_torch.parallel.sharding import RankMesh
     from flash_vstream_tpu_torch.weights.quantize import QuantWeight
     q = QuantWeight(torch.zeros(1, 4, 4, dtype=torch.int8),
                     torch.ones(1, 1, 4))
-    with pytest.raises(NotImplementedError, match="A11, tensor-parallel"):
-        ttrainer.Trainer(lambda p, b, k: 0,
-                         {"layers": {"attn": {"wq": {"w": q}}},
-                          "final_norm": torch.ones(4)},
-                         ttrainer.TrainConfig(),
-                         mesh=RankMesh(None, Group([0]), Group([0, 1]), None))
+    tr = ttrainer.Trainer(lambda p, b, k: 0,
+                          {"layers": {"attn": {"wq": {"w": q}}},
+                           "final_norm": torch.ones(4)},
+                          ttrainer.TrainConfig(),
+                          mesh=RankMesh(None, Group([0]), Group([0, 1]), None))
+    assert tr.params["layers"]["attn"]["wq"]["w"] is q
     assert QWEN_TARGETS[-1] == r"merger/fc[12]/w$"
 
 

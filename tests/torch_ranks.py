@@ -391,3 +391,105 @@ def trainer_bytes(out: str, tps: list):
                                      for m in tr.opt_state[k].values())
         res.append(dict(dp=mesh.dp.size, tp=tp, **held))
     _save(out, info.rank, res)
+
+
+def tp_lora_loss_fn(cfg: LLMConfig, alpha: float, rank: int):
+    """The LoRA loss of tests/test_torch_tp_lora.py: merge-free views of the
+    adapters over the frozen base (split or whole as the mesh rests it),
+    the decoder over ids, cross entropy against labels."""
+    from flash_vstream_tpu_torch.train.lora import lora_views
+
+    def loss(lp, batch, key, base):
+        eff = lora_views(base, lp, alpha, rank)
+        ids = torch.from_numpy(np.asarray(batch["ids"]))
+        labels = torch.from_numpy(np.asarray(batch["labels"]))
+        pos = torch.arange(ids.shape[1])[None].expand(ids.shape)
+        h = decoder_forward(eff, cfg, embed_tokens(eff, ids), pos)
+        return cross_entropy_loss(lm_head(eff, cfg, h), labels)
+    return loss
+
+
+def _resting(x):
+    """A leaf's resting shape on this rank: a split leaf's part, or each
+    field of a quantized leaf (which rests whole)."""
+    if hasattr(x, "_fields"):
+        return {f: tuple(v.shape) for f, v in zip(x._fields, x)}
+    return tuple(_local(x).shape)
+
+
+def tp_lora_cases(out: str, cfg_kw: dict, bases_np: dict, lora_np: dict,
+                  batches: list, runs: list, tkw: dict, alpha: float,
+                  rank: int):
+    """For each run (tp, base names) of `runs`, a dp x tp mesh over the
+    world and Trainer steps of the adapters over each named base (frozen)
+    over `batches`, each dp row its share of B. Writes per case the
+    losses, the adapters after the steps, the first step's reduced
+    gradient of every adapter leaf, and each rank's resting shapes of the
+    base's leaves and of the adapters."""
+    from flash_vstream_tpu_torch.train.trainer import TrainConfig, Trainer
+    from flash_vstream_tpu_torch.weights.from_jax import lora_from_numpy
+    info = init_distributed("cpu")
+    cfg = LLMConfig(**cfg_kw)
+    res = []
+    for tp, names in runs:
+        mesh = create_rank_mesh(info=info, tp=tp)
+        dp, d = mesh.dp.size, mesh.dp.rank
+        for name in names:
+            tr = Trainer(tp_lora_loss_fn(cfg, alpha, rank),
+                         lora_from_numpy(lora_np, "cpu"),
+                         TrainConfig(**tkw),
+                         frozen=params_from_numpy(bases_np[name], "cpu"),
+                         mesh=mesh)
+            grads = {}
+            real = tr._reduce
+
+            def reduce(p, g, real=real, grads=grads):
+                g = real(p, g)
+                grads.setdefault(p, g.detach().numpy().copy())
+                return g
+            tr._reduce = reduce
+            losses = []
+            for s, b in enumerate(batches):
+                Bl = b["ids"].shape[1] // dp
+                local = {k: v[:, d * Bl:(d + 1) * Bl] for k, v in b.items()}
+                losses.append(tr.run_step(local, s))
+            res.append(dict(
+                tp=tp, dp=dp, base=name, losses=losses, grads=grads,
+                lora={p: x.detach().numpy().copy() for p, x in
+                      tree_leaves_with_path(tr.gathered_params())},
+                frozen={p: _resting(x)
+                        for p, x in tree_leaves_with_path(tr.frozen)},
+                adapters={p: tuple(_local(x).shape)
+                          for p, x in tree_leaves_with_path(tr.params)}))
+    _save(out, info.rank, res)
+
+
+def tp_chunked_losses(out: str, cfg_kw: dict, params_np: dict, hidden,
+                      labels, cases: list):
+    """The chunked cross entropy over a vocab-split head at tp = world: for
+    each case (tied, chunk, vocab_tile), the loss and the gradients of the
+    hidden states and of the head (gathered whole), from the bare tree
+    split by `LLM_RULES` (lm_head by columns, or the tied embed by vocab
+    rows)."""
+    from flash_vstream_tpu_torch.models.llm import cross_entropy_loss_chunked
+    from flash_vstream_tpu_torch.parallel.tensor import TPShard, tp_shard_tree
+    info = init_distributed("cpu")
+    mesh = create_rank_mesh(info=info, tp=info.world)
+    res = []
+    for tied, chunk, tile in cases:
+        cfg = LLMConfig(**cfg_kw, tie_word_embeddings=tied)
+        whole = params_from_numpy(params_np, "cpu")
+        if tied:
+            del whole["lm_head"]
+        split = tp_shard_tree(whole, mesh)
+        head = split["embed"] if tied else split["lm_head"]
+        assert isinstance(head, TPShard)
+        w = head.local().requires_grad_()
+        h = torch.from_numpy(hidden).requires_grad_()
+        loss = cross_entropy_loss_chunked(
+            split, cfg, h, torch.from_numpy(labels), chunk=chunk,
+            vocab_tile=tile)
+        gh, gw = torch.autograd.grad(loss, (h, w))
+        res.append(dict(loss=loss.item(), gh=gh.numpy(),
+                        gw=mesh.tp.all_gather(gw, head.dim).numpy()))
+    _save(out, info.rank, res)
